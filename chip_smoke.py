@@ -15,10 +15,21 @@
      prompts and serves waves of 32 synthetic uint8 images through the
      serve CLI's wave loop; checks the records, that the kernel ran once
      per wave, and that the embeddings match the plain expert path;
-  5. prints {"kernels": [...]} and, last, the device line.
+  5. K2, the fused expert branch's backward: holds the kernel against its
+     plain version at B=32 flagship shapes and on small odd shapes, times
+     both, and holds FusedExpertGather's gradients against autograd
+     through the plain forward;
+  6. training: the train CLI's ``train`` on experiment=pretraining_medmoe_ddp
+     with synthetic data at full width, 8 micro-batches of 32 in 2
+     optimizer steps (accumulation cut from 80 to 4 to fit the run's time);
+     checks the loss and grad norm, that K2 ran once per micro-batch and K1
+     at least once per micro-batch, that the routed experts' rows and the
+     Swin tower moved, and that the frozen BERT did not;
+  7. prints {"kernels": [...]} and, last, the device line.
 
 Any failed check exits non-zero. Needs one CUDA card; fails without one.
-``--profile`` adds a torch.profiler breakdown of one serving wave.
+``--profile`` adds torch.profiler breakdowns of one serving wave and one
+training step.
 """
 
 from __future__ import annotations
@@ -281,32 +292,396 @@ def profile_wave(torch, embed, images, wave_ms: float):
     """torch.profiler over one serving wave: device time by kernel, the
     expert-fusion kernels' share of it, and the device's idle share of an
     unprofiled wave's wall time (``wave_ms``)."""
+    profile_device(torch, lambda: embed(images).cpu(), wave_ms, "one wave")
+
+
+K1_KERNELS = ("proj_kernel", "attn_kernel")
+K2_KERNELS = ("bwd_row_kernel", "bwd_proj_kernel", "bwd_wgrad_kernel",
+              "bwd_reduce_kernel")
+
+
+def profile_device(torch, fn, wall_ms: float, label: str):
+    """torch.profiler over one call of ``fn``: device time by kernel, the
+    expert-fusion kernels' share of it (K1: the forward's two launches; K2:
+    the backward's four, beside the projection recompute it runs through
+    K1's proj_kernel), and the device's idle share of an unprofiled call's
+    wall time (``wall_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        embed(images).cpu()
+        fn()
+        torch.cuda.synchronize()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    # device-side events only (kernels, copies), so no time counts twice
+    # device-side events only (kernels, copies), so no time counts twice;
+    # annotations such as "Optimizer.step#Adam.step" span kernels and are
+    # left out
     rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                   and "#" not in e.key),
                   key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
-    k1_ms = sum(dev_us(e) for e in rows
-                if e.key.startswith(("proj_kernel", "attn_kernel"))) / 1e3
-    print(f"profile: one wave: device busy {busy_ms:.3f} ms of a "
-          f"{wave_ms:.3f} ms unprofiled wave (idle "
-          f"{max(0.0, 1 - busy_ms / wave_ms):.1%}); expert-fusion kernels "
-          f"{k1_ms:.3f} ms ({k1_ms / max(busy_ms, 1e-9):.1%} of device time)",
-          flush=True)
-    for e in rows[:20]:
+    k1_ms = sum(dev_us(e) for e in rows if e.key.startswith(K1_KERNELS)) / 1e3
+    k2_ms = sum(dev_us(e) for e in rows if e.key.startswith(K2_KERNELS)) / 1e3
+    print(f"profile: {label}: device busy {busy_ms:.3f} ms of a "
+          f"{wall_ms:.3f} ms unprofiled call (idle "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.1%}); K1 kernels "
+          f"{k1_ms:.3f} ms ({k1_ms / max(busy_ms, 1e-9):.1%} of device "
+          f"time), K2 kernels {k2_ms:.3f} ms "
+          f"({k2_ms / max(busy_ms, 1e-9):.1%})", flush=True)
+    for e in rows[:25]:
         print(f"profile: {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x "
               f"{e.key[:100]}", flush=True)
+
+
+def k2_work(args, d_out):
+    """(matmul operations, bytes) of the backward for these inputs: the
+    attention-MLP recompute, d_u and dW1 per scale, and the projection
+    recompute (h_s), d_x and dWp per scale; each input read once, each
+    per-sample output written once."""
+    xs, wp, bp, w1, b1, w2, b2, idx = args
+    b = idx.shape[0]
+    k, e, h = w1.shape
+    p = max(x.shape[1] for x in xs)
+    flops = len(xs) * 3 * 2 * b * p * e * h
+    flops += sum(3 * 2 * b * x.shape[1] * x.shape[2] * e for x in xs)
+    tensors = list(xs) + list(wp) + list(bp) + [w1, b1, w2, idx, d_out]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    nbytes += sum(x.numel() * x.element_size() for x in xs)       # d_x
+    nbytes += 4 * b * (sum(x.shape[2] * e + e for x in xs) + e * h + 2 * h)
+    return flops, nbytes
+
+
+def bwd_outputs(outs):
+    d_xs, d_wp, d_bp, d_w1, d_b1, d_w2 = outs
+    names = ([f"d_x{s}" for s in range(len(d_xs))]
+             + [f"d_wp{s}" for s in range(len(d_wp))]
+             + [f"d_bp{s}" for s in range(len(d_bp))]
+             + ["d_w1", "d_b1", "d_w2"])
+    return list(zip(names, list(d_xs) + list(d_wp) + list(d_bp)
+                    + [d_w1, d_b1, d_w2]))
+
+
+def relu_ties(torch, args):
+    """How many pre-activations of the ReLU masks (h_pre = x·Wp + bp and
+    a_pre = u·W1 + b1) lie within the worst-case f32 summation error of
+    zero, n·2^-24·Σ|terms| for a sum of n products: the elements whose mask
+    two summation orders may set differently. Returns
+    ((h ties, h elements), (a ties, a elements))."""
+    from medmoe_torch.models.moe import interp_patches
+
+    xs, wp, bp, w1, b1, w2, b2, idx = args
+    bf, ix = torch.bfloat16, idx.long()
+    p_max = max(x.shape[1] for x in xs)
+
+    def sel(param):
+        return param[ix].to(bf).float()
+
+    def ties(lhs, rhs, bias):
+        pre = torch.bmm(lhs, rhs) + bias
+        mag = torch.bmm(lhs.abs(), rhs.abs()) + bias.abs()
+        return pre, int((pre.abs() <= lhs.shape[-1] * 2.0 ** -24 * mag).sum())
+
+    w1s, b1s = sel(w1), sel(b1)[:, None, :]
+    n_h = n_a = tot_h = tot_a = 0
+    for s, x in enumerate(xs):
+        pre, n = ties(x.float(), sel(wp[s]), sel(bp[s])[:, None, :])
+        n_h, tot_h = n_h + n, tot_h + pre.numel()
+        u = interp_patches(torch.relu(pre).to(bf), p_max, dim=1).float()
+        pre, n = ties(u, w1s, b1s)
+        n_a, tot_a = n_a + n, tot_a + pre.numel()
+        del pre, u
+    return (n_h, tot_h), (n_a, tot_a)
+
+
+def phase_k2(torch, ef):
+    # tolerance of tests/test_torch_kernels_cuda.py, per output: every
+    # element within 5e-2·max|ref| (the JAX package's own fused-vs-XLA
+    # gradient bound) and at most 1% of the elements beyond 2e-3·max|ref|.
+    # The ReLU masks (a > 0, h > 0) of the few elements whose pre-activation
+    # lies within f32 summation error of zero can differ between two
+    # summation orders, and each such flip moves a whole gradient term; the
+    # flagship case counts those elements, and holds a second plain version
+    # (the same function on the CPU, whose products sum in another order)
+    # against the first as the kernel is held, for two of its samples
+    rtol, atol_rel, far, far_share = 0.0, 5e-2, 2e-3, 0.01
+    cases = [
+        ("flagship B=32", dict(b=32, p_list=(3136, 784, 196, 49),
+                               d_list=(96, 192, 384, 768), e=768, h=384,
+                               k=6, seed=11)),
+        ("odd P=100 E=64 H=32", dict(b=2, p_list=(100, 25), d_list=(32, 24),
+                                     e=64, h=32, k=2, seed=12, idx=[1, 0])),
+    ]
+    result = None
+    for name, kw in cases:
+        args = k1_inputs(torch, **kw)
+        xs, wp, bp, w1, b1, w2, b2, idx = args
+        g = torch.Generator(device="cuda").manual_seed(kw["seed"] + 100)
+        d_out = torch.randn((kw["b"], max(kw["p_list"]), kw["e"]),
+                            generator=g, device="cuda")
+        out = ef.expert_fusion_gather_bwd(xs, wp, bp, w1, b1, w2, idx, d_out)
+        torch.cuda.synchronize()
+        ref = ef.expert_fusion_gather_bwd_reference(xs, wp, bp, w1, b1, w2,
+                                                    idx, d_out)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for (oname, o), (_, r) in zip(bwd_outputs(out), bwd_outputs(ref)):
+            o, r = o.float(), r.float()
+            check(o.shape == r.shape, f"K2 {name} {oname}: shape")
+            check(bool(torch.isfinite(o).all()), f"K2 {name} {oname}: "
+                  f"non-finite output")
+            scale = r.abs().max().item()
+            diff = (o - r).abs()
+            err = diff.max().item()
+            beyond = (diff > far * scale).float().mean().item()
+            ok = torch.allclose(o, r, rtol=rtol, atol=atol_rel * scale) \
+                and beyond <= far_share
+            print(f"K2 {name} {oname}: max_abs_err {err:.3e} max|ref| "
+                  f"{scale:.3e} (atol {atol_rel}*max|ref|); share beyond "
+                  f"{far}*max|ref| {beyond:.2e} (at most {far_share}) "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            check(ok, f"K2 {name} {oname}: kernel disagrees with its plain "
+                  f"version")
+            worst = max(worst, err)
+        if result is None:
+            (n_h, tot_h), (n_a, tot_a) = relu_ties(torch, args)
+            print(f"K2 {name}: ReLU pre-activations within f32 summation "
+                  f"error of zero: h {n_h} of {tot_h}, a {n_a} of {tot_a}",
+                  flush=True)
+            two = [t.cpu() for t in (*xs, *wp, *bp, w1, b1, w2)]
+            n = len(xs)
+            cpu = ef.expert_fusion_gather_bwd_reference(
+                tuple(x[:2] for x in two[:n]), two[n:2 * n], two[2 * n:3 * n],
+                *two[3 * n:], idx[:2].cpu(), d_out[:2].cpu())
+            for (oname, c), (_, o), (_, r) in zip(
+                    bwd_outputs(cpu), bwd_outputs(out), bwd_outputs(ref)):
+                c, o, r = c.float(), o[:2].float().cpu(), r[:2].float().cpu()
+                scale = r.abs().max().item()
+                print(f"K2 {name} samples 0-1 {oname}: plain CPU vs plain "
+                      f"card max_abs_err {(c - r).abs().max().item():.3e}, "
+                      f"share beyond {far}*max|ref| "
+                      f"{((c - r).abs() > far * scale).float().mean().item():.2e}"
+                      f"; kernel vs plain card {(o - r).abs().max().item():.3e}"
+                      f", {((o - r).abs() > far * scale).float().mean().item():.2e}"
+                      f" (max|ref| {scale:.3e})", flush=True)
+            del cpu, two
+            ms = cuda_ms(lambda: ef.expert_fusion_gather_bwd(
+                xs, wp, bp, w1, b1, w2, idx, d_out), iters=10)
+            plain_ms = cuda_ms(lambda: ef.expert_fusion_gather_bwd_reference(
+                xs, wp, bp, w1, b1, w2, idx, d_out), iters=2, warmup=1)
+            flops, nbytes = k2_work(args, d_out)
+            t_ops = flops / PEAK_BF16_FLOPS * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            result = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                          bound_ms=max(t_ops, t_bytes),
+                          bound_by="operations" if t_ops >= t_bytes
+                          else "bytes")
+            print(f"K2 {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"bound_ms {result['bound_ms']:.4f} ({result['bound_by']}: "
+                  f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; the kernel "
+                  f"time includes K1's projection recompute)", flush=True)
+        del args, out, ref
+        torch.cuda.empty_cache()
+
+    # the autograd Function: bank and pyramid gradients against autograd
+    # through the plain forward, at the JAX package's fused-vs-XLA bound
+    args = k1_inputs(torch, b=6, p_list=(3136, 784, 196, 49),
+                     d_list=(96, 192, 384, 768), e=768, h=384, k=6, seed=13,
+                     idx=[0, 1, 2, 3, 4, 5])
+    xs, wp, bp, w1, b1, w2, b2, idx = args
+    cot = torch.randn((6, 3136, 768), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(14))
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (w1, b1, w2, b2, *xs, *wp, *bp)]
+        n = len(xs)
+        out = fn(leaves[4:4 + n], leaves[4 + n:4 + 2 * n], leaves[4 + 2 * n:],
+                 *leaves[:4])
+        return torch.autograd.grad(out, leaves, cot)
+
+    got = grads(lambda x, w, b, w1_, b1_, w2_, b2_: ef.FusedExpertGather.apply(
+        idx, w1_, b1_, w2_, b2_, *x, *w, *b))
+    want = grads(lambda x, w, b, w1_, b1_, w2_, b2_:
+                 ef.expert_fusion_gather_reference(x, w, b, w1_, b1_, w2_,
+                                                   b2_, idx))
+    names = ["attn_w1", "attn_b1", "attn_w2", "attn_b2"] \
+        + [f"pyramid{s}" for s in range(4)] + [f"proj_w{s}" for s in range(4)] \
+        + [f"proj_b{s}" for s in range(4)]
+    worst = 0.0
+    for nm, a, w in zip(names, got, want):
+        if nm == "attn_b2":
+            check(torch.count_nonzero(a).item() == 0, "attn_b2 grad not zero")
+            continue
+        rel = ((a.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp(min=1e-12)).item()
+        worst = max(worst, rel)
+        check(rel < 5e-2, f"FusedExpertGather {nm}: rel err {rel:.3e}")
+    print(f"K2 FusedExpertGather B=6 flagship: bank + pyramid gradients vs "
+          f"autograd through the plain forward: max rel err {worst:.3e} "
+          f"(bound 5e-2), attn_b2 grad exactly 0", flush=True)
+    del got, want, args, cot
+    torch.cuda.empty_cache()
+    return result
+
+
+TRAIN_OVERRIDES = [
+    "experiment=pretraining_medmoe_ddp", "data=synthetic",
+    "trainer.max_epochs=1", "trainer.limit_train_batches=8",
+    "trainer.accumulate_grad_batches=4", "trainer.limit_val_batches=1",
+    "trainer.num_sanity_val_steps=0", "callbacks=none", "logger=csv",
+    "extras.print_config=false", "trainer.log_every_n_steps=1"]
+
+
+def phase_train(torch, ef, card: str):
+    """Two optimizer steps of experiment=pretraining_medmoe_ddp at full
+    width through the train CLI's ``train``; returns (K1 launches, K2
+    launches, pairs/s)."""
+    import tempfile
+
+    from medmoe_torch.cli.train import train
+    from medmoe_torch.config import compose
+    from medmoe_torch.models import moe as tmoe
+    from medmoe_torch.models.medmoe import MedMoE, init_weights
+    from medmoe_torch.utils.task import extras
+
+    print("train: accumulate_grad_batches cut from 80 to 4 (2 optimizer "
+          "steps of 4 x 32 pairs) to fit the run's time", flush=True)
+    routed = []
+    real_routing = tmoe.topk_routing
+
+    def recording_routing(probs, k):       # the experts training routes to
+        idx, w = real_routing(probs, k)
+        if torch.is_grad_enabled():
+            routed.append(idx.detach())
+        return idx, w
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = compose("train", TRAIN_OVERRIDES + [f"paths.root_dir={root}"])
+        extras(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tmoe.topk_routing = recording_routing
+        ef.LAUNCHES = ef.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        try:
+            metrics, objs = train(cfg)
+            torch.cuda.synchronize()
+        finally:
+            tmoe.topk_routing = real_routing
+        seconds = time.perf_counter() - t0
+        k1, k2 = ef.LAUNCHES, ef.BWD_LAUNCHES
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(os.path.isfile(os.path.join(cfg.paths.output_dir, "csv",
+                                           "metrics.csv")), "no metrics.csv")
+    trainer, module = objs["trainer"], objs["module"]
+    print(f"train: {trainer.state.step} optimizer steps in {seconds:.1f} s "
+          f"(init and validation included); metrics "
+          + json.dumps({k: round(v, 6) for k, v in sorted(metrics.items())}),
+          flush=True)
+    check(trainer.state.step == 2, f"{trainer.state.step} optimizer steps")
+    for key in ("train/loss", "train/grad_norm", "val/loss"):
+        check(key in metrics and math.isfinite(metrics[key]),
+              f"{key} missing or not finite")
+    check(metrics["train/grad_norm"] > 0, "grad_norm is 0")
+    check(k2 == 8, f"K2 launched {k2} times for 8 micro-batches")
+    check(k1 >= 8, f"K1 launched {k1} times for 8 micro-batches")
+
+    # parameters against the same seeded initialization on the CPU
+    model = module.model
+    init = init_weights(MedMoE(model.vision, model.text),
+                        seed=cfg.seed).state_dict()
+    now = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    experts = sorted(set(torch.cat(routed).flatten().tolist()))
+    bank = "image_encoder.swin_moe.moe.experts."
+    moved_rows = 0
+    for k, v in now.items():
+        if k.startswith(bank) and not k.endswith("attn_b2"):
+            for e in range(v.shape[0]):
+                moved = not torch.equal(v[e], init[k][e])
+                check(moved == (e in experts), f"{k}[{e}] moved={moved}, "
+                      f"routed experts {experts}")
+                moved_rows += moved
+        elif k.startswith("image_encoder.swin_moe.swin.") \
+                and not k.endswith("key.bias"):
+            check(not torch.equal(v, init[k]), f"Swin parameter {k} did not "
+                  f"change")
+        elif k.startswith("text_encoder.bert."):
+            check(torch.equal(v, init[k]), f"frozen BERT parameter {k} "
+                  f"changed")
+    pairs_s = metrics["pairs_per_sec"]
+    print(f"train: routed experts {experts}; {moved_rows} expert-bank rows "
+          f"moved, unrouted rows and attn_b2 unchanged; Swin moved; frozen "
+          f"BERT unchanged; K1 launches {k1}, K2 launches {k2}; "
+          f"{pairs_s:.1f} pairs/s over the epoch (first step included); "
+          f"peak memory {peak_gb:.2f} GB on {card}", flush=True)
+    time_trainer_windows(torch, trainer, module, objs["datamodule"], 4, 2)
+    if "--profile" in sys.argv:
+        profile_train_step(torch, trainer, module, objs["datamodule"])
+    return k1, k2, pairs_s
+
+
+def time_trainer_windows(torch, trainer, module, datamodule, accum: int,
+                         n_windows: int):
+    """The trainer's data path and step, warm: ``n_windows`` windows of
+    ``accum`` micro-batches of the next epoch, each micro-batch drawn and
+    copied on the prefetch thread as ``Trainer.fit`` does, on the host
+    clock; then the same number of synthetic batches drawn alone on the
+    host, which bounds what the trainer can reach."""
+    import itertools
+
+    from medmoe_torch.data.prefetch import prefetch
+    from medmoe_torch.train.step import build_train_step
+
+    n = accum * n_windows
+    pairs = n * datamodule.batch_size
+    step = build_train_step(module, accum)
+    window = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in itertools.islice(prefetch(datamodule.train_dataloader(1),
+                                           trainer.prefetch_batches,
+                                           trainer.to_device), n):
+        window.append(batch)
+        if len(window) == accum:
+            trainer.state, _ = step(trainer.state, window)
+            window = []
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in itertools.islice(datamodule.train_dataloader(2), n):
+        pass
+    data_s = time.perf_counter() - t0
+    print(f"train: warm trainer path, {n_windows} windows of {accum} x "
+          f"{datamodule.batch_size}: {warm_s:.3f} s = {pairs / warm_s:.1f} "
+          f"pairs/s; the synthetic data alone on the host: {data_s:.3f} s = "
+          f"{pairs / data_s:.1f} pairs/s", flush=True)
+
+
+def profile_train_step(torch, trainer, module, datamodule):
+    """One optimizer step of one micro-batch of 32, timed warm and then
+    profiled."""
+    from medmoe_torch.train.step import build_train_step
+
+    batch = trainer.to_device(next(iter(datamodule.train_dataloader(0))))
+    step = build_train_step(module, 1)
+    for _ in range(2):
+        step(trainer.state, [batch])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(trainer.state, [batch])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"profile: train step of 32 pairs, unprofiled {wall_ms:.3f} ms = "
+          f"{32 / wall_ms * 1e3:.1f} pairs/s", flush=True)
+    profile_device(torch, lambda: step(trainer.state, [batch]), wall_ms,
+                   "one train step (B=32)")
 
 
 def main() -> int:
@@ -345,15 +720,27 @@ def main() -> int:
                 print(f"build {name}: {line.strip()}", flush=True)
 
     k1 = phase_k1(torch, ef)
-    launches, img_s = phase_serve(torch, ef, card, *full_width_config())
+    serve_launches, img_s = phase_serve(torch, ef, card, *full_width_config())
+    k2 = phase_k2(torch, ef)
+    k1_train, k2_train, pairs_s = phase_train(torch, ef, card)
+    print(f"main paths: serving {img_s:.1f} img/s with K1 launched "
+          f"{serve_launches} times; training {pairs_s:.1f} pairs/s with K1 "
+          f"launched {k1_train} and K2 {k2_train} times", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "expert_fusion_gather", "route": "cuda",
         "source": "medmoe_torch/csrc/expert_fusion.cu",
         "replaces": "medmoe_tpu/ops/pallas/expert_fusion.py:113",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
+        "launches": k1_train, "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+        "library_ms": None}, {
+        "name": "expert_fusion_gather_bwd", "route": "cuda",
+        "source": "medmoe_torch/csrc/expert_fusion_bwd.cu",
+        "replaces": "medmoe_tpu/ops/pallas/expert_fusion.py:233",
+        "launches": k2_train, "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

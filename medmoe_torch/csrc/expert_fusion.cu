@@ -407,19 +407,18 @@ static int imax(int a, int b) { return a > b ? a : b; }
 
 extern "C" {
 
-// Returns a cudaError_t: 0 when both launches were accepted.
-int medmoe_expert_fusion_fwd(int n_scales, const void* const* xs, const void* const* wps,
-                             const void* const* bps, void* const* hs, const int* Ps,
-                             const int* Ds, const void* w1, const void* b1, const void* w2,
-                             const void* idx, void* out, int B, int K, int E, int H, int P,
-                             void* stream) {
-  if (n_scales < 1 || n_scales > MAX_SCALES || E % 32 || H % 16 || H > 8 * 16 * MAX_NF)
-    return (int)cudaErrorInvalidValue;
+// The projection launch alone: h_s for every scale into `hs`. The forward
+// below runs it first; the backward (csrc/expert_fusion_bwd.cu) recomputes
+// its residuals with it, as the TPU backward recomputes its forward chain.
+int medmoe_expert_fusion_proj(int n_scales, const void* const* xs, const void* const* wps,
+                              const void* const* bps, void* const* hs, const int* Ps,
+                              const int* Ds, const void* idx, int B, int K, int E,
+                              void* stream) {
+  if (n_scales < 1 || n_scales > MAX_SCALES || E % 32) return (int)cudaErrorInvalidValue;
   ProjArgs pa;
-  AttnArgs aa;
   int tiles = 0;
   for (int s = 0; s < n_scales; ++s) {
-    if (Ds[s] % 8 || Ps[s] < 1 || P % Ps[s]) return (int)cudaErrorInvalidValue;
+    if (Ds[s] % 8 || Ps[s] < 1) return (int)cudaErrorInvalidValue;
     pa.x[s] = static_cast<const bf16*>(xs[s]);
     pa.wp[s] = static_cast<const bf16*>(wps[s]);
     pa.bp[s] = static_cast<const float*>(bps[s]);
@@ -428,11 +427,28 @@ int medmoe_expert_fusion_fwd(int n_scales, const void* const* xs, const void* co
     pa.D[s] = Ds[s];
     pa.tile_start[s] = tiles;
     tiles += ((Ps[s] + PM - 1) / PM) * ((E + PN - 1) / PN);
-    aa.h[s] = static_cast<const bf16*>(hs[s]);
-    aa.P[s] = Ps[s];
   }
   pa.tile_start[n_scales] = tiles;
   pa.n_scales = n_scales;
+  proj_kernel<<<dim3(tiles, B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      pa, static_cast<const int*>(idx), K, E);
+  return (int)cudaGetLastError();
+}
+
+// Returns a cudaError_t: 0 when both launches were accepted.
+int medmoe_expert_fusion_fwd(int n_scales, const void* const* xs, const void* const* wps,
+                             const void* const* bps, void* const* hs, const int* Ps,
+                             const int* Ds, const void* w1, const void* b1, const void* w2,
+                             const void* idx, void* out, int B, int K, int E, int H, int P,
+                             void* stream) {
+  if (n_scales < 1 || n_scales > MAX_SCALES || E % 32 || H % 16 || H > 8 * 16 * MAX_NF)
+    return (int)cudaErrorInvalidValue;
+  AttnArgs aa;
+  for (int s = 0; s < n_scales; ++s) {
+    if (Ps[s] < 1 || P % Ps[s]) return (int)cudaErrorInvalidValue;
+    aa.h[s] = static_cast<const bf16*>(hs[s]);
+    aa.P[s] = Ps[s];
+  }
   aa.n_scales = n_scales;
   aa.w1 = static_cast<const bf16*>(w1);
   aa.b1 = static_cast<const float*>(b1);
@@ -440,16 +456,16 @@ int medmoe_expert_fusion_fwd(int n_scales, const void* const* xs, const void* co
   aa.out = static_cast<float*>(out);
   aa.P_out = P;
 
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* id = static_cast<const int*>(idx);
-  proj_kernel<<<dim3(tiles, B), THREADS, 0, st>>>(pa, id, K, E);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int rc = medmoe_expert_fusion_proj(n_scales, xs, wps, bps, hs, Ps, Ds, idx, B, K, E, stream);
+  if (rc != 0) return rc;
 
   const int tile_bytes = round_up(imax(AM * (E + 8) * 2, AM * (H + 4) * 4), 128);
   const int smem = tile_bytes + round_up(2 * AK * (H + 8) * 2, 128) + MAX_SCALES * AM * 4;
-  err = cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
+  const int* id = static_cast<const int*>(idx);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   attn_kernel<<<dim3((P + AM - 1) / AM, B), THREADS, smem, st>>>(aa, id, K, E, H, tile_bytes);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@ BERT-base encoder returning all per-layer hidden states so the caller can
 aggregate the last N layers (reference text_encoder.py:18-22, HF
 Bio_ClinicalBERT). bf16 activations, f32 parameters, attention logits in
 f32, additive mask. The word table is a plain ``nn.Embedding``: the JAX
-package's one-hot embedding forms were TPU workarounds."""
+package's one-hot embedding forms were TPU workarounds. Train-mode dropout
+draws from an explicit generator (``layers.Dropout``)."""
 
 from __future__ import annotations
 
@@ -13,8 +14,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from medmoe_torch.models.layers import Dense, Fp32LayerNorm, gelu_exact, \
-    resolve_dtype
+from medmoe_torch.models.layers import Dense, Dropout, Fp32LayerNorm, \
+    gelu_exact, resolve_dtype
 
 
 @dataclass(frozen=True)
@@ -59,7 +60,7 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size,
                                                   cfg.hidden_size)
         self.norm = Fp32LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: torch.Tensor) -> torch.Tensor:
@@ -79,7 +80,7 @@ class BertSelfAttention(nn.Module):
         self.query = Dense(d, d, dtype=cfg.dtype)
         self.key = Dense(d, d, dtype=cfg.dtype)
         self.value = Dense(d, d, dtype=cfg.dtype)
-        self.dropout = nn.Dropout(cfg.attention_probs_dropout_prob)
+        self.dropout = Dropout(cfg.attention_probs_dropout_prob)
 
     def forward(self, x: torch.Tensor,
                 additive_mask: torch.Tensor) -> torch.Tensor:
@@ -107,7 +108,7 @@ class BertLayer(nn.Module):
         self.intermediate = Dense(d, cfg.intermediate_size, dtype=cfg.dtype)
         self.output = Dense(cfg.intermediate_size, d, dtype=cfg.dtype)
         self.output_norm = Fp32LayerNorm(d, cfg.layer_norm_eps)
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x: torch.Tensor,
                 additive_mask: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,37 @@ class Fp32LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class Dropout(nn.Module):
+    """Dropout whose mask draws from ``self.generator`` (a
+    ``torch.Generator`` on the input's device, set by ``set_generator``;
+    None draws from the global generator), as flax's ``nn.Dropout`` draws
+    from the explicit "dropout" key: keep with probability 1 − p, scale
+    kept values by 1/(1 − p). Active in train mode only."""
+
+    generator: Optional[torch.Generator] = None
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_generator(model: nn.Module,
+                  generator: Optional[torch.Generator]) -> None:
+    """Point every module of ``model`` that draws training-mode noise
+    (``Dropout``, the Swin blocks' drop-path) at ``generator``."""
+    for mod in model.modules():
+        if hasattr(type(mod), "generator"):
+            mod.generator = generator
+
+
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """erf-based GELU (HF 'gelu'; the tanh approximation diverges ~1e-3)."""
     return F.gelu(x, approximate="none")

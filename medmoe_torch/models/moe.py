@@ -10,10 +10,12 @@ medmoe_tpu/models/moe.py), gather mode.
     only each sample's selected expert — the same outputs as the
     reference's all-experts-then-select at 1/K the work.
 
-The expert branch itself is ``ops/expert_fusion.py``: a hand-written CUDA
-kernel in bfloat16, its plain PyTorch version in float32 (the
-numerics-debug setting) and on the CPU. The ``dense``/``topk``/``ep``
-modes of the JAX package are not ported yet.
+The expert branch itself is ``ops/expert_fusion.py``: in bfloat16 the
+autograd Function ``FusedExpertGather`` (hand-written CUDA kernels for the
+forward, K1, and the backward, K2, on a card; the plain version and
+autograd through it on the CPU), the plain PyTorch version in float32 (the
+numerics-debug setting). The ``dense``/``topk``/``ep`` modes of the JAX
+package are not ported yet.
 """
 
 from __future__ import annotations
@@ -147,7 +149,8 @@ class ExpertBank(nn.Module):
                     expert_idx: torch.Tensor) -> torch.Tensor:
         """pyramid[s]: [B, P_s, D_s]; expert_idx: [B] → [B, P, E] f32.
 
-        bfloat16 runs the expert-fusion kernel (its plain version for CPU
+        bfloat16 runs ``FusedExpertGather`` (kernels K1/K2 on CUDA
+        tensors, the plain version and autograd through it on CPU
         tensors); float32 — the numerics-debug setting — runs the plain
         version in float32, as the JAX package's ``use_fused_expert``
         sends float32 to its XLA path."""
@@ -158,7 +161,9 @@ class ExpertBank(nn.Module):
                 expert_idx.to(torch.int32))
         if expert_fusion.use_fused_expert(p_list, max(p_list), dt):
             xs = tuple(f.to(dt).contiguous() for f in pyramid)
-            return expert_fusion.expert_fusion_gather(xs, *args)
+            wp, bp, w1, b1, w2, b2, idx = args
+            return expert_fusion.FusedExpertGather.apply(
+                idx, w1, b1, w2, b2, *xs, *wp, *bp)
         return expert_fusion.expert_fusion_gather_reference(
             tuple(pyramid), *args, dtype=dt)
 

@@ -93,13 +93,15 @@ def window_reverse(x: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor
     return x.reshape(b, h, w, -1)
 
 
-def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
-    """Stochastic depth on the residual branch (per sample)."""
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth on the residual branch (per sample), the mask drawn
+    from ``generator`` (None: the global generator)."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
     mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
-                      device=x.device) < keep
+                      generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -148,6 +150,9 @@ class WindowAttention(nn.Module):
 
 
 class SwinBlock(nn.Module):
+    # drop-path noise source, set by layers.set_generator
+    generator: Optional[torch.Generator] = None
+
     def __init__(self, dim: int, num_heads: int, window: int, shift: int,
                  input_resolution: Tuple[int, int], mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_path: float = 0.0,
@@ -184,10 +189,11 @@ class SwinBlock(nn.Module):
         if shift > 0:
             y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
         y = y.reshape(b, n, c)
-        x = shortcut + drop_path(y, self.drop_path, self.training)
+        x = shortcut + drop_path(y, self.drop_path, self.training,
+                                 self.generator)
 
         y = self.mlp(self.norm2(x))
-        return x + drop_path(y, self.drop_path, self.training)
+        return x + drop_path(y, self.drop_path, self.training, self.generator)
 
 
 class PatchMerging(nn.Module):

@@ -20,7 +20,7 @@ from typing import Dict, Iterable, Tuple
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-KERNELS = ("expert_fusion",)
+KERNELS = ("expert_fusion", "expert_fusion_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -93,5 +93,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             i, arr_p, arr_p, arr_p, arr_p, arr_i, arr_i,
             vp, vp, vp, vp, vp, i, i, i, i, i, vp]
         lib.medmoe_expert_fusion_fwd.restype = i
-        lib.medmoe_cuda_error_string.argtypes = [i]
-        lib.medmoe_cuda_error_string.restype = ctypes.c_char_p
+        lib.medmoe_expert_fusion_proj.argtypes = [
+            i, arr_p, arr_p, arr_p, arr_p, arr_i, arr_i, vp, i, i, i, vp]
+        lib.medmoe_expert_fusion_proj.restype = i
+    elif name == "expert_fusion_bwd":
+        arr_p, arr_i = ctypes.POINTER(vp), ctypes.POINTER(i)
+        lib.medmoe_expert_fusion_bwd.argtypes = (
+            [i] + [arr_p] * 10 + [arr_i, arr_i] + [vp] * 10
+            + [i, i, i, i, i, vp])
+        lib.medmoe_expert_fusion_bwd.restype = i
+    lib.medmoe_cuda_error_string.argtypes = [i]
+    lib.medmoe_cuda_error_string.restype = ctypes.c_char_p

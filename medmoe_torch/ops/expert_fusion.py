@@ -36,6 +36,16 @@ Each block reads expert_idx[b] itself and offsets its weight pointers,
 in place of the TPU kernel's scalar-prefetch index maps. A shared-memory
 block holds one [64, E] tile, never a whole [P, E] map (the TPU kernel
 kept every map of a sample in 100 MiB of VMEM).
+
+The backward (K2, ``csrc/expert_fusion_bwd.cu``) replaces the Pallas
+``_bwd_kernel`` driven by ``_bwd_pallas``; its design note is in the
+source. ``expert_fusion_gather_bwd`` recomputes h_s with K1's projection
+launch (the TPU kernel recomputes its forward chain too, so nothing but
+the inputs is kept between forward and backward), runs K2, and returns
+d_x_s and the per-sample parameter gradients; ``FusedExpertGather``
+scatters those into the expert bank with ``index_add_``, as the JAX
+package's one-hot einsum does (``_fe_bwd``). ``attn_b2`` gets an exact
+zero gradient.
 """
 
 from __future__ import annotations
@@ -45,9 +55,11 @@ from typing import Sequence, Tuple
 
 import torch
 
-# kernel launches made by expert_fusion_gather (one per call on a CUDA
-# tensor; the plain version for CPU tensors does not count)
+# kernel launches made by expert_fusion_gather (K1) and
+# expert_fusion_gather_bwd (K2): one per call on CUDA tensors; the plain
+# versions for CPU tensors do not count
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 MAX_SCALES = 4          # csrc/expert_fusion.cu MAX_SCALES
 MAX_HIDDEN = 384        # 8 warps × 16 columns × MAX_NF fragments
@@ -79,8 +91,11 @@ def _attn_smem_bytes(e: int, h: int) -> int:
 
 
 def _check(xs, wp, bp, w1, b1, w2, b2, expert_idx) -> Tuple[int, ...]:
-    """Raise on anything the kernel does not take; return (B, K, E, H, P)."""
-    tensors = list(xs) + list(wp) + list(bp) + [w1, b1, w2, b2, expert_idx]
+    """Raise on anything the kernels do not take (``b2`` None for the
+    backward, which does not read it); return (B, K, E, H, P)."""
+    b2_list = [] if b2 is None else [b2]
+    tensors = list(xs) + list(wp) + list(bp) + [w1, b1, w2] + b2_list \
+        + [expert_idx]
     if not all(isinstance(t, torch.Tensor) for t in tensors):
         raise TypeError("expert_fusion_gather takes torch tensors")
     device = expert_idx.device
@@ -95,7 +110,7 @@ def _check(xs, wp, bp, w1, b1, w2, b2, expert_idx) -> Tuple[int, ...]:
     if any(x.dtype != torch.bfloat16 for x in xs):
         raise TypeError("expert_fusion_gather: the pyramid must be bfloat16, "
                         f"got {[x.dtype for x in xs]}")
-    params = list(wp) + list(bp) + [w1, b1, w2, b2]
+    params = list(wp) + list(bp) + [w1, b1, w2] + b2_list
     if any(p.dtype != torch.float32 for p in params):
         raise TypeError("expert_fusion_gather: expert parameters must be "
                         "float32 (they round to bf16 on entry)")
@@ -123,8 +138,8 @@ def _check(xs, wp, bp, w1, b1, w2, b2, expert_idx) -> Tuple[int, ...]:
         if x.shape[2] % 8:
             raise ValueError(f"pyramid[{s}] width {x.shape[2]} is not a "
                              f"multiple of 8")
-    if (tuple(b1.shape), tuple(w2.shape), tuple(b2.shape)) != \
-            ((k, h), (k, h, 1), (k, 1)):
+    if (tuple(b1.shape), tuple(w2.shape), tuple(b2.shape)
+            if b2 is not None else (k, 1)) != ((k, h), (k, h, 1), (k, 1)):
         raise ValueError("attention parameters must be attn_b1 [K, H], "
                          "attn_w2 [K, H, 1], attn_b2 [K, 1]")
     if not expert_fusion_supported([x.shape[1] for x in xs], p):
@@ -169,13 +184,8 @@ def expert_fusion_gather(xs: Sequence[torch.Tensor],
 
     lib = _build.load("expert_fusion")
     bf = torch.bfloat16
-    # parameters round through bf16 on entry, as the JAX wrapper does
-    wp_k = [w.to(bf).contiguous() for w in wp]
-    bp_k = [x.to(bf).float().contiguous() for x in bp]
-    w1_k = w1.to(bf).contiguous()
-    b1_k = b1.to(bf).float().contiguous()
-    w2_k = w2.reshape(k, h).to(bf).float().contiguous()
-    idx_k = expert_idx.to(torch.int32).contiguous()
+    wp_k, bp_k, w1_k, b1_k, w2_k, idx_k = _kernel_params(
+        wp, bp, w1, b1, w2, k, h, expert_idx)
     hs = [torch.empty((b, x.shape[1], e), dtype=bf, device=x.device)
           for x in xs]
     n = len(xs)
@@ -239,3 +249,229 @@ def expert_fusion_gather_reference(xs: Sequence[torch.Tensor],
         term = u.float() * att[:, :, s, None].float()
         out = term if out is None else out + term
     return out
+
+
+def _kernel_params(wp, bp, w1, b1, w2, k, h, expert_idx):
+    """Parameters as the kernels take them: rounded through bf16 on entry,
+    biases as bf16 values in float32, as the JAX wrapper passes them."""
+    bf = torch.bfloat16
+    return ([w.to(bf).contiguous() for w in wp],
+            [x.to(bf).float().contiguous() for x in bp],
+            w1.to(bf).contiguous(), b1.to(bf).float().contiguous(),
+            w2.reshape(k, h).to(bf).float().contiguous(),
+            expert_idx.to(torch.int32).contiguous())
+
+
+def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
+                             wp: Sequence[torch.Tensor],
+                             bp: Sequence[torch.Tensor],
+                             w1: torch.Tensor, b1: torch.Tensor,
+                             w2: torch.Tensor, expert_idx: torch.Tensor,
+                             d_out: torch.Tensor):
+    """Backward of the fused expert branch for the cotangent ``d_out``
+    [B, P, E] float32. Returns ``(d_xs, d_wp, d_bp, d_w1, d_b1, d_w2)``:
+    d_xs like the pyramid, and per-sample float32 parameter gradients
+    d_wp[s] [B, D_s, E], d_bp[s] [B, E], d_w1 [B, E, H], d_b1 [B, H],
+    d_w2 [B, H] (attn_b2's gradient is exactly zero).
+
+    CUDA tensors run K1's projection launch and K2 (or raise: a shape whose
+    shared memory exceeds a block's fails at launch); CPU tensors run the
+    plain version. A CUDA sample whose expert id is out of range
+    gets NaN in all of its outputs."""
+    global BWD_LAUNCHES
+    b, k, e, h, p = _check(xs, wp, bp, w1, b1, w2, None, expert_idx)
+    if not isinstance(d_out, torch.Tensor) or d_out.dtype != torch.float32 \
+            or tuple(d_out.shape) != (b, p, e) or not d_out.is_contiguous() \
+            or d_out.device != expert_idx.device:
+        raise ValueError(f"d_out must be a contiguous float32 [{b}, {p}, {e}] "
+                         f"tensor on {expert_idx.device}")
+    if expert_idx.device.type == "cpu":
+        if b and (int(expert_idx.min()) < 0 or int(expert_idx.max()) >= k):
+            raise IndexError(f"expert_idx out of range [0, {k})")
+        return expert_fusion_gather_bwd_reference(xs, wp, bp, w1, b1, w2,
+                                                  expert_idx, d_out)
+    if expert_idx.device.type != "cuda":
+        raise ValueError("expert_fusion_gather_bwd runs on CUDA or CPU "
+                         f"tensors, got {expert_idx.device}")
+    if e % 64:
+        raise ValueError(f"expert_fusion_gather_bwd takes E % 64 == 0, got {e}")
+    dev = xs[0].device
+    n = len(xs)
+    p_s = [x.shape[1] for x in xs]
+    d_s = [x.shape[2] for x in xs]
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    d_xs = [torch.empty_like(x) for x in xs]
+    d_wp = [f32(b, d, e) for d in d_s]
+    d_bp = [f32(b, e) for _ in xs]
+    d_w1, d_b1, d_w2 = f32(b, e, h), f32(b, h), f32(b, h)
+    if b == 0:
+        return tuple(d_xs), tuple(d_wp), tuple(d_bp), d_w1, d_b1, d_w2
+    from medmoe_torch.ops import _build
+
+    lib_fwd = _build.load("expert_fusion")
+    lib = _build.load("expert_fusion_bwd")
+    bf = torch.bfloat16
+    wp_k, bp_k, w1_k, b1_k, w2_k, idx_k = _kernel_params(
+        wp, bp, w1, b1, w2, k, h, expert_idx)
+    tiles = [(q + 63) // 64 for q in p_s]
+    # scratch (≈2 GB at B=32, flagship shapes): recomputed h_s, d_u_s in
+    # f32, a_s then bf16(dz_a_s), bf16(dz_h_s), per-tile partial sums
+    hs = [torch.empty((b, q, e), dtype=bf, device=dev) for q in p_s]
+    du = [f32(b, p, e) for _ in xs]
+    act = [torch.empty((b, p, h), dtype=bf, device=dev) for _ in xs]
+    dzh = [torch.empty((b, q, e), dtype=bf, device=dev) for q in p_s]
+    dbp_part = [f32(b, t, e) for t in tiles]
+    db1_part, dw2_part = f32(b, (p + 63) // 64, h), f32(b, (p + 63) // 64, h)
+    ptrs = ctypes.c_void_p * MAX_SCALES
+    ints = ctypes.c_int * MAX_SCALES
+
+    def arr(ts):
+        return ptrs(*[t.data_ptr() for t in ts])
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib_fwd.medmoe_expert_fusion_proj(
+            n, arr(xs), arr(wp_k), arr(bp_k), arr(hs), ints(*p_s), ints(*d_s),
+            idx_k.data_ptr(), b, k, e, stream)
+        if rc == 0:
+            rc = lib.medmoe_expert_fusion_bwd(
+                n, arr(xs), arr(wp_k), arr(hs), arr(du), arr(act),
+                arr(dzh), arr(d_xs), arr(d_wp), arr(d_bp), arr(dbp_part),
+                ints(*p_s), ints(*d_s), w1_k.data_ptr(), b1_k.data_ptr(),
+                w2_k.data_ptr(), idx_k.data_ptr(), d_out.data_ptr(),
+                d_w1.data_ptr(), d_b1.data_ptr(), d_w2.data_ptr(),
+                db1_part.data_ptr(), dw2_part.data_ptr(), b, k, e, h, p, stream)
+    if rc != 0:
+        raise RuntimeError("expert_fusion backward launch failed: "
+                           + lib.medmoe_cuda_error_string(rc).decode())
+    BWD_LAUNCHES += 1
+    return tuple(d_xs), tuple(d_wp), tuple(d_bp), d_w1, d_b1, d_w2
+
+
+def expert_fusion_gather_bwd_reference(xs: Sequence[torch.Tensor],
+                                       wp: Sequence[torch.Tensor],
+                                       bp: Sequence[torch.Tensor],
+                                       w1: torch.Tensor, b1: torch.Tensor,
+                                       w2: torch.Tensor,
+                                       expert_idx: torch.Tensor,
+                                       d_out: torch.Tensor):
+    """Plain PyTorch version of K2, step by step with the rounding points
+    of the JAX package's ``_bwd_kernel``: bf16 products with float32 sums,
+    the forward chain recomputed, the softmax backward through the float32
+    weights, bf16(dz_a), bf16(d_u) into the transposed upsample (the f32
+    d_u at the largest scale), the ReLU mask from the recomputed h_pre (the
+    kernel reads it from bf16 h_s, equal in value: bf16 keeps f32's exponent
+    range), and bf16(dz_h) into d_x and dWp. Returns what ``expert_fusion_gather_bwd``
+    returns."""
+    from medmoe_torch.models.moe import interp_patches, linear_interp_matrix
+
+    bf = torch.bfloat16
+    idx = expert_idx.long()
+    p_max = max(x.shape[1] for x in xs)
+
+    def sel(param):                       # [K, ...] → per-sample [B, ...]
+        return param[idx].to(bf).float()
+
+    w1s, b1s, w2s = sel(w1), sel(b1), sel(w2)[..., 0]       # w2s [B, H]
+    g = d_out.float()
+    saved, logits, datts = [], [], []
+    for s, x in enumerate(xs):
+        xf, wps = x.to(bf).float(), sel(wp[s])
+        h_pre = torch.bmm(xf, wps) + sel(bp[s])[:, None, :]
+        u = interp_patches(torch.relu(h_pre).to(bf), p_max, dim=1)
+        a = torch.relu(torch.bmm(u.float(), w1s) + b1s[:, None, :]).to(bf)
+        logits.append((a.float() * w2s[:, None, :]).sum(-1))
+        datts.append((g * u.float()).sum(-1))
+        saved.append((xf, wps, h_pre, u.float(), a.float()))
+    att32 = torch.softmax(torch.stack(logits, -1), dim=-1)   # [B, P, S]
+    att = att32.to(bf).float()
+    datt = torch.stack(datts, -1)
+    d_l = att32 * (datt - (att32 * datt).sum(-1, keepdim=True))
+
+    d_xs, d_wp, d_bp = [], [], []
+    d_w1 = d_b1 = d_w2 = 0.0
+    for s, (xf, wps, h_pre, u, a) in enumerate(saved):
+        dl_s = d_l[..., s:s + 1]                             # [B, P, 1]
+        d_w2 = d_w2 + (a * dl_s).sum(1)
+        dz_a = torch.where(a > 0, dl_s * w2s[:, None, :], 0.0)
+        d_b1 = d_b1 + dz_a.sum(1)
+        dz_bf = dz_a.to(bf).float()
+        d_w1 = d_w1 + torch.bmm(u.transpose(1, 2), dz_bf)
+        d_u = att[..., s:s + 1] * g + torch.bmm(dz_bf, w1s.transpose(1, 2))
+        p_s = xf.shape[1]
+        if p_s == p_max:
+            d_h = d_u
+        else:                              # Gᵀ·bf16(d_u): [P_s, P] × [B, P, E]
+            gt = torch.from_numpy(linear_interp_matrix(p_s, p_max)) \
+                .to(d_u.device).to(bf).float()
+            d_h = torch.matmul(gt, d_u.to(bf).float())
+        dz_h = torch.where(h_pre > 0, d_h, 0.0)
+        dz_h_bf = dz_h.to(bf).float()
+        d_xs.append(torch.bmm(dz_h_bf, wps.transpose(1, 2)).to(xs[s].dtype))
+        d_wp.append(torch.bmm(xf.transpose(1, 2), dz_h_bf))
+        d_bp.append(dz_h.sum(1))
+    return tuple(d_xs), tuple(d_wp), tuple(d_bp), d_w1, d_b1, d_w2
+
+
+def _bank_scatter(per_sample: torch.Tensor, param: torch.Tensor,
+                  idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Per-sample gradients [B, ...] → the [K, ...] bank gradient, summed
+    per expert (``_fe_bwd``'s one-hot contraction). Samples with an
+    out-of-range id contribute nothing (their own outputs are NaN)."""
+    per = per_sample.reshape((per_sample.shape[0],) + param.shape[1:])
+    mask = valid.reshape((-1,) + (1,) * (per.ndim - 1))
+    out = torch.zeros_like(param)
+    out.index_add_(0, idx.clamp(0, param.shape[0] - 1).long(),
+                   torch.where(mask, per, torch.zeros_like(per)))
+    return out
+
+
+class FusedExpertGather(torch.autograd.Function):
+    """The fused expert branch with its gradient:
+    ``FusedExpertGather.apply(expert_idx, w1, b1, w2, b2, *xs, *wp, *bp)``
+    → [B, P, E] float32.
+
+    CUDA: forward is K1, backward is K2 then the bank scatter. CPU: forward
+    is the plain version and backward is autograd through it — the math
+    the JAX package's XLA path differentiates. Only the inputs are kept for
+    the backward, which recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, expert_idx, w1, b1, w2, b2, *flat):
+        n = len(flat) // 3
+        xs, wp, bp = flat[:n], flat[n:2 * n], flat[2 * n:]
+        ctx.n = n
+        ctx.save_for_backward(expert_idx, w1, b1, w2, b2, *flat)
+        return expert_fusion_gather(xs, wp, bp, w1, b1, w2, b2, expert_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        expert_idx, w1, b1, w2, b2, *flat = ctx.saved_tensors
+        n = ctx.n
+        xs, wp, bp = flat[:n], flat[n:2 * n], flat[2 * n:]
+        if expert_idx.device.type == "cpu":
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_()
+                          for t in (w1, b1, w2, b2, *flat)]
+                lw1, lb1, lw2, lb2 = leaves[:4]
+                lf = leaves[4:]
+                out = expert_fusion_gather_reference(
+                    lf[:n], lf[n:2 * n], lf[2 * n:], lw1, lb1, lw2, lb2,
+                    expert_idx)
+                grads = torch.autograd.grad(out, leaves, g)
+            return (None, *grads)
+        d_xs, d_wp, d_bp, d_w1, d_b1, d_w2 = expert_fusion_gather_bwd(
+            xs, wp, bp, w1, b1, w2, expert_idx, g.float().contiguous())
+        k = w1.shape[0]
+        valid = (expert_idx >= 0) & (expert_idx < k)
+
+        def scatter(per, param):
+            return _bank_scatter(per, param, expert_idx, valid)
+
+        return (None, scatter(d_w1, w1), scatter(d_b1, b1), scatter(d_w2, w2),
+                torch.zeros_like(b2), *d_xs,
+                *[scatter(d, w) for d, w in zip(d_wp, wp)],
+                *[scatter(d, bb) for d, bb in zip(d_bp, bp)])

@@ -1,0 +1,221 @@
+"""Contrastive and router losses of MedMoE pretraining (counterpart of
+medmoe_tpu/ops/losses.py, reference src/losses.py).
+
+GLoRIA local is one batched einsum family over [B_text, B_img, M, T] with
+caption-length masks, as in the JAX package: position t of caption i is
+valid iff t < cap_lens[i]. Products take the loss dtype's values and sum
+in float32 (inputs are upcast), as the JAX einsums' preferred_element_type
+does.
+
+The fused GLoRIA similarity kernels (K3, K4a/K4b) are not ported yet:
+``GLORIALocalContrastiveLoss(impl="pallas")`` raises, and ``"auto"`` takes
+the einsum path, as the JAX package does on every platform but the TPU.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from medmoe_torch.models.layers import safe_norm
+from medmoe_torch.ops.softmax import softmax_bf16_residual
+
+NEG_INF = -1e30
+
+
+class GloriaLocalOutput(NamedTuple):
+    loss0: torch.Tensor
+    loss1: torch.Tensor
+    att_maps: Optional[torch.Tensor] = None    # [B, T, H, W] diagonal maps
+
+
+def _cross_entropy_diag(logits: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy with labels = arange(B)."""
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.diagonal(logprobs).sum() / logprobs.shape[0]
+
+
+def attention_fn(words: torch.Tensor, context: torch.Tensor, temp1: float,
+                 word_mask: Optional[torch.Tensor] = None):
+    """GLoRIA word-region attention (reference losses.py:698-736), batched
+    over (text, image) pairs.
+
+    words [Bt, D, T], context [Bi, D, M], word_mask [Bt, T] bool (True =
+    valid word) → (wei_context [Bt, Bi, D, T] f32, attn [Bt, Bi, T, M]).
+    A softmax over the valid words, then one over regions scaled by temp1;
+    both keep bf16 backward residuals."""
+    scores = torch.einsum("bdm,idt->ibmt", context.float(), words.float())
+    if word_mask is not None:
+        scores = torch.where(word_mask[:, None, None, :], scores, NEG_INF)
+    attn = softmax_bf16_residual(scores, -1)                 # over words T
+    attn = softmax_bf16_residual(attn * temp1, -2)           # over regions M
+    wei_context = torch.einsum("bdm,ibmt->ibdt", context.float(),
+                               attn.to(context.dtype).float())
+    return wei_context, attn.permute(0, 1, 3, 2)
+
+
+def cosine_similarity(x1: torch.Tensor, x2: torch.Tensor, dim: int,
+                      eps: float = 1e-8) -> torch.Tensor:
+    """reference losses.py:690-695 (clamped-denominator cosine)."""
+    x1 = x1.float()
+    x2 = x2.float()
+    w12 = torch.sum(x1 * x2, dim=dim)
+    w1 = safe_norm(x1, dim=dim, keepdim=False)
+    w2 = safe_norm(x2, dim=dim, keepdim=False)
+    return w12 / torch.clamp(w1 * w2, min=eps)
+
+
+def auto_text_chunk(b: int, m: int, t: int, budget_bytes: int = 2 << 30,
+                    n_texts: Optional[int] = None) -> Optional[int]:
+    """Largest caption-block size whose rematerialized backward stays under
+    a peak-activation budget; None when all texts fit (B=32 at M=3136:
+    ≈0.3 GB, so no chunk loop), 8 at B=256. ``b`` is the image count,
+    ``n_texts`` the chunked axis' length when it differs."""
+    n_texts = b if n_texts is None else n_texts
+    per_text = b * m * t * 4 * 3     # scores + attn + cotangents
+    chunk = max(1, int(budget_bytes // per_text))
+    if chunk >= n_texts:
+        return None
+    for c in range(chunk, 0, -1):
+        if n_texts % c == 0:
+            return c
+    return 1
+
+
+def gloria_local_loss(img_features: torch.Tensor, words_emb: torch.Tensor,
+                      cap_lens: torch.Tensor, temp1: float = 4.0,
+                      temp2: float = 5.0, temp3: float = 10.0,
+                      agg: str = "sum", return_att_maps: bool = False,
+                      text_chunk: Any = "auto") -> GloriaLocalOutput:
+    """Batched GLoRIA local (word-region) contrastive loss.
+
+    img_features [B, D, H, W]; words_emb [B, D, T]; cap_lens [B] int.
+    similarities[b_img, i_text] = temp3 · log Σ_{t<cap_len_i} exp(temp2 ·
+    cos(word, attended context)); symmetric CE on the B×B matrix.
+
+    ``text_chunk`` bounds peak memory: the [Bt, Bi, M, T] tensors are built
+    for ``text_chunk`` captions at a time, each block under
+    ``torch.utils.checkpoint`` (recomputed in the backward) — the same
+    numbers. None → one pass."""
+    b, d, h, w = img_features.shape
+    t = words_emb.shape[-1]
+    if text_chunk == "auto":
+        text_chunk = auto_text_chunk(b, h * w, t)
+    context = img_features.reshape(b, d, h * w)
+    word_mask = torch.arange(t, device=cap_lens.device)[None, :] \
+        < cap_lens[:, None]                                  # [B, T]
+
+    def sim_block(words_c, mask_c, lens_c):
+        """words_c [c, D, T], mask_c [c, T] → (sim [c, B], attn)."""
+        wei_context, attn = attention_fn(words_c, context, temp1, mask_c)
+        row_sim = cosine_similarity(words_c[:, None], wei_context, dim=2)
+        row_sim = row_sim * temp2
+        row_sim = torch.where(mask_c[:, None, :], torch.exp(row_sim), 0.0)
+        if agg == "sum":
+            s = torch.sum(row_sim, dim=-1)                   # [c, B]
+        else:
+            s = torch.sum(row_sim, dim=-1) \
+                / torch.clamp(lens_c[:, None], min=1)
+        return torch.log(s) * temp3, attn
+
+    if text_chunk and b > text_chunk and b % text_chunk == 0 \
+            and not return_att_maps:
+        blocks = [checkpoint(lambda *a: sim_block(*a)[0],
+                             words_emb[i:i + text_chunk],
+                             word_mask[i:i + text_chunk],
+                             cap_lens[i:i + text_chunk], use_reentrant=False)
+                  for i in range(0, b, text_chunk)]
+        sim = torch.cat(blocks, dim=0)                       # [i, b]
+        attn = None
+    else:
+        sim, attn = sim_block(words_emb, word_mask, cap_lens)
+
+    similarities = sim.T                                     # [b_img, i_text]
+    loss0 = _cross_entropy_diag(similarities)
+    loss1 = _cross_entropy_diag(similarities.T)
+    att_maps = None
+    if return_att_maps and attn is not None:
+        diag = torch.diagonal(attn, dim1=0, dim2=1)          # [T, M, B]
+        att_maps = diag.permute(2, 0, 1).reshape(b, t, h, w)
+    return GloriaLocalOutput(loss0=loss0, loss1=loss1, att_maps=att_maps)
+
+
+def gloria_global_loss(cnn_code: torch.Tensor, rnn_code: torch.Tensor,
+                       temp3: float = 10.0, eps: float = 1e-8) -> torch.Tensor:
+    """Batch cosine-similarity InfoNCE (reference
+    GLORIAGlobalContrastiveLoss.forward, losses.py:766-794)."""
+    cnn = cnn_code.float()
+    rnn = rnn_code.float()
+    scores = cnn @ rnn.T
+    norms = safe_norm(cnn) @ safe_norm(rnn).T
+    scores = scores / torch.clamp(norms, min=eps) * temp3
+    return _cross_entropy_diag(scores) + _cross_entropy_diag(scores.T)
+
+
+def router_classification_loss(router_probs: torch.Tensor,
+                               labels: torch.Tensor) -> torch.Tensor:
+    """Cross entropy on top of the ALREADY-SOFTMAXED router outputs — the
+    reference's double softmax (swin.py:99, medmoe_module.py:305), kept.
+    A label outside the expert range selects nothing, as jax's one_hot."""
+    logprobs = torch.log_softmax(router_probs.float(), dim=-1)
+    k = logprobs.shape[-1]
+    onehot = (labels.long()[:, None]
+              == torch.arange(k, device=labels.device)[None, :]).float()
+    return -torch.mean(torch.sum(logprobs * onehot, dim=1))
+
+
+def router_accuracy(router_probs: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    return torch.mean((torch.argmax(router_probs, dim=-1) == labels.long())
+                      .float())
+
+
+# --------------------------------------------------------------------------
+# config-surface loss classes (the reference's _target_ registry)
+# --------------------------------------------------------------------------
+
+class GLORIAGlobalContrastiveLoss:
+    def __call__(self, cnn_code, rnn_code, temp3=10.0, scores=None,
+                 thresholds=None):
+        return gloria_global_loss(cnn_code, rnn_code, temp3)
+
+
+class ZEROGlobalContrastiveLoss:
+    """Ablation stub returning 0 (reference losses.py:740-755)."""
+
+    def __call__(self, cnn_code, rnn_code, temp3=10.0, scores=None,
+                 thresholds=None):
+        return torch.zeros((), device=cnn_code.device)
+
+
+class GLORIALocalContrastiveLoss:
+    """impl="auto" or "xla": the batched einsum path (``gloria_local_loss``).
+    impl="pallas" asks for the fused similarity kernels, which are not
+    ported yet."""
+
+    def __init__(self, text_chunk: Any = "auto", impl: str = "auto"):
+        if impl not in ("auto", "xla", "pallas"):
+            raise ValueError(f"impl must be auto, xla or pallas, got {impl!r}")
+        self.text_chunk = text_chunk
+        self.impl = impl
+
+    def __call__(self, img_features, words_emb, cap_lens, temp1=4.0,
+                 temp2=5.0, temp3=10.0, agg="sum", scores=None,
+                 thresholds=None):
+        if self.impl == "pallas":
+            raise NotImplementedError(
+                "the fused GLoRIA similarity kernels (K3, K4a/K4b in "
+                "ROADMAP.md Queue 2) are not ported yet; use impl='auto'")
+        return gloria_local_loss(img_features, words_emb, cap_lens, temp1,
+                                 temp2, temp3, agg,
+                                 text_chunk=self.text_chunk)
+
+
+class ZEROLocalContrastiveLoss:
+    def __call__(self, img_features, words_emb, cap_lens, temp1=4.0,
+                 temp2=5.0, temp3=10.0, agg="sum", scores=None,
+                 thresholds=None):
+        zero = torch.zeros((), device=img_features.device)
+        return GloriaLocalOutput(loss0=zero, loss1=zero)

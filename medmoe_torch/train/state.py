@@ -1,0 +1,51 @@
+"""Train state (counterpart of medmoe_tpu/train/state.py): the model, its
+optimizer over the trainable parameters, the clip value and the step
+count. PyTorch updates the parameters in place."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from medmoe_torch.train.optim import Adam, clip_by_global_norm
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    gradient_clip_val: Optional[float] = None
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: Adam) -> "TrainState":
+        return cls(model=model, optimizer=tx.init(model.parameters()),
+                   gradient_clip_val=tx.gradient_clip_val)
+
+    @property
+    def params(self) -> List[nn.Parameter]:
+        """The trainable parameters, in the optimizer's order."""
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def apply_gradients(self, grads: List[torch.Tensor],
+                        norm: Optional[torch.Tensor] = None) -> "TrainState":
+        """Clip (optax's global-norm formula; ``norm`` may be given when it
+        is already computed) and take one Adam step with ``grads``, aligned
+        with ``params``."""
+        if self.gradient_clip_val:
+            grads = clip_by_global_norm(grads, float(self.gradient_clip_val),
+                                        norm)
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.optimizer.step()
+        for p in self.params:
+            p.grad = None
+        self.step += 1
+        return self
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

@@ -91,6 +91,28 @@ class TestConfig:
             mod, _, attr = t.rpartition(".")
             assert hasattr(importlib.import_module(mod), attr), t
 
+    def test_train_composes_with_port_targets(self):
+        cfg = compose("train", ["experiment=pretraining_medmoe_ddp"])
+        assert cfg.trainer.accelerator == "gpu"
+        assert cfg.trainer.accumulate_grad_batches == 80
+        assert cfg.model.loss.block_size == 32
+        assert not cfg.model.loss.global_negatives
+        targets = []
+
+        def walk(node):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    if k == "_target_":
+                        targets.append(v)
+                    walk(v)
+
+        walk(cfg)
+        assert len(targets) >= 8
+        assert all(t.startswith("medmoe_torch.") for t in targets), targets
+        for t in targets:
+            mod, _, attr = t.rpartition(".")
+            assert hasattr(importlib.import_module(mod), attr), t
+
     @pytest.mark.parametrize("data", ["chexpert", "unimed", "synthetic"])
     def test_data_groups_instantiate(self, data):
         from medmoe_torch.utils.instantiate import instantiate
