@@ -24,12 +24,26 @@
      optimizer steps (accumulation cut from 80 to 4 to fit the run's time);
      checks the loss and grad norm, that K2 ran once per micro-batch and K1
      at least once per micro-batch, that the routed experts' rows and the
-     Swin tower moved, and that the frozen BERT did not;
-  7. prints {"kernels": [...]} and, last, the device line.
+     Swin tower moved, and that the frozen BERT did not, and that the B=32
+     losses took the einsum path (no GLoRIA kernel);
+  7. K3, K4a and K4b, the GLoRIA similarity and its backward: hold the
+     kernels against their plain versions at B=256 flagship shapes (bf16
+     ctx in the local map's own layout, caption lengths from a seed in
+     [3, 25], a seeded cotangent) and on small odd shapes, time both,
+     print the bounds and the backward's scratch, and time the fused local
+     loss against the einsum path at B=32;
+  8. training at one batch of 256 a step: experiment=gloria256 with
+     synthetic data at full width, 2 optimizer steps and one validation
+     batch; checks the loss and grad norm, that K3 ran once per forward,
+     K4a once per backward and K4b never (BERT frozen), K1/K2 as in 6,
+     and what moved; then one warm step, timed;
+  9. text training: one step of the same run with
+     model.model.text.freeze_bert=false, where K4b runs once and BERT moves;
+ 10. prints {"kernels": [...]} and, last, the device line.
 
 Any failed check exits non-zero. Needs one CUDA card; fails without one.
-``--profile`` adds torch.profiler breakdowns of one serving wave and one
-training step.
+``--profile`` adds torch.profiler breakdowns of one serving wave, one
+B=32 training step and one gloria256 step.
 """
 
 from __future__ import annotations
@@ -298,6 +312,8 @@ def profile_wave(torch, embed, images, wave_ms: float):
 K1_KERNELS = ("proj_kernel", "attn_kernel")
 K2_KERNELS = ("bwd_row_kernel", "bwd_proj_kernel", "bwd_wgrad_kernel",
               "bwd_reduce_kernel")
+GLORIA_KERNELS = ("void pair_kernel", "dctx_kernel", "dwords_kernel",
+                  "dwords_reduce_kernel")
 
 
 def profile_device(torch, fn, wall_ms: float, label: str):
@@ -328,12 +344,15 @@ def profile_device(torch, fn, wall_ms: float, label: str):
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
     k1_ms = sum(dev_us(e) for e in rows if e.key.startswith(K1_KERNELS)) / 1e3
     k2_ms = sum(dev_us(e) for e in rows if e.key.startswith(K2_KERNELS)) / 1e3
+    gl_ms = sum(dev_us(e) for e in rows
+                if e.key.startswith(GLORIA_KERNELS)) / 1e3
     print(f"profile: {label}: device busy {busy_ms:.3f} ms of a "
           f"{wall_ms:.3f} ms unprofiled call (idle "
           f"{max(0.0, 1 - busy_ms / wall_ms):.1%}); K1 kernels "
           f"{k1_ms:.3f} ms ({k1_ms / max(busy_ms, 1e-9):.1%} of device "
           f"time), K2 kernels {k2_ms:.3f} ms "
-          f"({k2_ms / max(busy_ms, 1e-9):.1%})", flush=True)
+          f"({k2_ms / max(busy_ms, 1e-9):.1%}), GLoRIA kernels {gl_ms:.3f} "
+          f"ms ({gl_ms / max(busy_ms, 1e-9):.1%})", flush=True)
     for e in rows[:25]:
         print(f"profile: {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x "
               f"{e.key[:100]}", flush=True)
@@ -538,20 +557,33 @@ TRAIN_OVERRIDES = [
     "extras.print_config=false", "trainer.log_every_n_steps=1"]
 
 
-def phase_train(torch, ef, card: str):
-    """Two optimizer steps of experiment=pretraining_medmoe_ddp at full
-    width through the train CLI's ``train``; returns (K1 launches, K2
-    launches, pairs/s)."""
+def launch_counts():
+    """Every kernel's launch counter, by kernel."""
+    from medmoe_torch.ops import expert_fusion as ef, gloria_attention as ga
+
+    return {"K1": ef.LAUNCHES, "K2": ef.BWD_LAUNCHES, "K3": ga.LAUNCHES,
+            "K4a": ga.DCTX_LAUNCHES, "K4b": ga.DWORDS_LAUNCHES}
+
+
+def reset_launch_counts():
+    from medmoe_torch.ops import expert_fusion as ef, gloria_attention as ga
+
+    ef.LAUNCHES = ef.BWD_LAUNCHES = 0
+    ga.LAUNCHES = ga.DCTX_LAUNCHES = ga.DWORDS_LAUNCHES = 0
+
+
+def drive_train(torch, overrides):
+    """The train CLI's ``train`` on ``overrides``, with every launch count
+    set to 0 just before and read just after, and the experts that
+    training routed to recorded. Returns (cfg, metrics, objs, counts,
+    routed, seconds, peak GB)."""
     import tempfile
 
     from medmoe_torch.cli.train import train
     from medmoe_torch.config import compose
     from medmoe_torch.models import moe as tmoe
-    from medmoe_torch.models.medmoe import MedMoE, init_weights
     from medmoe_torch.utils.task import extras
 
-    print("train: accumulate_grad_batches cut from 80 to 4 (2 optimizer "
-          "steps of 4 x 32 pairs) to fit the run's time", flush=True)
     routed = []
     real_routing = tmoe.topk_routing
 
@@ -562,12 +594,12 @@ def phase_train(torch, ef, card: str):
         return idx, w
 
     with tempfile.TemporaryDirectory() as root:
-        cfg = compose("train", TRAIN_OVERRIDES + [f"paths.root_dir={root}"])
+        cfg = compose("train", overrides + [f"paths.root_dir={root}"])
         extras(cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         tmoe.topk_routing = recording_routing
-        ef.LAUNCHES = ef.BWD_LAUNCHES = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         try:
             metrics, objs = train(cfg)
@@ -575,10 +607,22 @@ def phase_train(torch, ef, card: str):
         finally:
             tmoe.topk_routing = real_routing
         seconds = time.perf_counter() - t0
-        k1, k2 = ef.LAUNCHES, ef.BWD_LAUNCHES
+        counts = launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         check(os.path.isfile(os.path.join(cfg.paths.output_dir, "csv",
                                            "metrics.csv")), "no metrics.csv")
+    return cfg, metrics, objs, counts, routed, seconds, peak_gb
+
+
+def phase_train(torch, ef, card: str):
+    """Two optimizer steps of experiment=pretraining_medmoe_ddp at full
+    width through the train CLI's ``train``; returns (K1 launches, K2
+    launches, pairs/s)."""
+    print("train: accumulate_grad_batches cut from 80 to 4 (2 optimizer "
+          "steps of 4 x 32 pairs) to fit the run's time", flush=True)
+    cfg, metrics, objs, counts, routed, seconds, peak_gb = drive_train(
+        torch, TRAIN_OVERRIDES)
+    k1, k2 = counts["K1"], counts["K2"]
     trainer, module = objs["trainer"], objs["module"]
     print(f"train: {trainer.state.step} optimizer steps in {seconds:.1f} s "
           f"(init and validation included); metrics "
@@ -591,29 +635,11 @@ def phase_train(torch, ef, card: str):
     check(metrics["train/grad_norm"] > 0, "grad_norm is 0")
     check(k2 == 8, f"K2 launched {k2} times for 8 micro-batches")
     check(k1 >= 8, f"K1 launched {k1} times for 8 micro-batches")
+    check(counts["K3"] == counts["K4a"] == counts["K4b"] == 0,
+          f"the B=32 losses launched GLoRIA kernels: {counts}")
 
-    # parameters against the same seeded initialization on the CPU
-    model = module.model
-    init = init_weights(MedMoE(model.vision, model.text),
-                        seed=cfg.seed).state_dict()
-    now = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
-    experts = sorted(set(torch.cat(routed).flatten().tolist()))
-    bank = "image_encoder.swin_moe.moe.experts."
-    moved_rows = 0
-    for k, v in now.items():
-        if k.startswith(bank) and not k.endswith("attn_b2"):
-            for e in range(v.shape[0]):
-                moved = not torch.equal(v[e], init[k][e])
-                check(moved == (e in experts), f"{k}[{e}] moved={moved}, "
-                      f"routed experts {experts}")
-                moved_rows += moved
-        elif k.startswith("image_encoder.swin_moe.swin.") \
-                and not k.endswith("key.bias"):
-            check(not torch.equal(v, init[k]), f"Swin parameter {k} did not "
-                  f"change")
-        elif k.startswith("text_encoder.bert."):
-            check(torch.equal(v, init[k]), f"frozen BERT parameter {k} "
-                  f"changed")
+    experts, moved_rows = check_moved(torch, module, cfg.seed, routed,
+                                      "train")
     pairs_s = metrics["pairs_per_sec"]
     print(f"train: routed experts {experts}; {moved_rows} expert-bank rows "
           f"moved, unrouted rows and attn_b2 unchanged; Swin moved; frozen "
@@ -624,6 +650,42 @@ def phase_train(torch, ef, card: str):
     if "--profile" in sys.argv:
         profile_train_step(torch, trainer, module, objs["datamodule"])
     return k1, k2, pairs_s
+
+
+def check_moved(torch, module, seed: int, routed, label: str,
+                bert_trains: bool = False):
+    """Parameters against the same seeded initialization on the CPU: the
+    routed experts' bank rows and the Swin tower moved, the unrouted rows
+    and attn_b2 did not, and BERT moved only when it trains. Returns (the
+    routed experts, the number of bank rows that moved)."""
+    from medmoe_torch.models.medmoe import MedMoE, init_weights
+
+    model = module.model
+    init = init_weights(MedMoE(model.vision, model.text),
+                        seed=seed).state_dict()
+    now = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    experts = sorted(set(torch.cat(routed).flatten().tolist()))
+    bank = "image_encoder.swin_moe.moe.experts."
+    moved_rows = bert_moved = 0
+    for k, v in now.items():
+        if k.startswith(bank) and not k.endswith("attn_b2"):
+            for e in range(v.shape[0]):
+                moved = not torch.equal(v[e], init[k][e])
+                check(moved == (e in experts), f"{label}: {k}[{e}] moved="
+                      f"{moved}, routed experts {experts}")
+                moved_rows += moved
+        elif k.startswith("image_encoder.swin_moe.swin.") \
+                and not k.endswith("key.bias"):
+            check(not torch.equal(v, init[k]), f"{label}: Swin parameter {k} "
+                  f"did not change")
+        elif k.startswith("text_encoder.bert."):
+            moved = not torch.equal(v, init[k])
+            if not bert_trains:
+                check(not moved, f"{label}: frozen BERT parameter {k} changed")
+            bert_moved += moved
+    if bert_trains:
+        check(bert_moved > 0, f"{label}: no BERT parameter moved")
+    return experts, moved_rows
 
 
 def time_trainer_windows(torch, trainer, module, datamodule, accum: int,
@@ -683,6 +745,269 @@ def profile_train_step(torch, trainer, module, datamodule):
     profile_device(torch, lambda: step(trainer.state, [batch]), wall_ms,
                    "one train step (B=32)")
 
+GLORIA_BATCH = 256
+GLORIA_OVERRIDES = [
+    "experiment=gloria256", "data=synthetic",
+    f"data.batch_size={GLORIA_BATCH}", f"data.num_samples={2 * GLORIA_BATCH}",
+    "trainer.max_epochs=1", "trainer.limit_train_batches=2",
+    "trainer.limit_val_batches=1", "trainer.num_sanity_val_steps=0",
+    "callbacks=none", "logger=csv", "extras.print_config=false",
+    "trainer.log_every_n_steps=1"]
+
+
+def gloria_inputs(torch, b_img, b_txt, d, h, w, t, seed):
+    """ctx in the local map's own layout (a [B, D, H, W] view of a
+    [B, H·W, D] bf16 tensor, as models/moe.py hands it to the loss),
+    words [B_txt, D, T] bf16 ~N(0,1), caption lengths in [3, T], and a
+    seeded cotangent [B_img, B_txt]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.randn((b_img, h * w, d), generator=g, device="cuda")
+    img = rows.to(torch.bfloat16).permute(0, 2, 1).reshape(b_img, d, h, w)
+    words = torch.randn((b_txt, d, t), generator=g, device="cuda")
+    cap = torch.randint(3, t + 1, (b_txt,), generator=g, device="cuda")
+    cot = torch.randn((b_img, b_txt), generator=g, device="cuda")
+    return img, words.to(torch.bfloat16), cap.to(torch.int32), cot
+
+
+def gloria_bound(img, words, out_bytes, products):
+    """(bound ms, bound_by, GFLOP, MB): ``products`` products of
+    2·M·T·D per pair at the bf16 rate, against the inputs read once (ctx,
+    words, caption lengths, the cotangent for a backward) and the output
+    written once."""
+    b_img, d, h, w = img.shape
+    b_txt, _, t = words.shape
+    flops = products * 2 * b_img * b_txt * h * w * t * d
+    nbytes = img.numel() * img.element_size() + words.numel() * 2 \
+        + b_txt * 4 + out_bytes
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flops / 1e9, nbytes / 1e6)
+
+
+def gloria_err(torch, got, want, name, gate):
+    """Max abs error of ``got`` against ``want``; ``gate`` "fwd": every
+    element within 1e-3·max|ref| (only f32 summation order and the softmax
+    offset differ; worst measured on the H100 2.4e-7·max|ref|); "bwd":
+    every element within 1e-2·max|ref| and at most 1% of the elements
+    beyond 2e-3·max|ref| (a value on the other side of a bf16 rounding
+    boundary of a2, d_wei or d_scores moves its term by one bf16 step;
+    worst measured 3.6e-3·max|ref|, and 4.6e-4 of the elements beyond)."""
+    got, want = got.float(), want.float()
+    check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} vs "
+          f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    scale = want.abs().max().item()
+    diff = (got - want).abs()
+    err = diff.max().item()
+    if gate == "fwd":
+        ok = err <= 1e-3 * scale
+        limit = "limit 1e-3*max|ref|"
+    else:
+        beyond = (diff > 2e-3 * scale).float().mean().item()
+        ok = err <= 1e-2 * scale and beyond <= 0.01
+        limit = (f"limit 1e-2*max|ref|; share beyond 2e-3*max|ref| "
+                 f"{beyond:.2e}, at most 0.01")
+    print(f"{name}: max_abs_err {err:.3e} max|ref| {scale:.3e} ({limit}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    check(ok, f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def phase_gloria(torch, ga, card: str):
+    """K3, K4a and K4b against their plain versions at B=256 flagship
+    shapes and on small odd shapes; times of each and of the plain
+    versions; K3+K4a against the einsum path at B=32."""
+    temps = (4.0, 5.0, 10.0)
+    results = {}
+    cases = [
+        ("flagship B=256", (GLORIA_BATCH, GLORIA_BATCH, 768, 56, 56, 25)),
+        ("odd 3x5 D=48 7x5 T=9", (3, 5, 48, 7, 5, 9)),
+        ("odd 4x3 D=80 9x9 T=32", (4, 3, 80, 9, 9, 32)),
+    ]
+    for name, shape in cases:
+        img, words, cap, cot = gloria_inputs(torch, *shape, seed=21)
+        b_img, b_txt, d = shape[0], shape[1], shape[2]
+        out = ga.gloria_similarity_forward(img, words, cap, *temps)
+        torch.cuda.synchronize()
+        ref = ga.gloria_similarity_reference(img, words, cap, *temps)
+        err3 = gloria_err(torch, out, ref, f"K3 {name}", "fwd")
+        del out, ref
+        d_img, d_words = ga.gloria_similarity_backward(img, words, cap, cot,
+                                                       *temps)
+        torch.cuda.synchronize()
+        r_img, r_words = ga.gloria_similarity_bwd_reference(img, words, cap,
+                                                            cot, *temps)
+        err4a = gloria_err(torch, d_img, r_img, f"K4a {name} d_img", "bwd")
+        err4b = gloria_err(torch, d_words, r_words, f"K4b {name} d_words",
+                           "bwd")
+        del d_img, d_words, r_img, r_words
+        torch.cuda.empty_cache()
+        if results:
+            continue
+        scratch = ga.backward_scratch_bytes(b_img, b_txt, d)
+        print(f"K4 {name}: backward scratch {scratch / 1e9:.3f} GB (bf16 "
+              f"d_wei and per-word vectors per pair, K4b partial sums)",
+              flush=True)
+
+        def fwd():
+            ga.gloria_similarity_forward(img, words, cap, *temps)
+
+        def bwd(need_img, need_words, plain=False):
+            fn = ga.gloria_similarity_bwd_reference if plain \
+                else ga.gloria_similarity_backward
+            return lambda: fn(img, words, cap, cot, *temps,
+                              need_img=need_img, need_words=need_words)
+
+        ms3 = cuda_ms(fwd, iters=3, warmup=1)
+        plain3 = cuda_ms(lambda: ga.gloria_similarity_reference(
+            img, words, cap, *temps), iters=1, warmup=0)
+        ms4a = cuda_ms(bwd(True, False), iters=2, warmup=1)
+        plain4a = cuda_ms(bwd(True, False, True), iters=1, warmup=0)
+        ms4b = cuda_ms(bwd(False, True), iters=2, warmup=1)
+        plain4b = cuda_ms(bwd(False, True, True), iters=1, warmup=0)
+        out_img = img.numel() * img.element_size()
+        for key, ms, plain, err, products, out_bytes in (
+                ("K3", ms3, plain3, err3, 2, b_img * b_txt * 4),
+                ("K4a", ms4a, plain4a, err4a, 3, out_img + b_img * b_txt * 4),
+                ("K4b", ms4b, plain4b, err4b, 2,
+                 words.numel() * 2 + b_img * b_txt * 4)):
+            bound, by, gflop, mb = gloria_bound(img, words, out_bytes, products)
+            results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                bound_ms=bound, bound_by=by)
+            print(f"{key} {name}: kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+                  f"bound_ms {bound:.4f} ({by}: {products} products, "
+                  f"{gflop:.1f} GFLOP, {mb:.1f} MB) on {card}", flush=True)
+        print("K4a and K4b times each include the backward's prologue (the "
+              "forward chain and the cotangents down to d_wei per pair)",
+              flush=True)
+        del img, words, cap, cot
+        torch.cuda.empty_cache()
+
+    # the local loss at B=32 flagship: fused (K3 + K4a) against the einsum
+    # path, forward and backward of the image side; printed only, the
+    # auto dispatch keeps the JAX package's threshold (B > 64)
+    from medmoe_torch.ops import losses as L
+
+    img, words, cap, _ = gloria_inputs(torch, 32, 32, 768, 56, 56, 25, seed=22)
+    leaf = img.detach().clone().requires_grad_()
+    times = {}
+    for impl in ("pallas", "xla", "xla", "pallas"):
+        loss_fn = L.GLORIALocalContrastiveLoss(impl=impl)
+
+        def step():
+            out = loss_fn(leaf, words, cap, *temps)
+            torch.autograd.grad(out.loss0 + out.loss1, leaf)
+
+        times.setdefault(impl, []).append(cuda_ms(step, iters=5, warmup=2))
+    print(f"local loss B=32 flagship, forward + image backward: fused "
+          f"(K3 + K4a) {min(times['pallas']):.4f} ms, einsum path "
+          f"{min(times['xla']):.4f} ms (best of two runs each) on {card}",
+          flush=True)
+    del img, words, cap, leaf
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_gloria_train(torch, card: str):
+    """Two optimizer steps of experiment=gloria256 (one batch of 256 a
+    step, global negatives) at full width through the train CLI's
+    ``train``, then one warm step; returns the launch counts."""
+    from medmoe_torch.train.step import build_train_step
+
+    cfg, metrics, objs, counts, routed, seconds, peak_gb = drive_train(
+        torch, GLORIA_OVERRIDES)
+    trainer, module = objs["trainer"], objs["module"]
+    print(f"gloria256: {trainer.state.step} optimizer steps of "
+          f"{GLORIA_BATCH} pairs in {seconds:.1f} s (init and validation "
+          f"included); launches {counts}; metrics "
+          + json.dumps({k: round(v, 6) for k, v in sorted(metrics.items())}),
+          flush=True)
+    check(trainer.state.step == 2, f"{trainer.state.step} optimizer steps")
+    for key in ("train/loss", "train/grad_norm", "train/l_loss", "val/loss"):
+        check(key in metrics and math.isfinite(metrics[key]),
+              f"gloria256: {key} missing or not finite")
+    check(metrics["train/loss"] > 0 and metrics["train/grad_norm"] > 0,
+          "gloria256: loss or grad_norm not positive")
+    # two training forwards and one validation forward; K4b never (BERT
+    # is frozen, so words_emb needs no gradient)
+    check(counts["K3"] == 3, f"K3 launched {counts['K3']} times for 3 "
+          f"forwards")
+    check(counts["K4a"] == 2, f"K4a launched {counts['K4a']} times for 2 "
+          f"backwards")
+    check(counts["K4b"] == 0, f"K4b launched {counts['K4b']} times with "
+          f"BERT frozen")
+    check(counts["K2"] == 2, f"K2 launched {counts['K2']} times for 2 "
+          f"backwards")
+    check(counts["K1"] >= 3, f"K1 launched {counts['K1']} times for 3 "
+          f"forwards")
+    experts, moved_rows = check_moved(torch, module, cfg.seed, routed,
+                                      "gloria256")
+    batch = trainer.to_device(next(iter(objs["datamodule"].train_dataloader(1))))
+    step_ms = warm_step_ms(torch, trainer, module, batch)
+    peak_warm = torch.cuda.max_memory_allocated() / 1e9
+    print(f"gloria256: routed experts {experts}; {moved_rows} expert-bank "
+          f"rows moved; Swin moved; frozen BERT unchanged; "
+          f"{metrics['pairs_per_sec']:.1f} pairs/s over the epoch (first "
+          f"step included); warm step {step_ms:.3f} ms = "
+          f"{GLORIA_BATCH / step_ms * 1e3:.1f} pairs/s; peak memory "
+          f"{max(peak_gb, peak_warm):.2f} GB on {card}", flush=True)
+    if "--profile" in sys.argv:
+        step = build_train_step(module, 1)
+        profile_device(torch, lambda: step(trainer.state, [batch]), step_ms,
+                       f"one gloria256 step (B={GLORIA_BATCH})")
+    del objs, trainer, module, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def warm_step_ms(torch, trainer, module, batch) -> float:
+    """One optimizer step of one batch, after one untimed step, on the host
+    clock around work that ends in a device sync."""
+    from medmoe_torch.train.step import build_train_step
+
+    step = build_train_step(module, 1)
+    step(trainer.state, [batch])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(trainer.state, [batch])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_text_train(torch, card: str):
+    """One optimizer step of the gloria256 run with the text tower
+    training (model.model.text.freeze_bert=false), the path on which
+    words_emb needs a gradient and K4b runs; returns the launch counts."""
+    overrides = [o for o in GLORIA_OVERRIDES
+                 if not o.startswith(("trainer.limit_train_batches",
+                                      "trainer.limit_val_batches"))]
+    overrides += ["model.model.text.freeze_bert=false",
+                  "trainer.limit_train_batches=1",
+                  "trainer.limit_val_batches=0"]
+    cfg, metrics, objs, counts, routed, seconds, peak_gb = drive_train(
+        torch, overrides)
+    trainer, module = objs["trainer"], objs["module"]
+    print(f"text training: {trainer.state.step} optimizer step of "
+          f"{GLORIA_BATCH} pairs in {seconds:.1f} s; launches {counts}; "
+          f"train/loss {metrics.get('train/loss')}", flush=True)
+    check(trainer.state.step == 1, f"{trainer.state.step} optimizer steps")
+    check(math.isfinite(metrics.get("train/loss", float("nan"))),
+          "text training: loss not finite")
+    check(counts["K3"] == 1 and counts["K4a"] == 1 and counts["K4b"] == 1,
+          f"text training: launches {counts}, expected K3, K4a and K4b once")
+    check_moved(torch, module, cfg.seed, routed, "text training",
+                bert_trains=True)
+    batch = trainer.to_device(next(iter(objs["datamodule"].train_dataloader(1))))
+    step_ms = warm_step_ms(torch, trainer, module, batch)
+    peak_warm = torch.cuda.max_memory_allocated() / 1e9
+    print(f"text training: BERT moved; warm step {step_ms:.3f} ms = "
+          f"{GLORIA_BATCH / step_ms * 1e3:.1f} pairs/s; peak memory "
+          f"{max(peak_gb, peak_warm):.2f} GB on {card}", flush=True)
+    del objs, trainer, module, batch
+    torch.cuda.empty_cache()
+    return counts
+
 
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
@@ -709,6 +1034,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from medmoe_torch.ops import _build, expert_fusion as ef
+    from medmoe_torch.ops import gloria_attention as ga
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -723,25 +1049,36 @@ def main() -> int:
     serve_launches, img_s = phase_serve(torch, ef, card, *full_width_config())
     k2 = phase_k2(torch, ef)
     k1_train, k2_train, pairs_s = phase_train(torch, ef, card)
+    gl = phase_gloria(torch, ga, card)
+    g256 = phase_gloria_train(torch, card)
+    text = phase_text_train(torch, card)
     print(f"main paths: serving {img_s:.1f} img/s with K1 launched "
-          f"{serve_launches} times; training {pairs_s:.1f} pairs/s with K1 "
-          f"launched {k1_train} and K2 {k2_train} times", flush=True)
+          f"{serve_launches} times; pretraining_medmoe_ddp training "
+          f"{pairs_s:.1f} pairs/s with K1 launched {k1_train} and K2 "
+          f"{k2_train} times; gloria256 launches {g256}; text training "
+          f"launches {text}", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "expert_fusion_gather", "route": "cuda",
-        "source": "medmoe_torch/csrc/expert_fusion.cu",
-        "replaces": "medmoe_tpu/ops/pallas/expert_fusion.py:113",
-        "launches": k1_train, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": None}, {
-        "name": "expert_fusion_gather_bwd", "route": "cuda",
-        "source": "medmoe_torch/csrc/expert_fusion_bwd.cu",
-        "replaces": "medmoe_tpu/ops/pallas/expert_fusion.py:233",
-        "launches": k2_train, "max_abs_err": k2["max_abs_err"],
-        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-        "library_ms": None}]}))
+    def row(name, source, replaces, launches, r):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None}
+
+    gsrc = "medmoe_torch/csrc/gloria_attention"
+    gtpu = "medmoe_tpu/ops/pallas/gloria_attention.py"
+    print(json.dumps({"kernels": [
+        row("expert_fusion_gather", "medmoe_torch/csrc/expert_fusion.cu",
+            "medmoe_tpu/ops/pallas/expert_fusion.py:113", k1_train, k1),
+        row("expert_fusion_gather_bwd",
+            "medmoe_torch/csrc/expert_fusion_bwd.cu",
+            "medmoe_tpu/ops/pallas/expert_fusion.py:233", k2_train, k2),
+        row("gloria_similarity_forward", f"{gsrc}.cu", f"{gtpu}:73",
+            g256["K3"], gl["K3"]),
+        row("gloria_similarity_backward d_ctx", f"{gsrc}_bwd.cu",
+            f"{gtpu}:242", g256["K4a"], gl["K4a"]),
+        row("gloria_similarity_backward d_words", f"{gsrc}_bwd.cu",
+            f"{gtpu}:274", text["K4b"], gl["K4b"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

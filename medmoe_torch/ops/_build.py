@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``csrc/build/lib<name>-<hash>.so`` for ``sm_90a``; the hash covers the
-source and the flags, so an edited source builds anew. Builds run at first
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header builds anew. Builds run at first
 use (or all at once, in parallel, through ``build``), never at import.
 """
 
@@ -20,7 +21,8 @@ from typing import Dict, Iterable, Tuple
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-KERNELS = ("expert_fusion", "expert_fusion_bwd")
+KERNELS = ("expert_fusion", "expert_fusion_bwd", "gloria_attention",
+           "gloria_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,8 +44,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for part in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, part), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -102,5 +107,18 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             [i] + [arr_p] * 10 + [arr_i, arr_i] + [vp] * 10
             + [i, i, i, i, i, vp])
         lib.medmoe_expert_fusion_bwd.restype = i
+    elif name == "gloria_attention":
+        f = ctypes.c_float
+        shape = [vp, vp, vp, i, i, i, i, i, f, f, f]
+        lib.medmoe_gloria_sim.argtypes = shape + [vp, vp]
+        lib.medmoe_gloria_sim.restype = i
+        lib.medmoe_gloria_pair_cotangents.argtypes = shape + [vp, vp, vp, vp]
+        lib.medmoe_gloria_pair_cotangents.restype = i
+    elif name == "gloria_attention_bwd":
+        shape = [vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp, vp]
+        lib.medmoe_gloria_dctx.argtypes = shape + [vp, vp]
+        lib.medmoe_gloria_dctx.restype = i
+        lib.medmoe_gloria_dwords.argtypes = shape + [vp, vp, i, vp, vp]
+        lib.medmoe_gloria_dwords.restype = i
     lib.medmoe_cuda_error_string.argtypes = [i]
     lib.medmoe_cuda_error_string.restype = ctypes.c_char_p

@@ -1,0 +1,393 @@
+"""GLoRIA word-region similarity: CUDA kernel wrappers (K3 forward, K4a
+d_ctx, K4b d_words), their plain PyTorch versions, the autograd Function
+and the launch counters (counterpart of
+medmoe_tpu/ops/pallas/gloria_attention.py).
+
+What it computes (reference losses.py:961-1015, the local loss's
+similarity matrix), for image b and caption i, with ctx = the image's
+[D, M] local map and w = the caption's [D, T] word embeddings, both
+rounded to bf16:
+
+    scores[m,t] = Σ_d ctx[d,m]·w[d,t]           bf16 products, f32 sums
+    a1 = softmax_t(scores | t < cap_i)          masked words at -1e30
+    a2 = softmax_m(temp1·a1)                    f32, not rounded
+    wei[d,t] = Σ_m ctx[d,m]·a2[m,t]             f32
+    cos[t] = ⟨w_t, wei_t⟩ / max(‖w_t‖·‖wei_t‖, 1e-8)
+    sim[b,i] = temp3 · log Σ_{t<cap_i} exp(temp2·cos[t])
+
+This is the function of the JAX kernel (``_cell_recompute``), not of the
+einsum path (``ops/losses.py``), which rounds a2 to bf16 before its wei
+product. Its backward is the JAX ``custom_vjp``'s explicit cotangents
+(``_cell_cotangents``, ``_dctx_kernel``, ``_dwords_kernel``), with their
+bf16 roundings of d_wei, a2 and d_scores before each cotangent product;
+it is not autograd through the forward.
+
+Kernels. ``csrc/gloria_attention.cu`` replaces ``_sim_kernel`` (K3) and
+holds the backward's prologue, the forward chain again with the
+cotangents down to bf16(d_wei) per pair; ``csrc/gloria_attention_bwd.cu``
+replaces ``_dctx_kernel`` (K4a) and ``_dwords_kernel`` (K4b). Their design
+notes are in the sources. Between the prologue and K4a/K4b the per-pair
+cotangents live in device memory (``backward_scratch_bytes``: 3.2 GB at
+B=256, D=768). Not ported: the TPU kernel's lane packing, ``t_pad``,
+``_segment_max``, the indicator matmuls and the ``shard_map`` wrapper
+(Mosaic and SPMD devices), and its environment switches.
+
+Layouts. The kernels read ctx as [B_img, M, D] bf16, D contiguous. The
+model's local map is a permuted view of the expert branch's [B, P, E]
+output, so ``img_features`` [B, D, H, W] arrives with those strides and
+the wrapper reads it without a copy; a tensor in the plain [B, D, H, W]
+layout is copied once (1.2 GB at B=256 in bf16). d_img is returned in the
+same [B, M, D] memory, as a [B, D, H, W] view, which is the layout the
+expert branch's backward takes.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+# kernel launches on CUDA tensors: K3 (forward), K4a (d_ctx, with the
+# prologue it reads) and K4b (d_words); the plain versions do not count
+LAUNCHES = 0
+DCTX_LAUNCHES = 0
+DWORDS_LAUNCHES = 0
+
+NEG_INF = -1e30
+MAX_WORDS = 32      # csrc/gloria_common.cuh TP
+MAX_DIM = 768       # csrc/gloria_common.cuh MAX_D
+MAX_TEMP1 = 80.0    # exp(temp1·a1 - max(temp1, 0)) stays a normal f32
+_PLAIN_BYTES = 512 << 20   # one [c, B_img, M, T] f32 block of the plain versions
+
+
+def _check(img: torch.Tensor, words: torch.Tensor, cap_lens: torch.Tensor,
+           temp1: float) -> Tuple[int, int, int, int, int]:
+    """Raise on what the functions do not take; return (B_img, B_txt, D,
+    M, T). B_img and B_txt may differ."""
+    if not all(isinstance(t, torch.Tensor) for t in (img, words, cap_lens)):
+        raise TypeError("gloria_similarity takes torch tensors")
+    if len({img.device, words.device, cap_lens.device}) != 1:
+        raise ValueError("gloria_similarity: all inputs must be on one device, "
+                         f"got {img.device}, {words.device}, {cap_lens.device}")
+    if img.ndim != 4 or words.ndim != 3:
+        raise ValueError("gloria_similarity takes img_features [B_img, D, H, W] "
+                         f"and words_emb [B_txt, D, T], got {tuple(img.shape)} "
+                         f"and {tuple(words.shape)}")
+    floats = (torch.float32, torch.bfloat16, torch.float16)
+    if img.dtype not in floats or words.dtype not in floats:
+        raise TypeError("gloria_similarity: features must be float32, bfloat16 "
+                        f"or float16, got {img.dtype} and {words.dtype}")
+    if cap_lens.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"cap_lens must be int32 or int64, got {cap_lens.dtype}")
+    bi, d, h, w = img.shape
+    bt, dw, t = words.shape
+    if d != dw:
+        raise ValueError(f"img_features has D={d}, words_emb D={dw}")
+    if tuple(cap_lens.shape) != (bt,):
+        raise ValueError(f"cap_lens must be [{bt}], got {tuple(cap_lens.shape)}")
+    if min(bi, bt, h * w, t) < 1:
+        raise ValueError("gloria_similarity: empty input "
+                         f"{tuple(img.shape)}, {tuple(words.shape)}")
+    if not -MAX_TEMP1 <= float(temp1) <= MAX_TEMP1:
+        raise ValueError(f"temp1 must lie in [-{MAX_TEMP1}, {MAX_TEMP1}], "
+                         f"got {temp1}")
+    return bi, bt, d, h * w, t
+
+
+def _check_kernel_shape(d: int, t: int) -> None:
+    if t > MAX_WORDS or d % 16 or d > MAX_DIM:
+        raise ValueError(f"the GLoRIA kernels take T <= {MAX_WORDS}, D % 16 == 0 "
+                         f"and D <= {MAX_DIM}; got T={t}, D={d}")
+
+
+def _device_kind(img: torch.Tensor) -> str:
+    if img.device.type not in ("cpu", "cuda"):
+        raise ValueError("gloria_similarity runs on CUDA or CPU tensors, got "
+                         f"{img.device}")
+    return img.device.type
+
+
+def _kernel_inputs(img, words, cap_lens):
+    """ctx [B_img, M, D] bf16 (a view when img has the local map's
+    channels-last strides), words zero-padded to [B_txt, D, 32] bf16,
+    cap_lens int32."""
+    bi, d, h, w = img.shape
+    ctx = img.permute(0, 2, 3, 1).reshape(bi, h * w, d).to(torch.bfloat16) \
+        .contiguous()
+    words_p = torch.zeros((words.shape[0], d, MAX_WORDS), dtype=torch.bfloat16,
+                          device=words.device)
+    words_p[..., :words.shape[2]] = words
+    return ctx, words_p, cap_lens.to(torch.int32).contiguous()
+
+
+def backward_scratch_bytes(b_img: int, b_txt: int, d: int) -> int:
+    """Device scratch of one kernel backward: bf16(d_wei) and the per-word
+    vectors per pair, and K4b's partial sums."""
+    pairs = b_img * b_txt
+    return (pairs * d * MAX_WORDS * 2 + pairs * 4 * MAX_WORDS * 4
+            + _dwords_split(b_img, b_txt) * b_txt * (d + 1) * MAX_WORDS * 4)
+
+
+def _dwords_split(b_img: int, b_txt: int) -> int:
+    """Shares of the images K4b sums separately (≈1024 blocks)."""
+    return max(1, min(b_img, 1024 // b_txt))
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.medmoe_cuda_error_string(rc).decode())
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+def gloria_similarity_forward(img: torch.Tensor, words: torch.Tensor,
+                              cap_lens: torch.Tensor, temp1: float = 4.0,
+                              temp2: float = 5.0, temp3: float = 10.0
+                              ) -> torch.Tensor:
+    """[B_img, B_txt] float32 similarity matrix, without a gradient.
+
+    CUDA tensors launch K3 (or raise); CPU tensors run the plain version."""
+    global LAUNCHES
+    bi, bt, d, m, t = _check(img, words, cap_lens, temp1)
+    if _device_kind(img) == "cpu":
+        return gloria_similarity_reference(img, words, cap_lens, temp1, temp2,
+                                           temp3)
+    _check_kernel_shape(d, t)
+    from medmoe_torch.ops import _build
+
+    lib = _build.load("gloria_attention")
+    ctx, words_p, caps = _kernel_inputs(img, words, cap_lens)
+    out = torch.empty((bi, bt), dtype=torch.float32, device=img.device)
+    with torch.cuda.device(img.device):
+        rc = lib.medmoe_gloria_sim(
+            ctx.data_ptr(), words_p.data_ptr(), caps.data_ptr(), bi, bt, m, d, t,
+            float(temp1), float(temp2), float(temp3), out.data_ptr(), _stream())
+    _raise(lib, rc, "gloria_attention (K3)")
+    LAUNCHES += 1
+    return out
+
+
+def _text_chunk(b_img: int, m: int, t: int, b_txt: int) -> int:
+    return max(1, min(b_txt, _PLAIN_BYTES // max(1, b_img * m * t * 4)))
+
+
+def _plain_chain(ctx, wc, caps_c, temp1, temp2):
+    """The forward chain of ``_cell_recompute`` for a chunk of captions:
+    ctx [B, D, M] and wc [c, D, T] float32 holding bf16 values."""
+    t = wc.shape[-1]
+    valid = torch.arange(t, device=wc.device)[None, :] < caps_c[:, None]  # [c, T]
+    scores = torch.einsum("bdm,cdt->cbmt", ctx, wc)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    a1 = torch.softmax(scores, dim=-1)
+    a2 = torch.softmax(a1 * temp1, dim=2)                    # over regions
+    wei = torch.einsum("bdm,cbmt->cbdt", ctx, a2)
+    w32 = wc[:, None]                                        # [c, 1, D, T]
+    num = torch.sum(w32 * wei, dim=2)                        # [c, B, T]
+    nw = torch.sqrt(torch.sum(w32 * w32, dim=2))             # [c, 1, T]
+    nwei = torch.sqrt(torch.sum(wei * wei, dim=2))
+    den_raw = nw * nwei
+    den = torch.clamp(den_raw, min=1e-8)
+    cos = num / den
+    row = torch.where(valid[:, None, :], torch.exp(cos * temp2), 0.0)
+    return dict(a1=a1, a2=a2, wei=wei, w32=w32, num=num, nw=nw, nwei=nwei,
+                den_raw=den_raw, den=den, row=row,
+                rowsum=torch.sum(row, dim=-1, keepdim=True))
+
+
+def _plain_inputs(img, words):
+    bi, d, h, w = img.shape
+    ctx = img.reshape(bi, d, h * w).to(torch.bfloat16).float()
+    return ctx, words.to(torch.bfloat16).float()
+
+
+def gloria_similarity_reference(img: torch.Tensor, words: torch.Tensor,
+                                cap_lens: torch.Tensor, temp1: float = 4.0,
+                                temp2: float = 5.0, temp3: float = 10.0
+                                ) -> torch.Tensor:
+    """Plain PyTorch version of K3, step for step ``_cell_recompute`` and
+    ``_sim_kernel``: inputs rounded to bf16, every product and sum in
+    float32 (products of bf16 values are exact in float32). Runs in chunks
+    of captions so that the card holds it at B=256."""
+    bi, bt, d, m, t = _check(img, words, cap_lens, temp1)
+    ctx, w = _plain_inputs(img, words)
+    caps = cap_lens.long()
+    c = _text_chunk(bi, m, t, bt)
+    sims = []
+    for i0 in range(0, bt, c):
+        cell = _plain_chain(ctx, w[i0:i0 + c], caps[i0:i0 + c], temp1, temp2)
+        sims.append(torch.log(cell["rowsum"][..., 0]) * temp3)   # [c, B]
+    return torch.cat(sims, dim=0).T.contiguous()
+
+
+# --------------------------------------------------------------------------
+# backward
+# --------------------------------------------------------------------------
+
+def gloria_similarity_backward(img: torch.Tensor, words: torch.Tensor,
+                               cap_lens: torch.Tensor, g: torch.Tensor,
+                               temp1: float = 4.0, temp2: float = 5.0,
+                               temp3: float = 10.0, need_img: bool = True,
+                               need_words: bool = True
+                               ) -> Tuple[Optional[torch.Tensor],
+                                          Optional[torch.Tensor]]:
+    """Cotangents (d_img like img_features, d_words like words_emb) of the
+    similarity matrix for its cotangent g [B_img, B_txt]; None for an input
+    not asked for.
+
+    CUDA tensors run the prologue and K4a (d_img), then K4b (d_words), or
+    raise; CPU tensors run the plain version."""
+    global DCTX_LAUNCHES, DWORDS_LAUNCHES
+    bi, bt, d, m, t = _check(img, words, cap_lens, temp1)
+    if not isinstance(g, torch.Tensor) or tuple(g.shape) != (bi, bt) \
+            or g.device != img.device:
+        raise ValueError(f"g must be a [{bi}, {bt}] tensor on {img.device}")
+    if _device_kind(img) == "cpu":
+        return gloria_similarity_bwd_reference(img, words, cap_lens, g, temp1,
+                                               temp2, temp3, need_img,
+                                               need_words)
+    _check_kernel_shape(d, t)
+    from medmoe_torch.ops import _build
+
+    lib_f = _build.load("gloria_attention")
+    lib = _build.load("gloria_attention_bwd")
+    dev = img.device
+    ctx, words_p, caps = _kernel_inputs(img, words, cap_lens)
+    g = g.float().contiguous()
+    shape = (ctx.data_ptr(), words_p.data_ptr(), caps.data_ptr(), bi, bt, m, d,
+             t)
+    dwei = torch.empty((bi * bt, d, MAX_WORDS), dtype=torch.bfloat16,
+                       device=dev)
+    vecs = torch.empty((bi * bt, 4, MAX_WORDS), dtype=torch.float32, device=dev)
+    d_img = d_words = None
+    with torch.cuda.device(dev):
+        rc = lib_f.medmoe_gloria_pair_cotangents(
+            *shape, float(temp1), float(temp2), float(temp3), g.data_ptr(),
+            dwei.data_ptr(), vecs.data_ptr(), _stream())
+        _raise(lib_f, rc, "gloria_attention backward prologue")
+        if need_img:
+            d_ctx = torch.empty((bi, m, d), dtype=torch.float32, device=dev)
+            rc = lib.medmoe_gloria_dctx(*shape, float(temp1), dwei.data_ptr(),
+                                        vecs.data_ptr(), d_ctx.data_ptr(),
+                                        _stream())
+            _raise(lib, rc, "gloria_attention_bwd d_ctx (K4a)")
+            DCTX_LAUNCHES += 1
+            h, w = img.shape[2:]
+            d_img = d_ctx.to(img.dtype).reshape(bi, h, w, d).permute(0, 3, 1, 2)
+        if need_words:
+            n_split = _dwords_split(bi, bt)
+            part = torch.empty((n_split, bt, d, MAX_WORDS), dtype=torch.float32,
+                               device=dev)
+            c2part = torch.empty((n_split, bt, MAX_WORDS), dtype=torch.float32,
+                                 device=dev)
+            dw = torch.empty((bt, d, t), dtype=torch.float32, device=dev)
+            rc = lib.medmoe_gloria_dwords(
+                *shape, float(temp1), dwei.data_ptr(), vecs.data_ptr(),
+                part.data_ptr(), c2part.data_ptr(), n_split, dw.data_ptr(),
+                _stream())
+            _raise(lib, rc, "gloria_attention_bwd d_words (K4b)")
+            DWORDS_LAUNCHES += 1
+            d_words = dw.to(words.dtype)
+    return d_img, d_words
+
+
+def gloria_similarity_bwd_reference(img: torch.Tensor, words: torch.Tensor,
+                                    cap_lens: torch.Tensor, g: torch.Tensor,
+                                    temp1: float = 4.0, temp2: float = 5.0,
+                                    temp3: float = 10.0, need_img: bool = True,
+                                    need_words: bool = True
+                                    ) -> Tuple[Optional[torch.Tensor],
+                                               Optional[torch.Tensor]]:
+    """Plain PyTorch version of the backward, step for step
+    ``_cell_cotangents``, ``_dctx_kernel`` and ``_dwords_kernel``: the
+    forward chain recomputed, ``den_mask = den_raw > 1e-8``, the
+    ``max(·, 1e-20)`` clamps, bf16 d_wei, a2 and d_scores into the
+    cotangent products (float32 sums), d_img and d_words cast back to the
+    inputs' dtypes. Runs in chunks of captions."""
+    bi, bt, d, m, t = _check(img, words, cap_lens, temp1)
+    ctx, w = _plain_inputs(img, words)
+    caps = cap_lens.long()
+    g = g.float()
+    bf = torch.bfloat16
+    d_ctx = torch.zeros_like(ctx) if need_img else None
+    d_w = []
+    c = _text_chunk(bi, m, t, bt)
+    for i0 in range(0, bt, c):
+        wc = w[i0:i0 + c]
+        cell = _plain_chain(ctx, wc, caps[i0:i0 + c], temp1, temp2)
+        g_c = g[:, i0:i0 + c].T[..., None]                      # [c, B, 1]
+        dcos = g_c * (temp2 * temp3) * cell["row"] / cell["rowsum"]
+        den_mask = (cell["den_raw"] > 1e-8).float()
+        den = cell["den"]
+        dnum = dcos / den
+        dden = -dcos * cell["num"] / (den * den) * den_mask
+        dnwei = dden * cell["nw"]
+        dnw = dden * cell["nwei"]
+        d_wei = dnum[:, :, None] * cell["w32"] \
+            + (dnwei / torch.clamp(cell["nwei"], min=1e-20))[:, :, None] \
+            * cell["wei"]                                       # [c, B, D, T]
+        dw_bf = d_wei.to(bf).float()
+        d_a2 = torch.einsum("bdm,cbdt->cbmt", ctx, dw_bf)
+        a2 = cell["a2"]
+        d_z = a2 * (d_a2 - torch.sum(a2 * d_a2, dim=2, keepdim=True))
+        d_a1 = temp1 * d_z
+        a1 = cell["a1"]
+        t_sum = torch.sum(a1 * d_a1, dim=-1, keepdim=True)
+        ds_bf = (a1 * (d_a1 - t_sum)).to(bf).float()           # d_scores
+        if need_img:
+            d_ctx += torch.einsum("cbdt,cbmt->bdm", dw_bf, a2.to(bf).float())
+            d_ctx += torch.einsum("cdt,cbmt->bdm", wc, ds_bf)
+        if need_words:
+            dwc = torch.sum(dnum[:, :, None] * cell["wei"], dim=1) \
+                + torch.sum((dnw / torch.clamp(cell["nw"], min=1e-20))[:, :, None]
+                            * cell["w32"], dim=1) \
+                + torch.einsum("bdm,cbmt->cdt", ctx, ds_bf)
+            d_w.append(dwc)
+        del cell, d_a2, d_z, d_a1, ds_bf, dw_bf, d_wei
+    d_img = d_ctx.reshape(img.shape).to(img.dtype) if need_img else None
+    d_words = torch.cat(d_w).to(words.dtype) if need_words else None
+    return d_img, d_words
+
+
+class GloriaSimilarity(torch.autograd.Function):
+    """``GloriaSimilarity.apply(img_features, words_emb, cap_lens, temp1,
+    temp2, temp3)`` → [B_img, B_txt] float32, with its gradient.
+
+    CUDA: forward is K3; backward is the prologue and K4a, then K4b only
+    when ``words_emb`` needs a gradient (with BERT frozen and no text
+    projection it feeds nothing, and it would cost as much as K3). CPU:
+    the plain versions, which skip d_words under the same condition. Only
+    the inputs are saved: the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, img, words, cap_lens, temp1, temp2, temp3):
+        ctx.save_for_backward(img, words, cap_lens)
+        ctx.temps = (temp1, temp2, temp3)
+        return gloria_similarity_forward(img, words, cap_lens, temp1, temp2,
+                                         temp3)
+
+    @staticmethod
+    def backward(ctx, g):
+        img, words, cap_lens = ctx.saved_tensors
+        d_img, d_words = gloria_similarity_backward(
+            img, words, cap_lens, g, *ctx.temps,
+            need_img=ctx.needs_input_grad[0],
+            need_words=ctx.needs_input_grad[1])
+        return d_img, d_words, None, None, None, None
+
+
+def gloria_similarity(img_features: torch.Tensor, words_emb: torch.Tensor,
+                      cap_lens: torch.Tensor, temp1: float = 4.0,
+                      temp2: float = 5.0, temp3: float = 10.0) -> torch.Tensor:
+    """[B_img, B_txt] float32 GLoRIA similarity matrix of img_features
+    [B_img, D, H, W] and words_emb [B_txt, D, T] (caption i's word t valid
+    iff t < cap_lens[i]), differentiable in both; the JAX package's
+    ``gloria_similarity_pallas``."""
+    return GloriaSimilarity.apply(img_features, words_emb, cap_lens,
+                                  float(temp1), float(temp2), float(temp3))

@@ -7,9 +7,11 @@ valid iff t < cap_lens[i]. Products take the loss dtype's values and sum
 in float32 (inputs are upcast), as the JAX einsums' preferred_element_type
 does.
 
-The fused GLoRIA similarity kernels (K3, K4a/K4b) are not ported yet:
-``GLORIALocalContrastiveLoss(impl="pallas")`` raises, and ``"auto"`` takes
-the einsum path, as the JAX package does on every platform but the TPU.
+``GLORIALocalContrastiveLoss`` also takes the fused GLoRIA similarity
+(``ops/gloria_attention.py``: kernels K3, K4a and K4b on CUDA tensors,
+their plain versions on CPU tensors), with the JAX package's dispatch:
+``impl="auto"`` takes it for CUDA tensors, ``agg="sum"`` and a batch above
+64, and the einsum path otherwise.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from medmoe_torch.models.layers import safe_norm
+from medmoe_torch.ops.gloria_attention import gloria_similarity
 from medmoe_torch.ops.softmax import softmax_bf16_residual
 
 NEG_INF = -1e30
@@ -191,9 +194,18 @@ class ZEROGlobalContrastiveLoss:
 
 
 class GLORIALocalContrastiveLoss:
-    """impl="auto" or "xla": the batched einsum path (``gloria_local_loss``).
-    impl="pallas" asks for the fused similarity kernels, which are not
-    ported yet."""
+    """The local loss by one of two functions (the names are the JAX
+    config's):
+
+    - ``impl="xla"``: the batched einsum path, ``gloria_local_loss``;
+    - ``impl="pallas"``: the fused similarity ``gloria_similarity`` — the
+      kernels K3/K4 on CUDA tensors, their plain versions on CPU tensors —
+      then the symmetric cross entropy. Like the JAX kernel it computes
+      ``agg="sum"`` whatever ``agg`` says;
+    - ``impl="auto"`` (default): the JAX package's ``_resolve_impl`` with
+      "on the TPU" read as "the tensors are on CUDA": the fused path for
+      CUDA tensors, ``agg="sum"`` and a batch above 64, the einsum path
+      otherwise."""
 
     def __init__(self, text_chunk: Any = "auto", impl: str = "auto"):
         if impl not in ("auto", "xla", "pallas"):
@@ -201,13 +213,22 @@ class GLORIALocalContrastiveLoss:
         self.text_chunk = text_chunk
         self.impl = impl
 
+    def resolve_impl(self, agg: str, img_features: torch.Tensor) -> str:
+        if self.impl != "auto":
+            return self.impl
+        fused = img_features.is_cuda and agg == "sum" \
+            and img_features.shape[0] > 64
+        return "pallas" if fused else "xla"
+
     def __call__(self, img_features, words_emb, cap_lens, temp1=4.0,
                  temp2=5.0, temp3=10.0, agg="sum", scores=None,
                  thresholds=None):
-        if self.impl == "pallas":
-            raise NotImplementedError(
-                "the fused GLoRIA similarity kernels (K3, K4a/K4b in "
-                "ROADMAP.md Queue 2) are not ported yet; use impl='auto'")
+        if self.resolve_impl(agg, img_features) == "pallas":
+            similarities = gloria_similarity(img_features, words_emb,
+                                             cap_lens, temp1, temp2, temp3)
+            return GloriaLocalOutput(
+                loss0=_cross_entropy_diag(similarities),
+                loss1=_cross_entropy_diag(similarities.T))
         return gloria_local_loss(img_features, words_emb, cap_lens, temp1,
                                  temp2, temp3, agg,
                                  text_chunk=self.text_chunk)

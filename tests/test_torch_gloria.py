@@ -1,0 +1,208 @@
+"""The port's fused GLoRIA similarity (medmoe_torch/ops/gloria_attention.py)
+against the JAX package's ``gloria_similarity_pallas``, whose Pallas
+kernels run in interpret mode on the CPU (as tests/test_pallas.py runs
+them). On CPU tensors the port runs its plain versions of K3/K4, so these
+tests hold that arithmetic; tests/test_torch_kernels_cuda.py holds the
+kernels against it on the card.
+
+Tolerances. Forward: rtol 1e-4 — both sides round the inputs to bf16 and
+take every product and sum in f32 (a bf16·bf16 product is exact in f32),
+so only f32 summation order differs. Backward: 2e-3·max|ref| per output —
+the cotangent products take bf16(d_wei), bf16(a2) and bf16(d_scores) on
+both sides, and an f32 difference of one ulp can put a value on the other
+side of a bf16 rounding boundary, a change of 2^-8 relative in one term.
+"""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from medmoe_tpu.ops import losses as JL
+from medmoe_tpu.ops.pallas.gloria_attention import gloria_similarity_pallas
+from medmoe_torch.ops import gloria_attention as ga
+from medmoe_torch.ops import losses as TL
+
+torch.set_num_threads(1)
+
+# (b_img, b_txt, d, h, w, t): the JAX package's own kernel test shape, and a
+# rectangular case with more than one of the TPU kernel's text blocks
+SHAPES = [(4, 4, 128, 8, 8, 25), (8, 16, 32, 4, 4, 9)]
+TEMPS = (4.0, 5.0, 10.0)
+
+
+def _inputs(b_img, b_txt, d, h, w, t, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b_img, d, h, w).astype(np.float32),
+            rng.randn(b_txt, d, t).astype(np.float32),
+            rng.randint(3, t + 1, size=b_txt).astype(np.int32),
+            rng.randn(b_img, b_txt).astype(np.float32))
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.fixture(scope="module", params=SHAPES, ids=["square", "rectangular"])
+def case(request):
+    img, words, cap, wgt = _inputs(*request.param)
+
+    def loss(i, w_):
+        return jnp.sum(jnp.asarray(wgt) * gloria_similarity_pallas(
+            i, w_, jnp.asarray(cap), *TEMPS))
+
+    with pltpu.force_tpu_interpret_mode():
+        sim = gloria_similarity_pallas(jnp.asarray(img), jnp.asarray(words),
+                                       jnp.asarray(cap), *TEMPS)
+        grads = jax.grad(loss, argnums=(0, 1))(jnp.asarray(img),
+                                               jnp.asarray(words))
+    return (img, words, cap, wgt, np.asarray(sim),
+            [np.asarray(g) for g in grads])
+
+
+def _close(got, want, scale):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=scale * np.abs(want).max())
+
+
+class TestAgainstJax:
+    def test_forward(self, case):
+        img, words, cap, _, sim, _ = case
+        before = ga.LAUNCHES
+        out = ga.gloria_similarity_forward(*_torch(img, words, cap), *TEMPS)
+        assert ga.LAUNCHES == before                     # CPU: no kernel
+        assert out.dtype == torch.float32 and out.shape == sim.shape
+        np.testing.assert_allclose(out.numpy(), sim, rtol=1e-4, atol=1e-5)
+
+    def test_backward(self, case):
+        img, words, cap, wgt, _, (g_img, g_words) = case
+        d_img, d_words = ga.gloria_similarity_bwd_reference(
+            *_torch(img, words, cap, wgt), *TEMPS)
+        assert d_img.shape == img.shape and d_words.shape == words.shape
+        _close(d_img, g_img, 2e-3)
+        _close(d_words, g_words, 2e-3)
+
+    def test_autograd_function(self, case):
+        img, words, cap, wgt, sim, (g_img, g_words) = case
+        i, w = (torch.from_numpy(a).requires_grad_() for a in (img, words))
+        out = ga.gloria_similarity(i, w, torch.from_numpy(cap), *TEMPS)
+        (out * torch.from_numpy(wgt)).sum().backward()
+        np.testing.assert_allclose(out.detach().numpy(), sim, rtol=1e-4,
+                                   atol=1e-5)
+        _close(i.grad, g_img, 2e-3)
+        _close(w.grad, g_words, 2e-3)
+
+    def test_loss_class_pallas_matches_jax(self, case):
+        img, words, cap = case[:3]
+        b = min(img.shape[0], words.shape[0])
+        args = (img[:b], words[:b], cap[:b])
+        with pltpu.force_tpu_interpret_mode():
+            want = JL.GLORIALocalContrastiveLoss(impl="pallas")(
+                *map(jnp.asarray, args))
+        got = TL.GLORIALocalContrastiveLoss(impl="pallas")(*_torch(*args))
+        np.testing.assert_allclose(
+            [got.loss0.item(), got.loss1.item()],
+            [float(want.loss0), float(want.loss1)], rtol=1e-4)
+
+
+class TestFunction:
+    def test_frozen_words_skip_d_words(self):
+        img, words, cap, wgt = _inputs(3, 3, 32, 4, 4, 9, seed=1)
+        grads = []
+        for words_grad in (True, False):
+            i = torch.from_numpy(img).requires_grad_()
+            w = torch.from_numpy(words).requires_grad_(words_grad)
+            out = ga.gloria_similarity(i, w, torch.from_numpy(cap), *TEMPS)
+            (out * torch.from_numpy(wgt)).sum().backward()
+            assert (w.grad is None) == (not words_grad)
+            grads.append(i.grad)
+        torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=0)
+
+    def test_bf16_inputs_keep_their_dtype(self):
+        img, words, cap, wgt = _inputs(2, 3, 32, 4, 4, 9, seed=2)
+        i, w = (torch.from_numpy(a).to(torch.bfloat16) for a in (img, words))
+        d_img, d_words = ga.gloria_similarity_backward(
+            i, w, torch.from_numpy(cap), torch.from_numpy(wgt), *TEMPS)
+        assert d_img.dtype == d_words.dtype == torch.bfloat16
+        # the function of bf16 inputs is the function of their f32 values
+        want = ga.gloria_similarity_bwd_reference(
+            i.float(), w.float(), torch.from_numpy(cap),
+            torch.from_numpy(wgt), *TEMPS)
+        for a, b in zip((d_img, d_words), want):
+            torch.testing.assert_close(a, b.to(torch.bfloat16), rtol=0,
+                                       atol=0)
+
+    def test_chunks_do_not_change_the_result(self, monkeypatch):
+        img, words, cap, wgt = _inputs(3, 5, 32, 4, 4, 9, seed=3)
+        args = _torch(img, words, cap, wgt)
+        whole = ga.gloria_similarity_bwd_reference(*args, *TEMPS)
+        sim = ga.gloria_similarity_reference(*args[:3], *TEMPS)
+        monkeypatch.setattr(ga, "_PLAIN_BYTES", 1)        # one caption a chunk
+        torch.testing.assert_close(
+            ga.gloria_similarity_reference(*args[:3], *TEMPS), sim)
+        # chunks change only the f32 order of d_ctx's sum over captions
+        for a, b in zip(ga.gloria_similarity_bwd_reference(*args, *TEMPS),
+                        whole):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-5 * b.abs().max().item())
+
+    def test_local_map_layout_is_read_without_a_copy(self):
+        fused = torch.randn(2, 16, 32).to(torch.bfloat16)    # [B, P, E]
+        img = fused.permute(0, 2, 1).reshape(2, 32, 4, 4)    # as models/moe.py
+        ctx, words_p, caps = ga._kernel_inputs(
+            img, torch.randn(3, 32, 9), torch.tensor([3, 9, 5]))
+        assert ctx.data_ptr() == fused.data_ptr() and ctx.shape == (2, 16, 32)
+        assert words_p.shape == (3, 32, ga.MAX_WORDS)
+        assert torch.count_nonzero(words_p[..., 9:]) == 0
+        assert caps.dtype == torch.int32
+
+    @pytest.mark.parametrize("bad", [
+        dict(words=(2, 16, 9)),              # D differs
+        dict(cap=(3,)),                      # one length per caption
+        dict(img_dtype=torch.int32),
+        dict(temp1=100.0),
+        dict(img=(2, 32, 4)),
+    ])
+    def test_shape_checks_raise(self, bad):
+        img = torch.randn(*bad.get("img", (2, 32, 4, 4))).to(
+            bad.get("img_dtype", torch.float32))
+        words = torch.randn(*bad.get("words", (2, 32, 9)))
+        cap = torch.full(bad.get("cap", (2,)), 5, dtype=torch.int32)
+        with pytest.raises((ValueError, TypeError)):
+            ga.gloria_similarity_forward(img, words, cap,
+                                         bad.get("temp1", 4.0))
+
+    def test_scratch_bytes_at_b256(self):
+        # bf16(d_wei) and 4 per-word vectors per pair, and K4b's partial
+        # sums over 4 shares of the images
+        assert ga.backward_scratch_bytes(256, 256, 768) == \
+            256 * 256 * (768 * 32 * 2 + 4 * 32 * 4) + 4 * 256 * 769 * 32 * 4
+
+
+class TestDispatch:
+    def test_auto_takes_the_einsum_path_on_the_cpu(self):
+        img, words, cap, _ = _inputs(4, 4, 16, 3, 3, 6, seed=4)
+        args = _torch(img, words, cap)
+        loss = TL.GLORIALocalContrastiveLoss()
+        assert loss.resolve_impl("sum", args[0]) == "xla"
+        got = loss(*args)
+        want = TL.gloria_local_loss(*args)
+        assert got.loss0.item() == want.loss0.item()
+        assert got.loss1.item() == want.loss1.item()
+
+    @pytest.mark.parametrize("impl,agg,batch,want", [
+        ("auto", "sum", 128, "pallas"),
+        ("auto", "sum", 64, "xla"),          # the JAX threshold: above 64
+        ("auto", "mean", 128, "xla"),        # the kernels compute agg=sum
+        ("pallas", "mean", 4, "pallas"),
+        ("xla", "sum", 256, "xla"),
+    ])
+    def test_resolve_impl_on_cuda_tensors(self, impl, agg, batch, want):
+        fake = types.SimpleNamespace(is_cuda=True, shape=(batch, 8, 4, 4))
+        assert TL.GLORIALocalContrastiveLoss(impl=impl).resolve_impl(
+            agg, fake) == want

@@ -16,12 +16,24 @@ within f32 summation error of zero can differ between two summation
 orders, and each such flip moves a whole gradient term. Since such flips
 are rare, K2 must also keep all but 1% of each output's elements within
 2e-3·max|ref|.
+
+The GLoRIA kernels (K3, K4a, K4b) against their plain versions: K3 within
+1e-3·max|ref| (the same bf16 inputs, f32 sums in another order, and the
+softmax over regions offset by max(temp1, 0) instead of its maximum); K4a
+and K4b every element within 1e-2·max|ref| and at most 1% of the elements
+beyond 2e-3·max|ref| — bf16(a2), bf16(d_wei) and bf16(d_scores) feed the
+cotangent products, and a value that lands on the other side of a bf16
+rounding boundary moves its term by one bf16 step. Worst measured on the
+H100 at B=256 flagship and on the odd shapes: K3 2.4e-7·max|ref|; d_img
+3.2e-3·max|ref| and d_words 3.6e-3·max|ref|, with at most 4.6e-4 of the
+elements beyond 2e-3·max|ref|.
 """
 
 import pytest
 import torch
 
 from medmoe_torch.ops import expert_fusion as ef
+from medmoe_torch.ops import gloria_attention as ga
 
 LOOSE = dict(rtol=2e-2, atol=2e-3)
 
@@ -162,3 +174,91 @@ class TestExpertFusionBackwardKernel:
                 continue
             err = (a.float() - w.float()).abs().max() / w.abs().max().clamp(min=1e-6)
             assert err < 5e-2, f"input {i}: rel err {err}"
+
+
+def _gloria_inputs(dev, b_img, b_txt, d, h, w, t, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    img = torch.randn((b_img, d, h, w), generator=g, device=dev)
+    words = torch.randn((b_txt, d, t), generator=g, device=dev)
+    cap = torch.randint(3, t + 1, (b_txt,), generator=g, device=dev)
+    cot = torch.randn((b_img, b_txt), generator=g, device=dev)
+    return img.to(torch.bfloat16), words.to(torch.bfloat16), cap, cot
+
+
+def _gloria_close(got, want):
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-2 * scale)
+    share = ((got - want).abs() > 2e-3 * scale).float().mean().item()
+    assert share <= 0.01, f"{share:.2%} beyond 2e-3*max|ref|"
+
+
+GLORIA_SHAPES = [
+    (3, 5, 48, 5, 7, 9),        # B_img != B_txt, odd M, D % 64 != 0, T = 9
+    (4, 3, 80, 9, 9, 32),       # T at its limit, M = 81
+    (2, 2, 768, 56, 56, 25),    # flagship widths
+]
+
+
+@pytest.mark.cuda
+class TestGloriaKernels:
+    @pytest.mark.parametrize("shape", GLORIA_SHAPES)
+    def test_forward_matches_plain_version(self, dev, shape):
+        img, words, cap, _ = _gloria_inputs(dev, *shape)
+        before = ga.LAUNCHES
+        out = ga.gloria_similarity_forward(img, words, cap)
+        torch.cuda.synchronize()
+        assert ga.LAUNCHES == before + 1
+        ref = ga.gloria_similarity_reference(img, words, cap)
+        assert torch.isfinite(out).all() and out.shape == ref.shape
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=1e-3 * ref.abs().max().item())
+
+    @pytest.mark.parametrize("shape", GLORIA_SHAPES)
+    def test_backward_matches_plain_version(self, dev, shape):
+        img, words, cap, cot = _gloria_inputs(dev, *shape, seed=1)
+        before = (ga.DCTX_LAUNCHES, ga.DWORDS_LAUNCHES)
+        d_img, d_words = ga.gloria_similarity_backward(img, words, cap, cot)
+        torch.cuda.synchronize()
+        assert (ga.DCTX_LAUNCHES, ga.DWORDS_LAUNCHES) == (before[0] + 1,
+                                                          before[1] + 1)
+        ref_img, ref_words = ga.gloria_similarity_bwd_reference(
+            img, words, cap, cot)
+        assert d_img.shape == img.shape and d_words.shape == words.shape
+        assert d_img.dtype == d_words.dtype == torch.bfloat16
+        for a, b in ((d_img, ref_img), (d_words, ref_words)):
+            assert torch.isfinite(a).all()
+            _gloria_close(a, b)
+
+    @pytest.mark.parametrize("bad", [
+        dict(t=33), dict(d=40), dict(d=784), dict(temp1=81.0)])
+    def test_wrapper_raises_on_what_the_kernels_do_not_take(self, dev, bad):
+        img, words, cap, cot = _gloria_inputs(dev, 2, 2, bad.get("d", 32), 4,
+                                              4, bad.get("t", 9))
+        temp1 = bad.get("temp1", 4.0)
+        with pytest.raises(ValueError):
+            ga.gloria_similarity_forward(img, words, cap, temp1)
+        with pytest.raises(ValueError):
+            ga.gloria_similarity_backward(img, words, cap, cot, temp1)
+
+    def test_wrapper_raises_on_mixed_devices_and_dtypes(self, dev):
+        img, words, cap, _ = _gloria_inputs(dev, 2, 2, 32, 4, 4, 9)
+        with pytest.raises(ValueError):
+            ga.gloria_similarity_forward(img, words.cpu(), cap)
+        with pytest.raises(TypeError):
+            ga.gloria_similarity_forward(img, words, cap.float())
+
+    @pytest.mark.parametrize("words_grad", [False, True])
+    def test_function_counts_its_launches(self, dev, words_grad):
+        img, words, cap, cot = _gloria_inputs(dev, 3, 3, 32, 4, 4, 9, seed=2)
+        i = img.clone().requires_grad_()
+        w = words.clone().requires_grad_(words_grad)
+        before = (ga.LAUNCHES, ga.DCTX_LAUNCHES, ga.DWORDS_LAUNCHES)
+        out = ga.gloria_similarity(i, w, cap)
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        assert (ga.LAUNCHES, ga.DCTX_LAUNCHES, ga.DWORDS_LAUNCHES) == (
+            before[0] + 1, before[1] + 1, before[2] + int(words_grad))
+        assert (w.grad is not None) == words_grad
+        ref_img, _ = ga.gloria_similarity_bwd_reference(img, words, cap, cot)
+        _gloria_close(i.grad, ref_img)

@@ -20,6 +20,7 @@ from medmoe_tpu.ops import losses as JL
 from medmoe_tpu.ops import softmax as JS
 from medmoe_torch.ops import losses as TL
 from medmoe_torch.ops import softmax as TS
+from medmoe_torch.ops.gloria_attention import gloria_similarity_reference
 
 torch.set_num_threads(1)
 
@@ -108,8 +109,15 @@ class TestGloriaLocal:
         out = TL.GLORIALocalContrastiveLoss()(*args)
         want = TL.gloria_local_loss(*args)
         assert out.loss0.item() == want.loss0.item()
-        with pytest.raises(NotImplementedError, match="K3"):
-            TL.GLORIALocalContrastiveLoss(impl="pallas")(*args)
+        # impl="pallas" is the fused similarity (its plain version on the
+        # CPU) and its symmetric cross entropy; tests/test_torch_gloria.py
+        # holds it against the JAX kernel
+        fused = TL.GLORIALocalContrastiveLoss(impl="pallas")(*args)
+        sims = gloria_similarity_reference(*args)
+        assert fused.loss0.item() == TL._cross_entropy_diag(sims).item()
+        assert fused.loss1.item() == TL._cross_entropy_diag(sims.T).item()
+        with pytest.raises(ValueError, match="impl"):
+            TL.GLORIALocalContrastiveLoss(impl="triton")
         zero = TL.ZEROLocalContrastiveLoss()(*args)
         assert zero.loss0.item() == 0.0 and zero.loss1.item() == 0.0
 
