@@ -29,9 +29,11 @@
   7. K3, K4a and K4b, the GLoRIA similarity and its backward: hold the
      kernels against their plain versions at B=256 flagship shapes (bf16
      ctx in the local map's own layout, caption lengths from a seed in
-     [3, 25], a seeded cotangent) and on small odd shapes, time both,
-     print the bounds and the backward's scratch, and time the fused local
-     loss against the einsum path at B=32;
+     [3, 25], a seeded cotangent) and on small odd shapes, one of them with
+     captions of 40 words (two word tiles), time both (the backward's
+     prologue alone, K4a alone and the two together), print the bounds,
+     the backward's scratch and K4a's image chunk, and time the fused
+     local loss against the einsum path at B=32;
   8. training at one batch of 256 a step: experiment=gloria256 with
      synthetic data at full width, 2 optimizer steps and one validation
      batch; checks the loss and grad norm, that K3 ran once per forward,
@@ -312,8 +314,8 @@ def profile_wave(torch, embed, images, wave_ms: float):
 K1_KERNELS = ("proj_kernel", "attn_kernel")
 K2_KERNELS = ("bwd_row_kernel", "bwd_proj_kernel", "bwd_wgrad_kernel",
               "bwd_reduce_kernel")
-GLORIA_KERNELS = ("void pair_kernel", "dctx_kernel", "dwords_kernel",
-                  "dwords_reduce_kernel")
+GLORIA_KERNELS = ("void pair_kernel", "void dctx_z_kernel", "dctx_gemm_kernel",
+                  "void dwords_kernel", "dwords_reduce_kernel")
 
 
 def profile_device(torch, fn, wall_ms: float, label: str):
@@ -814,16 +816,19 @@ def gloria_err(torch, got, want, name, gate):
     return err
 
 
-def phase_gloria(torch, ga, card: str):
+def phase_gloria(torch, ga, card: str, words: int = 25):
     """K3, K4a and K4b against their plain versions at B=256 flagship
-    shapes and on small odd shapes; times of each and of the plain
-    versions; K3+K4a against the einsum path at B=32."""
+    shapes (captions of ``words`` words) and on small odd shapes; times of
+    each and of the plain versions; K3+K4a against the einsum path at
+    B=32."""
     temps = (4.0, 5.0, 10.0)
     results = {}
     cases = [
-        ("flagship B=256", (GLORIA_BATCH, GLORIA_BATCH, 768, 56, 56, 25)),
+        (f"flagship B=256 T={words}",
+         (GLORIA_BATCH, GLORIA_BATCH, 768, 56, 56, words)),
         ("odd 3x5 D=48 7x5 T=9", (3, 5, 48, 7, 5, 9)),
         ("odd 4x3 D=80 9x9 T=32", (4, 3, 80, 9, 9, 32)),
+        ("odd 3x5 D=48 7x5 T=40", (3, 5, 48, 7, 5, 40)),
     ]
     for name, shape in cases:
         img, words, cap, cot = gloria_inputs(torch, *shape, seed=21)
@@ -845,10 +850,13 @@ def phase_gloria(torch, ga, card: str):
         torch.cuda.empty_cache()
         if results:
             continue
-        scratch = ga.backward_scratch_bytes(b_img, b_txt, d)
+        h, w, t = shape[3:]
+        scratch = ga.backward_scratch_bytes(b_img, b_txt, d, t)
+        chunk, z_bytes = ga.dctx_chunk(b_img, b_txt, h * w, t)
         print(f"K4 {name}: backward scratch {scratch / 1e9:.3f} GB (bf16 "
-              f"d_wei and per-word vectors per pair, K4b partial sums)",
-              flush=True)
+              f"d_wei and per-word vectors per pair, K4b partial sums); "
+              f"K4a's Z [a2 | d_scores] {z_bytes / 1e9:.3f} GB for a chunk "
+              f"of {chunk} images", flush=True)
 
         def fwd():
             ga.gloria_similarity_forward(img, words, cap, *temps)
@@ -862,6 +870,13 @@ def phase_gloria(torch, ga, card: str):
         ms3 = cuda_ms(fwd, iters=3, warmup=1)
         plain3 = cuda_ms(lambda: ga.gloria_similarity_reference(
             img, words, cap, *temps), iters=1, warmup=0)
+        # the prologue alone, K4a alone (both passes, from one prologue's
+        # scratch) and the two together (K4a's kernel_ms, which has always
+        # included the prologue)
+        ms_pro = cuda_ms(bwd(False, False), iters=2, warmup=1)
+        pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
+        ms_k4a = cuda_ms(lambda: ga.dctx_of(pairs), iters=3, warmup=1)
+        del pairs
         ms4a = cuda_ms(bwd(True, False), iters=2, warmup=1)
         plain4a = cuda_ms(bwd(True, False, True), iters=1, warmup=0)
         ms4b = cuda_ms(bwd(False, True), iters=2, warmup=1)
@@ -878,8 +893,13 @@ def phase_gloria(torch, ga, card: str):
             print(f"{key} {name}: kernel_ms {ms:.4f} plain_ms {plain:.4f} "
                   f"bound_ms {bound:.4f} ({by}: {products} products, "
                   f"{gflop:.1f} GFLOP, {mb:.1f} MB) on {card}", flush=True)
-        print("K4a and K4b times each include the backward's prologue (the "
-              "forward chain and the cotangents down to d_wei per pair)",
+        results["K4a"].update(k4a_only_ms=ms_k4a, prologue_ms=ms_pro)
+        print(f"K4a {name}: the backward's prologue alone {ms_pro:.4f} ms, "
+              f"K4a alone (both passes) {ms_k4a:.4f} ms, prologue + K4a "
+              f"{ms4a:.4f} ms; bound {results['K4a']['bound_ms']:.4f} ms "
+              f"on {card}", flush=True)
+        print("K4a's and K4b's kernel_ms each include the backward's prologue "
+              "(the forward chain and the cotangents down to d_wei per pair)",
               flush=True)
         del img, words, cap, cot
         torch.cuda.empty_cache()
@@ -1059,11 +1079,12 @@ def main() -> int:
           f"launches {text}", flush=True)
 
     def row(name, source, replaces, launches, r):
+        extra = {k: r[k] for k in ("k4a_only_ms", "prologue_ms") if k in r}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": None}
+                "bound_by": r["bound_by"], "library_ms": None, **extra}
 
     gsrc = "medmoe_torch/csrc/gloria_attention"
     gtpu = "medmoe_tpu/ops/pallas/gloria_attention.py"

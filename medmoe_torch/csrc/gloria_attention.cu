@@ -39,8 +39,13 @@
 // bf16(d_wei) and four per-word vectors for K4a/K4b
 // (csrc/gloria_attention_bwd.cu).
 //
-// Shapes the kernels take (the wrapper checks them): T <= 32, D % 16 == 0,
-// D <= 768.
+// Captions of T > 32 words run in word tiles of 32 (csrc/gloria_common.cuh):
+// the block walks the tiles and recomputes every tile's scores for the
+// softmax over words, for correctness at GLoRIA's own caption lengths, not
+// for speed. T <= 32 runs the single-tile code above.
+//
+// Shapes the kernels take (the wrapper checks them): T <= 128, D % 16 == 0,
+// D <= 768, |temp1| <= 80.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (medmoe_torch/ops/_build.py).
@@ -61,12 +66,21 @@ static int pair_smem_bytes(int D) {
   return r0 + r1 + r2 + r3;
 }
 
-template <bool kBwd>
+// kMulti: T > 32. The block then walks the word tiles wt in order; for each
+// it runs the M loop, forming at every M tile the scores of all word tiles
+// (each tile's words reloaded from L2) for the rows' softmax over all T,
+// and accumulating e and wei for tile wt's words only. Σ_t row spans all
+// tiles, so the backward first sweeps every tile for it and then sweeps
+// again to write d_wei. With kMulti false (T <= 32) nt is 1 and the code is
+// the single-tile kernel.
+template <bool kBwd, bool kMulti>
 __global__ void __launch_bounds__(THREADS, 1)
 pair_kernel(GloriaArgs a, float* __restrict__ sim, const float* __restrict__ g,
             bf16* __restrict__ dwei, float* __restrict__ vecs) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = a.D, M = a.M, T = a.T;
+  const int nt = kMulti ? a.NT : 1;
+  const int tpad = kMulti ? a.TPAD : TP;
   const int cld = D + 8;
   const int tb = tile_bytes(D);
   bf16* cbuf[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem + tb)};
@@ -85,176 +99,213 @@ pair_kernel(GloriaArgs a, float* __restrict__ sim, const float* __restrict__ g,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cap = a.cap[i];
   const bf16* ctx = a.ctx + (size_t)b * M * D;
+  const bf16* words = a.words + (size_t)i * D * tpad;
+  const size_t pair = (size_t)b * a.Bt + i;
   const int n_df = D / 16;
   const int tf = warp & 1;  // this warp's column fragment of wei
   const int n_tiles = (M + MT - 1) / MT;
-
-  load_dt(ws, a.words + (size_t)i * D * TP, D);
-  load_ctx_tile(cbuf[0], ctx, 0, MT, M, D);
-  cp_async_commit();
-
-  Acc acc[N_ACC];
-#pragma unroll
-  for (int j = 0; j < N_ACC; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  // the row step: 8 threads a row, words 4q..4q+3 in this thread
+  // the row step: 8 threads a row, words 4q..4q+3 of a word tile in this thread
   const int row = tid >> 3, q = tid & 7;
-  float colsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // Σ e over this thread's rows
+  float rowsum = 0.0f;  // Σ_t row over the word tiles swept so far (warp 0)
+  const int sweeps = kBwd && kMulti ? 2 : 1;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int m0 = t * MT;
-    const bf16* cs = cbuf[t & 1];
-    if (t + 1 < n_tiles) {  // the next tile, into the buffer freed at the end of t - 1
-      load_ctx_tile(cbuf[(t + 1) & 1], ctx, m0 + MT, MT, M, D);
+  for (int sweep = 0; sweep < sweeps; ++sweep) {
+    const bool write = kBwd && sweep == sweeps - 1;
+    for (int wt = 0; wt < nt; ++wt) {
+      const int t0 = wt * TP;  // this word tile's first word
+      if (!kMulti) load_dt(ws, words, D);
+      load_ctx_tile(cbuf[0], ctx, 0, MT, M, D);
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    // scores [MT, TP]: each warp sums an eighth of the steps of D
-    tile_times_dt(cs, ws, D, warp, NWARPS, sc);
-    __syncthreads();
-    // a1, then e = exp(temp1·a1 - e_off) split into bf16 hi + lo
-    {
-      float v[4], a1[4];
-      sum_parts(sc, NWARPS, row, q, v);
-      word_softmax4(v, q, cap, T, a1);
+
+      Acc acc[N_ACC];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int wt = 4 * q + j;
-        const float e = (m0 + row < M && wt < T) ? expf(a.temp1 * a1[j] - a.e_off) : 0.0f;
-        const bf16 hi = __float2bfloat16_rn(e);
-        eh[row * WLD + wt] = hi;
-        el[row * WLD + wt] = __float2bfloat16_rn(e - __bfloat162float(hi));
-        colsum[j] += e;
-      }
-    }
-    __syncthreads();
-    // wei[D, TP] += ctx_tileᵀ · (e_hi + e_lo); warp: column fragment tf,
-    // row fragments (warp >> 1) + 4j, clamped to the last one past D
-#pragma unroll
-    for (int k = 0; k < MT; k += 16) {
-      FragB bh, bl;
-      wmma::load_matrix_sync(bh, eh + k * WLD + tf * 16, WLD);
-      wmma::load_matrix_sync(bl, el + k * WLD + tf * 16, WLD);
-#pragma unroll
-      for (int g = 0; g < N_ACC; g += N_ACC / 3) {
-        FragAT fa[N_ACC / 3];
-#pragma unroll
-        for (int u = 0; u < N_ACC / 3; ++u) {
-          const int df = min((warp >> 1) + 4 * (g + u), n_df - 1);
-          wmma::load_matrix_sync(fa[u], cs + k * cld + df * 16, cld);
+      for (int j = 0; j < N_ACC; ++j) wmma::fill_fragment(acc[j], 0.0f);
+      float colsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // Σ e over this thread's rows
+
+      for (int t = 0; t < n_tiles; ++t) {
+        const int m0 = t * MT;
+        const bf16* cs = cbuf[t & 1];
+        if (t + 1 < n_tiles) {  // the next tile, into the buffer freed at the end of t - 1
+          load_ctx_tile(cbuf[(t + 1) & 1], ctx, m0 + MT, MT, M, D);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
         }
+        __syncthreads();
+        float a1[4];
+        if constexpr (!kMulti) {
+          // scores [MT, TP]: each warp sums an eighth of the steps of D
+          tile_times_dt(cs, ws, D, warp, NWARPS, sc);
+          __syncthreads();
+          float v[4];
+          sum_parts(sc, NWARPS, row, q, v);
+          word_softmax4(v, q, cap, T, a1);
+        } else {
+          float v[MAX_NT][4], a1t[MAX_NT][4];
+          for (int w = 0; w < nt; ++w) {  // the scores of every word tile
+            load_dt(ws, words + w * TP, D, tpad);
+            cp_async_wait_sync();
+            tile_times_dt(cs, ws, D, warp, NWARPS, sc);
+            __syncthreads();
+            sum_parts(sc, NWARPS, row, q, v[w]);
+            __syncthreads();
+          }
+          word_softmax_tiles(v, nt, q, cap, T, a1t);
 #pragma unroll
-        for (int u = 0; u < N_ACC / 3; ++u) wmma::mma_sync(acc[g + u], fa[u], bh, acc[g + u]);
+          for (int j = 0; j < 4; ++j) a1[j] = a1t[wt][j];
+        }
+        // e = exp(temp1·a1 - e_off) split into bf16 hi + lo
 #pragma unroll
-        for (int u = 0; u < N_ACC / 3; ++u) wmma::mma_sync(acc[g + u], fa[u], bl, acc[g + u]);
+        for (int j = 0; j < 4; ++j) {
+          const int wc = 4 * q + j;
+          const float e =
+              (m0 + row < M && t0 + wc < T) ? expf(a.temp1 * a1[j] - a.e_off) : 0.0f;
+          const bf16 hi = __float2bfloat16_rn(e);
+          eh[row * WLD + wc] = hi;
+          el[row * WLD + wc] = __float2bfloat16_rn(e - __bfloat162float(hi));
+          colsum[j] += e;
+        }
+        __syncthreads();
+        // wei[D, TP] += ctx_tileᵀ · (e_hi + e_lo); warp: column fragment tf,
+        // row fragments (warp >> 1) + 4j, clamped to the last one past D
+#pragma unroll
+        for (int k = 0; k < MT; k += 16) {
+          FragB bh, bl;
+          wmma::load_matrix_sync(bh, eh + k * WLD + tf * 16, WLD);
+          wmma::load_matrix_sync(bl, el + k * WLD + tf * 16, WLD);
+#pragma unroll
+          for (int g = 0; g < N_ACC; g += N_ACC / 3) {
+            FragAT fa[N_ACC / 3];
+#pragma unroll
+            for (int u = 0; u < N_ACC / 3; ++u) {
+              const int df = min((warp >> 1) + 4 * (g + u), n_df - 1);
+              wmma::load_matrix_sync(fa[u], cs + k * cld + df * 16, cld);
+            }
+#pragma unroll
+            for (int u = 0; u < N_ACC / 3; ++u) wmma::mma_sync(acc[g + u], fa[u], bh, acc[g + u]);
+#pragma unroll
+            for (int u = 0; u < N_ACC / 3; ++u) wmma::mma_sync(acc[g + u], fa[u], bl, acc[g + u]);
+          }
+        }
+        __syncthreads();
       }
-    }
-    __syncthreads();
-  }
+      if constexpr (kMulti) {  // this word tile's words, for the per-word sums below
+        load_dt(ws, words + t0, D, tpad);
+        cp_async_wait_sync();
+      }
 
-  // Σ_m e per word, and the unnormalised wei → shared memory
+      // Σ_m e per word, and the unnormalised wei → shared memory
 #pragma unroll
-  for (int j = 0; j < 4; ++j) red[row * TP + 4 * q + j] = colsum[j];
+      for (int j = 0; j < 4; ++j) red[row * TP + 4 * q + j] = colsum[j];
 #pragma unroll
-  for (int j = 0; j < N_ACC; ++j) {
-    const int df = (warp >> 1) + 4 * j;
-    if (df < n_df)
-      wmma::store_matrix_sync(weis + df * 16 * TP + tf * 16, acc[j], TP, wmma::mem_row_major);
-  }
-  __syncthreads();
-  float* c_sum = col;  // Σ_m e
-  if (tid < TP) {
-    float s = 0.0f;
-    for (int r = 0; r < MT; ++r) s += red[r * TP + tid];
-    c_sum[tid] = s;
-  }
-  __syncthreads();
+      for (int j = 0; j < N_ACC; ++j) {
+        const int df = (warp >> 1) + 4 * j;
+        if (df < n_df)
+          wmma::store_matrix_sync(weis + df * 16 * TP + tf * 16, acc[j], TP, wmma::mem_row_major);
+      }
+      __syncthreads();
+      float* c_sum = col;  // Σ_m e
+      if (tid < TP) {
+        float s = 0.0f;
+        for (int r = 0; r < MT; ++r) s += red[r * TP + tid];
+        c_sum[tid] = s;
+      }
+      __syncthreads();
 
-  // wei = Σ ctx·e / Σ e; per-word sums over D of w·wei, w², wei²
-  float num = 0.0f, nw2 = 0.0f, nwei2 = 0.0f;
-  for (int d = warp; d < D; d += NWARPS) {
-    float v = 0.0f;
-    if (lane < T) v = weis[d * TP + lane] / c_sum[lane];
-    weis[d * TP + lane] = v;
-    const float wv = __bfloat162float(ws[d * WLD + lane]);
-    num += wv * v;
-    nw2 += wv * wv;
-    nwei2 += v * v;
-  }
-  red[warp * TP + lane] = num;
-  red[(NWARPS + warp) * TP + lane] = nw2;
-  red[(2 * NWARPS + warp) * TP + lane] = nwei2;
-  __syncthreads();
+      // wei = Σ ctx·e / Σ e; per-word sums over D of w·wei, w², wei²
+      const bool word = t0 + lane < T;
+      float num = 0.0f, nw2 = 0.0f, nwei2 = 0.0f;
+      for (int d = warp; d < D; d += NWARPS) {
+        float v = 0.0f;
+        if (word) v = weis[d * TP + lane] / c_sum[lane];
+        weis[d * TP + lane] = v;
+        const float wv = __bfloat162float(ws[d * WLD + lane]);
+        num += wv * v;
+        nw2 += wv * wv;
+        nwei2 += v * v;
+      }
+      red[warp * TP + lane] = num;
+      red[(NWARPS + warp) * TP + lane] = nw2;
+      red[(2 * NWARPS + warp) * TP + lane] = nwei2;
+      __syncthreads();
 
-  float* c_dnum = col + TP;  // per-word coefficients of d_wei
-  float* c_cw = col + 2 * TP;
-  if (warp == 0) {
-    float s_num = 0.0f, s_nw = 0.0f, s_nwei = 0.0f;
-    for (int w = 0; w < NWARPS; ++w) {
-      s_num += red[w * TP + lane];
-      s_nw += red[(NWARPS + w) * TP + lane];
-      s_nwei += red[(2 * NWARPS + w) * TP + lane];
+      float* c_dnum = col + TP;  // per-word coefficients of d_wei
+      float* c_cw = col + 2 * TP;
+      if (warp == 0) {
+        float s_num = 0.0f, s_nw = 0.0f, s_nwei = 0.0f;
+        for (int w = 0; w < NWARPS; ++w) {
+          s_num += red[w * TP + lane];
+          s_nw += red[(NWARPS + w) * TP + lane];
+          s_nwei += red[(2 * NWARPS + w) * TP + lane];
+        }
+        const float nw = sqrtf(s_nw), nwei = sqrtf(s_nwei);
+        const float den_raw = nw * nwei;
+        const float den = fmaxf(den_raw, 1e-8f);
+        const float cs_ = s_num / den;
+        const float term = (word && t0 + lane < cap) ? expf(cs_ * a.temp2) : 0.0f;
+        if (sweep == 0) rowsum += warp_sum(term);  // the word tiles in order
+        if (write) {
+          // _cell_cotangents: sim = temp3·log Σ row, row = exp(temp2·cos)
+          const float gg = g[(size_t)b * a.Bt + i];
+          const float dcos = gg * (a.temp2 * a.temp3) * term / rowsum;
+          const float mask = den_raw > 1e-8f ? 1.0f : 0.0f;
+          const float dnum = dcos / den;
+          const float dden = -dcos * s_num / (den * den) * mask;
+          const float dnwei = dden * nw, dnw = dden * nwei;
+          c_dnum[lane] = dnum;
+          c_cw[lane] = dnwei / fmaxf(nwei, 1e-20f);
+          float* v = vecs + pair * N_VECS * tpad + t0;
+          v[V_COLSUM * tpad + lane] = c_sum[lane];
+          v[V_DNUM * tpad + lane] = dnum;
+          v[V_C2 * tpad + lane] = dnw / fmaxf(nw, 1e-20f);
+        }
+      }
+      if (write) {
+        __syncthreads();
+        // d_wei = dnum·w + dnwei/max(‖wei‖, 1e-20)·wei, kept as bf16 (the
+        // rounding the cotangent products take); Σ_d bf16(d_wei)·wei per
+        // word, which equals the softmax backward's Σ_m a2·d_a2
+        bf16* dw = dwei + pair * D * tpad + t0;
+        float s = 0.0f;
+        for (int d = warp; d < D; d += NWARPS) {
+          const float v = weis[d * TP + lane];
+          const float wv = __bfloat162float(ws[d * WLD + lane]);
+          const bf16 dq = __float2bfloat16_rn(c_dnum[lane] * wv + c_cw[lane] * v);
+          dw[(size_t)d * tpad + lane] = dq;
+          s += __bfloat162float(dq) * v;
+        }
+        red[warp * TP + lane] = s;
+        __syncthreads();
+        if (tid < TP) {
+          float t = 0.0f;
+          for (int w = 0; w < NWARPS; ++w) t += red[w * TP + tid];
+          vecs[pair * N_VECS * tpad + V_S * tpad + t0 + tid] = t;
+        }
+      }
+      if constexpr (kMulti) __syncthreads();  // smem is reused by the next word tile
     }
-    const float nw = sqrtf(s_nw), nwei = sqrtf(s_nwei);
-    const float den_raw = nw * nwei;
-    const float den = fmaxf(den_raw, 1e-8f);
-    const float cs_ = s_num / den;
-    const float term = (lane < T && lane < cap) ? expf(cs_ * a.temp2) : 0.0f;
-    const float rowsum = warp_sum(term);
-    if (!kBwd) {
-      if (lane == 0) sim[(size_t)b * a.Bt + i] = logf(rowsum) * a.temp3;
-    } else {
-      // _cell_cotangents: sim = temp3·log Σ row, row = exp(temp2·cos)
-      const float gg = g[(size_t)b * a.Bt + i];
-      const float dcos = gg * (a.temp2 * a.temp3) * term / rowsum;
-      const float mask = den_raw > 1e-8f ? 1.0f : 0.0f;
-      const float dnum = dcos / den;
-      const float dden = -dcos * s_num / (den * den) * mask;
-      const float dnwei = dden * nw, dnw = dden * nwei;
-      c_dnum[lane] = dnum;
-      c_cw[lane] = dnwei / fmaxf(nwei, 1e-20f);
-      float* v = vecs + ((size_t)b * a.Bt + i) * N_VECS * TP;
-      v[V_COLSUM * TP + lane] = c_sum[lane];
-      v[V_DNUM * TP + lane] = dnum;
-      v[V_C2 * TP + lane] = dnw / fmaxf(nw, 1e-20f);
-    }
   }
-  if (!kBwd) return;
-  __syncthreads();
+  if (!kBwd && warp == 0 && lane == 0) sim[pair] = logf(rowsum) * a.temp3;
+}
 
-  // d_wei = dnum·w + dnwei/max(‖wei‖, 1e-20)·wei, kept as bf16 (the
-  // rounding the cotangent products take); Σ_d bf16(d_wei)·wei per word,
-  // which equals the softmax backward's Σ_m a2·d_a2
-  bf16* dw = dwei + ((size_t)b * a.Bt + i) * D * TP;
-  float s = 0.0f;
-  for (int d = warp; d < D; d += NWARPS) {
-    const float v = weis[d * TP + lane];
-    const float wv = __bfloat162float(ws[d * WLD + lane]);
-    const bf16 dq = __float2bfloat16_rn(c_dnum[lane] * wv + c_cw[lane] * v);
-    dw[(size_t)d * TP + lane] = dq;
-    s += __bfloat162float(dq) * v;
-  }
-  red[warp * TP + lane] = s;
-  __syncthreads();
-  if (tid < TP) {
-    float t = 0.0f;
-    for (int w = 0; w < NWARPS; ++w) t += red[w * TP + tid];
-    vecs[((size_t)b * a.Bt + i) * N_VECS * TP + V_S * TP + tid] = t;
-  }
+template <bool kBwd, bool kMulti>
+static int launch_pair_nt(const GloriaArgs& a, float* sim, const float* g, bf16* dwei,
+                          float* vecs, void* stream) {
+  const int smem = pair_smem_bytes(a.D);
+  cudaError_t err = cudaFuncSetAttribute(pair_kernel<kBwd, kMulti>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  pair_kernel<kBwd, kMulti><<<dim3(a.Bt, a.Bi), THREADS, smem,
+                              static_cast<cudaStream_t>(stream)>>>(a, sim, g, dwei, vecs);
+  return (int)cudaGetLastError();
 }
 
 template <bool kBwd>
 static int launch_pair(const GloriaArgs& a, float* sim, const float* g, bf16* dwei, float* vecs,
                        void* stream) {
-  const int smem = pair_smem_bytes(a.D);
-  cudaError_t err =
-      cudaFuncSetAttribute(pair_kernel<kBwd>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  pair_kernel<kBwd><<<dim3(a.Bt, a.Bi), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, sim, g, dwei, vecs);
-  return (int)cudaGetLastError();
+  return a.NT == 1 ? launch_pair_nt<kBwd, false>(a, sim, g, dwei, vecs, stream)
+                   : launch_pair_nt<kBwd, true>(a, sim, g, dwei, vecs, stream);
 }
 
 extern "C" {
@@ -269,8 +320,8 @@ int medmoe_gloria_sim(const void* ctx, const void* words, const void* cap, int B
 }
 
 // The backward's prologue: the forward chain again, then the cotangents
-// down to bf16(d_wei) [Bi·Bt, D, TP] and the per-word vectors
-// [Bi·Bt, 4, TP] for the upstream cotangent g [Bi, Bt] f32.
+// down to bf16(d_wei) [Bi·Bt, D, TPAD] and the per-word vectors
+// [Bi·Bt, 4, TPAD] for the upstream cotangent g [Bi, Bt] f32.
 int medmoe_gloria_pair_cotangents(const void* ctx, const void* words, const void* cap, int Bi,
                                   int Bt, int M, int D, int T, float temp1, float temp2,
                                   float temp3, const void* g, void* dwei, void* vecs,

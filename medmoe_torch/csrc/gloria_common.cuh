@@ -2,13 +2,19 @@
 // and the backward's per-pair prologue; gloria_attention_bwd.cu, K4a and
 // K4b). See medmoe_torch/ops/gloria_attention.py for what they compute.
 //
-// Layouts the kernels take (the wrapper makes them):
+// Layouts the kernels take (the wrapper makes them), with the words of a
+// caption padded to TPAD = 32·NT, NT = ⌈T/32⌉ word tiles of TP = 32:
 //   ctx   [B_img, M, D] bf16, D contiguous (the local map's own layout)
-//   words [B_txt, D, TP] bf16, word t < T at column t, zero past T
+//   words [B_txt, D, TPAD] bf16, word t < T at column t, zero past T
 //   cap   [B_txt] int32
 // Per-pair scratch written by the prologue and read by K4a/K4b:
-//   dwei  [B_img·B_txt, D, TP] bf16   bf16(d_wei)
-//   vecs  [B_img·B_txt, 4, TP] f32    Σ_m e, Σ_d bf16(d_wei)·wei, dnum, c2
+//   dwei  [B_img·B_txt, D, TPAD] bf16   bf16(d_wei)
+//   vecs  [B_img·B_txt, 4, TPAD] f32    Σ_m e, Σ_d bf16(d_wei)·wei, dnum, c2
+//
+// T <= 32 (one word tile) runs the kernels' single-tile code. Above it the
+// kernels walk the word tiles and recompute the scores of every tile of a
+// row for its softmax over all T words: right, not fast. T <= 128 because
+// K4a's first pass holds a caption's 2·TPAD columns in one 256-wide tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,7 +28,8 @@ typedef __nv_bfloat16 bf16;
 
 #define THREADS 256
 #define NWARPS 8
-#define TP 32              // words of a caption, padded
+#define TP 32              // words of a word tile
+#define MAX_NT 4           // word tiles of a caption: T <= MAX_NT·TP = 128
 #define MAX_D 768          // widest D the accumulators and shared memory take
 #define N_ACC 12           // (MAX_D / 16) · 2 accumulator fragments / 8 warps
 #define WLD (TP + 8)       // leading dimension of a [D][TP] bf16 tile
@@ -36,6 +43,7 @@ struct GloriaArgs {
   const bf16* words;
   const int* cap;
   int Bi, Bt, M, D, T;
+  int NT, TPAD;  // word tiles, and the words of a caption padded to 32·NT
   float temp1, temp2, temp3;
   float e_off;  // max(temp1, 0): temp1·a1 never exceeds it (0 <= a1 <= 1)
 };
@@ -44,7 +52,6 @@ typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
 
 __host__ __device__ __forceinline__ int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
@@ -90,11 +97,13 @@ __device__ __forceinline__ void load_ctx_tile(bf16* cs, const bf16* __restrict__
   }
 }
 
-// one [D][TP] bf16 matrix → shared memory (ld WLD), asynchronous
-__device__ __forceinline__ void load_dt(bf16* dst, const bf16* __restrict__ src, int D) {
+// one [D][TP] bf16 word tile (rows ld apart in src) → shared memory (ld
+// WLD), asynchronous
+__device__ __forceinline__ void load_dt(bf16* dst, const bf16* __restrict__ src, int D,
+                                        int ld = TP) {
   for (int v = threadIdx.x; v < D * (TP / 8); v += THREADS) {
     const int d = v / (TP / 8), c = (v % (TP / 8)) * 8;
-    cp_async16(dst + d * WLD + c, src + (size_t)d * TP + c);
+    cp_async16(dst + d * WLD + c, src + (size_t)d * ld + c);
   }
 }
 
@@ -176,6 +185,33 @@ __device__ __forceinline__ void word_softmax4(const float* score, int q, int cap
   for (int j = 0; j < 4; ++j) a1[j] = x[j] / z;
 }
 
+// The same softmax over the nt word tiles of a row (T > 32): words
+// 32w + 4q + j in this thread, scores and a1 [MAX_NT][4].
+__device__ __forceinline__ void word_softmax_tiles(const float (*score)[4], int nt, int q,
+                                                   int cap, int T, float (*a1)[4]) {
+  float mx = -INFINITY;
+  for (int w = 0; w < nt; ++w)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = TP * w + 4 * q + j;
+      a1[w][j] = t >= T ? -INFINITY : (t < cap ? score[w][j] : NEG_INF_F);
+      mx = fmaxf(mx, a1[w][j]);
+    }
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  float z = 0.0f;
+  for (int w = 0; w < nt; ++w)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a1[w][j] = expf(a1[w][j] - mx);
+      z += a1[w][j];
+    }
+  z = row_sum8(z);
+  for (int w = 0; w < nt; ++w)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a1[w][j] /= z;
+}
+
 // host side: the kernels' arguments, and the shapes every launch takes
 static GloriaArgs make_args(const void* ctx, const void* words, const void* cap, int Bi, int Bt,
                             int M, int D, int T, float t1, float t2, float t3) {
@@ -188,6 +224,8 @@ static GloriaArgs make_args(const void* ctx, const void* words, const void* cap,
   a.M = M;
   a.D = D;
   a.T = T;
+  a.NT = (T + TP - 1) / TP;
+  a.TPAD = a.NT * TP;
   a.temp1 = t1;
   a.temp2 = t2;
   a.temp3 = t3;
@@ -197,5 +235,5 @@ static GloriaArgs make_args(const void* ctx, const void* words, const void* cap,
 
 static bool shapes_ok(int Bi, int Bt, int M, int D, int T) {
   return Bi >= 1 && Bt >= 1 && Bi <= 65535 && Bt <= 65535 && M >= 1 && D >= 16 &&
-         D % 16 == 0 && D <= MAX_D && T >= 1 && T <= TP;
+         D % 16 == 0 && D <= MAX_D && T >= 1 && T <= MAX_NT * TP;
 }

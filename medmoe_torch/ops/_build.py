@@ -116,7 +116,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.medmoe_gloria_pair_cotangents.restype = i
     elif name == "gloria_attention_bwd":
         shape = [vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp, vp]
-        lib.medmoe_gloria_dctx.argtypes = shape + [vp, vp]
+        lib.medmoe_gloria_dctx.argtypes = shape + [vp, i, vp, vp]
         lib.medmoe_gloria_dctx.restype = i
         lib.medmoe_gloria_dwords.argtypes = shape + [vp, vp, i, vp, vp]
         lib.medmoe_gloria_dwords.restype = i

@@ -90,6 +90,27 @@ def _attn_smem_bytes(e: int, h: int) -> int:
     return tile + w1 + MAX_SCALES * 64 * 4
 
 
+def check_kernel_limits(e: int, h: int, d_list: Sequence[int]) -> None:
+    """Raise ValueError unless the expert-branch kernels K1 (forward) and
+    K2 (backward) both take expert width E, attention hidden width H and
+    pyramid widths D_s: 1..4 scales, D_s % 8 == 0, E % 64 == 0 (K2's
+    64-wide column tiles; K1 alone takes E % 32), H % 16 == 0 with
+    H <= 384, and K1's attention tile within a block's shared memory.
+    Shapes only, so a trainer calls it before the first step and K1's
+    wrapper before its launch: a forward that K2 cannot differentiate
+    never starts."""
+    d_list = list(d_list)
+    if not 1 <= len(d_list) <= MAX_SCALES or any(d % 8 for d in d_list):
+        raise ValueError(f"the expert-branch kernels take 1..{MAX_SCALES} "
+                         f"pyramid widths, each a multiple of 8; got {d_list}")
+    if e % 64 or h % 16 or h > MAX_HIDDEN:
+        raise ValueError(f"the expert-branch kernels take E % 64 == 0 and "
+                         f"H % 16 == 0 with H <= {MAX_HIDDEN}; got E={e}, "
+                         f"H={h}")
+    if _attn_smem_bytes(e, h) > _SMEM_LIMIT:
+        raise ValueError(f"E={e} needs more shared memory than a block has")
+
+
 def _check(xs, wp, bp, w1, b1, w2, b2, expert_idx) -> Tuple[int, ...]:
     """Raise on anything the kernels do not take (``b2`` None for the
     backward, which does not read it); return (B, K, E, H, P)."""
@@ -177,6 +198,7 @@ def expert_fusion_gather(xs: Sequence[torch.Tensor],
     if expert_idx.device.type != "cuda":
         raise ValueError("expert_fusion_gather runs on CUDA or CPU tensors, "
                          f"got {expert_idx.device}")
+    check_kernel_limits(e, h, [x.shape[2] for x in xs])
     out = torch.empty((b, p, e), dtype=torch.float32, device=xs[0].device)
     if b == 0:
         return out
@@ -293,8 +315,7 @@ def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
     if expert_idx.device.type != "cuda":
         raise ValueError("expert_fusion_gather_bwd runs on CUDA or CPU "
                          f"tensors, got {expert_idx.device}")
-    if e % 64:
-        raise ValueError(f"expert_fusion_gather_bwd takes E % 64 == 0, got {e}")
+    check_kernel_limits(e, h, [x.shape[2] for x in xs])
     dev = xs[0].device
     n = len(xs)
     p_s = [x.shape[1] for x in xs]

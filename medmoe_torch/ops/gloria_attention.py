@@ -25,12 +25,22 @@ it is not autograd through the forward.
 Kernels. ``csrc/gloria_attention.cu`` replaces ``_sim_kernel`` (K3) and
 holds the backward's prologue, the forward chain again with the
 cotangents down to bf16(d_wei) per pair; ``csrc/gloria_attention_bwd.cu``
-replaces ``_dctx_kernel`` (K4a) and ``_dwords_kernel`` (K4b). Their design
-notes are in the sources. Between the prologue and K4a/K4b the per-pair
+replaces ``_dctx_kernel`` (K4a, two passes on the GEMM core of
+``csrc/gemm_core.cuh``) and ``_dwords_kernel`` (K4b). Their design notes
+are in the sources. Between the prologue and K4a/K4b the per-pair
 cotangents live in device memory (``backward_scratch_bytes``: 3.2 GB at
-B=256, D=768). Not ported: the TPU kernel's lane packing, ``t_pad``,
-``_segment_max``, the indicator matmuls and the ``shard_map`` wrapper
-(Mosaic and SPMD devices), and its environment switches.
+B=256, D=768, T <= 32), and K4a's bf16 [a2 | d_scores] in chunks of images
+(``dctx_chunk``: 16 images, 1.6 GB at flagship). Not ported: the TPU
+kernel's lane packing, ``_segment_max``, the indicator matmuls and the
+``shard_map`` wrapper (Mosaic and SPMD devices), and its environment
+switches.
+
+Limits. The plain versions take any T, D and temp1, as the JAX functions
+do. The kernels take D % 16 == 0, D <= 768, T <= 128 (captions padded to
+32·⌈T/32⌉ words; T <= 32 runs the single-tile code) and |temp1| <= 80
+(``check_kernel_limits``); a CUDA tensor outside them raises before any
+launch, and the local loss and the trainer call the same check before
+anything runs on the card.
 
 Layouts. The kernels read ctx as [B_img, M, D] bf16, D contiguous. The
 model's local map is a permuted view of the expert branch's [B, P, E]
@@ -43,7 +53,7 @@ expert branch's backward takes.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,10 +64,12 @@ DCTX_LAUNCHES = 0
 DWORDS_LAUNCHES = 0
 
 NEG_INF = -1e30
-MAX_WORDS = 32      # csrc/gloria_common.cuh TP
+WORD_TILE = 32      # csrc/gloria_common.cuh TP: captions pad to whole tiles
+MAX_WORDS = 128     # csrc/gloria_common.cuh MAX_NT·TP (K4a's 256-wide tile)
 MAX_DIM = 768       # csrc/gloria_common.cuh MAX_D
 MAX_TEMP1 = 80.0    # exp(temp1·a1 - max(temp1, 0)) stays a normal f32
 _PLAIN_BYTES = 512 << 20   # one [c, B_img, M, T] f32 block of the plain versions
+_Z_BYTES = 1.7e9    # K4a's [a2 | d_scores] for one chunk of images
 
 
 def _check(img: torch.Tensor, words: torch.Tensor, cap_lens: torch.Tensor,
@@ -88,16 +100,27 @@ def _check(img: torch.Tensor, words: torch.Tensor, cap_lens: torch.Tensor,
     if min(bi, bt, h * w, t) < 1:
         raise ValueError("gloria_similarity: empty input "
                          f"{tuple(img.shape)}, {tuple(words.shape)}")
-    if not -MAX_TEMP1 <= float(temp1) <= MAX_TEMP1:
-        raise ValueError(f"temp1 must lie in [-{MAX_TEMP1}, {MAX_TEMP1}], "
-                         f"got {temp1}")
     return bi, bt, d, h * w, t
 
 
-def _check_kernel_shape(d: int, t: int) -> None:
-    if t > MAX_WORDS or d % 16 or d > MAX_DIM:
-        raise ValueError(f"the GLoRIA kernels take T <= {MAX_WORDS}, D % 16 == 0 "
-                         f"and D <= {MAX_DIM}; got T={t}, D={d}")
+def check_kernel_limits(d: int, t: int, temp1: float) -> None:
+    """Raise ValueError unless the GLoRIA kernels (K3, the prologue, K4a,
+    K4b) take word embeddings of width D, captions of T words and temp1:
+    D % 16 == 0 and D <= 768 (the accumulators and shared memory), T <= 128
+    (K4a's widest tile) and |temp1| <= 80 (exp(temp1·a1 - max(temp1, 0))
+    stays a normal f32). Shapes and scalars only, so it runs before
+    anything reaches the card."""
+    if d % 16 or d > MAX_DIM or t > MAX_WORDS \
+            or not -MAX_TEMP1 <= float(temp1) <= MAX_TEMP1:
+        raise ValueError(
+            f"the GLoRIA kernels take D % 16 == 0, D <= {MAX_DIM}, "
+            f"T <= {MAX_WORDS} and |temp1| <= {MAX_TEMP1}; got D={d}, "
+            f"T={t}, temp1={temp1}")
+
+
+def _tpad(t: int) -> int:
+    """Words of a caption as the kernels lay it out: whole word tiles."""
+    return -(-t // WORD_TILE) * WORD_TILE
 
 
 def _device_kind(img: torch.Tensor) -> str:
@@ -109,23 +132,32 @@ def _device_kind(img: torch.Tensor) -> str:
 
 def _kernel_inputs(img, words, cap_lens):
     """ctx [B_img, M, D] bf16 (a view when img has the local map's
-    channels-last strides), words zero-padded to [B_txt, D, 32] bf16,
-    cap_lens int32."""
+    channels-last strides), words zero-padded to [B_txt, D, 32·⌈T/32⌉]
+    bf16, cap_lens int32."""
     bi, d, h, w = img.shape
     ctx = img.permute(0, 2, 3, 1).reshape(bi, h * w, d).to(torch.bfloat16) \
         .contiguous()
-    words_p = torch.zeros((words.shape[0], d, MAX_WORDS), dtype=torch.bfloat16,
-                          device=words.device)
+    words_p = torch.zeros((words.shape[0], d, _tpad(words.shape[2])),
+                          dtype=torch.bfloat16, device=words.device)
     words_p[..., :words.shape[2]] = words
     return ctx, words_p, cap_lens.to(torch.int32).contiguous()
 
 
-def backward_scratch_bytes(b_img: int, b_txt: int, d: int) -> int:
+def backward_scratch_bytes(b_img: int, b_txt: int, d: int,
+                           t: int = WORD_TILE) -> int:
     """Device scratch of one kernel backward: bf16(d_wei) and the per-word
-    vectors per pair, and K4b's partial sums."""
-    pairs = b_img * b_txt
-    return (pairs * d * MAX_WORDS * 2 + pairs * 4 * MAX_WORDS * 4
-            + _dwords_split(b_img, b_txt) * b_txt * (d + 1) * MAX_WORDS * 4)
+    vectors per pair, and K4b's partial sums (K4a's Z: ``dctx_chunk``)."""
+    pairs, tp = b_img * b_txt, _tpad(t)
+    return (pairs * d * tp * 2 + pairs * 4 * tp * 4
+            + _dwords_split(b_img, b_txt) * b_txt * (d + 1) * tp * 4)
+
+
+def dctx_chunk(b_img: int, b_txt: int, m: int, t: int) -> Tuple[int, int]:
+    """(images, bytes) of K4a's Z = [bf16(a2) | bf16(d_scores)], [images,
+    M, B_txt·2·TPAD] bf16: as many images as fit in 1.7 GB, at least one."""
+    per_image = m * b_txt * 2 * _tpad(t) * 2
+    images = max(1, min(b_img, int(_Z_BYTES // per_image)))
+    return images, images * per_image
 
 
 def _dwords_split(b_img: int, b_txt: int) -> int:
@@ -159,7 +191,7 @@ def gloria_similarity_forward(img: torch.Tensor, words: torch.Tensor,
     if _device_kind(img) == "cpu":
         return gloria_similarity_reference(img, words, cap_lens, temp1, temp2,
                                            temp3)
-    _check_kernel_shape(d, t)
+    check_kernel_limits(d, t, temp1)
     from medmoe_torch.ops import _build
 
     lib = _build.load("gloria_attention")
@@ -252,49 +284,102 @@ def gloria_similarity_backward(img: torch.Tensor, words: torch.Tensor,
         return gloria_similarity_bwd_reference(img, words, cap_lens, g, temp1,
                                                temp2, temp3, need_img,
                                                need_words)
-    _check_kernel_shape(d, t)
+    check_kernel_limits(d, t, temp1)
+    pairs = pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3)
+    d_img = d_words = None
+    if need_img:
+        d_ctx = dctx_of(pairs)
+        DCTX_LAUNCHES += 1
+        h, w = img.shape[2:]
+        d_img = d_ctx.to(img.dtype).reshape(bi, h, w, d).permute(0, 3, 1, 2)
+    if need_words:
+        d_words = dwords_of(pairs).to(words.dtype)
+        DWORDS_LAUNCHES += 1
+    return d_img, d_words
+
+
+class PairScratch(NamedTuple):
+    """The backward's inputs as the kernels take them and the prologue's
+    per-pair scratch, held together: the kernels get their pointers."""
+    ctx: torch.Tensor          # [B_img, M, D] bf16
+    words: torch.Tensor        # [B_txt, D, TPAD] bf16
+    caps: torch.Tensor         # [B_txt] int32
+    dims: Tuple[int, ...]      # B_img, B_txt, M, D, T
+    temp1: float
+    dwei: torch.Tensor         # [B_img·B_txt, D, TPAD] bf16(d_wei)
+    vecs: torch.Tensor         # [B_img·B_txt, 4, TPAD] f32
+
+    def args(self):
+        return (self.ctx.data_ptr(), self.words.data_ptr(),
+                self.caps.data_ptr(), *self.dims, self.temp1)
+
+
+def pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3
+                    ) -> PairScratch:
+    """The backward's prologue on CUDA tensors that passed ``_check`` and
+    ``check_kernel_limits``: the forward chain again, down to bf16(d_wei)
+    and the per-word vectors of every pair. ``gloria_similarity_backward``
+    runs it and counts the launches of what follows; ``dctx_of`` and
+    ``dwords_of`` read it."""
     from medmoe_torch.ops import _build
 
-    lib_f = _build.load("gloria_attention")
-    lib = _build.load("gloria_attention_bwd")
-    dev = img.device
+    lib = _build.load("gloria_attention")
+    bi, bt = img.shape[0], words.shape[0]
+    m, d, t = img.shape[2] * img.shape[3], img.shape[1], words.shape[2]
     ctx, words_p, caps = _kernel_inputs(img, words, cap_lens)
+    tp = words_p.shape[2]
     g = g.float().contiguous()
-    shape = (ctx.data_ptr(), words_p.data_ptr(), caps.data_ptr(), bi, bt, m, d,
-             t)
-    dwei = torch.empty((bi * bt, d, MAX_WORDS), dtype=torch.bfloat16,
-                       device=dev)
-    vecs = torch.empty((bi * bt, 4, MAX_WORDS), dtype=torch.float32, device=dev)
-    d_img = d_words = None
+    p = PairScratch(ctx, words_p, caps, (bi, bt, m, d, t), float(temp1),
+                    torch.empty((bi * bt, d, tp), dtype=torch.bfloat16,
+                                device=img.device),
+                    torch.empty((bi * bt, 4, tp), dtype=torch.float32,
+                                device=img.device))
+    with torch.cuda.device(img.device):
+        rc = lib.medmoe_gloria_pair_cotangents(
+            *p.args(), float(temp2), float(temp3), g.data_ptr(),
+            p.dwei.data_ptr(), p.vecs.data_ptr(), _stream())
+    _raise(lib, rc, "gloria_attention backward prologue")
+    return p
+
+
+def dctx_of(p: PairScratch) -> torch.Tensor:
+    """K4a: d_ctx [B_img, M, D] float32 from the prologue's scratch, both
+    passes over chunks of images (``dctx_chunk``)."""
+    from medmoe_torch.ops import _build
+
+    lib = _build.load("gloria_attention_bwd")
+    bi, bt, m, d, t = p.dims
+    dev = p.ctx.device
+    d_ctx = torch.empty((bi, m, d), dtype=torch.float32, device=dev)
+    chunk, _ = dctx_chunk(bi, bt, m, t)
+    z = torch.empty((chunk, m, bt * 2 * p.words.shape[2]), dtype=torch.bfloat16,
+                    device=dev)
     with torch.cuda.device(dev):
-        rc = lib_f.medmoe_gloria_pair_cotangents(
-            *shape, float(temp1), float(temp2), float(temp3), g.data_ptr(),
-            dwei.data_ptr(), vecs.data_ptr(), _stream())
-        _raise(lib_f, rc, "gloria_attention backward prologue")
-        if need_img:
-            d_ctx = torch.empty((bi, m, d), dtype=torch.float32, device=dev)
-            rc = lib.medmoe_gloria_dctx(*shape, float(temp1), dwei.data_ptr(),
-                                        vecs.data_ptr(), d_ctx.data_ptr(),
-                                        _stream())
-            _raise(lib, rc, "gloria_attention_bwd d_ctx (K4a)")
-            DCTX_LAUNCHES += 1
-            h, w = img.shape[2:]
-            d_img = d_ctx.to(img.dtype).reshape(bi, h, w, d).permute(0, 3, 1, 2)
-        if need_words:
-            n_split = _dwords_split(bi, bt)
-            part = torch.empty((n_split, bt, d, MAX_WORDS), dtype=torch.float32,
-                               device=dev)
-            c2part = torch.empty((n_split, bt, MAX_WORDS), dtype=torch.float32,
-                                 device=dev)
-            dw = torch.empty((bt, d, t), dtype=torch.float32, device=dev)
-            rc = lib.medmoe_gloria_dwords(
-                *shape, float(temp1), dwei.data_ptr(), vecs.data_ptr(),
-                part.data_ptr(), c2part.data_ptr(), n_split, dw.data_ptr(),
-                _stream())
-            _raise(lib, rc, "gloria_attention_bwd d_words (K4b)")
-            DWORDS_LAUNCHES += 1
-            d_words = dw.to(words.dtype)
-    return d_img, d_words
+        rc = lib.medmoe_gloria_dctx(*p.args(), p.dwei.data_ptr(),
+                                    p.vecs.data_ptr(), z.data_ptr(), chunk,
+                                    d_ctx.data_ptr(), _stream())
+    _raise(lib, rc, "gloria_attention_bwd d_ctx (K4a)")
+    return d_ctx
+
+
+def dwords_of(p: PairScratch) -> torch.Tensor:
+    """K4b: d_words [B_txt, D, T] float32 from the prologue's scratch."""
+    from medmoe_torch.ops import _build
+
+    lib = _build.load("gloria_attention_bwd")
+    bi, bt, m, d, t = p.dims
+    dev = p.ctx.device
+    tp = p.words.shape[2]
+    n_split = _dwords_split(bi, bt)
+    part = torch.empty((n_split, bt, d, tp), dtype=torch.float32, device=dev)
+    c2part = torch.empty((n_split, bt, tp), dtype=torch.float32, device=dev)
+    dw = torch.empty((bt, d, t), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.medmoe_gloria_dwords(
+            *p.args(), p.dwei.data_ptr(), p.vecs.data_ptr(), part.data_ptr(),
+            c2part.data_ptr(), n_split, dw.data_ptr(), _stream())
+    _raise(lib, rc, "gloria_attention_bwd d_words (K4b)")
+    return dw
 
 
 def gloria_similarity_bwd_reference(img: torch.Tensor, words: torch.Tensor,

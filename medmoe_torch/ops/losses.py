@@ -22,7 +22,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from medmoe_torch.models.layers import safe_norm
-from medmoe_torch.ops.gloria_attention import gloria_similarity
+from medmoe_torch.ops.gloria_attention import (check_kernel_limits,
+                                               gloria_similarity)
 from medmoe_torch.ops.softmax import softmax_bf16_residual
 
 NEG_INF = -1e30
@@ -214,16 +215,23 @@ class GLORIALocalContrastiveLoss:
         self.impl = impl
 
     def resolve_impl(self, agg: str, img_features: torch.Tensor) -> str:
+        return self.impl_for(agg, img_features.shape[0], img_features.is_cuda)
+
+    def impl_for(self, agg: str, batch: Optional[int], on_cuda: bool) -> str:
+        """``resolve_impl`` from the batch size alone; an unknown batch
+        (None) counts as one the fused path would take."""
         if self.impl != "auto":
             return self.impl
-        fused = img_features.is_cuda and agg == "sum" \
-            and img_features.shape[0] > 64
+        fused = on_cuda and agg == "sum" and (batch is None or batch > 64)
         return "pallas" if fused else "xla"
 
     def __call__(self, img_features, words_emb, cap_lens, temp1=4.0,
                  temp2=5.0, temp3=10.0, agg="sum", scores=None,
                  thresholds=None):
         if self.resolve_impl(agg, img_features) == "pallas":
+            if img_features.is_cuda:       # before the kernels' first launch
+                check_kernel_limits(img_features.shape[1], words_emb.shape[2],
+                                    temp1)
             similarities = gloria_similarity(img_features, words_emb,
                                              cap_lens, temp1, temp2, temp3)
             return GloriaLocalOutput(

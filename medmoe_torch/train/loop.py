@@ -154,6 +154,11 @@ class Trainer:
                                                       non_blocking=True)
                 for k, v in batch.items()}
 
+    def _check_kernel_limits(self, module, datamodule) -> None:
+        """On a card, the kernels' shape limits before any step runs."""
+        if self.device.type == "cuda":
+            module.check_kernel_limits(getattr(datamodule, "batch_size", None))
+
     def epoch_generator(self, epoch: int) -> torch.Generator:
         """The training-mode noise source of ``epoch``: seeded from (seed,
         epoch), as the JAX loop folds the epoch into its key."""
@@ -175,6 +180,7 @@ class Trainer:
         self.module = module
         module.init_params(self.seed)
         module.model.to(self.device)
+        self._check_kernel_limits(module, datamodule)
         tx = module.make_optimizer(gradient_clip_val=self.gradient_clip_val)
         self.state = TrainState.create(module.model, tx)
         self.scheduler = module.make_scheduler()
@@ -303,6 +309,7 @@ class Trainer:
             self.module = module
             module.init_params(self.seed)
             module.model.to(self.device)
+            self._check_kernel_limits(module, datamodule)
         out = self._evaluate(datamodule.test_dataloader(),
                              self.limit_test_batches,
                              getattr(datamodule, "test_steps_per_epoch",

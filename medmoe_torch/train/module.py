@@ -24,6 +24,8 @@ import torch
 
 from medmoe_torch.config import DotDict
 from medmoe_torch.models.medmoe import MedMoE, init_weights
+from medmoe_torch.models.moe import ExpertBank
+from medmoe_torch.ops import expert_fusion, gloria_attention
 from medmoe_torch.ops import losses as L
 from medmoe_torch.train.optim import Adam, adam
 from medmoe_torch.utils.instantiate import instantiate
@@ -88,6 +90,30 @@ class MedMoEPretrainingModule:
             self.model.text_encoder.bert.requires_grad_(False)
         if self.vision_cfg.get("freeze_cnn", False):
             self.model.image_encoder.requires_grad_(False)
+
+    def check_kernel_limits(self, batch_size: Optional[int] = None) -> None:
+        """Raise ValueError before the first step on a card when a kernel
+        that the step would launch does not take the model's shapes: the
+        expert branch's K1/K2 (bf16 expert banks) at the banks' widths, and
+        the GLoRIA kernels, when the local loss would take its fused path
+        at this batch size (None: any), at the local map's width, the text
+        ``max_length`` and the loss's temp1."""
+        for m in self.model.modules():
+            if isinstance(m, ExpertBank) and m.config.dtype == torch.bfloat16:
+                e = m.config.output_dim
+                expert_fusion.check_kernel_limits(e, e // 2,
+                                                  m.config.hidden_dims)
+        if not isinstance(self.local_loss, L.GLORIALocalContrastiveLoss):
+            return
+        batch = batch_size
+        if batch is not None and self.block_size:
+            batch = min(batch, int(self.block_size))
+        if self.local_loss.impl_for(self.agg, batch, True) == "pallas":
+            tower = self.model.image_encoder.swin_moe
+            d = tower.moe.config.output_dim if tower.moe is not None \
+                else tower.swin.config.stage_dims[-1]
+            gloria_attention.check_kernel_limits(
+                d, int(self.text_cfg.get("max_length", 25)), self.temp1)
 
     def trainable_mask(self) -> Dict[str, bool]:
         """Parameter name → trainable (False on frozen towers)."""

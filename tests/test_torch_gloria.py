@@ -33,6 +33,12 @@ torch.set_num_threads(1)
 # rectangular case with more than one of the TPU kernel's text blocks
 SHAPES = [(4, 4, 128, 8, 8, 25), (8, 16, 32, 4, 4, 9)]
 TEMPS = (4.0, 5.0, 10.0)
+# ((b_img, b_txt, d, h, w, t), temp1) beyond the kernels' single word tile
+# and temp1 range, which the plain versions take as the JAX functions do:
+# captions of 40 words (two tiles of 32), square and rectangular, and
+# temp1 = 100 (the kernels take |temp1| <= 80)
+WIDE = [((4, 4, 64, 6, 6, 40), 4.0), ((6, 10, 32, 4, 4, 40), 4.0),
+        ((4, 4, 128, 8, 8, 25), 100.0)]
 
 
 def _inputs(b_img, b_txt, d, h, w, t, seed=0):
@@ -68,6 +74,43 @@ def _close(got, want, scale):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=scale * np.abs(want).max())
+
+
+@pytest.fixture(scope="module", params=WIDE,
+                ids=["square-T40", "rectangular-T40", "temp1-100"])
+def wide_case(request):
+    shape, temp1 = request.param
+    temps = (temp1,) + TEMPS[1:]
+    img, words, cap, wgt = _inputs(*shape, seed=5)
+
+    def loss(i, w_):
+        return jnp.sum(jnp.asarray(wgt) * gloria_similarity_pallas(
+            i, w_, jnp.asarray(cap), *temps))
+
+    with pltpu.force_tpu_interpret_mode():
+        sim = gloria_similarity_pallas(jnp.asarray(img), jnp.asarray(words),
+                                       jnp.asarray(cap), *temps)
+        grads = jax.grad(loss, argnums=(0, 1))(jnp.asarray(img),
+                                               jnp.asarray(words))
+    return (img, words, cap, wgt, temps, np.asarray(sim),
+            [np.asarray(g) for g in grads])
+
+
+class TestWideAgainstJax:
+    """The plain versions past the kernels' limits, against the JAX
+    kernel, at the tolerances of TestAgainstJax."""
+
+    def test_forward(self, wide_case):
+        img, words, cap, _, temps, sim, _ = wide_case
+        out = ga.gloria_similarity_forward(*_torch(img, words, cap), *temps)
+        np.testing.assert_allclose(out.numpy(), sim, rtol=1e-4, atol=1e-5)
+
+    def test_backward(self, wide_case):
+        img, words, cap, wgt, temps, _, (g_img, g_words) = wide_case
+        d_img, d_words = ga.gloria_similarity_backward(
+            *_torch(img, words, cap, wgt), *temps)
+        _close(d_img, g_img, 2e-3)
+        _close(d_words, g_words, 2e-3)
 
 
 class TestAgainstJax:
@@ -157,15 +200,18 @@ class TestFunction:
         ctx, words_p, caps = ga._kernel_inputs(
             img, torch.randn(3, 32, 9), torch.tensor([3, 9, 5]))
         assert ctx.data_ptr() == fused.data_ptr() and ctx.shape == (2, 16, 32)
-        assert words_p.shape == (3, 32, ga.MAX_WORDS)
+        assert words_p.shape == (3, 32, ga.WORD_TILE)
         assert torch.count_nonzero(words_p[..., 9:]) == 0
         assert caps.dtype == torch.int32
+        _, words_p, _ = ga._kernel_inputs(img, torch.randn(3, 32, 40),
+                                          torch.tensor([3, 40, 5]))
+        assert words_p.shape == (3, 32, 2 * ga.WORD_TILE)    # two word tiles
+        assert torch.count_nonzero(words_p[..., 40:]) == 0
 
     @pytest.mark.parametrize("bad", [
         dict(words=(2, 16, 9)),              # D differs
         dict(cap=(3,)),                      # one length per caption
         dict(img_dtype=torch.int32),
-        dict(temp1=100.0),
         dict(img=(2, 32, 4)),
     ])
     def test_shape_checks_raise(self, bad):
@@ -182,6 +228,15 @@ class TestFunction:
         # sums over 4 shares of the images
         assert ga.backward_scratch_bytes(256, 256, 768) == \
             256 * 256 * (768 * 32 * 2 + 4 * 32 * 4) + 4 * 256 * 769 * 32 * 4
+        # captions of 40 words pad to two tiles of 32
+        assert ga.backward_scratch_bytes(256, 256, 768, 40) == \
+            256 * 256 * (768 * 64 * 2 + 4 * 64 * 4) + 4 * 256 * 769 * 64 * 4
+
+    def test_dctx_chunk_at_b256(self):
+        # K4a's Z, [images, M, B_txt·2·TPAD] bf16, within 1.7 GB
+        per_image = 3136 * 256 * 64 * 2
+        assert ga.dctx_chunk(256, 256, 3136, 25) == (16, 16 * per_image)
+        assert ga.dctx_chunk(3, 5, 35, 40) == (3, 3 * 35 * 5 * 128 * 2)
 
 
 class TestDispatch:
