@@ -29,11 +29,13 @@
   7. K3, K4a and K4b, the GLoRIA similarity and its backward: hold the
      kernels against their plain versions at B=256 flagship shapes (bf16
      ctx in the local map's own layout, caption lengths from a seed in
-     [3, 25], a seeded cotangent) and on small odd shapes, one of them with
-     captions of 40 words (two word tiles), time both (the backward's
-     prologue alone, K4a alone and the two together), print the bounds,
-     the backward's scratch and K4a's image chunk, and time the fused
-     local loss against the einsum path at B=32;
+     [3, 25], a seeded cotangent) and on small odd shapes (captions of 40
+     words; M = 132 with 5 captions of 9 words, ragged tiles), time both
+     (the backward's prologue alone, K4a alone and the two together),
+     print the bounds, the backward's scratch and the image chunk, and
+     time the fused local loss against the einsum path at B=32; then hold
+     K3 against its plain version at B=256 flagship with captions of 40
+     words and time K3, its plain version and the prologue there;
   8. training at one batch of 256 a step: experiment=gloria256 with
      synthetic data at full width, 2 optimizer steps and one validation
      batch; checks the loss and grad norm, that K3 ran once per forward,
@@ -314,8 +316,10 @@ def profile_wave(torch, embed, images, wave_ms: float):
 K1_KERNELS = ("proj_kernel", "attn_kernel")
 K2_KERNELS = ("bwd_row_kernel", "bwd_proj_kernel", "bwd_wgrad_kernel",
               "bwd_reduce_kernel")
-GLORIA_KERNELS = ("void pair_kernel", "void dctx_z_kernel", "dctx_gemm_kernel",
-                  "void dwords_kernel", "dwords_reduce_kernel")
+K3_KERNELS = ("void sim_e_kernel", "void sim_wei_kernel",
+              "void sim_finish_kernel")
+GLORIA_KERNELS = K3_KERNELS + ("void dctx_z_kernel", "dctx_gemm_kernel",
+                               "void dwords_kernel", "dwords_reduce_kernel")
 
 
 def profile_device(torch, fn, wall_ms: float, label: str):
@@ -564,14 +568,16 @@ def launch_counts():
     from medmoe_torch.ops import expert_fusion as ef, gloria_attention as ga
 
     return {"K1": ef.LAUNCHES, "K2": ef.BWD_LAUNCHES, "K3": ga.LAUNCHES,
-            "K4a": ga.DCTX_LAUNCHES, "K4b": ga.DWORDS_LAUNCHES}
+            "prologue": ga.PROLOGUE_LAUNCHES, "K4a": ga.DCTX_LAUNCHES,
+            "K4b": ga.DWORDS_LAUNCHES}
 
 
 def reset_launch_counts():
     from medmoe_torch.ops import expert_fusion as ef, gloria_attention as ga
 
     ef.LAUNCHES = ef.BWD_LAUNCHES = 0
-    ga.LAUNCHES = ga.DCTX_LAUNCHES = ga.DWORDS_LAUNCHES = 0
+    ga.LAUNCHES = ga.PROLOGUE_LAUNCHES = 0
+    ga.DCTX_LAUNCHES = ga.DWORDS_LAUNCHES = 0
 
 
 def drive_train(torch, overrides):
@@ -637,7 +643,8 @@ def phase_train(torch, ef, card: str):
     check(metrics["train/grad_norm"] > 0, "grad_norm is 0")
     check(k2 == 8, f"K2 launched {k2} times for 8 micro-batches")
     check(k1 >= 8, f"K1 launched {k1} times for 8 micro-batches")
-    check(counts["K3"] == counts["K4a"] == counts["K4b"] == 0,
+    check(counts["K3"] == counts["prologue"] == counts["K4a"]
+          == counts["K4b"] == 0,
           f"the B=32 losses launched GLoRIA kernels: {counts}")
 
     experts, moved_rows = check_moved(torch, module, cfg.seed, routed,
@@ -829,6 +836,7 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
         ("odd 3x5 D=48 7x5 T=9", (3, 5, 48, 7, 5, 9)),
         ("odd 4x3 D=80 9x9 T=32", (4, 3, 80, 9, 9, 32)),
         ("odd 3x5 D=48 7x5 T=40", (3, 5, 48, 7, 5, 40)),
+        ("odd 3x5 D=48 12x11 T=9", (3, 5, 48, 12, 11, 9)),
     ]
     for name, shape in cases:
         img, words, cap, cot = gloria_inputs(torch, *shape, seed=21)
@@ -851,12 +859,13 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
         if results:
             continue
         h, w, t = shape[3:]
-        scratch = ga.backward_scratch_bytes(b_img, b_txt, d, t)
-        chunk, z_bytes = ga.dctx_chunk(b_img, b_txt, h * w, t)
+        scratch = ga.backward_scratch_bytes(b_img, b_txt, h * w, d, t)
+        chunk, z_bytes = ga.image_chunk(b_img, b_txt, h * w, t)
         print(f"K4 {name}: backward scratch {scratch / 1e9:.3f} GB (bf16 "
-              f"d_wei and per-word vectors per pair, K4b partial sums); "
-              f"K4a's Z [a2 | d_scores] {z_bytes / 1e9:.3f} GB for a chunk "
-              f"of {chunk} images", flush=True)
+              f"d_wei and per-word vectors per pair, K4b partial sums, the "
+              f"prologue's passes over a chunk); E [hi | lo of e] and K4a's "
+              f"Z [a2 | d_scores] {z_bytes / 1e9:.3f} GB for a chunk of "
+              f"{chunk} images", flush=True)
 
         def fwd():
             ga.gloria_similarity_forward(img, words, cap, *temps)
@@ -893,11 +902,15 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
             print(f"{key} {name}: kernel_ms {ms:.4f} plain_ms {plain:.4f} "
                   f"bound_ms {bound:.4f} ({by}: {products} products, "
                   f"{gflop:.1f} GFLOP, {mb:.1f} MB) on {card}", flush=True)
-        results["K4a"].update(k4a_only_ms=ms_k4a, prologue_ms=ms_pro)
-        print(f"K4a {name}: the backward's prologue alone {ms_pro:.4f} ms, "
-              f"K4a alone (both passes) {ms_k4a:.4f} ms, prologue + K4a "
-              f"{ms4a:.4f} ms; bound {results['K4a']['bound_ms']:.4f} ms "
-              f"on {card}", flush=True)
+        pro_bound, _, _, _ = gloria_bound(img, words,
+                                          prologue_out_bytes(ga, shape), 2)
+        results["K4a"].update(k4a_only_ms=ms_k4a)
+        for key in ("K4a", "K4b"):
+            results[key].update(prologue_ms=ms_pro, prologue_bound_ms=pro_bound)
+        print(f"K4a {name}: the backward's prologue alone {ms_pro:.4f} ms "
+              f"(bound {pro_bound:.4f} ms), K4a alone (both passes) "
+              f"{ms_k4a:.4f} ms, prologue + K4a {ms4a:.4f} ms; bound "
+              f"{results['K4a']['bound_ms']:.4f} ms on {card}", flush=True)
         print("K4a's and K4b's kernel_ms each include the backward's prologue "
               "(the forward chain and the cotangents down to d_wei per pair)",
               flush=True)
@@ -929,6 +942,44 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
     return results
 
 
+def prologue_out_bytes(ga, shape) -> int:
+    """Bytes the backward's prologue writes: bf16(d_wei) and the four
+    per-word vectors per pair, and the cotangent it reads."""
+    b_img, b_txt, d, _, _, t = shape
+    tp = ga._tpad(t)
+    return b_img * b_txt * (d * tp * 2 + 4 * tp * 4 + 4)
+
+
+def phase_gloria_wide(torch, ga, card: str, words: int = 40):
+    """K3 against its plain version at B=256 flagship shapes with captions
+    of ``words`` words, and the times of K3, its plain version and the
+    backward's prologue there."""
+    temps = (4.0, 5.0, 10.0)
+    shape = (GLORIA_BATCH, GLORIA_BATCH, 768, 56, 56, words)
+    name = f"flagship B=256 T={words}"
+    img, words_, cap, cot = gloria_inputs(torch, *shape, seed=23)
+    out = ga.gloria_similarity_forward(img, words_, cap, *temps)
+    torch.cuda.synchronize()
+    ref = ga.gloria_similarity_reference(img, words_, cap, *temps)
+    gloria_err(torch, out, ref, f"K3 {name}", "fwd")
+    del out, ref
+    ms3 = cuda_ms(lambda: ga.gloria_similarity_forward(img, words_, cap, *temps),
+                  iters=3, warmup=1)
+    plain3 = cuda_ms(lambda: ga.gloria_similarity_reference(
+        img, words_, cap, *temps), iters=1, warmup=0)
+    ms_pro = cuda_ms(lambda: ga.pair_cotangents(img, words_, cap, cot, *temps),
+                     iters=2, warmup=1)
+    bound3, by, gflop, _ = gloria_bound(img, words_, GLORIA_BATCH ** 2 * 4, 2)
+    pro_bound, _, _, _ = gloria_bound(img, words_, prologue_out_bytes(ga, shape),
+                                      2)
+    print(f"K3 {name}: kernel_ms {ms3:.4f} plain_ms {plain3:.4f} bound_ms "
+          f"{bound3:.4f} ({by}: 2 products, {gflop:.1f} GFLOP); the "
+          f"backward's prologue alone {ms_pro:.4f} ms (bound {pro_bound:.4f} "
+          f"ms) on {card}", flush=True)
+    del img, words_, cap, cot
+    torch.cuda.empty_cache()
+
+
 def phase_gloria_train(torch, card: str):
     """Two optimizer steps of experiment=gloria256 (one batch of 256 a
     step, global negatives) at full width through the train CLI's
@@ -953,6 +1004,8 @@ def phase_gloria_train(torch, card: str):
     # is frozen, so words_emb needs no gradient)
     check(counts["K3"] == 3, f"K3 launched {counts['K3']} times for 3 "
           f"forwards")
+    check(counts["prologue"] == 2, f"the backward's prologue launched "
+          f"{counts['prologue']} times for 2 backwards")
     check(counts["K4a"] == 2, f"K4a launched {counts['K4a']} times for 2 "
           f"backwards")
     check(counts["K4b"] == 0, f"K4b launched {counts['K4b']} times with "
@@ -1014,8 +1067,9 @@ def phase_text_train(torch, card: str):
     check(trainer.state.step == 1, f"{trainer.state.step} optimizer steps")
     check(math.isfinite(metrics.get("train/loss", float("nan"))),
           "text training: loss not finite")
-    check(counts["K3"] == 1 and counts["K4a"] == 1 and counts["K4b"] == 1,
-          f"text training: launches {counts}, expected K3, K4a and K4b once")
+    check(counts["K3"] == counts["prologue"] == counts["K4a"]
+          == counts["K4b"] == 1, f"text training: launches {counts}, "
+          f"expected K3, the prologue, K4a and K4b once")
     check_moved(torch, module, cfg.seed, routed, "text training",
                 bert_trains=True)
     batch = trainer.to_device(next(iter(objs["datamodule"].train_dataloader(1))))
@@ -1070,6 +1124,7 @@ def main() -> int:
     k2 = phase_k2(torch, ef)
     k1_train, k2_train, pairs_s = phase_train(torch, ef, card)
     gl = phase_gloria(torch, ga, card)
+    phase_gloria_wide(torch, ga, card)
     g256 = phase_gloria_train(torch, card)
     text = phase_text_train(torch, card)
     print(f"main paths: serving {img_s:.1f} img/s with K1 launched "
@@ -1078,8 +1133,9 @@ def main() -> int:
           f"{k2_train} times; gloria256 launches {g256}; text training "
           f"launches {text}", flush=True)
 
-    def row(name, source, replaces, launches, r):
-        extra = {k: r[k] for k in ("k4a_only_ms", "prologue_ms") if k in r}
+    def row(name, source, replaces, launches, r, **extra):
+        extra.update({k: r[k] for k in ("k4a_only_ms", "prologue_ms",
+                                        "prologue_bound_ms") if k in r})
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1095,11 +1151,14 @@ def main() -> int:
             "medmoe_torch/csrc/expert_fusion_bwd.cu",
             "medmoe_tpu/ops/pallas/expert_fusion.py:233", k2_train, k2),
         row("gloria_similarity_forward", f"{gsrc}.cu", f"{gtpu}:73",
-            g256["K3"], gl["K3"]),
+            g256["K3"], gl["K3"],
+            functions=[k.split()[-1] for k in K3_KERNELS]),
         row("gloria_similarity_backward d_ctx", f"{gsrc}_bwd.cu",
-            f"{gtpu}:242", g256["K4a"], gl["K4a"]),
+            f"{gtpu}:242", g256["K4a"], gl["K4a"],
+            prologue_launches=g256["prologue"]),
         row("gloria_similarity_backward d_words", f"{gsrc}_bwd.cu",
-            f"{gtpu}:274", text["K4b"], gl["K4b"])]}))
+            f"{gtpu}:274", text["K4b"], gl["K4b"],
+            prologue_launches=text["prologue"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 // A tiled bf16 × bf16 → f32 matrix product for one block of 256 threads,
-// for sm_90a: the core that the GLoRIA d_ctx kernel (K4a) runs twice, and
-// that K3, the backward's prologue and K4b are to move onto.
+// for sm_90a: the core of the GLoRIA kernels' dense passes, two for K3 and
+// the backward's prologue (gloria_attention.cu), two for the d_ctx kernel
+// K4a (gloria_attention_bwd.cu); K4b is to move onto it.
 //
 //   C[BM, BN] = A[BM, K] · B[K, BN], K in slices of BK = 32
 //

@@ -1,48 +1,64 @@
-// GLoRIA word-region similarity, forward (K3) — for sm_90a.
+// GLoRIA word-region similarity, forward (K3) and the backward's prologue —
+// for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_sim_kernel` (driven by `_sim_forward`,
-// forward chain `_cell_recompute`) in medmoe_tpu/ops/pallas/gloria_attention.py.
-// For each (image b, caption i) pair, over the image's M = H·W regions:
+// forward chain `_cell_recompute`) in medmoe_tpu/ops/pallas/gloria_attention.py
+// and, as the backward's prologue, the share of `_cell_cotangents` down to
+// d_wei. For each (image b, caption i) pair, over the image's M = H·W regions:
 //   scores[m,t] = Σ_d ctx[b,m,d]·words[i,d,t]              bf16 products, f32 sums
 //   a1 = softmax_t(scores | t < cap_i),  a2 = softmax_m(temp1·a1)     f32
 //   wei[d,t] = Σ_m ctx[b,m,d]·a2[m,t]                      f32 a2
 //   cos[t] = ⟨w_t, wei_t⟩ / max(‖w_t‖·‖wei_t‖, 1e-8)
 //   sim[b,i] = temp3 · log Σ_{t<cap_i} exp(temp2·cos[t])
+// The prologue (`medmoe_gloria_pair_cotangents`) goes on to bf16(d_wei) and
+// four per-word vectors for K4a/K4b (csrc/gloria_attention_bwd.cu).
 //
-// What bounds it on the H100: operations. Two products of 2·M·T·D per
-// pair (7.89 TFLOP each at B=256 and flagship shapes, 16.0 ms of bf16
-// tensor-core time) against 1.2 GB of ctx (0.37 ms of memory).
+// What bounds it on the H100: operations. Two products of 2·M·T·D per pair,
+// 7.89 TFLOP each at B=256, flagship shapes and T = 25 (16.0 ms of bf16
+// tensor-core time), against 1.2 GB of ctx (0.37 ms of memory). The passes
+// below run padded products: F1 2·M·D·TPAD per pair (10.1 TFLOP at TPAD = 32
+// and B = 256) and F2 twice that (20.2 TFLOP), since f32 a2 enters the
+// tensor cores as two bf16 parts.
 //
-// Design. One block per pair, one pass over M in tiles of 32 rows, the
-// next tile copied in (cp.async) while the block works on this one. The
-// softmax over M needs no running maximum: 0 <= a1 <= 1, so temp1·a1 never
-// exceeds e_off = max(temp1, 0), and e = exp(temp1·a1 - e_off) lies in
-// [exp(-|temp1|), 1] (the wrapper takes |temp1| <= 80). The block sums the
-// column sums Σ_m e and the unnormalised wei Σ_m ctx·e in one pass and
-// divides at the end; a2 = e/Σe is the same function as the JAX softmax
-// up to f32 rounding. The wei product runs on the tensor cores with f32 a2
-// split into two bf16 parts, e = hi + lo: ctx is exactly bf16, so the two
-// products give the f32 value to about 2^-16 relative. Both products use
-// WMMA bf16 16×16×16 tiles with f32 accumulators: each warp forms the whole
-// [32, 32] scores tile over an eighth of D (one fragment load a product),
-// and the softmax over words runs 8 threads a row, all rows at once. The
-// [D, T] wei accumulator (96 KB of f32 at D=768) lives in registers, 12
-// fragments a warp, which leaves room for one caption a block, not
-// several: blocks of one image are launched next to each other (grid x =
-// caption), so its ctx (4.8 MB) is read from device memory about once and
-// then from L2. No product sits behind a branch, so the compiler can
-// interleave them (past D a fragment is repeated into an accumulator that
-// is never stored).
+// Design: three kernels for each chunk of images, the pair loop moved into
+// the products' N and K, the products on the tiled GEMM core of
+// csrc/gemm_core.cuh (mma.sync, 128 × 128 block tiles, a cp.async ring):
+//   F1 (sim_e_kernel): S_b = ctx_b [M, D] · W [D, B_txt·TPAD]. A 128-wide
+//     tile holds whole captions (four of 32 padded words, or one of up to
+//     128), so its epilogue sees every word of a row: the masked word
+//     softmax, e = exp(temp1·a1 - e_off), written transposed as Eᵀ_b =
+//     [bf16 hi ; bf16 lo] of e, [2, B_txt·TPAD, MP] (MP = M rounded up to 8),
+//     and Σ_m e of each word over the tile's 128 rows.
+//   F2 (sim_wei_kernel): weiᵀ_b [B_txt·TPAD, D] = [E_hiᵀ | E_loᵀ] ·
+//     [ctx_b ; ctx_b], K = 2·MP in order. Its epilogue sums Σ_m e over the M
+//     tiles in order, divides, and writes per-(D tile, word) partial sums of
+//     w·wei, wei² and w² (the prologue also wei itself, f32).
+//   F3 (sim_finish_kernel): a warp a pair. The D tiles' partials in order,
+//     cos, Σ_t row, then sim (K3), or the tail of `_cell_cotangents` (the
+//     prologue): dnum, c2, d_wei = bf16(dnum·w + dnwei/max(‖wei‖, 1e-20)·wei),
+//     s = Σ_d bf16(d_wei)·wei and Σ_m e.
+// The softmax over M needs no running maximum: 0 <= a1 <= 1, so temp1·a1
+// never exceeds e_off = max(temp1, 0), and e lies in [exp(-|temp1|), 1] (the
+// wrapper takes |temp1| <= 80); a2 = e/Σe. ctx is exactly bf16, so the hi
+// and lo products give f32 wei to about 2^-16 relative.
 //
-// The backward's prologue (`medmoe_gloria_pair_cotangents`) is the same
-// kernel with the TPU kernel's `_cell_cotangents` appended: it writes
-// bf16(d_wei) and four per-word vectors for K4a/K4b
-// (csrc/gloria_attention_bwd.cu).
-//
-// Captions of T > 32 words run in word tiles of 32 (csrc/gloria_common.cuh):
-// the block walks the tiles and recomputes every tile's scores for the
-// softmax over words, for correctness at GLoRIA's own caption lengths, not
-// for speed. T <= 32 runs the single-tile code above.
+// What this answers in the single kernel it replaces (one block a pair, a
+// template shared by both entry points):
+//   - each block streamed its image's whole ctx (4.8 MB) for one caption,
+//     ≈315 GB from L2 a call at B=256; here ctx_b is an operand of dense
+//     products over all captions at once, read once a 128-word tile;
+//   - its products were WMMA 16×16×16 on [32, 32] tiles, a warp an eighth of
+//     D, with no load behind a product; here 128 × 128 tiles of mma.sync on
+//     a cp.async ring;
+//   - its [D, 32] f32 wei accumulator (96 registers a thread) left room for
+//     one caption a block and one block an SM; here wei is a product's
+//     output tile, two blocks an SM;
+//   - above T = 32 it recomputed the scores of every word tile at each M
+//     tile; here a tile holds whole captions, so no score is recomputed.
+// No atomics: every sum over M, D or words runs in a fixed order, and two
+// runs give the same bits. The wrapper allocates the scratch (E, the
+// partial sums, and the prologue's wei [chunk, B_txt, D, TPAD] f32) for a
+// chunk of images and sizes the chunk.
 //
 // Shapes the kernels take (the wrapper checks them): T <= 128, D % 16 == 0,
 // D <= 768, |temp1| <= 80.
@@ -50,286 +66,416 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (medmoe_torch/ops/_build.py).
 
+#include "gemm_core.cuh"
 #include "gloria_common.cuh"
 
-#define MT 32  // rows of M a tile
+#define TILE 128  // the passes' block tiles: 128 rows, 128 columns
 
-__host__ __device__ static int tile_bytes(int D) { return round_up(MT * (D + 8) * 2, 128); }
+using F1Tile = gemm::Tile<TILE, TILE, 64, 32, 3, gemm::kKN>;
+using F2Tile = gemm::Tile<TILE, TILE, 64, 32, 4, gemm::kKN>;
 
-// two ctx tiles (after the M loop: wei [D][TP] f32), words, the warps'
-// partial score tiles, e hi, e lo, then partial sums and per-word values
-static int pair_smem_bytes(int D) {
-  const int r0 = 2 * tile_bytes(D) > D * TP * 4 ? 2 * tile_bytes(D) : round_up(D * TP * 4, 128);
-  const int r1 = round_up(D * WLD * 2, 128);
-  const int r2 = round_up(NWARPS * MT * SLD * 4 + 2 * MT * WLD * 2, 128);
-  const int r3 = (4 * NWARPS + 8) * TP * 4;
-  return r0 + r1 + r2 + r3;
+// The passes' scratch for one chunk of images (N = B_txt·TPAD words)
+struct PassArgs {
+  bf16* e;       // [chunk, 2, N, MP]: bf16 hi, then lo, of e, transposed
+  float* esum;   // [chunk, n_mt, N]: Σ_m e over each 128-row M tile
+  float* part;   // [chunk, n_dt, 3, N]: Σ_d w·wei, wei², w² over each D tile
+  float* wei;    // [chunk, B_txt, D, TPAD] f32 (the prologue only)
+  int N, MP, n_mt, n_dt;
+};
+
+// ---------------------------------------------------------------------------
+// F1: e and Σ_m e; grid (M tiles, caption tiles, images of the chunk)
+// ---------------------------------------------------------------------------
+// A caption's pitch in the tile: TPAD, or the whole tile for TPAD = 96
+// (its last 32 columns zero)
+template <int NT>
+struct F1Geom {
+  static constexpr int TPAD = TP * NT, CW = NT == 3 ? TILE : TPAD, CPT = TILE / CW, WPT = CW / 8;
+};
+
+__device__ __forceinline__ unsigned bf162_bits(__nv_bfloat162 v) {
+  unsigned u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
 }
 
-// kMulti: T > 32. The block then walks the word tiles wt in order; for each
-// it runs the M loop, forming at every M tile the scores of all word tiles
-// (each tile's words reloaded from L2) for the rows' softmax over all T,
-// and accumulating e and wei for tile wt's words only. Σ_t row spans all
-// tiles, so the backward first sweeps every tile for it and then sweeps
-// again to write d_wei. With kMulti false (T <= 32) nt is 1 and the code is
-// the single-tile kernel.
-template <bool kBwd, bool kMulti>
-__global__ void __launch_bounds__(THREADS, 1)
-pair_kernel(GloriaArgs a, float* __restrict__ sim, const float* __restrict__ g,
-            bf16* __restrict__ dwei, float* __restrict__ vecs) {
+constexpr int F1_SMEM = F1Tile::SMEM + 2 * TILE * 4;
+constexpr int F2_SMEM = F2Tile::SMEM + 7 * TILE * 4;
+
+template <int NT>
+__global__ void __launch_bounds__(gemm::kThreads, F1Tile::MIN_BLOCKS)
+sim_e_kernel(GloriaArgs a, PassArgs p, int b0) {
+  using Cfg = F1Tile;
+  using G = F1Geom<NT>;
+  constexpr int TPAD = G::TPAD, CW = G::CW, CPT = G::CPT, WPT = G::WPT;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = a.D, M = a.M, T = a.T;
-  const int nt = kMulti ? a.NT : 1;
-  const int tpad = kMulti ? a.TPAD : TP;
-  const int cld = D + 8;
-  const int tb = tile_bytes(D);
-  bf16* cbuf[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem + tb)};
-  float* weis = reinterpret_cast<float*>(smem);  // [D][TP], after the M loop
-  unsigned char* p = smem + (2 * tb > D * TP * 4 ? 2 * tb : round_up(D * TP * 4, 128));
-  bf16* ws = reinterpret_cast<bf16*>(p);
-  p += round_up(D * WLD * 2, 128);
-  float* sc = reinterpret_cast<float*>(p);  // NWARPS partial [MT][SLD] score tiles
-  bf16* eh = reinterpret_cast<bf16*>(p + NWARPS * MT * SLD * 4);
-  bf16* el = eh + MT * WLD;
-  float* red =
-      reinterpret_cast<float*>(p + round_up(NWARPS * MT * SLD * 4 + 2 * MT * WLD * 2, 128));
-  float* col = red + 4 * NWARPS * TP;  // 8 per-word arrays of TP
+  float* red = reinterpret_cast<float*>(smem + Cfg::SMEM);  // [2][TILE] Σ e of half the rows
+  const int D = a.D, M = a.M, Bt = a.Bt, T = a.T, MP = p.MP, N = p.N;
+  const int m0 = blockIdx.x * Cfg::BM, i0 = blockIdx.y * CPT, bl = blockIdx.z;
+  const int tid = threadIdx.x;
+  const bf16* ctx = a.ctx + (size_t)(b0 + bl) * M * D;
 
-  const int i = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int cap = a.cap[i];
-  const bf16* ctx = a.ctx + (size_t)b * M * D;
-  const bf16* words = a.words + (size_t)i * D * tpad;
-  const size_t pair = (size_t)b * a.Bt + i;
-  const int n_df = D / 16;
-  const int tf = warp & 1;  // this warp's column fragment of wei
-  const int n_tiles = (M + MT - 1) / MT;
-  // the row step: 8 threads a row, words 4q..4q+3 of a word tile in this thread
-  const int row = tid >> 3, q = tid & 7;
-  float rowsum = 0.0f;  // Σ_t row over the word tiles swept so far (warp 0)
-  const int sweeps = kBwd && kMulti ? 2 : 1;
+  // A = ctx_b rows m0.., D contiguous
+  auto load_a = [&](bf16* as, int k0) {
+    for (int v = tid; v < Cfg::BM * (gemm::BK / 8); v += gemm::kThreads) {
+      const int r = v >> 2, c = (v & 3) * 8, m = m0 + r, k = k0 + c;
+      const bool ok = m < M && k < D;
+      gemm::cp16(as + r * gemm::LDK + c, ok ? ctx + (size_t)m * D + k : ctx, ok);
+    }
+  };
+  // B = the tile's captions' words, rows d = k0.., N contiguous
+  auto load_b = [&](bf16* bs, int k0) {
+    constexpr int CH = Cfg::BN / 8;  // 16-byte chunks of a row
+    for (int v = tid; v < gemm::BK * CH; v += gemm::kThreads) {
+      const int kr = v / CH, n = (v % CH) * 8, d = k0 + kr;
+      const int i = i0 + n / CW, c = n % CW;
+      const bool ok = d < D && i < Bt && c < TPAD;
+      gemm::cp16(bs + kr * Cfg::LDN + n, ok ? a.words + ((size_t)i * D + d) * TPAD + c : a.words,
+                 ok);
+    }
+  };
 
-  for (int sweep = 0; sweep < sweeps; ++sweep) {
-    const bool write = kBwd && sweep == sweeps - 1;
-    for (int wt = 0; wt < nt; ++wt) {
-      const int t0 = wt * TP;  // this word tile's first word
-      if (!kMulti) load_dt(ws, words, D);
-      load_ctx_tile(cbuf[0], ctx, 0, MT, M, D);
-      cp_async_commit();
+  float acc[Cfg::MI][Cfg::NI][4];
+  gemm::mainloop<Cfg>(smem, D, load_a, load_b, acc);
+  float* cs = reinterpret_cast<float*>(smem);
+  gemm::store_tile<Cfg>(cs, acc);
 
-      Acc acc[N_ACC];
+  // the row step: 8 threads a (row, caption), words q·WPT.. in this thread;
+  // e replaces the scores in place. Fast intrinsics, as in K4a's pass 1 (the
+  // divisor, Σ_t of a row, is >= 1).
+  const int q = tid & 7;
+  for (int u0 = 0; u0 < Cfg::BM * CPT; u0 += gemm::kThreads / 8) {
+    const int u = u0 + (tid >> 3);
+    const int ci = u / Cfg::BM, r = u % Cfg::BM, i = i0 + ci, m = m0 + r;
+    const int cap = i < Bt ? a.cap[i] : 1;
+    float* crow = cs + r * Cfg::LDC + ci * CW + q * WPT;
+    float x[WPT];
 #pragma unroll
-      for (int j = 0; j < N_ACC; ++j) wmma::fill_fragment(acc[j], 0.0f);
-      float colsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // Σ e over this thread's rows
+    for (int j = 0; j < WPT; j += 4) {
+      const float4 s4 = *reinterpret_cast<const float4*>(crow + j);
+      x[j] = s4.x, x[j + 1] = s4.y, x[j + 2] = s4.z, x[j + 3] = s4.w;
+    }
+    // a1: softmax over the words t < cap (t >= T left out), as word_softmax4
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < WPT; ++j) {
+      const int t = q * WPT + j;
+      x[j] = t >= T ? -INFINITY : (t < cap ? x[j] : NEG_INF_F);
+      mx = fmaxf(mx, x[j]);
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float z = 0.0f;
+#pragma unroll
+    for (int j = 0; j < WPT; ++j) {
+      x[j] = __expf(x[j] - mx);
+      z += x[j];
+    }
+    z = row_sum8(z);
+#pragma unroll
+    for (int j = 0; j < WPT; ++j)
+      x[j] = m < M && q * WPT + j < T ? __expf(a.temp1 * __fdividef(x[j], z) - a.e_off) : 0.0f;
+#pragma unroll
+    for (int j = 0; j < WPT; j += 4)
+      *reinterpret_cast<float4*>(crow + j) = make_float4(x[j], x[j + 1], x[j + 2], x[j + 3]);
+  }
+  __syncthreads();
 
-      for (int t = 0; t < n_tiles; ++t) {
-        const int m0 = t * MT;
-        const bf16* cs = cbuf[t & 1];
-        if (t + 1 < n_tiles) {  // the next tile, into the buffer freed at the end of t - 1
-          load_ctx_tile(cbuf[(t + 1) & 1], ctx, m0 + MT, MT, M, D);
-          cp_async_commit();
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        float a1[4];
-        if constexpr (!kMulti) {
-          // scores [MT, TP]: each warp sums an eighth of the steps of D
-          tile_times_dt(cs, ws, D, warp, NWARPS, sc);
-          __syncthreads();
-          float v[4];
-          sum_parts(sc, NWARPS, row, q, v);
-          word_softmax4(v, q, cap, T, a1);
-        } else {
-          float v[MAX_NT][4], a1t[MAX_NT][4];
-          for (int w = 0; w < nt; ++w) {  // the scores of every word tile
-            load_dt(ws, words + w * TP, D, tpad);
-            cp_async_wait_sync();
-            tile_times_dt(cs, ws, D, warp, NWARPS, sc);
-            __syncthreads();
-            sum_parts(sc, NWARPS, row, q, v[w]);
-            __syncthreads();
-          }
-          word_softmax_tiles(v, nt, q, cap, T, a1t);
+  // Eᵀ: a thread a (column, half of the rows), 8 rows at a time, 16 bytes
+  // of hi and of lo each; Σ_m e of its 64 rows in order
+  {
+    const int n = tid & (TILE - 1), h = tid >> 7;
+    const int i = i0 + n / CW, c = n % CW;
+    const bool col = i < Bt && c < TPAD;
+    bf16* hi = p.e + ((size_t)bl * 2 * N + (size_t)i * TPAD + c) * MP;
+    bf16* lo = hi + (size_t)N * MP;
+    float s = 0.0f;
+#pragma unroll 2
+    for (int g = 0; g < 8; ++g) {
+      const int r0 = h * 64 + g * 8, m = m0 + r0;
+      unsigned hv[4], lv[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) a1[j] = a1t[wt][j];
-        }
-        // e = exp(temp1·a1 - e_off) split into bf16 hi + lo
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int wc = 4 * q + j;
-          const float e =
-              (m0 + row < M && t0 + wc < T) ? expf(a.temp1 * a1[j] - a.e_off) : 0.0f;
-          const bf16 hi = __float2bfloat16_rn(e);
-          eh[row * WLD + wc] = hi;
-          el[row * WLD + wc] = __float2bfloat16_rn(e - __bfloat162float(hi));
-          colsum[j] += e;
-        }
-        __syncthreads();
-        // wei[D, TP] += ctx_tileᵀ · (e_hi + e_lo); warp: column fragment tf,
-        // row fragments (warp >> 1) + 4j, clamped to the last one past D
-#pragma unroll
-        for (int k = 0; k < MT; k += 16) {
-          FragB bh, bl;
-          wmma::load_matrix_sync(bh, eh + k * WLD + tf * 16, WLD);
-          wmma::load_matrix_sync(bl, el + k * WLD + tf * 16, WLD);
-#pragma unroll
-          for (int g = 0; g < N_ACC; g += N_ACC / 3) {
-            FragAT fa[N_ACC / 3];
-#pragma unroll
-            for (int u = 0; u < N_ACC / 3; ++u) {
-              const int df = min((warp >> 1) + 4 * (g + u), n_df - 1);
-              wmma::load_matrix_sync(fa[u], cs + k * cld + df * 16, cld);
-            }
-#pragma unroll
-            for (int u = 0; u < N_ACC / 3; ++u) wmma::mma_sync(acc[g + u], fa[u], bh, acc[g + u]);
-#pragma unroll
-            for (int u = 0; u < N_ACC / 3; ++u) wmma::mma_sync(acc[g + u], fa[u], bl, acc[g + u]);
-          }
-        }
-        __syncthreads();
+      for (int j = 0; j < 4; ++j) {
+        const float v0 = cs[(r0 + 2 * j) * Cfg::LDC + n], v1 = cs[(r0 + 2 * j + 1) * Cfg::LDC + n];
+        s += v0;
+        s += v1;
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(v0, v1);
+        const float2 back = __bfloat1622float2(h2);
+        hv[j] = bf162_bits(h2);
+        lv[j] = bf162_bits(__floats2bfloat162_rn(v0 - back.x, v1 - back.y));
       }
-      if constexpr (kMulti) {  // this word tile's words, for the per-word sums below
-        load_dt(ws, words + t0, D, tpad);
-        cp_async_wait_sync();
+      if (col && m < MP) {
+        *reinterpret_cast<uint4*>(hi + m) = make_uint4(hv[0], hv[1], hv[2], hv[3]);
+        *reinterpret_cast<uint4*>(lo + m) = make_uint4(lv[0], lv[1], lv[2], lv[3]);
       }
+    }
+    red[h * TILE + n] = s;
+  }
+  __syncthreads();
+  if (tid < TILE) {
+    const int i = i0 + tid / CW, c = tid % CW;
+    if (i < Bt && c < TPAD)
+      p.esum[((size_t)bl * p.n_mt + blockIdx.x) * N + (size_t)i * TPAD + c] =
+          red[tid] + red[TILE + tid];
+  }
+}
 
-      // Σ_m e per word, and the unnormalised wei → shared memory
-#pragma unroll
-      for (int j = 0; j < 4; ++j) red[row * TP + 4 * q + j] = colsum[j];
-#pragma unroll
-      for (int j = 0; j < N_ACC; ++j) {
-        const int df = (warp >> 1) + 4 * j;
-        if (df < n_df)
-          wmma::store_matrix_sync(weis + df * 16 * TP + tf * 16, acc[j], TP, wmma::mem_row_major);
-      }
-      __syncthreads();
-      float* c_sum = col;  // Σ_m e
-      if (tid < TP) {
-        float s = 0.0f;
-        for (int r = 0; r < MT; ++r) s += red[r * TP + tid];
-        c_sum[tid] = s;
-      }
-      __syncthreads();
+// ---------------------------------------------------------------------------
+// F2: weiᵀ_b = [E_hiᵀ | E_loᵀ] · [ctx_b ; ctx_b]; grid (D tiles, word tiles,
+// images of the chunk)
+// ---------------------------------------------------------------------------
+template <bool kBwd>
+__global__ void __launch_bounds__(gemm::kThreads, F2Tile::MIN_BLOCKS)
+sim_wei_kernel(GloriaArgs a, PassArgs p, int b0) {
+  using Cfg = F2Tile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* csum = reinterpret_cast<float*>(smem + Cfg::SMEM);  // [TILE] Σ_m e
+  float* red = csum + TILE;                                   // [2][3][TILE]
+  const int D = a.D, M = a.M, T = a.T, TPAD = a.TPAD, MP = p.MP, N = p.N, K = 2 * MP;
+  const int d0 = blockIdx.x * Cfg::BN, n0 = blockIdx.y * Cfg::BM, bl = blockIdx.z;
+  const int tid = threadIdx.x;
+  const bf16* ctx = a.ctx + (size_t)(b0 + bl) * M * D;
+  const bf16* eh = p.e + (size_t)bl * 2 * N * MP;
 
-      // wei = Σ ctx·e / Σ e; per-word sums over D of w·wei, w², wei²
-      const bool word = t0 + lane < T;
-      float num = 0.0f, nw2 = 0.0f, nwei2 = 0.0f;
-      for (int d = warp; d < D; d += NWARPS) {
-        float v = 0.0f;
-        if (word) v = weis[d * TP + lane] / c_sum[lane];
-        weis[d * TP + lane] = v;
-        const float wv = __bfloat162float(ws[d * WLD + lane]);
+  // Σ_m e of the tile's words, the M tiles in order (the ring's barriers
+  // order it before the epilogue)
+  if (tid < TILE) {
+    const int n = n0 + tid;
+    float s = 0.0f;
+    if (n < N)
+      for (int t = 0; t < p.n_mt; ++t) s += p.esum[((size_t)bl * p.n_mt + t) * N + n];
+    csum[tid] = s;
+  }
+
+  // A = E rows n0.., K contiguous: hi for k < MP, then lo
+  auto load_a = [&](bf16* as, int k0) {
+    for (int v = tid; v < Cfg::BM * (gemm::BK / 8); v += gemm::kThreads) {
+      const int r = v >> 2, c = (v & 3) * 8, n = n0 + r, k = k0 + c;
+      const bool ok = n < N && k < K;
+      const bf16* src = eh + (k < MP ? (size_t)n * MP + k : (size_t)(N + n) * MP + (k - MP));
+      gemm::cp16(as + r * gemm::LDK + c, ok ? src : eh, ok);
+    }
+  };
+  // B = ctx_b rows k mod MP, columns d0.., D contiguous
+  auto load_b = [&](bf16* bs, int k0) {
+    constexpr int CH = Cfg::BN / 8;
+    for (int v = tid; v < gemm::BK * CH; v += gemm::kThreads) {
+      const int kr = v / CH, c = (v % CH) * 8, k = k0 + kr, d = d0 + c;
+      const int m = k < MP ? k : k - MP;
+      const bool ok = k < K && m < M && d < D;
+      gemm::cp16(bs + kr * Cfg::LDN + c, ok ? ctx + (size_t)m * D + d : ctx, ok);
+    }
+  };
+
+  float acc[Cfg::MI][Cfg::NI][4];
+  gemm::mainloop<Cfg>(smem, K, load_a, load_b, acc);
+  float* cs = reinterpret_cast<float*>(smem);
+  gemm::store_tile<Cfg>(cs, acc);
+
+  // a thread a (word, half of the D tile): wei = Σ ctx·e / Σ e (0 for the
+  // padded words t >= T), and its sums of w·wei, wei², w² in order of d
+  const int r = tid & (TILE - 1), h = tid >> 7, n = n0 + r;
+  const int i = n / TPAD, t = n % TPAD;
+  const bool word = n < N && t < T;
+  float num = 0.0f, wei2 = 0.0f, w2 = 0.0f;
+  if (n < N) {
+    const bf16* w = a.words + (size_t)i * D * TPAD + t;
+    float* out = kBwd ? p.wei + (size_t)bl * N * D + (size_t)i * D * TPAD + t : nullptr;
+    const float div = word ? csum[r] : 1.0f;
+    for (int c = h * (Cfg::BN / 2); c < (h + 1) * (Cfg::BN / 2); c += 4) {
+      const int d = d0 + c;
+      if (d >= D) break;  // D % 16 == 0: four columns are all in or all out
+      const float4 x4 = *reinterpret_cast<const float4*>(cs + r * Cfg::LDC + c);
+      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = word ? x[j] / div : 0.0f;
+        const float wv = __bfloat162float(w[(size_t)(d + j) * TPAD]);
         num += wv * v;
-        nw2 += wv * wv;
-        nwei2 += v * v;
+        wei2 += v * v;
+        w2 += wv * wv;
+        if constexpr (kBwd) out[(size_t)(d + j) * TPAD] = v;
       }
-      red[warp * TP + lane] = num;
-      red[(NWARPS + warp) * TP + lane] = nw2;
-      red[(2 * NWARPS + warp) * TP + lane] = nwei2;
-      __syncthreads();
-
-      float* c_dnum = col + TP;  // per-word coefficients of d_wei
-      float* c_cw = col + 2 * TP;
-      if (warp == 0) {
-        float s_num = 0.0f, s_nw = 0.0f, s_nwei = 0.0f;
-        for (int w = 0; w < NWARPS; ++w) {
-          s_num += red[w * TP + lane];
-          s_nw += red[(NWARPS + w) * TP + lane];
-          s_nwei += red[(2 * NWARPS + w) * TP + lane];
-        }
-        const float nw = sqrtf(s_nw), nwei = sqrtf(s_nwei);
-        const float den_raw = nw * nwei;
-        const float den = fmaxf(den_raw, 1e-8f);
-        const float cs_ = s_num / den;
-        const float term = (word && t0 + lane < cap) ? expf(cs_ * a.temp2) : 0.0f;
-        if (sweep == 0) rowsum += warp_sum(term);  // the word tiles in order
-        if (write) {
-          // _cell_cotangents: sim = temp3·log Σ row, row = exp(temp2·cos)
-          const float gg = g[(size_t)b * a.Bt + i];
-          const float dcos = gg * (a.temp2 * a.temp3) * term / rowsum;
-          const float mask = den_raw > 1e-8f ? 1.0f : 0.0f;
-          const float dnum = dcos / den;
-          const float dden = -dcos * s_num / (den * den) * mask;
-          const float dnwei = dden * nw, dnw = dden * nwei;
-          c_dnum[lane] = dnum;
-          c_cw[lane] = dnwei / fmaxf(nwei, 1e-20f);
-          float* v = vecs + pair * N_VECS * tpad + t0;
-          v[V_COLSUM * tpad + lane] = c_sum[lane];
-          v[V_DNUM * tpad + lane] = dnum;
-          v[V_C2 * tpad + lane] = dnw / fmaxf(nw, 1e-20f);
-        }
-      }
-      if (write) {
-        __syncthreads();
-        // d_wei = dnum·w + dnwei/max(‖wei‖, 1e-20)·wei, kept as bf16 (the
-        // rounding the cotangent products take); Σ_d bf16(d_wei)·wei per
-        // word, which equals the softmax backward's Σ_m a2·d_a2
-        bf16* dw = dwei + pair * D * tpad + t0;
-        float s = 0.0f;
-        for (int d = warp; d < D; d += NWARPS) {
-          const float v = weis[d * TP + lane];
-          const float wv = __bfloat162float(ws[d * WLD + lane]);
-          const bf16 dq = __float2bfloat16_rn(c_dnum[lane] * wv + c_cw[lane] * v);
-          dw[(size_t)d * tpad + lane] = dq;
-          s += __bfloat162float(dq) * v;
-        }
-        red[warp * TP + lane] = s;
-        __syncthreads();
-        if (tid < TP) {
-          float t = 0.0f;
-          for (int w = 0; w < NWARPS; ++w) t += red[w * TP + tid];
-          vecs[pair * N_VECS * tpad + V_S * tpad + t0 + tid] = t;
-        }
-      }
-      if constexpr (kMulti) __syncthreads();  // smem is reused by the next word tile
     }
   }
-  if (!kBwd && warp == 0 && lane == 0) sim[pair] = logf(rowsum) * a.temp3;
+  red[(h * 3 + 0) * TILE + r] = num;
+  red[(h * 3 + 1) * TILE + r] = wei2;
+  red[(h * 3 + 2) * TILE + r] = w2;
+  __syncthreads();
+  if (tid < TILE && n < N) {
+    float* o = p.part + ((size_t)bl * p.n_dt + blockIdx.x) * 3 * N + n;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) o[(size_t)k * N] = red[k * TILE + tid] + red[(3 + k) * TILE + tid];
+  }
 }
 
-template <bool kBwd, bool kMulti>
-static int launch_pair_nt(const GloriaArgs& a, float* sim, const float* g, bf16* dwei,
-                          float* vecs, void* stream) {
-  const int smem = pair_smem_bytes(a.D);
-  cudaError_t err = cudaFuncSetAttribute(pair_kernel<kBwd, kMulti>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  pair_kernel<kBwd, kMulti><<<dim3(a.Bt, a.Bi), THREADS, smem,
-                              static_cast<cudaStream_t>(stream)>>>(a, sim, g, dwei, vecs);
-  return (int)cudaGetLastError();
-}
-
+// ---------------------------------------------------------------------------
+// F3: a warp a pair of the chunk; lane: words lane + 32j, j < NT
+// ---------------------------------------------------------------------------
 template <bool kBwd>
-static int launch_pair(const GloriaArgs& a, float* sim, const float* g, bf16* dwei, float* vecs,
-                       void* stream) {
-  return a.NT == 1 ? launch_pair_nt<kBwd, false>(a, sim, g, dwei, vecs, stream)
-                   : launch_pair_nt<kBwd, true>(a, sim, g, dwei, vecs, stream);
+__global__ void __launch_bounds__(THREADS)
+sim_finish_kernel(GloriaArgs a, PassArgs p, int b0, int nb, float* __restrict__ sim,
+                  const float* __restrict__ g, bf16* __restrict__ dwei,
+                  float* __restrict__ vecs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pl = blockIdx.x * NWARPS + warp;
+  if (pl >= nb * a.Bt) return;
+  const int bl = pl / a.Bt, i = pl % a.Bt;
+  const int D = a.D, T = a.T, TPAD = a.TPAD, N = p.N, nt = a.NT, cap = a.cap[i];
+  const size_t pair = (size_t)(b0 + bl) * a.Bt + i;
+
+  // num, ‖w‖, ‖wei‖ of each word: the D tiles in order; row = exp(temp2·cos)
+  float num[MAX_NT], nw[MAX_NT], nwei[MAX_NT], term[MAX_NT], rs = 0.0f;
+#pragma unroll
+  for (int j = 0; j < MAX_NT; ++j) {
+    num[j] = nw[j] = nwei[j] = term[j] = 0.0f;
+    if (j < nt) {
+      const int t = lane + TP * j;
+      const float* q = p.part + (size_t)bl * p.n_dt * 3 * N + (size_t)i * TPAD + t;
+      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+      for (int dt = 0; dt < p.n_dt; ++dt, q += 3 * (size_t)N) {
+        s0 += q[0];
+        s1 += q[N];
+        s2 += q[2 * (size_t)N];
+      }
+      num[j] = s0;
+      nwei[j] = sqrtf(s1);
+      nw[j] = sqrtf(s2);
+      const float den = fmaxf(nw[j] * nwei[j], 1e-8f);
+      term[j] = (t < T && t < cap) ? expf(s0 / den * a.temp2) : 0.0f;
+      rs += term[j];
+    }
+  }
+  const float rowsum = warp_sum(rs);
+  if constexpr (!kBwd) {
+    if (lane == 0) sim[pair] = logf(rowsum) * a.temp3;
+  } else {
+    // _cell_cotangents: sim = temp3·log Σ row; d_wei kept as bf16 (the
+    // rounding the cotangent products take); Σ_d bf16(d_wei)·wei per word,
+    // which equals the softmax backward's Σ_m a2·d_a2
+    const float gg = g[pair];
+#pragma unroll
+    for (int j = 0; j < MAX_NT; ++j) {
+      if (j >= nt) break;
+      const int t = lane + TP * j;
+      const size_t n = (size_t)i * TPAD + t;
+      float colsum = 0.0f;
+      for (int mt = 0; mt < p.n_mt; ++mt) colsum += p.esum[((size_t)bl * p.n_mt + mt) * N + n];
+      const float den_raw = nw[j] * nwei[j];
+      const float den = fmaxf(den_raw, 1e-8f);
+      const float dcos = gg * (a.temp2 * a.temp3) * term[j] / rowsum;
+      const float mask = den_raw > 1e-8f ? 1.0f : 0.0f;
+      const float dnum = dcos / den;
+      const float dden = -dcos * num[j] / (den * den) * mask;
+      const float dnwei = dden * nw[j], dnw = dden * nwei[j];
+      const float cw = dnwei / fmaxf(nwei[j], 1e-20f);
+      float* v = vecs + pair * N_VECS * TPAD + t;
+      v[V_COLSUM * TPAD] = colsum;
+      v[V_DNUM * TPAD] = dnum;
+      v[V_C2 * TPAD] = dnw / fmaxf(nw[j], 1e-20f);
+      const float* wr = p.wei + (size_t)bl * N * D + (size_t)i * D * TPAD + t;
+      const bf16* ww = a.words + (size_t)i * D * TPAD + t;
+      bf16* dw = dwei + pair * D * TPAD + t;
+      float s = 0.0f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        const float x = wr[(size_t)d * TPAD];
+        const bf16 dq = __float2bfloat16_rn(dnum * __bfloat162float(ww[(size_t)d * TPAD]) + cw * x);
+        dw[(size_t)d * TPAD] = dq;
+        s += __bfloat162float(dq) * x;
+      }
+      v[V_S * TPAD] = s;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+static PassArgs pass_args(const GloriaArgs& a, void* e, void* esum, void* part, void* wei) {
+  PassArgs p;
+  p.e = static_cast<bf16*>(e);
+  p.esum = static_cast<float*>(esum);
+  p.part = static_cast<float*>(part);
+  p.wei = static_cast<float*>(wei);
+  p.N = a.Bt * a.TPAD;
+  p.MP = round_up(a.M, 8);
+  p.n_mt = (a.M + TILE - 1) / TILE;
+  p.n_dt = (a.D + TILE - 1) / TILE;
+  return p;
+}
+
+template <int NT>
+static cudaError_t launch_e(const GloriaArgs& a, const PassArgs& p, int b0, int nb,
+                            cudaStream_t st) {
+  cudaError_t err =
+      cudaFuncSetAttribute(sim_e_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, F1_SMEM);
+  if (err != cudaSuccess) return err;
+  sim_e_kernel<NT><<<dim3(p.n_mt, (a.Bt + F1Geom<NT>::CPT - 1) / F1Geom<NT>::CPT, nb),
+                     gemm::kThreads, F1_SMEM, st>>>(a, p, b0);
+  return cudaGetLastError();
+}
+
+// F1, F2 and F3 over the chunks of images in order
+template <bool kBwd>
+static int run_passes(const GloriaArgs& a, const PassArgs& p, int chunk, float* sim,
+                      const float* g, bf16* dwei, float* vecs, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(sim_wei_kernel<kBwd>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, F2_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  for (int b0 = 0; b0 < a.Bi; b0 += chunk) {
+    const int nb = a.Bi - b0 < chunk ? a.Bi - b0 : chunk;
+    switch (a.NT) {
+      case 1: err = launch_e<1>(a, p, b0, nb, st); break;
+      case 2: err = launch_e<2>(a, p, b0, nb, st); break;
+      case 3: err = launch_e<3>(a, p, b0, nb, st); break;
+      default: err = launch_e<4>(a, p, b0, nb, st); break;
+    }
+    if (err != cudaSuccess) return (int)err;
+    sim_wei_kernel<kBwd><<<dim3(p.n_dt, (p.N + TILE - 1) / TILE, nb), gemm::kThreads, F2_SMEM,
+                           st>>>(a, p, b0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int pairs = nb * a.Bt;
+    sim_finish_kernel<kBwd><<<(pairs + NWARPS - 1) / NWARPS, THREADS, 0, st>>>(a, p, b0, nb, sim,
+                                                                             g, dwei, vecs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 extern "C" {
 
-// K3: out [Bi, Bt] f32. Returns a cudaError_t: 0 when the launch was accepted.
+// K3: out [Bi, Bt] f32, through the scratch of one chunk of images: e
+// [chunk, 2, Bt·TPAD, MP] bf16, esum [chunk, ⌈M/128⌉, Bt·TPAD] f32 and part
+// [chunk, ⌈D/128⌉, 3, Bt·TPAD] f32 (MP = M rounded up to 8). Returns a
+// cudaError_t: 0 when the launches were accepted.
 int medmoe_gloria_sim(const void* ctx, const void* words, const void* cap, int Bi, int Bt, int M,
-                      int D, int T, float temp1, float temp2, float temp3, void* out,
-                      void* stream) {
-  if (!shapes_ok(Bi, Bt, M, D, T)) return (int)cudaErrorInvalidValue;
+                      int D, int T, float temp1, float temp2, float temp3, void* e, void* esum,
+                      void* part, int chunk, void* out, void* stream) {
+  if (!shapes_ok(Bi, Bt, M, D, T) || chunk < 1 || chunk > 65535)
+    return (int)cudaErrorInvalidValue;
   const GloriaArgs a = make_args(ctx, words, cap, Bi, Bt, M, D, T, temp1, temp2, temp3);
-  return launch_pair<false>(a, static_cast<float*>(out), nullptr, nullptr, nullptr, stream);
+  return run_passes<false>(a, pass_args(a, e, esum, part, nullptr), chunk,
+                           static_cast<float*>(out), nullptr, nullptr, nullptr, stream);
 }
 
 // The backward's prologue: the forward chain again, then the cotangents
 // down to bf16(d_wei) [Bi·Bt, D, TPAD] and the per-word vectors
-// [Bi·Bt, 4, TPAD] for the upstream cotangent g [Bi, Bt] f32.
+// [Bi·Bt, 4, TPAD] for the upstream cotangent g [Bi, Bt] f32; the scratch
+// of K3 and wei [chunk, Bt, D, TPAD] f32.
 int medmoe_gloria_pair_cotangents(const void* ctx, const void* words, const void* cap, int Bi,
                                   int Bt, int M, int D, int T, float temp1, float temp2,
-                                  float temp3, const void* g, void* dwei, void* vecs,
-                                  void* stream) {
-  if (!shapes_ok(Bi, Bt, M, D, T)) return (int)cudaErrorInvalidValue;
+                                  float temp3, const void* g, void* e, void* esum, void* part,
+                                  void* wei, int chunk, void* dwei, void* vecs, void* stream) {
+  if (!shapes_ok(Bi, Bt, M, D, T) || chunk < 1 || chunk > 65535)
+    return (int)cudaErrorInvalidValue;
   const GloriaArgs a = make_args(ctx, words, cap, Bi, Bt, M, D, T, temp1, temp2, temp3);
-  return launch_pair<true>(a, nullptr, static_cast<const float*>(g), static_cast<bf16*>(dwei),
-                           static_cast<float*>(vecs), stream);
+  return run_passes<true>(a, pass_args(a, e, esum, part, wei), chunk, nullptr,
+                          static_cast<const float*>(g), static_cast<bf16*>(dwei),
+                          static_cast<float*>(vecs), stream);
 }
 
 const char* medmoe_cuda_error_string(int code) {

@@ -44,8 +44,8 @@
 // K4b: one block per (caption, share of the images) walks its images and
 // their M tiles in order and keeps the caption's [D, TP] d_words in
 // registers; a second launch sums the shares in order and adds c2·w.
-// Products use WMMA bf16 16×16×16 tiles with f32 accumulators, as in the
-// forward: the [32, 32] scores and d_a2 tiles over a quarter of D a warp,
+// Products use WMMA bf16 16×16×16 tiles with f32 accumulators: the
+// [32, 32] scores and d_a2 tiles over a quarter of D a warp,
 // the row step 8 threads a row, no product behind a branch. Above T = 32
 // a third grid axis takes the word tiles, and every M tile forms the
 // scores and d_a2 of all word tiles for the row step's sums over T.

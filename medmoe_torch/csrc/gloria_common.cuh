@@ -1,6 +1,9 @@
 // Shared pieces of the GLoRIA similarity kernels (gloria_attention.cu, K3
 // and the backward's per-pair prologue; gloria_attention_bwd.cu, K4a and
 // K4b). See medmoe_torch/ops/gloria_attention.py for what they compute.
+// The WMMA word-tile helpers below (load_dt, tile_times_dt, sum_parts,
+// word_softmax4, word_softmax_tiles) serve K4b; the other kernels run on
+// the GEMM core of gemm_core.cuh.
 //
 // Layouts the kernels take (the wrapper makes them), with the words of a
 // caption padded to TPAD = 32·NT, NT = ⌈T/32⌉ word tiles of TP = 32:
@@ -11,10 +14,11 @@
 //   dwei  [B_img·B_txt, D, TPAD] bf16   bf16(d_wei)
 //   vecs  [B_img·B_txt, 4, TPAD] f32    Σ_m e, Σ_d bf16(d_wei)·wei, dnum, c2
 //
-// T <= 32 (one word tile) runs the kernels' single-tile code. Above it the
-// kernels walk the word tiles and recompute the scores of every tile of a
-// row for its softmax over all T words: right, not fast. T <= 128 because
-// K4a's first pass holds a caption's 2·TPAD columns in one 256-wide tile.
+// T <= 32 (one word tile) runs K4b's single-tile code. Above it K4b walks
+// the word tiles and recomputes the scores of every tile of a row for its
+// softmax over all T words: right, not fast. T <= 128 because K4a's first
+// pass holds a caption's 2·TPAD columns in one 256-wide tile (and K3's
+// first pass a caption's TPAD in one 128-wide tile).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -24,20 +24,22 @@ it is not autograd through the forward.
 
 Kernels. ``csrc/gloria_attention.cu`` replaces ``_sim_kernel`` (K3) and
 holds the backward's prologue, the forward chain again with the
-cotangents down to bf16(d_wei) per pair; ``csrc/gloria_attention_bwd.cu``
-replaces ``_dctx_kernel`` (K4a, two passes on the GEMM core of
-``csrc/gemm_core.cuh``) and ``_dwords_kernel`` (K4b). Their design notes
-are in the sources. Between the prologue and K4a/K4b the per-pair
-cotangents live in device memory (``backward_scratch_bytes``: 3.2 GB at
-B=256, D=768, T <= 32), and K4a's bf16 [a2 | d_scores] in chunks of images
-(``dctx_chunk``: 16 images, 1.6 GB at flagship). Not ported: the TPU
-kernel's lane packing, ``_segment_max``, the indicator matmuls and the
-``shard_map`` wrapper (Mosaic and SPMD devices), and its environment
-switches.
+cotangents down to bf16(d_wei) per pair: both run two products on the
+GEMM core of ``csrc/gemm_core.cuh`` (F1: scores and e; F2: wei) and a
+finishing kernel (F3). ``csrc/gloria_attention_bwd.cu`` replaces
+``_dctx_kernel`` (K4a, two passes on the same core) and ``_dwords_kernel``
+(K4b). Their design notes are in the sources. F1/F2's bf16 hi and lo of e
+and K4a's bf16 [a2 | d_scores] live in chunks of images (``image_chunk``:
+16 images, 1.6 GB at flagship); between the prologue and K4a/K4b the
+per-pair cotangents live in device memory (``backward_scratch_bytes``:
+5.4 GB at B=256, D=768, T <= 32, the prologue's chunk included). Not
+ported: the TPU kernel's lane packing, ``_segment_max``, the indicator
+matmuls and the ``shard_map`` wrapper (Mosaic and SPMD devices), and its
+environment switches.
 
 Limits. The plain versions take any T, D and temp1, as the JAX functions
 do. The kernels take D % 16 == 0, D <= 768, T <= 128 (captions padded to
-32·⌈T/32⌉ words; T <= 32 runs the single-tile code) and |temp1| <= 80
+32·⌈T/32⌉ words, whole captions in a 128-wide tile) and |temp1| <= 80
 (``check_kernel_limits``); a CUDA tensor outside them raises before any
 launch, and the local loss and the trainer call the same check before
 anything runs on the card.
@@ -53,13 +55,15 @@ expert branch's backward takes.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-# kernel launches on CUDA tensors: K3 (forward), K4a (d_ctx, with the
-# prologue it reads) and K4b (d_words); the plain versions do not count
+# kernel launches on CUDA tensors: K3 (forward), the backward's prologue,
+# K4a (d_ctx) and K4b (d_words); the plain versions do not count
 LAUNCHES = 0
+PROLOGUE_LAUNCHES = 0
 DCTX_LAUNCHES = 0
 DWORDS_LAUNCHES = 0
 
@@ -68,8 +72,9 @@ WORD_TILE = 32      # csrc/gloria_common.cuh TP: captions pad to whole tiles
 MAX_WORDS = 128     # csrc/gloria_common.cuh MAX_NT·TP (K4a's 256-wide tile)
 MAX_DIM = 768       # csrc/gloria_common.cuh MAX_D
 MAX_TEMP1 = 80.0    # exp(temp1·a1 - max(temp1, 0)) stays a normal f32
+TILE = 128          # csrc/gloria_attention.cu TILE: F1/F2's 128-row tiles
 _PLAIN_BYTES = 512 << 20   # one [c, B_img, M, T] f32 block of the plain versions
-_Z_BYTES = 1.7e9    # K4a's [a2 | d_scores] for one chunk of images
+_CHUNK_BYTES = 1.7e9       # E (K3, the prologue) or Z (K4a) of a chunk of images
 
 
 def _check(img: torch.Tensor, words: torch.Tensor, cap_lens: torch.Tensor,
@@ -143,21 +148,46 @@ def _kernel_inputs(img, words, cap_lens):
     return ctx, words_p, cap_lens.to(torch.int32).contiguous()
 
 
-def backward_scratch_bytes(b_img: int, b_txt: int, d: int,
+def image_chunk(b_img: int, b_txt: int, m: int, t: int) -> Tuple[int, int]:
+    """(images, bytes) of the per-image scratch that K3 and the prologue
+    (E, the bf16 hi and lo of e) and K4a (Z = [bf16(a2) | bf16(d_scores)])
+    run their passes over, M·B_txt·2·TPAD bf16 an image: as many images as
+    fit in 1.7 GB, at least one."""
+    per_image = m * b_txt * 2 * _tpad(t) * 2
+    images = max(1, min(b_img, int(_CHUNK_BYTES // per_image)))
+    return images, images * per_image
+
+
+def _pass_scratch(b_img: int, b_txt: int, m: int, d: int, t: int,
+                  wei: bool) -> Tuple[int, list]:
+    """(images, [(shape, dtype)]) of the scratch of K3's and the prologue's
+    passes for one chunk of images (csrc/gloria_attention.cu): E [images,
+    2, B_txt·TPAD, MP] bf16 (MP = M rounded up to 8), Σ_m e of each
+    128-row M tile [images, ⌈M/128⌉, B_txt·TPAD] f32, Σ_d w·wei, wei², w²
+    of each 128-wide D tile [images, ⌈D/128⌉, 3, B_txt·TPAD] f32 and, for
+    the prologue, wei [images, B_txt, D, TPAD] f32."""
+    images, _ = image_chunk(b_img, b_txt, m, t)
+    tp = _tpad(t)
+    n = b_txt * tp
+    shapes = [((images, 2, n, -(-m // 8) * 8), torch.bfloat16),
+              ((images, -(-m // TILE), n), torch.float32),
+              ((images, -(-d // TILE), 3, n), torch.float32)]
+    if wei:
+        shapes.append(((images, b_txt, d, tp), torch.float32))
+    return images, shapes
+
+
+def backward_scratch_bytes(b_img: int, b_txt: int, m: int, d: int,
                            t: int = WORD_TILE) -> int:
     """Device scratch of one kernel backward: bf16(d_wei) and the per-word
-    vectors per pair, and K4b's partial sums (K4a's Z: ``dctx_chunk``)."""
+    vectors per pair, K4b's partial sums, and the prologue's passes over
+    one chunk of images (E, partial sums, wei; ``_pass_scratch``). K4a's
+    Z: ``image_chunk``."""
     pairs, tp = b_img * b_txt, _tpad(t)
+    _, shapes = _pass_scratch(b_img, b_txt, m, d, t, wei=True)
+    passes = sum(math.prod(s) * dt.itemsize for s, dt in shapes)
     return (pairs * d * tp * 2 + pairs * 4 * tp * 4
-            + _dwords_split(b_img, b_txt) * b_txt * (d + 1) * tp * 4)
-
-
-def dctx_chunk(b_img: int, b_txt: int, m: int, t: int) -> Tuple[int, int]:
-    """(images, bytes) of K4a's Z = [bf16(a2) | bf16(d_scores)], [images,
-    M, B_txt·2·TPAD] bf16: as many images as fit in 1.7 GB, at least one."""
-    per_image = m * b_txt * 2 * _tpad(t) * 2
-    images = max(1, min(b_img, int(_Z_BYTES // per_image)))
-    return images, images * per_image
+            + _dwords_split(b_img, b_txt) * b_txt * (d + 1) * tp * 4 + passes)
 
 
 def _dwords_split(b_img: int, b_txt: int) -> int:
@@ -197,10 +227,14 @@ def gloria_similarity_forward(img: torch.Tensor, words: torch.Tensor,
     lib = _build.load("gloria_attention")
     ctx, words_p, caps = _kernel_inputs(img, words, cap_lens)
     out = torch.empty((bi, bt), dtype=torch.float32, device=img.device)
+    chunk, shapes = _pass_scratch(bi, bt, m, d, t, wei=False)
+    scratch = [torch.empty(s, dtype=dt, device=img.device) for s, dt in shapes]
     with torch.cuda.device(img.device):
         rc = lib.medmoe_gloria_sim(
             ctx.data_ptr(), words_p.data_ptr(), caps.data_ptr(), bi, bt, m, d, t,
-            float(temp1), float(temp2), float(temp3), out.data_ptr(), _stream())
+            float(temp1), float(temp2), float(temp3),
+            *(s.data_ptr() for s in scratch), chunk, out.data_ptr(), _stream())
+    del scratch
     _raise(lib, rc, "gloria_attention (K3)")
     LAUNCHES += 1
     return out
@@ -321,6 +355,7 @@ def pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3
     and the per-word vectors of every pair. ``gloria_similarity_backward``
     runs it and counts the launches of what follows; ``dctx_of`` and
     ``dwords_of`` read it."""
+    global PROLOGUE_LAUNCHES
     from medmoe_torch.ops import _build
 
     lib = _build.load("gloria_attention")
@@ -334,24 +369,29 @@ def pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3
                                 device=img.device),
                     torch.empty((bi * bt, 4, tp), dtype=torch.float32,
                                 device=img.device))
+    chunk, shapes = _pass_scratch(bi, bt, m, d, t, wei=True)
+    scratch = [torch.empty(s, dtype=dt, device=img.device) for s, dt in shapes]
     with torch.cuda.device(img.device):
         rc = lib.medmoe_gloria_pair_cotangents(
             *p.args(), float(temp2), float(temp3), g.data_ptr(),
-            p.dwei.data_ptr(), p.vecs.data_ptr(), _stream())
+            *(s.data_ptr() for s in scratch), chunk, p.dwei.data_ptr(),
+            p.vecs.data_ptr(), _stream())
+    del scratch
     _raise(lib, rc, "gloria_attention backward prologue")
+    PROLOGUE_LAUNCHES += 1
     return p
 
 
 def dctx_of(p: PairScratch) -> torch.Tensor:
     """K4a: d_ctx [B_img, M, D] float32 from the prologue's scratch, both
-    passes over chunks of images (``dctx_chunk``)."""
+    passes over chunks of images (``image_chunk``)."""
     from medmoe_torch.ops import _build
 
     lib = _build.load("gloria_attention_bwd")
     bi, bt, m, d, t = p.dims
     dev = p.ctx.device
     d_ctx = torch.empty((bi, m, d), dtype=torch.float32, device=dev)
-    chunk, _ = dctx_chunk(bi, bt, m, t)
+    chunk, _ = image_chunk(bi, bt, m, t)
     z = torch.empty((chunk, m, bt * 2 * p.words.shape[2]), dtype=torch.bfloat16,
                     device=dev)
     with torch.cuda.device(dev):

@@ -23,7 +23,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from medmoe_tpu.ops import losses as JL
-from medmoe_tpu.ops.pallas.gloria_attention import gloria_similarity_pallas
+from medmoe_tpu.ops.pallas.gloria_attention import (_sim_forward,
+                                                    gloria_similarity_pallas)
 from medmoe_torch.ops import gloria_attention as ga
 from medmoe_torch.ops import losses as TL
 
@@ -224,19 +225,39 @@ class TestFunction:
                                          bad.get("temp1", 4.0))
 
     def test_scratch_bytes_at_b256(self):
-        # bf16(d_wei) and 4 per-word vectors per pair, and K4b's partial
-        # sums over 4 shares of the images
-        assert ga.backward_scratch_bytes(256, 256, 768) == \
-            256 * 256 * (768 * 32 * 2 + 4 * 32 * 4) + 4 * 256 * 769 * 32 * 4
-        # captions of 40 words pad to two tiles of 32
-        assert ga.backward_scratch_bytes(256, 256, 768, 40) == \
-            256 * 256 * (768 * 64 * 2 + 4 * 64 * 4) + 4 * 256 * 769 * 64 * 4
+        # captions of 40 words pad to two tiles of 32: bf16(d_wei) and 4
+        # per-word vectors per pair, K4b's partial sums over 4 shares of the
+        # images, and the prologue's passes over 8 images: E, Σ_m e of 25 M
+        # tiles, 3 sums of 6 D tiles, and wei
+        n = 256 * 64
+        assert ga.backward_scratch_bytes(256, 256, 3136, 768, 40) == \
+            256 * 256 * (768 * 64 * 2 + 4 * 64 * 4) + 4 * 256 * 769 * 64 * 4 \
+            + 8 * (2 * n * 3136 * 2 + 25 * n * 4 + 6 * 3 * n * 4
+                   + 256 * 768 * 64 * 4)
+        # M rounds up to 8 in E; its M tiles and D tiles to 128
+        assert ga.backward_scratch_bytes(3, 5, 35, 48, 9) == \
+            15 * (48 * 32 * 2 + 4 * 32 * 4) + 3 * 5 * 49 * 32 * 4 \
+            + 3 * (2 * 160 * 40 * 2 + 160 * 4 + 3 * 160 * 4
+                   + 5 * 48 * 32 * 4)
 
     def test_dctx_chunk_at_b256(self):
         # K4a's Z, [images, M, B_txt·2·TPAD] bf16, within 1.7 GB
         per_image = 3136 * 256 * 64 * 2
-        assert ga.dctx_chunk(256, 256, 3136, 25) == (16, 16 * per_image)
-        assert ga.dctx_chunk(3, 5, 35, 40) == (3, 3 * 35 * 5 * 128 * 2)
+        assert ga.image_chunk(256, 256, 3136, 25) == (16, 16 * per_image)
+        assert ga.image_chunk(3, 5, 35, 40) == (3, 3 * 35 * 5 * 128 * 2)
+
+    @pytest.mark.parametrize("t,tp,images", [(25, 32, 16), (128, 128, 4)])
+    def test_image_chunk_and_scratch_at_b256(self, t, tp, images):
+        # E (K3, the prologue) and Z (K4a) take M·B_txt·2·TPAD bf16 an image;
+        # the chunk holds as many images as fit in 1.7 GB
+        per_image = 3136 * 256 * 2 * tp * 2
+        assert ga.image_chunk(256, 256, 3136, t) == (images, images * per_image)
+        assert images * per_image <= 1.7e9 < (images + 1) * per_image
+        n = 256 * tp
+        assert ga.backward_scratch_bytes(256, 256, 3136, 768, t) == \
+            256 * 256 * (768 * tp * 2 + 4 * tp * 4) + 4 * 256 * 769 * tp * 4 \
+            + images * (per_image + 25 * n * 4 + 6 * 3 * n * 4
+                        + 256 * 768 * tp * 4)
 
 
 class TestDispatch:
@@ -261,3 +282,55 @@ class TestDispatch:
         fake = types.SimpleNamespace(is_cuda=True, shape=(batch, 8, 4, 4))
         assert TL.GLORIALocalContrastiveLoss(impl=impl).resolve_impl(
             agg, fake) == want
+
+
+def _staged_similarity(img, words, cap, temps, tile=128):
+    """The staging of csrc/gloria_attention.cu in torch ops, f32: per image
+    the scores of all captions as one product (F1), the masked word softmax
+    and e = exp(temp1·a1 - max(temp1, 0)), e split into bf16 hi + lo, Σ_m e
+    summed over 128-row M tiles in order, wei from the hi and the lo
+    products over Σ_m e (F2), then cos and sim (F3)."""
+    temp1, temp2, temp3 = temps
+    bf = torch.bfloat16
+    b_img, d, h, w = img.shape
+    m = h * w
+    ctx = torch.from_numpy(img).reshape(b_img, d, m).to(bf).float()
+    wt = torch.from_numpy(words).to(bf).float()               # [B_txt, D, T]
+    t = wt.shape[2]
+    valid = torch.arange(t)[None, :] < torch.from_numpy(cap).long()[:, None]
+    sims = []
+    for b in range(b_img):
+        scores = torch.einsum("dm,cdt->mct", ctx[b], wt)     # [M, B_txt, T]
+        a1 = torch.softmax(torch.where(valid, scores, ga.NEG_INF), dim=-1)
+        e = torch.exp(temp1 * a1 - max(temp1, 0.0))
+        hi = e.to(bf).float()
+        lo = (e - hi).to(bf).float()
+        e_sum = torch.zeros(e.shape[1:])
+        for m0 in range(0, m, tile):
+            e_sum = e_sum + e[m0:m0 + tile].sum(0)
+        wei = (torch.einsum("dm,mct->cdt", ctx[b], hi)
+               + torch.einsum("dm,mct->cdt", ctx[b], lo)) / e_sum[:, None, :]
+        num = (wt * wei).sum(1)
+        den = torch.clamp(wt.pow(2).sum(1).sqrt() * wei.pow(2).sum(1).sqrt(),
+                          min=1e-8)
+        row = torch.where(valid, torch.exp(temp2 * num / den), 0.0)
+        sims.append(temp3 * torch.log(row.sum(-1)))
+    return torch.stack(sims)
+
+
+@pytest.mark.parametrize("t", [9, 32, 40, 128])
+def test_staged_form_matches_reference_and_jax(t):
+    """The kernels' decomposition (bf16 hi + lo of e, Σ_m e over 128-row
+    tiles) against the plain version and the JAX kernel in interpret mode,
+    at M = 132 (two M tiles) and B_txt = 5: rtol 1e-4, as TestAgainstJax's
+    forward. hi + lo carries e to 2^-16 relative, far inside it."""
+    img, words, cap, _ = _inputs(3, 5, 32, 12, 11, t, seed=7)
+    got = _staged_similarity(img, words, cap, TEMPS)
+    want = ga.gloria_similarity_reference(*_torch(img, words, cap), *TEMPS)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    with pltpu.force_tpu_interpret_mode():
+        jax_sim = _sim_forward(jnp.asarray(img), jnp.asarray(words),
+                               jnp.asarray(cap), *TEMPS)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_sim), rtol=1e-4,
+                               atol=1e-5)

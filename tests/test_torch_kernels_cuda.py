@@ -210,6 +210,8 @@ GLORIA_SHAPES = [
     (2, 2, 768, 56, 56, 25),    # flagship widths
     (3, 5, 48, 5, 7, 40),       # two word tiles
     (2, 3, 64, 9, 9, 128),      # T at its limit: four word tiles
+    (3, 5, 48, 12, 11, 9),      # M = 132: two M tiles, the last ragged;
+                                # B_txt·TPAD = 160: a ragged word tile
 ]
 
 
@@ -263,6 +265,22 @@ class TestGloriaKernels:
         torch.cuda.synchronize()
         assert torch.equal(runs[0], runs[1])
 
+    def test_forward_is_the_same_on_every_run(self, dev):
+        # K3 sums over M, D and words in a fixed order, without atomics
+        img, words, cap, _ = _gloria_inputs(dev, 3, 5, 48, 12, 11, 40, seed=4)
+        runs = [ga.gloria_similarity_forward(img, words, cap) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+
+    def test_prologue_is_the_same_on_every_run(self, dev):
+        # the prologue's bf16(d_wei) and per-word vectors, bit for bit
+        img, words, cap, cot = _gloria_inputs(dev, 3, 5, 48, 12, 11, 40, seed=5)
+        runs = [ga.pair_cotangents(img, words, cap, cot, 4.0, 5.0, 10.0)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0].dwei, runs[1].dwei)
+        assert torch.equal(runs[0].vecs, runs[1].vecs)
+
     def test_wrapper_raises_on_mixed_devices_and_dtypes(self, dev):
         img, words, cap, _ = _gloria_inputs(dev, 2, 2, 32, 4, 4, 9)
         with pytest.raises(ValueError):
@@ -275,12 +293,15 @@ class TestGloriaKernels:
         img, words, cap, cot = _gloria_inputs(dev, 3, 3, 32, 4, 4, 9, seed=2)
         i = img.clone().requires_grad_()
         w = words.clone().requires_grad_(words_grad)
-        before = (ga.LAUNCHES, ga.DCTX_LAUNCHES, ga.DWORDS_LAUNCHES)
+        counts = ("LAUNCHES", "PROLOGUE_LAUNCHES", "DCTX_LAUNCHES",
+                  "DWORDS_LAUNCHES")
+        before = [getattr(ga, c) for c in counts]
         out = ga.gloria_similarity(i, w, cap)
         (out * cot).sum().backward()
         torch.cuda.synchronize()
-        assert (ga.LAUNCHES, ga.DCTX_LAUNCHES, ga.DWORDS_LAUNCHES) == (
-            before[0] + 1, before[1] + 1, before[2] + int(words_grad))
+        assert [getattr(ga, c) for c in counts] == [
+            before[0] + 1, before[1] + 1, before[2] + 1,
+            before[3] + int(words_grad)]
         assert (w.grad is not None) == words_grad
         ref_img, _ = ga.gloria_similarity_bwd_reference(img, words, cap, cot)
         _gloria_close(i.grad, ref_img)
