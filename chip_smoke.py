@@ -17,7 +17,9 @@
      per wave, and that the embeddings match the plain expert path;
   5. K2, the fused expert branch's backward: holds the kernel against its
      plain version at B=32 flagship shapes and on small odd shapes, times
-     both, and holds FusedExpertGather's gradients against autograd
+     both, prints each of its passes' device time at B=32 from one
+     torch.profiler call, times it at B=256 flagship (the gloria256 step's
+     shape), and holds FusedExpertGather's gradients against autograd
      through the plain forward;
   6. training: the train CLI's ``train`` on experiment=pretraining_medmoe_ddp
      with synthetic data at full width, 8 micro-batches of 32 in 2
@@ -43,7 +45,9 @@
      and what moved; then one warm step, timed;
   9. text training: one step of the same run with
      model.model.text.freeze_bert=false, where K4b runs once and BERT moves;
- 10. prints {"kernels": [...]} and, last, the device line.
+ 10. prints {"kernels": [...]}, with each kernel's launches counted over
+     every phase that drives the model (serving, both trainings, text
+     training), and, last, the device line.
 
 Any failed check exits non-zero. Needs one CUDA card; fails without one.
 ``--profile`` adds torch.profiler breakdowns of one serving wave, one
@@ -314,18 +318,25 @@ def profile_wave(torch, embed, images, wave_ms: float):
 
 
 K1_KERNELS = ("proj_kernel", "attn_kernel")
-K2_KERNELS = ("bwd_row_kernel", "bwd_proj_kernel", "bwd_wgrad_kernel",
-              "bwd_reduce_kernel")
+K2_KERNELS = ("bwd_u_kernel", "bwd_act_kernel", "bwd_row_kernel",
+              "bwd_du_kernel", "bwd_tlerp_kernel", "bwd_dx_kernel",
+              "bwd_wgrad_kernel", "bwd_reduce_kernel")
 K3_KERNELS = ("void sim_e_kernel", "void sim_wei_kernel",
               "void sim_finish_kernel")
 GLORIA_KERNELS = K3_KERNELS + ("void dctx_z_kernel", "dctx_gemm_kernel",
                                "void dwords_kernel", "dwords_reduce_kernel")
 
 
+def dev_us(e) -> float:
+    """A profiler event's own device time, in microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
 def profile_device(torch, fn, wall_ms: float, label: str):
     """torch.profiler over one call of ``fn``: device time by kernel, the
     expert-fusion kernels' share of it (K1: the forward's two launches; K2:
-    the backward's four, beside the projection recompute it runs through
+    the backward's eight, beside the projection recompute it runs through
     K1's proj_kernel), and the device's idle share of an unprofiled call's
     wall time (``wall_ms``)."""
     from torch.autograd import DeviceType
@@ -335,10 +346,6 @@ def profile_device(torch, fn, wall_ms: float, label: str):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
 
     # device-side events only (kernels, copies), so no time counts twice;
     # annotations such as "Optimizer.step#Adam.step" span kernels and are
@@ -424,17 +431,45 @@ def relu_ties(torch, args):
     return (n_h, tot_h), (n_a, tot_a)
 
 
+K2_ATOL_REL, K2_FAR, K2_FAR_SHARE = 5e-2, 2e-3, 0.01
+
+
+def hold_k2(torch, name, out, ref) -> float:
+    """Hold K2's outputs against its plain version's with the tolerance of
+    tests/test_torch_kernels_cuda.py, per output: every element within
+    5e-2·max|ref| (the JAX package's own fused-vs-XLA gradient bound) and
+    at most 1% of the elements beyond 2e-3·max|ref|. Fails the run on a
+    mismatch; returns the largest absolute error."""
+    worst = 0.0
+    for (oname, o), (_, r) in zip(bwd_outputs(out), bwd_outputs(ref)):
+        o, r = o.float(), r.float()
+        check(o.shape == r.shape, f"K2 {name} {oname}: shape")
+        check(bool(torch.isfinite(o).all()), f"K2 {name} {oname}: "
+              f"non-finite output")
+        scale = r.abs().max().item()
+        diff = (o - r).abs()
+        err = diff.max().item()
+        beyond = (diff > K2_FAR * scale).float().mean().item()
+        ok = torch.allclose(o, r, rtol=0.0, atol=K2_ATOL_REL * scale) \
+            and beyond <= K2_FAR_SHARE
+        print(f"K2 {name} {oname}: max_abs_err {err:.3e} max|ref| "
+              f"{scale:.3e} (atol {K2_ATOL_REL}*max|ref|); share beyond "
+              f"{K2_FAR}*max|ref| {beyond:.2e} (at most {K2_FAR_SHARE}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        check(ok, f"K2 {name} {oname}: kernel disagrees with its plain "
+              f"version")
+        worst = max(worst, err)
+    return worst
+
+
 def phase_k2(torch, ef):
-    # tolerance of tests/test_torch_kernels_cuda.py, per output: every
-    # element within 5e-2·max|ref| (the JAX package's own fused-vs-XLA
-    # gradient bound) and at most 1% of the elements beyond 2e-3·max|ref|.
-    # The ReLU masks (a > 0, h > 0) of the few elements whose pre-activation
+    # tolerance: hold_k2's. The ReLU masks (a > 0, h > 0) of the few elements whose pre-activation
     # lies within f32 summation error of zero can differ between two
     # summation orders, and each such flip moves a whole gradient term; the
     # flagship case counts those elements, and holds a second plain version
     # (the same function on the CPU, whose products sum in another order)
     # against the first as the kernel is held, for two of its samples
-    rtol, atol_rel, far, far_share = 0.0, 5e-2, 2e-3, 0.01
+    far = K2_FAR
     cases = [
         ("flagship B=32", dict(b=32, p_list=(3136, 784, 196, 49),
                                d_list=(96, 192, 384, 768), e=768, h=384,
@@ -454,25 +489,7 @@ def phase_k2(torch, ef):
         ref = ef.expert_fusion_gather_bwd_reference(xs, wp, bp, w1, b1, w2,
                                                     idx, d_out)
         torch.cuda.synchronize()
-        worst = 0.0
-        for (oname, o), (_, r) in zip(bwd_outputs(out), bwd_outputs(ref)):
-            o, r = o.float(), r.float()
-            check(o.shape == r.shape, f"K2 {name} {oname}: shape")
-            check(bool(torch.isfinite(o).all()), f"K2 {name} {oname}: "
-                  f"non-finite output")
-            scale = r.abs().max().item()
-            diff = (o - r).abs()
-            err = diff.max().item()
-            beyond = (diff > far * scale).float().mean().item()
-            ok = torch.allclose(o, r, rtol=rtol, atol=atol_rel * scale) \
-                and beyond <= far_share
-            print(f"K2 {name} {oname}: max_abs_err {err:.3e} max|ref| "
-                  f"{scale:.3e} (atol {atol_rel}*max|ref|); share beyond "
-                  f"{far}*max|ref| {beyond:.2e} (at most {far_share}) "
-                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
-            check(ok, f"K2 {name} {oname}: kernel disagrees with its plain "
-                  f"version")
-            worst = max(worst, err)
+        worst = hold_k2(torch, name, out, ref)
         if result is None:
             (n_h, tot_h), (n_a, tot_a) = relu_ties(torch, args)
             print(f"K2 {name}: ReLU pre-activations within f32 summation "
@@ -510,8 +527,11 @@ def phase_k2(torch, ef):
                   f"bound_ms {result['bound_ms']:.4f} ({result['bound_by']}: "
                   f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; the kernel "
                   f"time includes K1's projection recompute)", flush=True)
+            profile_k2_passes(torch, lambda: ef.expert_fusion_gather_bwd(
+                xs, wp, bp, w1, b1, w2, idx, d_out), name)
         del args, out, ref
         torch.cuda.empty_cache()
+    result.update(time_k2(torch, ef, GLORIA_BATCH))
 
     # the autograd Function: bank and pyramid gradients against autograd
     # through the plain forward, at the JAX package's fused-vs-XLA bound
@@ -553,6 +573,65 @@ def phase_k2(torch, ef):
     del got, want, args, cot
     torch.cuda.empty_cache()
     return result
+
+
+def profile_k2_passes(torch, fn, label: str) -> None:
+    """Device time of each of K2's passes, and of K1's projection launch
+    that K2 reruns, over one call of ``fn`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(("proj_kernel",) + K2_KERNELS, 0.0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for k in ms:
+                if e.key.startswith(k):
+                    ms[k] += dev_us(e) / 1e3
+    print(f"K2 {label} passes (device ms of one call): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; total {sum(ms.values()):.3f}", flush=True)
+
+
+def time_k2(torch, ef, b: int):
+    """K2 (with K1's projection recompute) at flagship shapes and batch
+    ``b``, timed with CUDA events, beside its bound; the shape of a
+    gloria256 step's expert-branch backward."""
+    args = k1_inputs(torch, b=b, p_list=(3136, 784, 196, 49),
+                     d_list=(96, 192, 384, 768), e=768, h=384, k=6, seed=15)
+    xs, wp, bp, w1, b1, w2, b2, idx = args
+    d_out = torch.randn((b, 3136, 768), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(16))
+    ms = cuda_ms(lambda: ef.expert_fusion_gather_bwd(
+        xs, wp, bp, w1, b1, w2, idx, d_out), iters=3, warmup=1)
+    flops, nbytes = k2_work(args, d_out)
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    nc = ef.bwd_image_chunk(b, (3136, 784, 196, 49), 768, 384)[0]
+    print(f"K2 flagship B={b}: kernel_ms {ms:.4f} bound_ms {bound:.4f} "
+          f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); image chunk "
+          f"{nc}", flush=True)
+    # the run over chunks of images against the plain version: each
+    # sample's outputs depend on that sample alone, so the plain version
+    # on a slice of the batch is enough; the slices straddle the first
+    # chunk boundary and hold the last chunk (ragged where the chunk does
+    # not divide b)
+    out = ef.expert_fusion_gather_bwd(xs, wp, bp, w1, b1, w2, idx, d_out)
+    for i in sorted({max(0, min(nc, b) - 6), max(0, b - 32)}):
+        j = min(b, i + 32)
+        ref = ef.expert_fusion_gather_bwd_reference(
+            tuple(x[i:j] for x in xs), wp, bp, w1, b1, w2, idx[i:j],
+            d_out[i:j])
+        hold_k2(torch, f"flagship B={b} samples {i}-{j - 1} (chunks of {nc})",
+                [[t[i:j] for t in o] if isinstance(o, tuple) else o[i:j]
+                 for o in out], ref)
+        del ref
+    del args, d_out, out
+    torch.cuda.empty_cache()
+    return {f"ms_b{b}": ms, f"bound_ms_b{b}": bound}
 
 
 TRAIN_OVERRIDES = [
@@ -1132,10 +1211,14 @@ def main() -> int:
           f"{pairs_s:.1f} pairs/s with K1 launched {k1_train} and K2 "
           f"{k2_train} times; gloria256 launches {g256}; text training "
           f"launches {text}", flush=True)
+    # K1 and K2 run in every phase that drives the model
+    k1_all = serve_launches + k1_train + g256["K1"] + text["K1"]
+    k2_all = k2_train + g256["K2"] + text["K2"]
 
     def row(name, source, replaces, launches, r, **extra):
         extra.update({k: r[k] for k in ("k4a_only_ms", "prologue_ms",
-                                        "prologue_bound_ms") if k in r})
+                                        "prologue_bound_ms", "ms_b256",
+                                        "bound_ms_b256") if k in r})
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1146,10 +1229,10 @@ def main() -> int:
     gtpu = "medmoe_tpu/ops/pallas/gloria_attention.py"
     print(json.dumps({"kernels": [
         row("expert_fusion_gather", "medmoe_torch/csrc/expert_fusion.cu",
-            "medmoe_tpu/ops/pallas/expert_fusion.py:113", k1_train, k1),
+            "medmoe_tpu/ops/pallas/expert_fusion.py:113", k1_all, k1),
         row("expert_fusion_gather_bwd",
             "medmoe_torch/csrc/expert_fusion_bwd.cu",
-            "medmoe_tpu/ops/pallas/expert_fusion.py:233", k2_train, k2),
+            "medmoe_tpu/ops/pallas/expert_fusion.py:233", k2_all, k2),
         row("gloria_similarity_forward", f"{gsrc}.cu", f"{gtpu}:73",
             g256["K3"], gl["K3"],
             functions=[k.split()[-1] for k in K3_KERNELS]),

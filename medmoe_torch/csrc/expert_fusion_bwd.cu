@@ -1,4 +1,4 @@
-// Fused MedMoE expert branch, gather mode, backward — for sm_90a.
+// Fused MedMoE expert branch, gather mode, backward (K2) — for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` (driven by `_bwd_pallas`) in
 // medmoe_tpu/ops/pallas/expert_fusion.py. Per sample b with e = idx[b], from
@@ -17,83 +17,109 @@
 //   dz_h  = [h_s > 0]·d_h  (h_s = bf16(relu(h_pre)): bf16 keeps f32's
 //           exponent range, so h_s > 0 exactly when h_pre > 0)
 //   d_x   = bf16(dz_h)·Wpᵀ,  dWp = x_sᵀ·bf16(dz_h),  dbp = Σ_P dz_h
-// Parameters arrive rounded through bf16 (biases as bf16 values in f32);
-// attn_b2 cancels in the softmax and its gradient is exactly zero.
+// Parameters arrive rounded through bf16 (biases as bf16 values in f32, G's
+// weights too, as the TPU kernel's bf16 interpolation matrix); attn_b2
+// cancels in the softmax and its gradient is exactly zero.
 //
-// What bounds it on the H100: operations. At B=32 and flagship shapes
-// (P=3136, E=768, H=384, 4 scales) the products are ≈24.4 GFLOP a sample
-// (a-recompute, d_u and dW1 ≈7.4 each; h_s, d_x and dWp ≈0.87 each),
-// ≈0.78 TFLOP in all, against ≈0.56 GB of inputs and outputs: ≈0.79 ms of
-// bf16 tensor-core time against ≈0.17 ms of memory time. Every product
-// runs on the tensor cores (WMMA bf16 16×16×16, f32 accumulators).
+// What bounds it on the H100: operations, in five products. At flagship
+// shapes (P=3136, E=768, H=384, 4 scales) a sample takes ≈24.4 GFLOP: the
+// a recompute, d_u and dW1 ≈7.4 each, h_s, d_x and dWp ≈0.87 each; ≈0.8
+// ms of bf16 tensor-core time at B=32. Around them the passes stream
+// O(P·E) bf16 bytes a sample and scale.
 //
-// The TPU kernel keeps a whole sample's maps (≈36 MB) in VMEM, one grid
-// step per sample; a Hopper block has 227 KB, so P is tiled and the sums
-// over P are split into passes with a fixed order (no atomics):
-//   1. bwd_row_kernel, one block per (sample, 64-row tile of P): the
-//      forward recompute, the softmax backward, a_s (to a bf16 scratch,
-//      then overwritten by bf16(dz_a)), per-tile partial sums of dw2/db1,
-//      and d_u_s (to an f32 scratch) from a WMMA product with W1ᵀ;
-//   2. bwd_proj_kernel, one block per (sample, scale, 64-row tile of P_s):
-//      d_h gathered per source row from the ≤2r destination rows that read
-//      it (no atomics), dz_h masked by h_s > 0 (to a bf16 scratch),
-//      per-tile partial sums of dbp, and d_x by WMMA with Wpᵀ. The TPU
-//      kernel's default arm recomputes h_pre for the mask; its
-//      MEDMOE_EXPERT_BWD_HKEEP arm reads the kept h, equal in value, and
-//      that is the arm ported here, so the projection runs once;
-//   3. bwd_wgrad_kernel, one block per (sample, 64×128 output tile) of dW1
-//      (K = S·P, u rebuilt by lerp on the fly) and of every dWp (K = P_s);
-//   4. bwd_reduce_kernel: the per-tile partials summed in tile order.
+// The TPU kernel keeps a whole sample's maps (≈36 MB) in VMEM, one grid step
+// per sample. Here every product is a dense tile product on the shared GEMM
+// core (csrc/gemm_core.cuh: mma.sync, ldmatrix, a cp.async ring), its
+// operands read with 16-byte copies from bf16 scratch, and every sum over P
+// or over tiles runs in a fixed order without atomics. Per chunk of images
+// (the wrapper sizes the chunk and runs K1's projection launch first):
+//   1. bwd_u_kernel (streaming, a warp a row of P): u_s = bf16(lerp(h_s))
+//      to a scratch for each non-identity scale (the identity scale's u is
+//      h_0, read in place), and d_att_s, d_out read once for all scales;
+//   2. bwd_act_kernel (core, M = P, N = H, K = E): a_s = bf16(relu(u_s·W1
+//      + b1)) to a scratch, and each 128-wide N tile's partial logits;
+//   3. bwd_row_kernel (streaming, 64 rows a block): the logits summed in
+//      tile order, the softmax over scales and its backward, bf16(att32)
+//      for pass 4, bf16(dz_a) over a_s in place, the tile's dw2/db1 sums;
+//   4. bwd_du_kernel (core, M = P, N = E, K = H, W1 as stored):
+//      att·d_out + bf16(dz_a)·W1ᵀ; at the identity scale the epilogue
+//      masks by h_0 > 0, writes bf16(dz_h_0) and the tile's dbp column
+//      sums, at the others it writes bf16(d_u) (what Gᵀ reads);
+//   5. bwd_tlerp_kernel (streaming, banded): d_h_s = Gᵀ·bf16(d_u) over the
+//      ≤ 2r + 1 destination rows that read each source row, from a table
+//      built in Python (ops/expert_fusion.py, transposed_lerp_plan): 8
+//      source rows a block (one a warp), 256 columns a block (8 a lane, in
+//      16-byte vectors), the destination rows staged in shared memory in
+//      windows of 128 so that each is read about once, p summed in
+//      increasing order; then the mask h_s > 0, bf16(dz_h_s) and the
+//      block's dbp sums;
+//   6. bwd_dx_kernel (core, M = P_s, N = D_s, K = E): bf16(dz_h)·Wpᵀ;
+//   7. bwd_wgrad_kernel (core, A M-contiguous): dW1 = Σ_s u_sᵀ·bf16(dz_a)
+//      (K = S·P, one accumulation over all scales) and dWp_s =
+//      x_sᵀ·bf16(dz_h_s) (K = P_s);
+//   8. bwd_reduce_kernel: the partial sums of db1, dw2 and dbp in tile
+//      order.
+// Scratch a flagship image: h 6.4 MB, u and bf16(d_u) 14.5 MB each, a/dz_a
+// 9.6 MB, bf16(dz_h) 6.4 MB, the per-tile sums 0.9 MB (≈52 MB; the
+// f32 d_u the single-pass design kept was 38.5 MB an image).
 // A block reads idx[b] itself; an out-of-range id writes NaN to that
 // sample's outputs only.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (medmoe_torch/ops/_build.py).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
+#include "gemm_core.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 #define MAX_SCALES 4
 #define THREADS 256
-#define TM 64        // rows of P (or P_s) per tile
-#define AK 32        // W1 rows streamed per chunk in the recompute product
-#define MAX_NF 3     // column fragments of H per warp in the recompute
-#define CD_LD 68     // f32 staging tile [64][68]
-#define PC_LD 132    // f32 staging tile [64][132]
-#define WX_LD 40     // bf16 tile [rows][32 + 8]
-#define WW_LD 136    // bf16 tile [32][128 + 8]
-#define WA_LD 72     // bf16 tile [32][64 + 8]
+#define ROW_TM 64     // rows of P a block of the row step
+#define T_ROWS 8      // source rows a block of the transposed upsample, one a warp
+#define T_COLS 256    // columns a block of the transposed upsample, 8 a lane
+#define T_WIN 128     // destination rows the transposed upsample stages at once
+
+// the products' tiles: 128 × 128, 8 warps of 64 × 32, a 4-slice ring
+using ActTile = gemm::Tile<128, 128, 64, 32, 4, gemm::kKN>;             // u · W1
+using NkTile = gemm::Tile<128, 128, 64, 32, 4, gemm::kNK>;              // · W1ᵀ, · Wpᵀ
+using WgTile = gemm::Tile<128, 128, 64, 32, 4, gemm::kKN, gemm::kKM>;   // xᵀ · dz
 
 struct BwdArgs {
-  const bf16* x[MAX_SCALES];     // [B, P_s, D_s] pyramid
-  const bf16* wp[MAX_SCALES];    // [K, D_s, E]
-  const bf16* h[MAX_SCALES];     // [B, P_s, E] recomputed projections
-  float* du[MAX_SCALES];         // [B, P, E] scratch
-  bf16* act[MAX_SCALES];         // [B, P, H] scratch: a_s, then bf16(dz_a)
-  bf16* dzh[MAX_SCALES];         // [B, P_s, E] scratch: bf16(dz_h)
-  bf16* dx[MAX_SCALES];          // [B, P_s, D_s] out
-  float* dwp[MAX_SCALES];        // [B, D_s, E] out
-  float* dbp[MAX_SCALES];        // [B, E] out
-  float* dbp_part[MAX_SCALES];   // [B, ceil(P_s/64), E] scratch
+  const bf16* x[MAX_SCALES];      // [B, P_s, D_s] pyramid
+  const bf16* wp[MAX_SCALES];     // [K, D_s, E]
+  const bf16* h[MAX_SCALES];      // [B, P_s, E] recomputed projections
+  bf16* u[MAX_SCALES];            // [B, P, E] bf16 u_s (h_s itself at P_s = P)
+  bf16* du[MAX_SCALES];           // [B, P, E] bf16(d_u_s), P_s < P only
+  bf16* act[MAX_SCALES];          // [B, P, H] a_s, then bf16(dz_a_s)
+  bf16* dzh[MAX_SCALES];          // [B, P_s, E] bf16(dz_h_s)
+  bf16* dx[MAX_SCALES];           // [B, P_s, D_s] out
+  float* dwp[MAX_SCALES];         // [B, D_s, E] out
+  float* dbp[MAX_SCALES];         // [B, E] out
+  float* dbp_part[MAX_SCALES];    // [B, n_part_s, E] scratch
+  const int* t_start[MAX_SCALES]; // [P_s + 1] Gᵀ by source row: entries t_start[i]..
+  const int* t_row[MAX_SCALES];   // destination row of each entry, increasing in a row
+  const float* t_w[MAX_SCALES];   // G[p, i], rounded through bf16
   int P[MAX_SCALES];
   int D[MAX_SCALES];
-  int proj_start[MAX_SCALES + 1];  // row tiles of P_s, scale by scale
-  int wg_start[MAX_SCALES + 2];    // wgrad tiles: dW1, then dWp scale by scale
+  int n_part[MAX_SCALES];         // ⌈P/128⌉ at P_s = P (pass 4), else ⌈P_s/8⌉ (pass 5)
+  int t_blk[MAX_SCALES + 1];      // pass 5 blocks, scale by scale
+  int dx_start[MAX_SCALES + 1];   // pass 6 tiles, scale by scale
+  int wg_start[MAX_SCALES + 2];   // pass 7 tiles: dW1, then dWp scale by scale
   int n_scales;
-  const bf16* w1;                // [K, E, H]
-  const float* b1;               // [K, H], rounded through bf16
-  const float* w2;               // [K, H], rounded through bf16
-  const float* dout;             // [B, P, E]
-  float* dw1;                    // [B, E, H] out
-  float* db1;                    // [B, H] out
-  float* dw2;                    // [B, H] out
-  float* db1_part;               // [B, ceil(P/64), H] scratch
-  float* dw2_part;               // [B, ceil(P/64), H] scratch
+  const bf16* w1;                 // [K, E, H]
+  const float* b1;                // [K, H], rounded through bf16
+  const float* w2;                // [K, H], rounded through bf16
+  const int* idx;                 // [B]
+  const float* dout;              // [B, P, E]
+  float* dw1;                     // [B, E, H] out
+  float* db1;                     // [B, H] out
+  float* dw2;                     // [B, H] out
+  float* datt;                    // [B, S, P] scratch: d_att
+  float* lpart;                   // [B, S, ⌈H/128⌉, P] scratch: partial logits
+  float* att;                     // [B, S, P] scratch: bf16(att32)
+  float* row_part;                // [B, ⌈P/64⌉, 2, H] scratch: partial dw2, db1
   int P_out, K, E, H;
 };
 
@@ -103,20 +129,11 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
-__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gptr) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gptr));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+__device__ __forceinline__ bool bad_expert(const BwdArgs& a, int e) { return e < 0 || e >= a.K; }
 
 // Source rows and weight of output row p of a P_s → P linear upsample with
-// integer ratio (the same phase form as csrc/expert_fusion.cu).
+// integer ratio: the forward's phase form (csrc/expert_fusion.cu), so that u
+// is the forward's own, bit for bit. Once a row, not per element.
 __device__ __forceinline__ void lerp_rows(int p, int Ps, int P, int& i0, int& i1,
                                           float& w) {
   const int r = P / Ps;
@@ -144,23 +161,6 @@ __device__ __forceinline__ void load8_bf16(const bf16* __restrict__ src, float* 
   for (int q = 0; q < 8; ++q) f[q] = __bfloat162float(e[q]);
 }
 
-// 8 consecutive u values of row p, columns [c, c+8), of one scale (bf16 values)
-__device__ __forceinline__ void load_u8(const bf16* __restrict__ hs, int Ps, int P, int E,
-                                        int p, int c, float* u) {
-  if (Ps == P) {
-    load8_bf16(hs + (size_t)p * E + c, u);
-    return;
-  }
-  int i0, i1;
-  float w;
-  lerp_rows(p, Ps, P, i0, i1, w);
-  float x1[8];
-  load8_bf16(hs + (size_t)i0 * E + c, u);
-  load8_bf16(hs + (size_t)i1 * E + c, x1);
-#pragma unroll
-  for (int q = 0; q < 8; ++q) u[q] = round_bf16(lerp(u[q], x1[q], w));
-}
-
 __device__ __forceinline__ void store8_bf16(bf16* dst, const float* f) {
   __align__(16) bf16 o[8];
 #pragma unroll
@@ -168,555 +168,517 @@ __device__ __forceinline__ void store8_bf16(bf16* dst, const float* f) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
 }
 
-static __host__ __device__ int round_up(int n, int m) { return (n + m - 1) / m * m; }
-static __host__ __device__ int imax(int a, int b) { return a > b ? a : b; }
+__device__ __forceinline__ void store4_bf16(bf16* dst, float4 v) {
+  __align__(8) __nv_bfloat162 o[2] = {__floats2bfloat162_rn(v.x, v.y),
+                                      __floats2bfloat162_rn(v.z, v.w)};
+  *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
+}
 
-// shared-memory carve-up of bwd_row_kernel
-struct RowSmem {
-  int tile, w1s, phase1, dz, wch, cd, phase3, region, total;
-  __host__ __device__ RowSmem(int E, int H) {
-    tile = round_up(imax(TM * (E + 8) * 2, TM * (H + 4) * 4), 128);
-    w1s = round_up(2 * AK * (H + 8) * 2, 128);
-    phase1 = tile + w1s;
-    dz = round_up(TM * (H + 8) * 2, 128);
-    wch = round_up(64 * (H + 8) * 2, 128);
-    cd = TM * CD_LD * 4;
-    phase3 = dz + 2 * wch + cd;
-    region = imax(phase1, phase3);
-    total = region + 3 * MAX_SCALES * TM * 4 + 2 * H * 4;
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+static __host__ __device__ int cdiv(int n, int m) { return (n + m - 1) / m; }
+
+// ---------------------------------------------------------------------------
+// pass 1: u_s to scratch (P_s < P) and d_att_s; a warp a row, grid (⌈P/8⌉, B)
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS) bwd_u_kernel(BwdArgs a) {
+  const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int P = a.P_out, E = a.E, S = a.n_scales;
+  const int p = blockIdx.x * 8 + warp;
+  if (p >= P || bad_expert(a, a.idx[b])) return;
+  int i0[MAX_SCALES], i1[MAX_SCALES];
+  float w[MAX_SCALES], acc[MAX_SCALES];
+#pragma unroll
+  for (int s = 0; s < MAX_SCALES; ++s) {
+    i0[s] = i1[s] = p;
+    w[s] = acc[s] = 0.0f;
+    if (s < S && a.P[s] != P) lerp_rows(p, a.P[s], P, i0[s], i1[s], w[s]);
   }
-};
+  const float* d = a.dout + ((size_t)b * P + p) * E;
+  for (int c = lane * 8; c < E; c += 256) {
+    const float4 g0 = *reinterpret_cast<const float4*>(d + c);
+    const float4 g1 = *reinterpret_cast<const float4*>(d + c + 4);
+    const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+    for (int s = 0; s < MAX_SCALES; ++s) {
+      if (s >= S) break;
+      const int Ps = a.P[s];
+      const bf16* hs = a.h[s] + (size_t)b * Ps * E;
+      float u[8];
+      load8_bf16(hs + (size_t)i0[s] * E + c, u);
+      if (Ps != P) {
+        float x1[8];
+        load8_bf16(hs + (size_t)i1[s] * E + c, x1);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) u[q] = round_bf16(lerp(u[q], x1[q], w[s]));
+        store8_bf16(a.u[s] + ((size_t)b * P + p) * E + c, u);
+      }
+      float part = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) part += g[q] * u[q];
+      acc[s] += part;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < MAX_SCALES; ++s) {
+    if (s >= S) break;
+    const float v = warp_sum(acc[s]);
+    if (lane == 0) a.datt[((size_t)b * S + s) * P + p] = v;
+  }
+}
 
 // ---------------------------------------------------------------------------
-// pass 1: per (sample, 64-row tile of P)
+// pass 2: a_s = bf16(relu(u_s·W1 + b1)) and partial logits; grid (M tiles ×
+// N tiles, S, B)
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-bwd_row_kernel(BwdArgs a, const int* __restrict__ idx) {
+__global__ void __launch_bounds__(gemm::kThreads, ActTile::MIN_BLOCKS) bwd_act_kernel(BwdArgs a) {
+  using Cfg = ActTile;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int E = a.E, H = a.H, P = a.P_out;
-  const RowSmem L(E, H);
-  // phase 1
-  bf16* us = reinterpret_cast<bf16*>(smem);                   // [TM][E + 8]
-  float* cs = reinterpret_cast<float*>(smem);                 // [TM][H + 4]
-  bf16* w1s = reinterpret_cast<bf16*>(smem + L.tile);         // 2 × [AK][H + 8]
-  // phase 3
-  bf16* dzs = reinterpret_cast<bf16*>(smem);                  // [TM][H + 8]
-  bf16* wch = reinterpret_cast<bf16*>(smem + L.dz);           // 2 × [64][H + 8]
-  float* cd = reinterpret_cast<float*>(smem + L.dz + 2 * L.wch);  // [TM][CD_LD]
-  // kept across phases
-  float* att = reinterpret_cast<float*>(smem + L.region);     // [S][TM]: logits, then bf16(att32)
-  float* datt = att + MAX_SCALES * TM;                        // [S][TM]
-  float* dl = datt + MAX_SCALES * TM;                         // [S][TM]
-  float* col_w2 = dl + MAX_SCALES * TM;                       // [H]
-  float* col_b1 = col_w2 + H;                                 // [H]
-
-  const int b = blockIdx.y;
-  const int tile = blockIdx.x, n_tiles = gridDim.x;
-  const int m0 = tile * TM;
-  const int rows = P - m0 < TM ? P - m0 : TM;
-  const int e = idx[b];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  float* part_w2 = a.dw2_part + ((size_t)b * n_tiles + tile) * H;
-  float* part_b1 = a.db1_part + ((size_t)b * n_tiles + tile) * H;
-  if (e < 0 || e >= a.K) {  // out-of-range expert id: the reduce pass writes NaN
-    return;
-  }
-
-  const int uld = E + 8, wld = H + 8, cld = H + 4, dld = H + 8;
+  const int E = a.E, H = a.H, P = a.P_out, S = a.n_scales;
+  const int tiles_n = cdiv(H, Cfg::BN);
+  const int nt = blockIdx.x % tiles_n, m0 = (blockIdx.x / tiles_n) * Cfg::BM, n0 = nt * Cfg::BN;
+  const int s = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int e = a.idx[b];
+  if (bad_expert(a, e)) return;
+  const bf16* u = a.u[s] + (size_t)b * P * E;
   const bf16* w1 = a.w1 + (size_t)e * E * H;
+
+  auto load_a = [&](bf16* as, int k0) {  // u rows m0.., E contiguous
+    for (int v = tid; v < Cfg::BM * (gemm::BK / 8); v += gemm::kThreads) {
+      const int r = v >> 2, c = (v & 3) * 8, m = m0 + r, k = k0 + c;
+      const bool ok = m < P && k < E;
+      gemm::cp16(as + r * gemm::LDK + c, ok ? u + (size_t)m * E + k : u, ok);
+    }
+  };
+  auto load_b = [&](bf16* bs, int k0) {  // W1 rows k0.., H contiguous
+    for (int v = tid; v < gemm::BK * (Cfg::BN / 8); v += gemm::kThreads) {
+      const int kr = v / (Cfg::BN / 8), n = (v % (Cfg::BN / 8)) * 8, k = k0 + kr;
+      const bool ok = k < E && n0 + n < H;
+      gemm::cp16(bs + kr * Cfg::LDN + n, ok ? w1 + (size_t)k * H + n0 + n : w1, ok);
+    }
+  };
+  float acc[Cfg::MI][Cfg::NI][4];
+  gemm::mainloop<Cfg>(smem, E, load_a, load_b, acc);
+  float* cs = reinterpret_cast<float*>(smem);
+  gemm::store_tile<Cfg>(cs, acc);
+
+  // two threads a row, 64 columns each, in order; the halves added after
   const float* b1 = a.b1 + (size_t)e * H;
   const float* w2 = a.w2 + (size_t)e * H;
-  const float* dout = a.dout + (size_t)b * P * E;
-  const int n_cf = H / 16;
-  const int n_chunks = E / AK;
-  const int S = a.n_scales;
-
-  auto load_w1_chunk = [&](int chunk, int buf) {
-    bf16* dst = w1s + buf * AK * wld;
-    const bf16* src = w1 + (size_t)chunk * AK * H;
-    for (int i = tid; i < AK * H / 8; i += THREADS) {
-      const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-      cp_async16(dst + r * wld + c, src + (size_t)r * H + c);
+  bf16* act = a.act[s] + (size_t)b * P * H;
+  const int r = tid >> 1, half = tid & 1, m = m0 + r;
+  float sum = 0.0f;
+  for (int c = half * (Cfg::BN / 2); c < (half + 1) * (Cfg::BN / 2) && n0 + c < H; c += 8) {
+    const int n = n0 + c;
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float x = cs[r * Cfg::LDC + c + q] + b1[n + q];
+      v[q] = round_bf16(x > 0.0f ? x : 0.0f);
+      sum += v[q] * w2[n + q];
     }
-    cp_async_commit();
-  };
-
-  // ---- phase 1: forward recompute, d_att, a_s → scratch, logits ----------
-  for (int s = 0; s < S; ++s) {
-    load_w1_chunk(0, 0);
-    const bf16* hs = a.h[s] + (size_t)b * a.P[s] * E;
-    const int Ps = a.P[s];
-    for (int i = tid; i < TM * (E / 8); i += THREADS) {
-      const int r = i / (E / 8), c = (i % (E / 8)) * 8;
-      float u[8];
-      if (r < rows) {
-        load_u8(hs, Ps, P, E, m0 + r, c, u);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) u[q] = 0.0f;
-      }
-      store8_bf16(us + r * uld + c, u);
-    }
-    __syncthreads();
-
-    // d_att_s[row] = Σ_c d_out·u: four threads a row, fixed-order sum
-    {
-      const int row = tid >> 2, part = tid & 3;
-      float sum = 0.0f;
-      if (row < rows) {
-        const float* d = dout + (size_t)(m0 + row) * E;
-        for (int c = part * 4; c < E; c += 16) {
-          const float4 v = *reinterpret_cast<const float4*>(d + c);
-          const bf16* uu = us + row * uld + c;
-          sum += v.x * __bfloat162float(uu[0]) + v.y * __bfloat162float(uu[1]) +
-                 v.z * __bfloat162float(uu[2]) + v.w * __bfloat162float(uu[3]);
-        }
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) datt[s * TM + row] = sum;
-    }
-
-    // a_pre = u · W1[e]
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][MAX_NF];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < MAX_NF; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    for (int chunk = 0; chunk < n_chunks; ++chunk) {
-      if (chunk + 1 < n_chunks) {
-        load_w1_chunk(chunk + 1, (chunk + 1) & 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* wb = w1s + (chunk & 1) * AK * wld;
-      if (warp < n_cf) {
-#pragma unroll
-        for (int kk = 0; kk < AK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            wmma::load_matrix_sync(fa[i], us + i * 16 * uld + chunk * AK + kk, uld);
-#pragma unroll
-          for (int j = 0; j < MAX_NF; ++j) {
-            const int cf = warp + 8 * j;
-            if (cf < n_cf) {
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-              wmma::load_matrix_sync(fb, wb + kk * wld + cf * 16, wld);
-#pragma unroll
-              for (int i = 0; i < 4; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < MAX_NF; ++j) {
-      const int cf = warp + 8 * j;
-      if (cf < n_cf) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wmma::store_matrix_sync(cs + i * 16 * cld + cf * 16, acc[i][j], cld,
-                                  wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-
-    // a_s = bf16(relu(a_pre + b1)) → scratch (rows of P only)
-    bf16* act = a.act[s] + ((size_t)b * P + m0) * H;
-    for (int i = tid; i < rows * (H / 8); i += THREADS) {
-      const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-      float v[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const float x = cs[r * cld + c + q] + b1[c + q];
-        v[q] = x > 0.0f ? x : 0.0f;
-      }
-      store8_bf16(act + (size_t)r * H + c, v);
-    }
-    // logit = Σ_c a·w2, as the forward kernel sums it
-    {
-      const int row = tid >> 2, part = tid & 3;
-      float sum = 0.0f;
-      for (int c = part; c < H; c += 4) {
-        float v = cs[row * cld + c] + b1[c];
-        v = round_bf16(v > 0.0f ? v : 0.0f);
-        sum += v * w2[c];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) att[s * TM + row] = sum;
-    }
-    __syncthreads();
+    if (m < P) store8_bf16(act + (size_t)m * H + n, v);
   }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  if (half == 0 && m < P) a.lpart[(((size_t)b * S + s) * tiles_n + nt) * P + m] = sum;
+}
 
-  // ---- phase 2: softmax over scales and its backward, per row ------------
-  if (tid < TM) {
-    float m = att[tid];
-    for (int s = 1; s < S; ++s) m = fmaxf(m, att[s * TM + tid]);
-    float ex[MAX_SCALES];
+// ---------------------------------------------------------------------------
+// pass 3: the row step, 64 rows of P a block; grid (⌈P/64⌉, B)
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS) bwd_row_kernel(BwdArgs a) {
+  __shared__ float dl[MAX_SCALES][ROW_TM];
+  __shared__ float red[2][THREADS * 8];  // per group: Σ a·d_l, Σ dz_a
+  const int b = blockIdx.y;
+  const int tile = blockIdx.x, m0 = tile * ROW_TM, tid = threadIdx.x;
+  const int P = a.P_out, H = a.H, S = a.n_scales;
+  const int rows = P - m0 < ROW_TM ? P - m0 : ROW_TM;
+  const int e = a.idx[b];
+  if (bad_expert(a, e)) return;
+  const int tiles_n = cdiv(H, ActTile::BN);
+
+  if (tid < ROW_TM) {
+    const int m = m0 + tid;
+    float l[MAX_SCALES], ex[MAX_SCALES], da[MAX_SCALES];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int s = 0; s < MAX_SCALES; ++s) {
+      l[s] = da[s] = 0.0f;
+      if (s < S && tid < rows) {
+        const float* lp = a.lpart + (((size_t)b * S + s) * tiles_n) * P + m;
+        for (int t = 0; t < tiles_n; ++t) l[s] += lp[(size_t)t * P];
+        da[s] = a.datt[((size_t)b * S + s) * P + m];
+        mx = fmaxf(mx, l[s]);
+      }
+    }
     float z = 0.0f;
-    for (int s = 0; s < S; ++s) {
-      ex[s] = expf(att[s * TM + tid] - m);
+#pragma unroll
+    for (int s = 0; s < MAX_SCALES; ++s) {
+      ex[s] = s < S && tid < rows ? expf(l[s] - mx) : 0.0f;
       z += ex[s];
     }
     float inner = 0.0f;
-    for (int s = 0; s < S; ++s) {
-      ex[s] = ex[s] / z;                            // att32
-      inner += ex[s] * datt[s * TM + tid];
+#pragma unroll
+    for (int s = 0; s < MAX_SCALES; ++s) {
+      if (s < S && tid < rows) {
+        ex[s] = ex[s] / z;  // att32
+        inner += ex[s] * da[s];
+      }
     }
-    for (int s = 0; s < S; ++s) {
-      dl[s * TM + tid] = tid < rows ? ex[s] * (datt[s * TM + tid] - inner) : 0.0f;
-      att[s * TM + tid] = round_bf16(ex[s]);
+#pragma unroll
+    for (int s = 0; s < MAX_SCALES; ++s) {
+      if (s >= S) break;
+      dl[s][tid] = tid < rows ? ex[s] * (da[s] - inner) : 0.0f;
+      if (tid < rows) a.att[((size_t)b * S + s) * P + m] = round_bf16(ex[s]);
     }
-  }
-  for (int c = tid; c < H; c += THREADS) {
-    col_w2[c] = 0.0f;
-    col_b1[c] = 0.0f;
   }
   __syncthreads();
 
-  // ---- phase 3: dz_a, partial dw2/db1, d_u = att·d_out + dz_a·W1ᵀ --------
-  const int n_wch = E / 64;
-  auto load_w1_rows = [&](int chunk, int buf) {   // W1[e][chunk·64 .. +64][:]
-    bf16* dst = wch + buf * 64 * wld;
-    const bf16* src = w1 + (size_t)chunk * 64 * H;
-    for (int i = tid; i < 64 * (H / 8); i += THREADS) {
-      const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-      cp_async16(dst + r * wld + c, src + (size_t)r * H + c);
-    }
-    cp_async_commit();
-  };
-  for (int s = 0; s < S; ++s) {
-    load_w1_rows(0, 0);
-    bf16* act = a.act[s] + ((size_t)b * P + m0) * H;
-    for (int c = tid; c < H; c += THREADS) {
-      const float w2c = w2[c];
-      float sw2 = col_w2[c], sb1 = col_b1[c];
-      for (int r = 0; r < TM; ++r) {
-        bf16 zb = __float2bfloat16_rn(0.0f);
-        if (r < rows) {
-          const float av = __bfloat162float(act[(size_t)r * H + c]);
-          const float d = dl[s * TM + r];
-          sw2 += av * d;
-          const float dz = av > 0.0f ? d * w2c : 0.0f;
-          sb1 += dz;
-          zb = __float2bfloat16_rn(dz);
-          act[(size_t)r * H + c] = zb;
-        }
-        dzs[r * dld + c] = zb;
-      }
-      col_w2[c] = sw2;
-      col_b1[c] = sb1;
-    }
-
-    float* du = a.du[s] + (size_t)b * P * E;
-    const int rf = warp >> 1, cf0 = (warp & 1) * 2;
-    for (int j = 0; j < n_wch; ++j) {
-      if (j + 1 < n_wch) {
-        load_w1_rows(j + 1, (j + 1) & 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* wb = wch + (j & 1) * 64 * wld;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc2[2];
-      wmma::fill_fragment(acc2[0], 0.0f);
-      wmma::fill_fragment(acc2[1], 0.0f);
-      for (int kk = 0; kk < H; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, dzs + rf * 16 * dld + kk, dld);
+  // dz_a = [a > 0]·d_l·w2 over a in place; group g of nv threads (one 8-wide
+  // vector of H each) takes rows g, g + G, ... in order
+  const int nv = H / 8, G = THREADS / nv, g = tid / nv, v = tid % nv, c = v * 8;
+  const float* w2 = a.w2 + (size_t)e * H;
+  float sw2[8], sb1[8];
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          // W1ᵀ: element (k = h, n = e) at wb[e·wld + h]
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, wb + (cf0 + q) * 16 * wld + kk, wld);
-          wmma::mma_sync(acc2[q], fa, fb, acc2[q]);
-        }
-      }
+  for (int q = 0; q < 8; ++q) sw2[q] = sb1[q] = 0.0f;
+  if (g < G) {
+    float w2c[8];
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
-        wmma::store_matrix_sync(cd + rf * 16 * CD_LD + (cf0 + q) * 16, acc2[q], CD_LD,
-                                wmma::mem_row_major);
-      __syncthreads();
-      for (int i = tid; i < TM * 16; i += THREADS) {
-        const int r = i >> 4, c = (i & 15) * 4;
-        if (r >= rows) continue;
-        const size_t off = (size_t)(m0 + r) * E + j * 64 + c;
-        const float4 d = *reinterpret_cast<const float4*>(dout + off);
-        const float at = att[s * TM + r];
-        const float* g = cd + r * CD_LD + c;
-        *reinterpret_cast<float4*>(du + off) =
-            make_float4(at * d.x + g[0], at * d.y + g[1], at * d.z + g[2], at * d.w + g[3]);
+    for (int q = 0; q < 8; ++q) w2c[q] = w2[c + q];
+    for (int s = 0; s < S; ++s) {
+      bf16* act = a.act[s] + ((size_t)b * P + m0) * H + c;
+      for (int r = g; r < rows; r += G) {
+        float av[8], dz[8];
+        load8_bf16(act + (size_t)r * H, av);
+        const float d = dl[s][r];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          sw2[q] += av[q] * d;
+          dz[q] = av[q] > 0.0f ? d * w2c[q] : 0.0f;
+          sb1[q] += dz[q];
+        }
+        store8_bf16(act + (size_t)r * H, dz);
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      red[0][g * H + c + q] = sw2[q];
+      red[1][g * H + c + q] = sb1[q];
+    }
   }
-  for (int c = tid; c < H; c += THREADS) {
-    part_w2[c] = col_w2[c];
-    part_b1[c] = col_b1[c];
+  __syncthreads();
+  float* part = a.row_part + ((size_t)b * gridDim.x + tile) * 2 * H;
+  for (int col = tid; col < H; col += THREADS) {
+    float s2 = 0.0f, s1 = 0.0f;
+    for (int q = 0; q < G; ++q) {
+      s2 += red[0][q * H + col];
+      s1 += red[1][q * H + col];
+    }
+    part[col] = s2;
+    part[H + col] = s1;
   }
 }
 
 // ---------------------------------------------------------------------------
-// pass 2: per (sample, scale, 64-row tile of P_s): dz_h, partial dbp, d_x
+// pass 4: d_u = att·d_out + bf16(dz_a)·W1ᵀ; grid (M tiles × N tiles, S, B)
 // ---------------------------------------------------------------------------
-struct ProjSmem {
-  int dzs, bt, cd, total;
-  __host__ __device__ ProjSmem(int E) {
-    dzs = round_up(TM * (E + 8) * 2, 128);
-    bt = 64 * WX_LD * 2;
-    cd = TM * CD_LD * 4;
-    total = dzs + bt + cd;
-  }
-};
-
-__global__ void __launch_bounds__(THREADS)
-bwd_proj_kernel(BwdArgs a, const int* __restrict__ idx) {
+__global__ void __launch_bounds__(gemm::kThreads, NkTile::MIN_BLOCKS) bwd_du_kernel(BwdArgs a) {
+  using Cfg = NkTile;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int E = a.E, P = a.P_out;
-  const ProjSmem L(E);
-  bf16* dzs = reinterpret_cast<bf16*>(smem);                     // [TM][E + 8]
-  bf16* bt = reinterpret_cast<bf16*>(smem + L.dzs);              // [64][WX_LD]
-  float* cd = reinterpret_cast<float*>(smem + L.dzs + L.bt);     // [TM][CD_LD]
+  const int E = a.E, H = a.H, P = a.P_out, S = a.n_scales;
+  const int tiles_n = cdiv(E, Cfg::BN);
+  const int mt = blockIdx.x / tiles_n, m0 = mt * Cfg::BM, n0 = (blockIdx.x % tiles_n) * Cfg::BN;
+  const int s = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int e = a.idx[b];
+  if (bad_expert(a, e)) return;
+  const bf16* dz = a.act[s] + (size_t)b * P * H;
+  const bf16* w1 = a.w1 + (size_t)e * E * H;
 
-  const int b = blockIdx.y;
-  int t = blockIdx.x;
-  int s = 0;
-  while (s + 1 < a.n_scales && t >= a.proj_start[s + 1]) ++s;
-  t -= a.proj_start[s];
-  const int Ps = a.P[s], D = a.D[s];
-  const int n_tiles = (Ps + TM - 1) / TM;
-  const int i0 = t * TM;
-  const int rows = Ps - i0 < TM ? Ps - i0 : TM;
-  const int e = idx[b];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  bf16* dx = a.dx[s] + ((size_t)b * Ps + i0) * D;
-  float* part = a.dbp_part[s] + ((size_t)b * n_tiles + t) * E;
-  if (e < 0 || e >= a.K) {  // out-of-range expert id: poison this tile's d_x
-    for (int i = tid; i < rows * D; i += THREADS) dx[i] = __float2bfloat16_rn(nan_f());
+  auto load_a = [&](bf16* as, int k0) {  // bf16(dz_a) rows m0.., H contiguous
+    for (int v = tid; v < Cfg::BM * (gemm::BK / 8); v += gemm::kThreads) {
+      const int r = v >> 2, c = (v & 3) * 8, m = m0 + r, k = k0 + c;
+      const bool ok = m < P && k < H;
+      gemm::cp16(as + r * gemm::LDK + c, ok ? dz + (size_t)m * H + k : dz, ok);
+    }
+  };
+  auto load_b = [&](bf16* bs, int k0) {  // W1 rows n0.. as stored: K-contiguous
+    for (int v = tid; v < Cfg::BN * (gemm::BK / 8); v += gemm::kThreads) {
+      const int n = v >> 2, c = (v & 3) * 8, k = k0 + c;
+      const bool ok = n0 + n < E && k < H;
+      gemm::cp16(bs + n * gemm::LDK + c, ok ? w1 + (size_t)(n0 + n) * H + k : w1, ok);
+    }
+  };
+  float acc[Cfg::MI][Cfg::NI][4];
+  gemm::mainloop<Cfg>(smem, H, load_a, load_b, acc);
+  float* cs = reinterpret_cast<float*>(smem);
+  gemm::store_tile<Cfg>(cs, acc);
+
+  const bool ident = a.P[s] == P;
+  const float* att = a.att + ((size_t)b * S + s) * P;
+  const float* dout = a.dout + (size_t)b * P * E;
+  const bf16* hs = a.h[s] + (size_t)b * P * E;
+  bf16* dst = (ident ? a.dzh[s] : a.du[s]) + (size_t)b * P * E;
+  for (int v = tid; v < Cfg::BM * (Cfg::BN / 4); v += gemm::kThreads) {
+    const int r = v / (Cfg::BN / 4), c = (v % (Cfg::BN / 4)) * 4, m = m0 + r, n = n0 + c;
+    float* cv = cs + r * Cfg::LDC + c;
+    if (m >= P || n >= E) {
+      *reinterpret_cast<float4*>(cv) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      continue;
+    }
+    const float at = att[m];
+    const float4 g = *reinterpret_cast<const float4*>(dout + (size_t)m * E + n);
+    float4 o = make_float4(__fadd_rn(__fmul_rn(at, g.x), cv[0]), __fadd_rn(__fmul_rn(at, g.y), cv[1]),
+                           __fadd_rn(__fmul_rn(at, g.z), cv[2]), __fadd_rn(__fmul_rn(at, g.w), cv[3]));
+    if (ident) {  // dz_h_0 = [h_0 > 0]·d_u, kept in f32 for the dbp sums
+      const uint2 hv = *reinterpret_cast<const uint2*>(hs + (size_t)m * E + n);
+      const bf16* hb = reinterpret_cast<const bf16*>(&hv);
+      o.x = __bfloat162float(hb[0]) > 0.0f ? o.x : 0.0f;
+      o.y = __bfloat162float(hb[1]) > 0.0f ? o.y : 0.0f;
+      o.z = __bfloat162float(hb[2]) > 0.0f ? o.z : 0.0f;
+      o.w = __bfloat162float(hb[3]) > 0.0f ? o.w : 0.0f;
+      *reinterpret_cast<float4*>(cv) = o;
+    }
+    store4_bf16(dst + (size_t)m * E + n, o);
+  }
+  if (!ident) return;
+  __syncthreads();
+  if (tid < Cfg::BN && n0 + tid < E) {  // the tile's column sums, rows in order
+    float sum = 0.0f;
+    for (int r = 0; r < Cfg::BM; ++r) sum += cs[r * Cfg::LDC + tid];
+    a.dbp_part[s][((size_t)b * a.n_part[s] + mt) * E + n0 + tid] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// pass 5: dz_h_s = [h_s > 0]·Gᵀ·bf16(d_u_s), banded; grid (Σ_s blocks, B)
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS) bwd_tlerp_kernel(BwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* win = reinterpret_cast<bf16*>(smem);     // [T_WIN][T_COLS]
+  float* red = reinterpret_cast<float*>(smem);   // [T_ROWS][T_COLS], after the last window
+  const int b = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int t = blockIdx.x, s = 0;
+  while (s + 1 < a.n_scales && t >= a.t_blk[s + 1]) ++s;
+  t -= a.t_blk[s];
+  const int E = a.E, P = a.P_out, Ps = a.P[s];
+  const int n_cc = cdiv(E, T_COLS), cc = t % n_cc, rb = t / n_cc, c0 = cc * T_COLS;
+  if (bad_expert(a, a.idx[b])) return;
+  const int i_lo = rb * T_ROWS, i_hi = i_lo + T_ROWS < Ps ? i_lo + T_ROWS : Ps;
+  const int* st = a.t_start[s];
+  const int* tr = a.t_row[s];
+  const float* tw = a.t_w[s];
+  // the union of the block's bands (each source row's entries increase in p)
+  int p_lo = P, p_hi = 0;
+  for (int i = i_lo; i < i_hi; ++i)
+    if (st[i + 1] > st[i]) {
+      p_lo = min(p_lo, tr[st[i]]);
+      p_hi = max(p_hi, tr[st[i + 1] - 1] + 1);
+    }
+  const int i = i_lo + warp;
+  const bool live = i < i_hi;
+  int k = live ? st[i] : 0;
+  const int k_end = live ? st[i + 1] : 0;
+  const bf16* du = a.du[s] + (size_t)b * P * E;
+  float acc[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) acc[q] = 0.0f;
+
+  for (int w0 = p_lo; w0 < p_hi; w0 += T_WIN) {
+    const int nrow = p_hi - w0 < T_WIN ? p_hi - w0 : T_WIN;
+    for (int v = tid; v < nrow * (T_COLS / 8); v += THREADS) {
+      const int r = v / (T_COLS / 8), cv = (v % (T_COLS / 8)) * 8;
+      const bool ok = c0 + cv < E;
+      gemm::cp16(win + r * T_COLS + cv, ok ? du + (size_t)(w0 + r) * E + c0 + cv : du, ok);
+    }
+    gemm::commit();
+    gemm::wait<0>();
+    __syncthreads();
+    for (; k < k_end && tr[k] < w0 + nrow; ++k) {
+      float v[8];
+      load8_bf16(win + (tr[k] - w0) * T_COLS + lane * 8, v);
+      const float wt = tw[k];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[q] += wt * v[q];
+    }
+    __syncthreads();
+  }
+
+  const int c = c0 + lane * 8;
+  if (live && c < E) {
+    float hv[8];
+    load8_bf16(a.h[s] + ((size_t)b * Ps + i) * E + c, hv);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[q] = hv[q] > 0.0f ? acc[q] : 0.0f;
+    store8_bf16(a.dzh[s] + ((size_t)b * Ps + i) * E + c, acc);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[q] = 0.0f;
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) red[warp * T_COLS + lane * 8 + q] = acc[q];
+  __syncthreads();
+  if (c0 + tid < E) {  // the block's column sums, source rows in order
+    float sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < T_ROWS; ++w) sum += red[w * T_COLS + tid];
+    a.dbp_part[s][((size_t)b * a.n_part[s] + rb) * E + c0 + tid] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// pass 6: d_x_s = bf16(dz_h_s)·Wp[e]ᵀ; grid (Σ_s tiles, B)
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(gemm::kThreads, NkTile::MIN_BLOCKS) bwd_dx_kernel(BwdArgs a) {
+  using Cfg = NkTile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.y, tid = threadIdx.x;
+  int t = blockIdx.x, s = 0;
+  while (s + 1 < a.n_scales && t >= a.dx_start[s + 1]) ++s;
+  t -= a.dx_start[s];
+  const int E = a.E, Ps = a.P[s], D = a.D[s];
+  const int tiles_n = cdiv(D, Cfg::BN);
+  const int m0 = (t / tiles_n) * Cfg::BM, n0 = (t % tiles_n) * Cfg::BN;
+  const int e = a.idx[b];
+  bf16* dx = a.dx[s] + (size_t)b * Ps * D;
+  if (bad_expert(a, e)) {  // out-of-range expert id: poison this tile of d_x
+    for (int v = tid; v < Cfg::BM * Cfg::BN; v += gemm::kThreads) {
+      const int m = m0 + v / Cfg::BN, n = n0 + v % Cfg::BN;
+      if (m < Ps && n < D) dx[(size_t)m * D + n] = __float2bfloat16_rn(nan_f());
+    }
     return;
   }
+  const bf16* dz = a.dzh[s] + (size_t)b * Ps * E;
   const bf16* w = a.wp[s] + (size_t)e * D * E;
-  const bf16* hs = a.h[s] + ((size_t)b * Ps + i0) * E;
-  const float* du = a.du[s] + (size_t)b * P * E;
-  bf16* dzh = a.dzh[s] + ((size_t)b * Ps + i0) * E;
-  const int r_up = P / Ps;
-  const int dld = E + 8;
-
-  // ---- phase A: dz_h = [h_s > 0]·d_h, one column a thread, rows in order.
-  // d_h is the transposed lerp of bf16(d_u): source row i gathers the
-  // destination rows p ∈ [(i−1)r + r/2, (i+1)r + r/2) that read it, in
-  // increasing p (no atomics); the rows the mask drops skip the gather
-  for (int c = tid; c < E; c += THREADS) {
-    float sum = 0.0f;
-    for (int r = 0; r < TM; ++r) {
-      float dz = 0.0f;
-      if (r < rows && __bfloat162float(hs[(size_t)r * E + c]) > 0.0f) {
-        const int row = i0 + r;
-        if (Ps == P) {
-          dz = du[(size_t)row * E + c];
-        } else {
-          const int lo = imax(0, (row - 1) * r_up + r_up / 2);
-          const int hi_ = (row + 1) * r_up + r_up / 2;
-          const int hi = hi_ < P ? hi_ : P;
-          for (int p = lo; p < hi; ++p) {
-            int j0, j1;
-            float wt;
-            lerp_rows(p, Ps, P, j0, j1, wt);
-            if (j0 != row && j1 != row) continue;
-            const float v = round_bf16(du[(size_t)p * E + c]);
-            if (j0 == row) dz += (1.0f - wt) * v;
-            if (j1 == row) dz += wt * v;
-          }
-        }
-      }
-      sum += dz;
-      const bf16 zb = __float2bfloat16_rn(dz);
-      dzs[r * dld + c] = zb;
-      if (r < rows) dzh[(size_t)r * E + c] = zb;
+  auto load_a = [&](bf16* as, int k0) {  // bf16(dz_h) rows m0.., E contiguous
+    for (int v = tid; v < Cfg::BM * (gemm::BK / 8); v += gemm::kThreads) {
+      const int r = v >> 2, c = (v & 3) * 8, m = m0 + r, k = k0 + c;
+      const bool ok = m < Ps && k < E;
+      gemm::cp16(as + r * gemm::LDK + c, ok ? dz + (size_t)m * E + k : dz, ok);
     }
-    part[c] = sum;
-  }
-  __syncthreads();
-
-  // ---- phase B: d_x = bf16(dz_h) · Wpᵀ, 64 columns of D_s at a time ------
-  const int rf = warp >> 1, cf0 = (warp & 1) * 2;
-  for (int n0 = 0; n0 < D; n0 += 64) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc2[2];
-    wmma::fill_fragment(acc2[0], 0.0f);
-    wmma::fill_fragment(acc2[1], 0.0f);
-    for (int k0 = 0; k0 < E; k0 += 32) {
-      {  // Wp rows n0..n0+63, columns k0..k0+31: element (k, n) at bt[n·WX_LD + k]
-        const int n = tid >> 2, c = (tid & 3) * 8;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (n0 + n < D) v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + n) * E + k0 + c);
-        *reinterpret_cast<uint4*>(bt + n * WX_LD + c) = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < 32; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, dzs + rf * 16 * dld + k0 + kk, dld);
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, bt + (cf0 + q) * 16 * WX_LD + kk, WX_LD);
-          wmma::mma_sync(acc2[q], fa, fb, acc2[q]);
-        }
-      }
-      __syncthreads();
+  };
+  auto load_b = [&](bf16* bs, int k0) {  // Wp rows n0.. as stored: K-contiguous
+    for (int v = tid; v < Cfg::BN * (gemm::BK / 8); v += gemm::kThreads) {
+      const int n = v >> 2, c = (v & 3) * 8, k = k0 + c;
+      const bool ok = n0 + n < D && k < E;
+      gemm::cp16(bs + n * gemm::LDK + c, ok ? w + (size_t)(n0 + n) * E + k : w, ok);
     }
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-      wmma::store_matrix_sync(cd + rf * 16 * CD_LD + (cf0 + q) * 16, acc2[q], CD_LD,
-                              wmma::mem_row_major);
-    __syncthreads();
-    for (int i = tid; i < TM * 8; i += THREADS) {
-      const int r = i >> 3, c = (i & 7) * 8;
-      if (r >= rows || n0 + c >= D) continue;
-      store8_bf16(dx + (size_t)r * D + n0 + c, cd + r * CD_LD + c);
-    }
-    __syncthreads();
+  };
+  float acc[Cfg::MI][Cfg::NI][4];
+  gemm::mainloop<Cfg>(smem, E, load_a, load_b, acc);
+  float* cs = reinterpret_cast<float*>(smem);
+  gemm::store_tile<Cfg>(cs, acc);
+  for (int v = tid; v < Cfg::BM * (Cfg::BN / 8); v += gemm::kThreads) {
+    const int r = v / (Cfg::BN / 8), c = (v % (Cfg::BN / 8)) * 8, m = m0 + r, n = n0 + c;
+    if (m < Ps && n < D) store8_bf16(dx + (size_t)m * D + n, cs + r * Cfg::LDC + c);
   }
 }
 
 // ---------------------------------------------------------------------------
-// pass 3: per (sample, 64×128 output tile): C[m, n] = Σ_k A[k, m]·B[k, n]
-//   dW1  = Σ_s u_sᵀ·bf16(dz_a_s)   (A rebuilt by lerp from h_s, K = P per scale)
-//   dWp_s = x_sᵀ·bf16(dz_h_s)      (K = P_s)
+// pass 7: C = Aᵀ·B with A and B row-major over K; grid (Σ jobs' tiles, B)
+//   dW1   = Σ_s u_sᵀ·bf16(dz_a_s)   (M = E, N = H, K = S·P, each scale's
+//                                    K padded to a whole slice)
+//   dWp_s = x_sᵀ·bf16(dz_h_s)      (M = D_s, N = E, K = P_s)
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-bwd_wgrad_kernel(BwdArgs a, const int* __restrict__ idx) {
-  __shared__ __align__(128) bf16 as[32 * WA_LD];
-  __shared__ __align__(128) bf16 bs[32 * WW_LD];
-  __shared__ __align__(128) float cs[TM * PC_LD];
-
-  const int E = a.E, H = a.H, P = a.P_out;
-  const int b = blockIdx.y;
-  const int e = idx[b];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  int t = blockIdx.x;
-  int job = 0;  // 0: dW1; 1 + s: dWp of scale s
-  while (job + 1 <= a.n_scales && t >= a.wg_start[job + 1]) ++job;
+__global__ void __launch_bounds__(gemm::kThreads, WgTile::MIN_BLOCKS) bwd_wgrad_kernel(BwdArgs a) {
+  using Cfg = WgTile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int E = a.E, H = a.H, P = a.P_out, S = a.n_scales;
+  const int b = blockIdx.y, tid = threadIdx.x;
+  int t = blockIdx.x, job = 0;  // 0: dW1; 1 + s: dWp of scale s
+  while (job + 1 <= S && t >= a.wg_start[job + 1]) ++job;
   t -= a.wg_start[job];
-  int M, N;
-  float* out;
-  if (job == 0) {
-    M = E;
-    N = H;
-    out = a.dw1 + (size_t)b * E * H;
-  } else {
-    M = a.D[job - 1];
-    N = E;
-    out = a.dwp[job - 1] + (size_t)b * M * E;
-  }
-  const int tiles_n = (N + 127) / 128;
-  const int m0 = (t / tiles_n) * 64, n0 = (t % tiles_n) * 128;
-
-  if (e >= 0 && e < a.K) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    const int s_lo = job == 0 ? 0 : job - 1;
-    const int s_hi = job == 0 ? a.n_scales : job;
-    for (int s = s_lo; s < s_hi; ++s) {
-      const int Ps = a.P[s];
-      const int Kd = job == 0 ? P : Ps;
-      const bf16* hs = a.h[s] + (size_t)b * Ps * E;
-      const bf16* xsrc = a.x[s] + (size_t)b * Ps * M;
-      const bf16* bsrc = job == 0 ? a.act[s] + (size_t)b * P * H
-                                  : a.dzh[s] + (size_t)b * Ps * E;
-      for (int k0 = 0; k0 < Kd; k0 += 32) {
-        {  // A tile: rows k of the source, columns m0..m0+63, as [k][m]
-          const int k = tid >> 3, m = (tid & 7) * 8;
-          const int p = k0 + k;
-          if (p < Kd && m0 + m < M) {
-            if (job == 0) {
-              float u[8];
-              load_u8(hs, Ps, P, E, p, m0 + m, u);
-              store8_bf16(as + k * WA_LD + m, u);
-            } else {
-              *reinterpret_cast<uint4*>(as + k * WA_LD + m) =
-                  *reinterpret_cast<const uint4*>(xsrc + (size_t)p * M + m0 + m);
-            }
-          } else {
-            *reinterpret_cast<uint4*>(as + k * WA_LD + m) = make_uint4(0, 0, 0, 0);
-          }
-        }
-        for (int i = tid; i < 32 * 16; i += THREADS) {
-          const int k = i >> 4, n = (i & 15) * 8;
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (k0 + k < Kd && n0 + n < N)
-            v = *reinterpret_cast<const uint4*>(bsrc + (size_t)(k0 + k) * N + n0 + n);
-          *reinterpret_cast<uint4*>(bs + k * WW_LD + n) = v;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < 32; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(fa[i], as + kk * WA_LD + wm * 32 + i * 16, WA_LD);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::load_matrix_sync(fb[j], bs + kk * WW_LD + wn * 32 + j * 16, WW_LD);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
+  const int M = job == 0 ? E : a.D[job - 1];
+  const int N = job == 0 ? H : E;
+  float* out = job == 0 ? a.dw1 + (size_t)b * E * H : a.dwp[job - 1] + (size_t)b * M * E;
+  const int tiles_n = cdiv(N, Cfg::BN);
+  const int m0 = (t / tiles_n) * Cfg::BM, n0 = (t % tiles_n) * Cfg::BN;
+  const int e = a.idx[b];
+  if (bad_expert(a, e)) {
+    for (int v = tid; v < Cfg::BM * (Cfg::BN / 4); v += gemm::kThreads) {
+      const int m = m0 + v / (Cfg::BN / 4), n = n0 + (v % (Cfg::BN / 4)) * 4;
+      if (m < M && n < N)
+        *reinterpret_cast<float4*>(out + (size_t)m * N + n) = make_float4(nan_f(), nan_f(), nan_f(), nan_f());
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * PC_LD + wn * 32 + j * 16,
-                                acc[i][j], PC_LD, wmma::mem_row_major);
-    __syncthreads();
+    return;
   }
-  const bool bad = e < 0 || e >= a.K;
-  for (int i = tid; i < TM * 32; i += THREADS) {
-    const int r = i >> 5, c = (i & 31) * 4;
-    if (m0 + r >= M || n0 + c >= N) continue;
-    const float4 v = bad ? make_float4(nan_f(), nan_f(), nan_f(), nan_f())
-                         : *reinterpret_cast<const float4*>(cs + r * PC_LD + c);
-    *reinterpret_cast<float4*>(out + (size_t)(m0 + r) * N + n0 + c) = v;
+  const int kpad = (P + gemm::BK - 1) / gemm::BK * gemm::BK;  // dW1: K of a scale
+  const int Kd = job == 0 ? S * kpad : a.P[job - 1];
+
+  // A [k][m] and B [k][n], both read along their rows: the source rows of
+  // slice k0 (one scale's, for dW1) and how many of them there are
+  auto rows_of = [&](int k0, const bf16*& asrc, const bf16*& bsrc, int& p0, int& np) {
+    if (job == 0) {
+      const int s = k0 / kpad;
+      p0 = k0 - s * kpad;
+      np = P;
+      asrc = a.u[s] + (size_t)b * P * E;
+      bsrc = a.act[s] + (size_t)b * P * H;
+    } else {
+      const int s = job - 1;
+      p0 = k0;
+      np = a.P[s];
+      asrc = a.x[s] + (size_t)b * np * M;
+      bsrc = a.dzh[s] + (size_t)b * np * E;
+    }
+  };
+  auto load_a = [&](bf16* as, int k0) {
+    const bf16* src;
+    const bf16* unused;
+    int p0, np;
+    rows_of(k0, src, unused, p0, np);
+    for (int v = tid; v < gemm::BK * (Cfg::BM / 8); v += gemm::kThreads) {
+      const int kr = v / (Cfg::BM / 8), c = (v % (Cfg::BM / 8)) * 8, p = p0 + kr;
+      const bool ok = p < np && m0 + c < M;
+      gemm::cp16(as + kr * Cfg::LDM + c, ok ? src + (size_t)p * M + m0 + c : src, ok);
+    }
+  };
+  auto load_b = [&](bf16* bs, int k0) {
+    const bf16* unused;
+    const bf16* src;
+    int p0, np;
+    rows_of(k0, unused, src, p0, np);
+    for (int v = tid; v < gemm::BK * (Cfg::BN / 8); v += gemm::kThreads) {
+      const int kr = v / (Cfg::BN / 8), c = (v % (Cfg::BN / 8)) * 8, p = p0 + kr;
+      const bool ok = p < np && n0 + c < N;
+      gemm::cp16(bs + kr * Cfg::LDN + c, ok ? src + (size_t)p * N + n0 + c : src, ok);
+    }
+  };
+  float acc[Cfg::MI][Cfg::NI][4];
+  gemm::mainloop<Cfg>(smem, Kd, load_a, load_b, acc);
+  float* cs = reinterpret_cast<float*>(smem);
+  gemm::store_tile<Cfg>(cs, acc);
+  for (int v = tid; v < Cfg::BM * (Cfg::BN / 4); v += gemm::kThreads) {
+    const int r = v / (Cfg::BN / 4), c = (v % (Cfg::BN / 4)) * 4, m = m0 + r, n = n0 + c;
+    if (m < M && n < N)
+      *reinterpret_cast<float4*>(out + (size_t)m * N + n) =
+          *reinterpret_cast<const float4*>(cs + r * Cfg::LDC + c);
   }
 }
 
 // ---------------------------------------------------------------------------
-// pass 4: per sample, the per-tile partial sums in tile order
+// pass 8: per sample, the per-tile partial sums in tile order
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-bwd_reduce_kernel(BwdArgs a, const int* __restrict__ idx) {
+__global__ void __launch_bounds__(THREADS) bwd_reduce_kernel(BwdArgs a) {
   const int b = blockIdx.x;
-  const int e = idx[b];
-  const bool bad = e < 0 || e >= a.K;
+  const bool bad = bad_expert(a, a.idx[b]);
   const int E = a.E, H = a.H;
-  const int T = (a.P_out + TM - 1) / TM;
+  const int T = cdiv(a.P_out, ROW_TM);
   for (int c = threadIdx.x; c < H; c += THREADS) {
-    float s1 = 0.0f, s2 = 0.0f;
+    float s2 = 0.0f, s1 = 0.0f;
     for (int t = 0; t < T && !bad; ++t) {
-      s1 += a.db1_part[((size_t)b * T + t) * H + c];
-      s2 += a.dw2_part[((size_t)b * T + t) * H + c];
+      const float* part = a.row_part + ((size_t)b * T + t) * 2 * H;
+      s2 += part[c];
+      s1 += part[H + c];
     }
-    a.db1[(size_t)b * H + c] = bad ? nan_f() : s1;
     a.dw2[(size_t)b * H + c] = bad ? nan_f() : s2;
+    a.db1[(size_t)b * H + c] = bad ? nan_f() : s1;
   }
   for (int s = 0; s < a.n_scales; ++s) {
-    const int Ts = (a.P[s] + TM - 1) / TM;
+    const int Ts = a.n_part[s];
     for (int c = threadIdx.x; c < E; c += THREADS) {
       float sum = 0.0f;
       for (int t = 0; t < Ts && !bad; ++t) sum += a.dbp_part[s][((size_t)b * Ts + t) * E + c];
@@ -725,82 +687,109 @@ bwd_reduce_kernel(BwdArgs a, const int* __restrict__ idx) {
   }
 }
 
+template <class Kernel>
+static cudaError_t launch(Kernel k, dim3 grid, int smem, cudaStream_t st, const BwdArgs& a) {
+  if (grid.x == 0) return cudaSuccess;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  k<<<grid, THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 extern "C" {
 
-// Returns a cudaError_t: 0 when all four launches were accepted (a shape
-// whose shared memory exceeds a block's fails at cudaFuncSetAttribute).
+// K2 for a chunk of B images, after K1's projection launch has written hs.
+// parts[0..MAX_SCALES+1]: the partial-sum rows an image the caller's scratch
+// holds, dbp_parts' of each scale, then lpart's logit tiles, then row_part's
+// row-step tiles; fewer than these tiles write is rejected.
+// Returns a cudaError_t: 0 when every launch was accepted.
 int medmoe_expert_fusion_bwd(int n_scales, const void* const* xs, const void* const* wps,
-                             const void* const* hs, void* const* dus,
+                             const void* const* hs, void* const* us, void* const* dus,
                              void* const* acts, void* const* dzhs, void* const* dxs,
                              void* const* dwps, void* const* dbps, void* const* dbp_parts,
-                             const int* Ps, const int* Ds, const void* w1, const void* b1,
-                             const void* w2, const void* idx, const void* dout, void* dw1,
-                             void* db1, void* dw2, void* db1_part, void* dw2_part, int B, int K,
+                             const void* const* t_starts, const void* const* t_rows,
+                             const void* const* t_ws, const int* Ps, const int* Ds,
+                             const int* parts, const void* w1, const void* b1, const void* w2,
+                             const void* idx, const void* dout, void* dw1, void* db1, void* dw2,
+                             void* datt, void* lpart, void* att, void* row_part, int B, int K,
                              int E, int H, int P, void* stream) {
-  if (n_scales < 1 || n_scales > MAX_SCALES || E % 32 || H % 16 || H > 8 * 16 * MAX_NF)
+  if (n_scales < 1 || n_scales > MAX_SCALES || E % 8 || H % 8 || H / 8 > THREADS || B < 1 ||
+      B > 65535 || parts[MAX_SCALES] < cdiv(H, ActTile::BN) ||
+      parts[MAX_SCALES + 1] < cdiv(P, ROW_TM))
     return (int)cudaErrorInvalidValue;
   BwdArgs a;
-  int proj_tiles = 0;
+  int t_blk = 0, dx_tiles = 0;
   a.wg_start[0] = 0;
-  a.wg_start[1] = ((E + 63) / 64) * ((H + 127) / 128);
+  a.wg_start[1] = cdiv(E, WgTile::BM) * cdiv(H, WgTile::BN);
   for (int s = 0; s < n_scales; ++s) {
     if (Ds[s] % 8 || Ps[s] < 1 || P % Ps[s]) return (int)cudaErrorInvalidValue;
+    const bool ident = Ps[s] == P;
     a.x[s] = static_cast<const bf16*>(xs[s]);
     a.wp[s] = static_cast<const bf16*>(wps[s]);
     a.h[s] = static_cast<const bf16*>(hs[s]);
-    a.du[s] = static_cast<float*>(dus[s]);
+    a.u[s] = ident ? const_cast<bf16*>(a.h[s]) : static_cast<bf16*>(us[s]);
+    a.du[s] = static_cast<bf16*>(dus[s]);
     a.act[s] = static_cast<bf16*>(acts[s]);
     a.dzh[s] = static_cast<bf16*>(dzhs[s]);
     a.dx[s] = static_cast<bf16*>(dxs[s]);
     a.dwp[s] = static_cast<float*>(dwps[s]);
     a.dbp[s] = static_cast<float*>(dbps[s]);
     a.dbp_part[s] = static_cast<float*>(dbp_parts[s]);
+    a.t_start[s] = static_cast<const int*>(t_starts[s]);
+    a.t_row[s] = static_cast<const int*>(t_rows[s]);
+    a.t_w[s] = static_cast<const float*>(t_ws[s]);
     a.P[s] = Ps[s];
     a.D[s] = Ds[s];
-    a.proj_start[s] = proj_tiles;
-    proj_tiles += (Ps[s] + TM - 1) / TM;
-    a.wg_start[s + 2] = a.wg_start[s + 1] + ((Ds[s] + 63) / 64) * ((E + 127) / 128);
+    a.n_part[s] = ident ? cdiv(P, NkTile::BM) : cdiv(Ps[s], T_ROWS);
+    if (parts[s] < a.n_part[s]) return (int)cudaErrorInvalidValue;
+    a.t_blk[s] = t_blk;
+    if (!ident) t_blk += cdiv(Ps[s], T_ROWS) * cdiv(E, T_COLS);
+    a.dx_start[s] = dx_tiles;
+    dx_tiles += cdiv(Ps[s], NkTile::BM) * cdiv(Ds[s], NkTile::BN);
+    a.wg_start[s + 2] = a.wg_start[s + 1] + cdiv(Ds[s], WgTile::BM) * cdiv(E, WgTile::BN);
   }
-  a.proj_start[n_scales] = proj_tiles;
+  a.t_blk[n_scales] = t_blk;
+  a.dx_start[n_scales] = dx_tiles;
   a.n_scales = n_scales;
   a.w1 = static_cast<const bf16*>(w1);
   a.b1 = static_cast<const float*>(b1);
   a.w2 = static_cast<const float*>(w2);
+  a.idx = static_cast<const int*>(idx);
   a.dout = static_cast<const float*>(dout);
   a.dw1 = static_cast<float*>(dw1);
   a.db1 = static_cast<float*>(db1);
   a.dw2 = static_cast<float*>(dw2);
-  a.db1_part = static_cast<float*>(db1_part);
-  a.dw2_part = static_cast<float*>(dw2_part);
+  a.datt = static_cast<float*>(datt);
+  a.lpart = static_cast<float*>(lpart);
+  a.att = static_cast<float*>(att);
+  a.row_part = static_cast<float*>(row_part);
   a.P_out = P;
   a.K = K;
   a.E = E;
   a.H = H;
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* id = static_cast<const int*>(idx);
-  const int row_smem = RowSmem(E, H).total;
-  cudaError_t err = cudaFuncSetAttribute(bwd_row_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, row_smem);
-  if (err != cudaSuccess) return (int)err;
-  bwd_row_kernel<<<dim3((P + TM - 1) / TM, B), THREADS, row_smem, st>>>(a, id);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int proj_smem = ProjSmem(E).total;
-  err = cudaFuncSetAttribute(bwd_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             proj_smem);
-  if (err != cudaSuccess) return (int)err;
-  bwd_proj_kernel<<<dim3(proj_tiles, B), THREADS, proj_smem, st>>>(a, id);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  bwd_wgrad_kernel<<<dim3(a.wg_start[n_scales + 1], B), THREADS, 0, st>>>(a, id);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  bwd_reduce_kernel<<<B, THREADS, 0, st>>>(a, id);
-  return (int)cudaGetLastError();
+  const int S = n_scales;
+  cudaError_t err;
+  if ((err = launch(bwd_u_kernel, dim3(cdiv(P, 8), B), 0, st, a)) != cudaSuccess) return (int)err;
+  if ((err = launch(bwd_act_kernel, dim3(cdiv(P, ActTile::BM) * cdiv(H, ActTile::BN), S, B),
+                    ActTile::SMEM, st, a)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch(bwd_row_kernel, dim3(cdiv(P, ROW_TM), B), 0, st, a)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch(bwd_du_kernel, dim3(cdiv(P, NkTile::BM) * cdiv(E, NkTile::BN), S, B),
+                    NkTile::SMEM, st, a)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch(bwd_tlerp_kernel, dim3(t_blk, B), T_WIN * T_COLS * 2, st, a)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch(bwd_dx_kernel, dim3(dx_tiles, B), NkTile::SMEM, st, a)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch(bwd_wgrad_kernel, dim3(a.wg_start[n_scales + 1], B), WgTile::SMEM, st, a)) !=
+      cudaSuccess)
+    return (int)err;
+  return (int)launch(bwd_reduce_kernel, dim3(B), 0, st, a);
 }
 
 const char* medmoe_cuda_error_string(int code) {

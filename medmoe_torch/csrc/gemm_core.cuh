@@ -1,14 +1,15 @@
 // A tiled bf16 × bf16 → f32 matrix product for one block of 256 threads,
 // for sm_90a: the core of the GLoRIA kernels' dense passes, two for K3 and
 // the backward's prologue (gloria_attention.cu), two for the d_ctx kernel
-// K4a (gloria_attention_bwd.cu); K4b is to move onto it.
+// K4a (gloria_attention_bwd.cu), and of the expert branch's backward K2
+// (expert_fusion_bwd.cu: five products); K4b is to move onto it.
 //
 //   C[BM, BN] = A[BM, K] · B[K, BN], K in slices of BK = 32
 //
 // 8 warps in a WARPS_M × WARPS_N grid, each a WM × WN tile of
 // mma.sync.m16n8k16 bf16 products with f32 accumulators in registers,
 // their operands read from shared memory by ldmatrix (ldmatrix.trans for
-// a B that is N-contiguous). A ring of STAGES slices in shared memory is
+// a B that is N-contiguous and an A that is M-contiguous). A ring of STAGES slices in shared memory is
 // filled by 16-byte cp.async copies, so that the next slices load while
 // the current one is multiplied. The caller's loaders fill one slice each
 // (the strides, sources and masks are theirs; a masked chunk is filled
@@ -16,8 +17,8 @@
 // from shared memory (store_tile), where it replaces the ring.
 //
 // Shared memory rows are padded by 16 bytes (ld BK + 8 for [rows][BK]
-// slices, BN + 8 for [BK][BN]), so the 8 rows an ldmatrix reads fall in
-// 8 different bank groups.
+// slices, BN + 8 for [BK][BN], BM + 8 for [BK][BM]), so the 8 rows an
+// ldmatrix reads fall in 8 different bank groups.
 //
 // Each warp loads the fragments of the next 16-deep step (ldmatrix) before
 // it issues the products of this one, across the slices' barriers too, so
@@ -40,17 +41,23 @@ constexpr int LDK = BK + 8;  // ld of a [rows][BK] slice, in bf16
 // Where a slice of B lies in shared memory: kKN as [BK][BN] (B is
 // N-contiguous in device memory), kNK as [BN][BK] (B is K-contiguous).
 enum BLayout { kKN, kNK };
+// Where a slice of A lies: kMK as [BM][BK] (A is K-contiguous in device
+// memory), kKM as [BK][BM] (A is M-contiguous: a transposed operand, such
+// as xᵀ in a weight gradient xᵀ·dz)
+enum ALayout { kMK, kKM };
 
-template <int BM_, int BN_, int WM_, int WN_, int STAGES_, BLayout BL_>
+template <int BM_, int BN_, int WM_, int WN_, int STAGES_, BLayout BL_, ALayout AL_ = kMK>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, STAGES = STAGES_;
   static constexpr BLayout BL = BL_;
+  static constexpr ALayout AL = AL_;
   static constexpr int WARPS_M = BM / WM, WARPS_N = BN / WN;
   static_assert(WARPS_M * WARPS_N == kThreads / 32, "8 warps a block");
   static constexpr int MI = WM / 16, NI = WN / 8;  // m16 and n8 tiles of a warp
   static_assert(WM % 16 == 0 && WN % 16 == 0, "warp tile in 16 × 16 steps");
   static constexpr int LDN = BN + 8;  // ld of a [BK][BN] slice
-  static constexpr int A_ELEMS = BM * LDK;
+  static constexpr int LDM = BM + 8;  // ld of a [BK][BM] slice
+  static constexpr int A_ELEMS = AL == kMK ? BM * LDK : BK * LDM;
   static constexpr int B_ELEMS = BL == kKN ? BK * LDN : BN * LDK;
   static constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS;
   static constexpr int LDC = BN + 4;  // ld of the f32 tile
@@ -102,10 +109,11 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The K loop: acc = A · B over K (a multiple of 8; the loaders zero what
-// lies past it). load_a(bf16* slice, int k0) fills A's [BM][LDK] slice of
-// columns k0..k0+31, load_b(bf16* slice, int k0) B's slice of rows
-// k0..k0+31, both with cp16 only. Ends with the ring drained and the
+// The K loop: acc = A · B over K (a multiple of 8 where an operand is
+// K-contiguous; the loaders zero what lies past it). load_a(bf16* slice,
+// int k0) fills A's slice of columns k0..k0+31 ([BM][LDK], or [BK][LDM]
+// for kKM), load_b(bf16* slice, int k0) B's slice of rows k0..k0+31,
+// both with cp16 only. Ends with the ring drained and the
 // block synchronised, so the caller may overwrite it.
 template <class Cfg, class LoadA, class LoadB>
 __device__ __forceinline__ void mainloop(unsigned char* smem, int K, LoadA load_a, LoadB load_b,
@@ -129,11 +137,13 @@ __device__ __forceinline__ void mainloop(unsigned char* smem, int K, LoadA load_
     }
     commit();
   }
-  // ldmatrix lane offsets: A [m][k] and a kNK B [n][k] by rows, a kKN B
-  // [k][n] transposed; the four 8×8 matrices of an x4 load are a's
-  // (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15) and
-  // two n8 tiles of b: (k 0-7, n 0-7), (k 8-15, n 0-7), then n 8-15
-  const int a_row = ((lane >> 3) & 1) * 8 + (lane & 7), a_col = (lane >> 4) * 8;
+  // ldmatrix lane offsets: a kMK A [m][k] and a kNK B [n][k] by rows, a
+  // kKM A [k][m] and a kKN B [k][n] transposed; the four 8×8 matrices of
+  // an x4 load are a's (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
+  // (m 8-15, k 8-15) and two n8 tiles of b: (k 0-7, n 0-7), (k 8-15,
+  // n 0-7), then n 8-15
+  const int a_row = Cfg::AL == kMK ? ((lane >> 3) & 1) * 8 + (lane & 7) : (lane >> 4) * 8 + (lane & 7);
+  const int a_col = Cfg::AL == kMK ? (lane >> 4) * 8 : ((lane >> 3) & 1) * 8;
   const int b_k = Cfg::BL == kKN ? ((lane >> 3) & 1) * 8 + (lane & 7) : ((lane >> 3) & 1) * 8;
   const int b_n = Cfg::BL == kKN ? (lane >> 4) * 8 : (lane >> 4) * 8 + (lane & 7);
 
@@ -142,8 +152,12 @@ __device__ __forceinline__ void mainloop(unsigned char* smem, int K, LoadA load_
   auto frags = [&](int buf, const __nv_bfloat16* as, int kk) {
     const __nv_bfloat16* bs = as + Cfg::A_ELEMS;
 #pragma unroll
-    for (int i = 0; i < Cfg::MI; ++i)
-      ldsm4(af[buf][i], as + (wm0 + i * 16 + a_row) * LDK + kk + a_col);
+    for (int i = 0; i < Cfg::MI; ++i) {
+      if constexpr (Cfg::AL == kMK)
+        ldsm4(af[buf][i], as + (wm0 + i * 16 + a_row) * LDK + kk + a_col);
+      else
+        ldsm4_t(af[buf][i], as + (kk + a_row) * Cfg::LDM + wm0 + i * 16 + a_col);
+    }
 #pragma unroll
     for (int j2 = 0; j2 < Cfg::NI / 2; ++j2) {
       unsigned r[4];

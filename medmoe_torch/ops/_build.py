@@ -104,7 +104,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "expert_fusion_bwd":
         arr_p, arr_i = ctypes.POINTER(vp), ctypes.POINTER(i)
         lib.medmoe_expert_fusion_bwd.argtypes = (
-            [i] + [arr_p] * 10 + [arr_i, arr_i] + [vp] * 10
+            [i] + [arr_p] * 14 + [arr_i] * 3 + [vp] * 12
             + [i, i, i, i, i, vp])
         lib.medmoe_expert_fusion_bwd.restype = i
     elif name == "gloria_attention":

@@ -38,22 +38,48 @@ block holds one [64, E] tile, never a whole [P, E] map (the TPU kernel
 kept every map of a sample in 100 MiB of VMEM).
 
 The backward (K2, ``csrc/expert_fusion_bwd.cu``) replaces the Pallas
-``_bwd_kernel`` driven by ``_bwd_pallas``; its design note is in the
-source. ``expert_fusion_gather_bwd`` recomputes h_s with K1's projection
-launch (the TPU kernel recomputes its forward chain too, so nothing but
-the inputs is kept between forward and backward), runs K2, and returns
-d_x_s and the per-sample parameter gradients; ``FusedExpertGather``
-scatters those into the expert bank with ``index_add_``, as the JAX
-package's one-hot einsum does (``_fe_bwd``). ``attn_b2`` gets an exact
-zero gradient.
+``_bwd_kernel`` driven by ``_bwd_pallas``. ``expert_fusion_gather_bwd``
+recomputes h_s with K1's projection launch (the TPU kernel recomputes its
+forward chain too, so nothing but the inputs is kept between forward and
+backward), runs K2, and returns d_x_s and the per-sample parameter
+gradients; ``FusedExpertGather`` scatters those into the expert bank with
+``index_add_``, as the JAX package's one-hot einsum does (``_fe_bwd``).
+``attn_b2`` gets an exact zero gradient.
+
+K2 is bound by operations: five products of ≈7.4 GFLOP a flagship sample
+for the a recompute, d_u and dW1, ≈0.87 for d_x and dWp. It runs them as
+dense tile products on the shared GEMM core (``csrc/gemm_core.cuh``),
+every operand a bf16 scratch read with 16-byte copies, between streaming
+passes that are bound by bytes (O(P·E) bf16 a sample and scale):
+
+  1. u_s = bf16(lerp(h_s)) and d_att_s = Σ_E d_out·u_s, d_out read once;
+  2. a_s = bf16(relu(u_s·W1 + b1)) with each N tile's partial logits;
+  3. the row step: softmax over scales and its backward, bf16(dz_a);
+  4. d_u = att·d_out + bf16(dz_a)·W1ᵀ, written as bf16(d_u) (what Gᵀ
+     reads), or, at the identity scale, masked into bf16(dz_h_0);
+  5. the transposed upsample Gᵀ·bf16(d_u), banded: each source row sums
+     its ≤ 2r + 1 destination rows in increasing order, from the table of
+     ``transposed_lerp_plan``; the mask h_s > 0 gives bf16(dz_h_s);
+  6. d_x = bf16(dz_h)·Wpᵀ;
+  7. dW1 = Σ_s u_sᵀ·bf16(dz_a) and dWp_s = x_sᵀ·bf16(dz_h_s);
+  8. the per-tile partial sums of db1, dw2 and dbp, in tile order.
+
+No atomics: two calls give the same bits. The scratch (≈52 MB a flagship
+image, ``bwd_scratch_bytes``) lives in chunks of images
+(``bwd_image_chunk``); the single-pass design it replaces held an f32
+d_u of 38.5 MB an image for the whole batch (9.87 GB at B=256).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
+
+from medmoe_torch.ops._scratch import images_in_budget
 
 # kernel launches made by expert_fusion_gather (K1) and
 # expert_fusion_gather_bwd (K2): one per call on CUDA tensors; the plain
@@ -62,8 +88,12 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 MAX_SCALES = 4          # csrc/expert_fusion.cu MAX_SCALES
-MAX_HIDDEN = 384        # 8 warps × 16 columns × MAX_NF fragments
+MAX_HIDDEN = 384        # K1: 8 warps × 16 columns × MAX_NF fragments
 _SMEM_LIMIT = 232448    # bytes of shared memory a block may use (H100)
+# csrc/expert_fusion_bwd.cu's tiles that size K2's partial sums (its C entry
+# rejects scratch that holds fewer): the products' 128-wide tiles, the row
+# step's ROW_TM rows of P and the transposed upsample's T_ROWS source rows
+_BWD_TM, _BWD_ROW_TM, _BWD_T_ROWS = 128, 64, 8
 
 
 def expert_fusion_supported(p_list: Sequence[int], p_max: int) -> bool:
@@ -93,9 +123,9 @@ def _attn_smem_bytes(e: int, h: int) -> int:
 def check_kernel_limits(e: int, h: int, d_list: Sequence[int]) -> None:
     """Raise ValueError unless the expert-branch kernels K1 (forward) and
     K2 (backward) both take expert width E, attention hidden width H and
-    pyramid widths D_s: 1..4 scales, D_s % 8 == 0, E % 64 == 0 (K2's
-    64-wide column tiles; K1 alone takes E % 32), H % 16 == 0 with
-    H <= 384, and K1's attention tile within a block's shared memory.
+    pyramid widths D_s: 1..4 scales, D_s % 8 == 0, E % 32 == 0 and
+    H % 16 == 0 with H <= 384 (K1's attention tile; K2 takes E % 8 and
+    H % 8), and K1's attention tile within a block's shared memory.
     Shapes only, so a trainer calls it before the first step and K1's
     wrapper before its launch: a forward that K2 cannot differentiate
     never starts."""
@@ -103,8 +133,8 @@ def check_kernel_limits(e: int, h: int, d_list: Sequence[int]) -> None:
     if not 1 <= len(d_list) <= MAX_SCALES or any(d % 8 for d in d_list):
         raise ValueError(f"the expert-branch kernels take 1..{MAX_SCALES} "
                          f"pyramid widths, each a multiple of 8; got {d_list}")
-    if e % 64 or h % 16 or h > MAX_HIDDEN:
-        raise ValueError(f"the expert-branch kernels take E % 64 == 0 and "
+    if e % 32 or h % 16 or h > MAX_HIDDEN:
+        raise ValueError(f"the expert-branch kernels take E % 32 == 0 and "
                          f"H % 16 == 0 with H <= {MAX_HIDDEN}; got E={e}, "
                          f"H={h}")
     if _attn_smem_bytes(e, h) > _SMEM_LIMIT:
@@ -156,9 +186,6 @@ def _check(xs, wp, bp, w1, b1, w2, b2, expert_idx) -> Tuple[int, ...]:
         if tuple(bias.shape) != (k, e):
             raise ValueError(f"proj_b{s} must be [{k}, {e}], got "
                              f"{tuple(bias.shape)}")
-        if x.shape[2] % 8:
-            raise ValueError(f"pyramid[{s}] width {x.shape[2]} is not a "
-                             f"multiple of 8")
     if (tuple(b1.shape), tuple(w2.shape), tuple(b2.shape)
             if b2 is not None else (k, 1)) != ((k, h), (k, h, 1), (k, 1)):
         raise ValueError("attention parameters must be attn_b1 [K, H], "
@@ -166,12 +193,7 @@ def _check(xs, wp, bp, w1, b1, w2, b2, expert_idx) -> Tuple[int, ...]:
     if not expert_fusion_supported([x.shape[1] for x in xs], p):
         raise ValueError("expert_fusion_gather needs integer upsample "
                          f"ratios, got P_s={[x.shape[1] for x in xs]}")
-    if e % 32 or h % 16 or h > MAX_HIDDEN:
-        raise ValueError(f"expert_fusion_gather takes E % 32 == 0 and "
-                         f"H % 16 == 0 with H <= {MAX_HIDDEN}; got E={e}, "
-                         f"H={h}")
-    if _attn_smem_bytes(e, h) > _SMEM_LIMIT:
-        raise ValueError(f"E={e} needs more shared memory than a block has")
+    check_kernel_limits(e, h, [x.shape[2] for x in xs])
     return b, k, e, h, p
 
 
@@ -198,7 +220,6 @@ def expert_fusion_gather(xs: Sequence[torch.Tensor],
     if expert_idx.device.type != "cuda":
         raise ValueError("expert_fusion_gather runs on CUDA or CPU tensors, "
                          f"got {expert_idx.device}")
-    check_kernel_limits(e, h, [x.shape[2] for x in xs])
     out = torch.empty((b, p, e), dtype=torch.float32, device=xs[0].device)
     if b == 0:
         return out
@@ -315,7 +336,6 @@ def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
     if expert_idx.device.type != "cuda":
         raise ValueError("expert_fusion_gather_bwd runs on CUDA or CPU "
                          f"tensors, got {expert_idx.device}")
-    check_kernel_limits(e, h, [x.shape[2] for x in xs])
     dev = xs[0].device
     n = len(xs)
     p_s = [x.shape[1] for x in xs]
@@ -323,6 +343,9 @@ def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def bf16(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev)
 
     d_xs = [torch.empty_like(x) for x in xs]
     d_wp = [f32(b, d, e) for d in d_s]
@@ -334,42 +357,147 @@ def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
 
     lib_fwd = _build.load("expert_fusion")
     lib = _build.load("expert_fusion_bwd")
-    bf = torch.bfloat16
     wp_k, bp_k, w1_k, b1_k, w2_k, idx_k = _kernel_params(
         wp, bp, w1, b1, w2, k, h, expert_idx)
-    tiles = [(q + 63) // 64 for q in p_s]
-    # scratch (≈2 GB at B=32, flagship shapes): recomputed h_s, d_u_s in
-    # f32, a_s then bf16(dz_a_s), bf16(dz_h_s), per-tile partial sums
-    hs = [torch.empty((b, q, e), dtype=bf, device=dev) for q in p_s]
-    du = [f32(b, p, e) for _ in xs]
-    act = [torch.empty((b, p, h), dtype=bf, device=dev) for _ in xs]
-    dzh = [torch.empty((b, q, e), dtype=bf, device=dev) for q in p_s]
-    dbp_part = [f32(b, t, e) for t in tiles]
-    db1_part, dw2_part = f32(b, (p + 63) // 64, h), f32(b, (p + 63) // 64, h)
+    # scratch for one chunk of images (bwd_scratch_bytes; ≈52 MB a flagship
+    # image, chunks of at most 1.7 GB, against the 9.87 GB of f32 d_u alone
+    # that the single-pass design held at B=256): recomputed h_s, u_s and
+    # bf16(d_u_s) (P_s < P only), a_s then bf16(dz_a_s), bf16(dz_h_s),
+    # d_att, bf16(att32) and the per-tile partial sums
+    nc, _ = bwd_image_chunk(b, p_s, e, h)
+    lerped = [q != p for q in p_s]
+    parts = _bwd_parts(p_s, h)
+    hs = [bf16(nc, q, e) for q in p_s]
+    us = [bf16(nc, p, e) if up else None for up in lerped]
+    dus = [bf16(nc, p, e) if up else None for up in lerped]
+    act = [bf16(nc, p, h) for _ in xs]
+    dzh = [bf16(nc, q, e) for q in p_s]
+    dbp_part = [f32(nc, parts[s], e) for s in range(n)]
+    datt, att = f32(nc, n, p), f32(nc, n, p)
+    lpart = f32(nc, n, parts[MAX_SCALES], p)
+    row_part = f32(nc, parts[MAX_SCALES + 1], 2, h)
+    plans = [_plan_on(q, p, dev) if up else (None,) * 3
+             for q, up in zip(p_s, lerped)]
     ptrs = ctypes.c_void_p * MAX_SCALES
     ints = ctypes.c_int * MAX_SCALES
 
-    def arr(ts):
-        return ptrs(*[t.data_ptr() for t in ts])
+    def arr(ts, c0=0):            # pointers to image c0 of each tensor
+        return ptrs(*[None if t is None else t[c0:].data_ptr() for t in ts])
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib_fwd.medmoe_expert_fusion_proj(
-            n, arr(xs), arr(wp_k), arr(bp_k), arr(hs), ints(*p_s), ints(*d_s),
-            idx_k.data_ptr(), b, k, e, stream)
-        if rc == 0:
+        for c0 in range(0, b, nc):
+            c1 = min(b, c0 + nc)
+            rc = lib_fwd.medmoe_expert_fusion_proj(
+                n, arr(xs, c0), arr(wp_k), arr(bp_k), arr(hs), ints(*p_s),
+                ints(*d_s), idx_k[c0:].data_ptr(), c1 - c0, k, e, stream)
+            if rc:
+                break
             rc = lib.medmoe_expert_fusion_bwd(
-                n, arr(xs), arr(wp_k), arr(hs), arr(du), arr(act),
-                arr(dzh), arr(d_xs), arr(d_wp), arr(d_bp), arr(dbp_part),
-                ints(*p_s), ints(*d_s), w1_k.data_ptr(), b1_k.data_ptr(),
-                w2_k.data_ptr(), idx_k.data_ptr(), d_out.data_ptr(),
-                d_w1.data_ptr(), d_b1.data_ptr(), d_w2.data_ptr(),
-                db1_part.data_ptr(), dw2_part.data_ptr(), b, k, e, h, p, stream)
+                n, arr(xs, c0), arr(wp_k), arr(hs), arr(us), arr(dus),
+                arr(act), arr(dzh), arr(d_xs, c0), arr(d_wp, c0),
+                arr(d_bp, c0), arr(dbp_part), arr([t[0] for t in plans]),
+                arr([t[1] for t in plans]), arr([t[2] for t in plans]),
+                ints(*p_s), ints(*d_s), (ctypes.c_int * len(parts))(*parts),
+                w1_k.data_ptr(), b1_k.data_ptr(), w2_k.data_ptr(),
+                idx_k[c0:].data_ptr(), d_out[c0:].data_ptr(),
+                d_w1[c0:].data_ptr(), d_b1[c0:].data_ptr(), d_w2[c0:].data_ptr(),
+                datt.data_ptr(), lpart.data_ptr(), att.data_ptr(),
+                row_part.data_ptr(), c1 - c0, k, e, h, p, stream)
+            if rc:
+                break
     if rc != 0:
         raise RuntimeError("expert_fusion backward launch failed: "
                            + lib.medmoe_cuda_error_string(rc).decode())
     BWD_LAUNCHES += 1
     return tuple(d_xs), tuple(d_wp), tuple(d_bp), d_w1, d_b1, d_w2
+
+
+def _bwd_parts(p_list: Sequence[int], h: int) -> list:
+    """The partial sums K2 writes an image, as its C entry takes them
+    (MAX_SCALES + 2 counts): dbp's of each scale (one per 128-row tile of
+    the d_u product at the identity scale, else one per 8 source rows of
+    the transposed upsample; 0 past the last scale), then the a product's
+    128-wide tiles of H (partial logits), then the row step's 64-row tiles
+    of P (partial dw2 and db1)."""
+    p = max(p_list)
+    dbp = [-(-p // _BWD_TM) if q == p else -(-q // _BWD_T_ROWS)
+           for q in p_list]
+    return (dbp + [0] * (MAX_SCALES - len(dbp))
+            + [-(-h // _BWD_TM), -(-p // _BWD_ROW_TM)])
+
+
+def bwd_scratch_bytes(p_list: Sequence[int], e: int, h: int) -> int:
+    """Device scratch of K2 for one image (``expert_fusion_gather_bwd``):
+    bf16 h_s and bf16(dz_h_s) of every scale, bf16 u_s and bf16(d_u_s) of
+    every scale with P_s < P, a_s / bf16(dz_a_s) of every scale, f32 d_att,
+    bf16(att32) and partial logits, and the partial sums of dw2, db1 and
+    dbp."""
+    p, s = max(p_list), len(p_list)
+    lerped = sum(q != p for q in p_list)
+    parts = _bwd_parts(p_list, h)
+    return (sum(p_list) * e * 2 * 2 + lerped * p * e * 2 * 2 + s * p * h * 2
+            + s * p * (2 + parts[MAX_SCALES]) * 4
+            + parts[MAX_SCALES + 1] * 2 * h * 4
+            + sum(parts[:MAX_SCALES]) * e * 4)
+
+
+def bwd_image_chunk(b: int, p_list: Sequence[int], e: int,
+                    h: int) -> Tuple[int, int]:
+    """(images, bytes) of the chunk K2 runs its passes over: as many images
+    as fit in 1.7 GB of scratch, at least one, at most the batch."""
+    per_image = bwd_scratch_bytes(p_list, e, h)
+    images = images_in_budget(b, per_image)
+    return images, images * per_image
+
+
+@functools.lru_cache(maxsize=None)
+def transposed_lerp_plan(p_s: int, p: int):
+    """K2's table of the transposed upsample Gᵀ (G [P, P_s]: u = G·h, the
+    linear upsample P_s → P), by source row: ``(start, rows, weights)``,
+    int32 [P_s + 1], int32 [nnz] and float32 [nnz]. Source row i sums the
+    destination rows ``rows[start[i]:start[i + 1]]``, in increasing order,
+    with weights G[p, i]: the nonzero entries of row i of
+    ``linear_interp_matrix(p_s, p)``, bit for bit (1 − w at the lower
+    source row, w at the upper, their f32 sum where the two coincide)."""
+    from medmoe_torch.models.moe import _interp_coords
+
+    lo, hi, w = _interp_coords(p_s, p)
+    dst = np.arange(p)
+    w_lo = (1.0 - w).astype(np.float32)
+    same = lo == hi
+    w_lo = np.where(same, w_lo + w, w_lo).astype(np.float32)
+    src = np.concatenate([lo, hi[~same]])
+    rows = np.concatenate([dst, dst[~same]])
+    weights = np.concatenate([w_lo, w[~same]]).astype(np.float32)
+    keep = weights != 0
+    src, rows, weights = src[keep], rows[keep], weights[keep]
+    order = np.lexsort((rows, src))
+    start = np.searchsorted(src[order], np.arange(p_s + 1)).astype(np.int32)
+    return start, rows[order].astype(np.int32), weights[order]
+
+
+def transposed_lerp(plan, x: torch.Tensor) -> torch.Tensor:
+    """Gᵀ·x for x [B, P, E] → [B, P_s, E] float32 from a
+    ``transposed_lerp_plan`` table, each source row's terms added in
+    increasing p: the plain version of K2's banded transposed upsample."""
+    start, rows, weights = plan
+    src = np.repeat(np.arange(len(start) - 1), np.diff(start))
+    terms = x[:, torch.from_numpy(rows).long().to(x.device)].float() \
+        * torch.from_numpy(weights).to(x.device)[None, :, None]
+    out = torch.zeros((x.shape[0], len(start) - 1, x.shape[2]),
+                      dtype=torch.float32, device=x.device)
+    return out.index_add_(1, torch.from_numpy(src).to(x.device), terms)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_on(p_s: int, p: int, dev: torch.device):
+    """The table on the card, its weights rounded through bf16 as the TPU
+    kernel's bf16 interpolation matrix rounds them (exact for the
+    pyramid's power-of-two ratios)."""
+    start, rows, weights = transposed_lerp_plan(p_s, p)
+    return (torch.from_numpy(start).to(dev), torch.from_numpy(rows).to(dev),
+            torch.from_numpy(weights).to(torch.bfloat16).float().to(dev))
 
 
 def expert_fusion_gather_bwd_reference(xs: Sequence[torch.Tensor],

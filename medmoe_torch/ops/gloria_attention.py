@@ -60,6 +60,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from medmoe_torch.ops._scratch import images_in_budget
+
 # kernel launches on CUDA tensors: K3 (forward), the backward's prologue,
 # K4a (d_ctx) and K4b (d_words); the plain versions do not count
 LAUNCHES = 0
@@ -74,7 +76,6 @@ MAX_DIM = 768       # csrc/gloria_common.cuh MAX_D
 MAX_TEMP1 = 80.0    # exp(temp1·a1 - max(temp1, 0)) stays a normal f32
 TILE = 128          # csrc/gloria_attention.cu TILE: F1/F2's 128-row tiles
 _PLAIN_BYTES = 512 << 20   # one [c, B_img, M, T] f32 block of the plain versions
-_CHUNK_BYTES = 1.7e9       # E (K3, the prologue) or Z (K4a) of a chunk of images
 
 
 def _check(img: torch.Tensor, words: torch.Tensor, cap_lens: torch.Tensor,
@@ -154,7 +155,7 @@ def image_chunk(b_img: int, b_txt: int, m: int, t: int) -> Tuple[int, int]:
     run their passes over, M·B_txt·2·TPAD bf16 an image: as many images as
     fit in 1.7 GB, at least one."""
     per_image = m * b_txt * 2 * _tpad(t) * 2
-    images = max(1, min(b_img, int(_CHUNK_BYTES // per_image)))
+    images = images_in_budget(b_img, per_image)
     return images, images * per_image
 
 

@@ -49,14 +49,16 @@ def test_gloria_limits_raise(d, t, temp1):
     (768, 384, FLAGSHIP_PYRAMID),
     (64, 32, (32, 24)),
     (128, 16, (8,)),
+    (96, 48, FLAGSHIP_PYRAMID),           # E % 64 != 0: K2 takes E % 8
+    (32, 16, (8, 16)),
 ])
 def test_expert_limits_pass(e, h, d_list):
     ef.check_kernel_limits(e, h, d_list)
 
 
 @pytest.mark.parametrize("e,h,d_list", [
-    (96, 48, FLAGSHIP_PYRAMID),           # K2's E % 64 (K1 alone takes it)
-    (32, 16, (8, 16)),
+    (80, 48, FLAGSHIP_PYRAMID),           # E % 32 (K1's attention tile)
+    (48, 16, (8, 16)),
     (768, 392, FLAGSHIP_PYRAMID),         # H past 384
     (768, 376, FLAGSHIP_PYRAMID[:3] + (764,)),   # D_s % 8
     (768, 384, (96, 192, 384, 768, 768)),        # five scales
@@ -68,7 +70,8 @@ def test_expert_limits_raise(e, h, d_list):
 
 
 def test_plain_expert_path_takes_what_the_kernels_do_not():
-    # E = 96 runs on CPU tensors (the plain version); a card would refuse it
+    # E = 96 runs on CPU tensors (the plain version) without a launch; the
+    # kernels take it too since K2 takes E % 8 (K1's E % 32 is the limit)
     g = torch.Generator().manual_seed(0)
     xs = (torch.randn(2, 16, 8, generator=g).to(torch.bfloat16),)
     out = ef.expert_fusion_gather(
@@ -110,8 +113,8 @@ def _module(embed_dim=64, max_length=10, dtype="bfloat16", impl="pallas",
 
 @pytest.mark.parametrize("kw,batch,raises", [
     (dict(), 256, False),
-    (dict(embed_dim=32), 256, True),                    # bf16 bank, E % 64
-    (dict(embed_dim=32, dtype="float32"), 256, False),  # plain expert path
+    (dict(embed_dim=48), 256, True),                    # bf16 bank, E % 32
+    (dict(embed_dim=48, dtype="float32"), 256, False),  # plain expert path
     (dict(max_length=129), 256, True),                  # T past 128
     (dict(max_length=129, impl="auto"), 32, False),     # the einsum path
     (dict(max_length=129, impl="auto"), None, True),
