@@ -9,7 +9,11 @@
      started together, and prints the build time and ptxas resources;
   3. K1, the fused expert branch: holds the kernel against its plain
      PyTorch version on the card at B=32 flagship shapes (bf16, every
-     expert used) and on small odd shapes, and times both with CUDA events;
+     expert used) and on small odd shapes, times both with CUDA events,
+     prints each of its passes' device time at B=32 from one
+     torch.profiler call, and times it at B=256 flagship (the gloria256
+     step's shape), held against its plain version on two slices of 32
+     samples, one across a chunk boundary;
   4. serving: the full-width MedMoE (Swin-T + 6-expert gather MoE +
      BERT-base, bf16, seeded random weights) encodes the CheXpert class
      prompts and serves waves of 32 synthetic uint8 images through the
@@ -31,13 +35,16 @@
   7. K3, K4a and K4b, the GLoRIA similarity and its backward: hold the
      kernels against their plain versions at B=256 flagship shapes (bf16
      ctx in the local map's own layout, caption lengths from a seed in
-     [3, 25], a seeded cotangent) and on small odd shapes (captions of 40
-     words; M = 132 with 5 captions of 9 words, ragged tiles), time both
-     (the backward's prologue alone, K4a alone and the two together),
-     print the bounds, the backward's scratch and the image chunk, and
-     time the fused local loss against the einsum path at B=32; then hold
-     K3 against its plain version at B=256 flagship with captions of 40
-     words and time K3, its plain version and the prologue there;
+     [3, 25], a seeded cotangent; both cotangents from one call, the text
+     training's path) and on small odd shapes (captions of 40 words; M =
+     132 with 5 captions of 9 words, ragged tiles), time both (the
+     backward's prologue alone, K4a alone, the prologue + K4a, and the
+     prologue + K4a + K4b, whose difference from the prologue + K4a is K4b
+     alone), print the bounds, the backward's scratch and the image chunk,
+     and time the fused local loss against the einsum path at B=32; then
+     hold K3 against its plain version at B=256 flagship with captions of
+     40 words and time K3, its plain version, the prologue and the
+     backward of both cotangents there;
   8. training at one batch of 256 a step: experiment=gloria256 with
      synthetic data at full width, 2 optimizer steps and one validation
      batch; checks the loss and grad norm, that K3 ran once per forward,
@@ -139,12 +146,28 @@ def k1_work(args):
     return flops, nbytes
 
 
+# rtol/atol of K1 against its plain version: the JAX package's own
+# fused-vs-XLA test's (tests/test_pallas_expert.py): both sides round at
+# the same bf16 points, and a different f32 summation order can flip one
+# bf16 ulp (2^-8 relative) in h, u or a
+K1_RTOL, K1_ATOL = 2e-2, 2e-3
+
+
+def hold_k1(torch, name, out, ref) -> float:
+    """Hold K1's output against its plain version's (K1_RTOL, K1_ATOL);
+    fails the run on a mismatch; returns the largest absolute error."""
+    check(out.shape == ref.shape, f"K1 {name}: shape {tuple(out.shape)} "
+          f"vs {tuple(ref.shape)}")
+    check(bool(torch.isfinite(out).all()), f"K1 {name}: non-finite output")
+    err = (out - ref).abs().max().item()
+    ok = torch.allclose(out, ref, rtol=K1_RTOL, atol=K1_ATOL)
+    print(f"K1 {name}: max_abs_err {err:.3e} (rtol {K1_RTOL}, atol "
+          f"{K1_ATOL}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    check(ok, f"K1 {name}: kernel disagrees with its plain version")
+    return err
+
+
 def phase_k1(torch, ef):
-    # rtol/atol of the JAX package's own fused-vs-XLA test
-    # (tests/test_pallas_expert.py): both sides round at the same bf16
-    # points, and a different f32 summation order can flip one bf16 ulp
-    # (2^-8 relative) in h, u or a
-    rtol, atol = 2e-2, 2e-3
     cases = [
         ("flagship B=32", dict(b=32, p_list=(3136, 784, 196, 49),
                                d_list=(96, 192, 384, 768), e=768, h=384,
@@ -163,14 +186,7 @@ def phase_k1(torch, ef):
         torch.cuda.synchronize()
         ref = ef.expert_fusion_gather_reference(*args)
         torch.cuda.synchronize()
-        check(out.shape == ref.shape, f"K1 {name}: shape {tuple(out.shape)} "
-              f"vs {tuple(ref.shape)}")
-        check(bool(torch.isfinite(out).all()), f"K1 {name}: non-finite output")
-        err = (out - ref).abs().max().item()
-        ok = torch.allclose(out, ref, rtol=rtol, atol=atol)
-        print(f"K1 {name}: max_abs_err {err:.3e} (rtol {rtol}, atol {atol}) "
-              f"{'ok' if ok else 'MISMATCH'}", flush=True)
-        check(ok, f"K1 {name}: kernel disagrees with its plain version")
+        err = hold_k1(torch, name, out, ref)
         if result is None:
             ms = cuda_ms(lambda: ef.expert_fusion_gather(*args), iters=20)
             plain_ms = cuda_ms(
@@ -187,9 +203,41 @@ def phase_k1(torch, ef):
                   f"bound_ms {result['bound_ms']:.4f} ({result['bound_by']}: "
                   f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)",
                   flush=True)
+            profile_passes(torch, lambda: ef.expert_fusion_gather(*args),
+                           f"K1 {name}", K1_KERNELS)
         del args, out, ref
         torch.cuda.empty_cache()
+    result.update(time_k1(torch, ef, GLORIA_BATCH))
     return result
+
+
+def time_k1(torch, ef, b: int):
+    """K1 at flagship shapes and batch ``b``, timed with CUDA events beside
+    its bound (the shape of a gloria256 step's expert branch), and held
+    against its plain version on two slices of 32 samples: one across the
+    first chunk boundary and the last 32 (each sample's output depends on
+    that sample alone)."""
+    args = k1_inputs(torch, b=b, p_list=(3136, 784, 196, 49),
+                     d_list=(96, 192, 384, 768), e=768, h=384, k=6, seed=17)
+    ms = cuda_ms(lambda: ef.expert_fusion_gather(*args), iters=5, warmup=1)
+    flops, nbytes = k1_work(args)
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    nc = ef.fwd_image_chunk(b, (3136, 784, 196, 49), 768, 384)[0]
+    print(f"K1 flagship B={b}: kernel_ms {ms:.4f} bound_ms {bound:.4f} "
+          f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); image chunk "
+          f"{nc}", flush=True)
+    out = ef.expert_fusion_gather(*args)
+    xs, wp, bp, w1, b1, w2, b2, idx = args
+    for i in sorted({max(0, min(nc, b) - 6), max(0, b - 32)}):
+        j = min(b, i + 32)
+        ref = ef.expert_fusion_gather_reference(
+            tuple(x[i:j] for x in xs), wp, bp, w1, b1, w2, b2, idx[i:j])
+        hold_k1(torch, f"flagship B={b} samples {i}-{j - 1} (chunks of {nc})",
+                out[i:j], ref)
+        del ref
+    del args, out
+    torch.cuda.empty_cache()
+    return {f"ms_b{b}": ms, f"bound_ms_b{b}": bound}
 
 
 @contextlib.contextmanager
@@ -317,14 +365,15 @@ def profile_wave(torch, embed, images, wave_ms: float):
     profile_device(torch, lambda: embed(images).cpu(), wave_ms, "one wave")
 
 
-K1_KERNELS = ("proj_kernel", "attn_kernel")
+K1_KERNELS = ("proj_kernel", "fwd_u_kernel", "fwd_logit_kernel",
+              "fwd_combine_kernel")
 K2_KERNELS = ("bwd_u_kernel", "bwd_act_kernel", "bwd_row_kernel",
               "bwd_du_kernel", "bwd_tlerp_kernel", "bwd_dx_kernel",
               "bwd_wgrad_kernel", "bwd_reduce_kernel")
 K3_KERNELS = ("void sim_e_kernel", "void sim_wei_kernel",
               "void sim_finish_kernel")
 GLORIA_KERNELS = K3_KERNELS + ("void dctx_z_kernel", "dctx_gemm_kernel",
-                               "void dwords_kernel", "dwords_reduce_kernel")
+                               "dwords_gemm_kernel", "dwords_wei_kernel")
 
 
 def dev_us(e) -> float:
@@ -335,7 +384,7 @@ def dev_us(e) -> float:
 
 def profile_device(torch, fn, wall_ms: float, label: str):
     """torch.profiler over one call of ``fn``: device time by kernel, the
-    expert-fusion kernels' share of it (K1: the forward's two launches; K2:
+    expert-fusion kernels' share of it (K1: the forward's four passes; K2:
     the backward's eight, beside the projection recompute it runs through
     K1's proj_kernel), and the device's idle share of an unprofiled call's
     wall time (``wall_ms``)."""
@@ -527,8 +576,9 @@ def phase_k2(torch, ef):
                   f"bound_ms {result['bound_ms']:.4f} ({result['bound_by']}: "
                   f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; the kernel "
                   f"time includes K1's projection recompute)", flush=True)
-            profile_k2_passes(torch, lambda: ef.expert_fusion_gather_bwd(
-                xs, wp, bp, w1, b1, w2, idx, d_out), name)
+            profile_passes(torch, lambda: ef.expert_fusion_gather_bwd(
+                xs, wp, bp, w1, b1, w2, idx, d_out), f"K2 {name}",
+                ("proj_kernel",) + K2_KERNELS)
         del args, out, ref
         torch.cuda.empty_cache()
     result.update(time_k2(torch, ef, GLORIA_BATCH))
@@ -575,9 +625,10 @@ def phase_k2(torch, ef):
     return result
 
 
-def profile_k2_passes(torch, fn, label: str) -> None:
-    """Device time of each of K2's passes, and of K1's projection launch
-    that K2 reruns, over one call of ``fn`` (torch.profiler)."""
+def profile_passes(torch, fn, label: str, kernels) -> None:
+    """Device time of each of ``kernels`` (name prefixes) over one call of
+    ``fn`` (torch.profiler): K1's passes, or K2's and K1's projection pass
+    that K2 reruns."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -586,13 +637,13 @@ def profile_k2_passes(torch, fn, label: str) -> None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ms = dict.fromkeys(("proj_kernel",) + K2_KERNELS, 0.0)
+    ms = dict.fromkeys(kernels, 0.0)
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             for k in ms:
                 if e.key.startswith(k):
                     ms[k] += dev_us(e) / 1e3
-    print(f"K2 {label} passes (device ms of one call): "
+    print(f"{label} passes (device ms of one call): "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
           + f"; total {sum(ms.values()):.3f}", flush=True)
 
@@ -941,8 +992,8 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
         scratch = ga.backward_scratch_bytes(b_img, b_txt, h * w, d, t)
         chunk, z_bytes = ga.image_chunk(b_img, b_txt, h * w, t)
         print(f"K4 {name}: backward scratch {scratch / 1e9:.3f} GB (bf16 "
-              f"d_wei and per-word vectors per pair, K4b partial sums, the "
-              f"prologue's passes over a chunk); E [hi | lo of e] and K4a's "
+              f"d_wei and per-word vectors per pair, K4b's f32 accumulators, "
+              f"the prologue's passes over a chunk); E [hi | lo of e] and "
               f"Z [a2 | d_scores] {z_bytes / 1e9:.3f} GB for a chunk of "
               f"{chunk} images", flush=True)
 
@@ -959,21 +1010,23 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
         plain3 = cuda_ms(lambda: ga.gloria_similarity_reference(
             img, words, cap, *temps), iters=1, warmup=0)
         # the prologue alone, K4a alone (both passes, from one prologue's
-        # scratch) and the two together (K4a's kernel_ms, which has always
-        # included the prologue)
+        # scratch), the two together (K4a's kernel_ms, which has always
+        # included the prologue), and both cotangents (the prologue with
+        # K4b's f32 terms, pass 1, K4a's pass 2 and K4b a chunk): K4b alone
+        # is the last less the prologue + K4a
         ms_pro = cuda_ms(bwd(False, False), iters=2, warmup=1)
         pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
-        ms_k4a = cuda_ms(lambda: ga.dctx_of(pairs), iters=3, warmup=1)
+        ms_k4a = cuda_ms(lambda: ga.cotangents_of(pairs), iters=3, warmup=1)
         del pairs
         ms4a = cuda_ms(bwd(True, False), iters=2, warmup=1)
         plain4a = cuda_ms(bwd(True, False, True), iters=1, warmup=0)
-        ms4b = cuda_ms(bwd(False, True), iters=2, warmup=1)
+        ms_both = cuda_ms(bwd(True, True), iters=2, warmup=1)
         plain4b = cuda_ms(bwd(False, True, True), iters=1, warmup=0)
         out_img = img.numel() * img.element_size()
         for key, ms, plain, err, products, out_bytes in (
                 ("K3", ms3, plain3, err3, 2, b_img * b_txt * 4),
                 ("K4a", ms4a, plain4a, err4a, 3, out_img + b_img * b_txt * 4),
-                ("K4b", ms4b, plain4b, err4b, 2,
+                ("K4b", ms_both - ms4a, plain4b, err4b, 1,
                  words.numel() * 2 + b_img * b_txt * 4)):
             bound, by, gflop, mb = gloria_bound(img, words, out_bytes, products)
             results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
@@ -984,15 +1037,19 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
         pro_bound, _, _, _ = gloria_bound(img, words,
                                           prologue_out_bytes(ga, shape), 2)
         results["K4a"].update(k4a_only_ms=ms_k4a)
+        results["K4b"].update(both_ms=ms_both)
         for key in ("K4a", "K4b"):
             results[key].update(prologue_ms=ms_pro, prologue_bound_ms=pro_bound)
         print(f"K4a {name}: the backward's prologue alone {ms_pro:.4f} ms "
               f"(bound {pro_bound:.4f} ms), K4a alone (both passes) "
               f"{ms_k4a:.4f} ms, prologue + K4a {ms4a:.4f} ms; bound "
               f"{results['K4a']['bound_ms']:.4f} ms on {card}", flush=True)
-        print("K4a's and K4b's kernel_ms each include the backward's prologue "
-              "(the forward chain and the cotangents down to d_wei per pair)",
-              flush=True)
+        print(f"K4b {name}: prologue + K4a + K4b (both cotangents) "
+              f"{ms_both:.4f} ms, K4b alone {ms_both - ms4a:.4f} ms "
+              f"(bound {results['K4b']['bound_ms']:.4f} ms: its own product) "
+              f"on {card}", flush=True)
+        print("K4a's kernel_ms includes the backward's prologue; K4b's is the "
+              "both-cotangent time less the prologue + K4a", flush=True)
         del img, words, cap, cot
         torch.cuda.empty_cache()
 
@@ -1031,8 +1088,9 @@ def prologue_out_bytes(ga, shape) -> int:
 
 def phase_gloria_wide(torch, ga, card: str, words: int = 40):
     """K3 against its plain version at B=256 flagship shapes with captions
-    of ``words`` words, and the times of K3, its plain version and the
-    backward's prologue there."""
+    of ``words`` words, and the times of K3, its plain version, the
+    backward's prologue, the prologue + K4a and the backward of both
+    cotangents there."""
     temps = (4.0, 5.0, 10.0)
     shape = (GLORIA_BATCH, GLORIA_BATCH, 768, 56, 56, words)
     name = f"flagship B=256 T={words}"
@@ -1048,13 +1106,22 @@ def phase_gloria_wide(torch, ga, card: str, words: int = 40):
         img, words_, cap, *temps), iters=1, warmup=0)
     ms_pro = cuda_ms(lambda: ga.pair_cotangents(img, words_, cap, cot, *temps),
                      iters=2, warmup=1)
+
+    def bwd(need_words):
+        return lambda: ga.gloria_similarity_backward(
+            img, words_, cap, cot, *temps, need_words=need_words)
+
+    ms4a = cuda_ms(bwd(False), iters=2, warmup=1)
+    ms_both = cuda_ms(bwd(True), iters=2, warmup=1)
     bound3, by, gflop, _ = gloria_bound(img, words_, GLORIA_BATCH ** 2 * 4, 2)
     pro_bound, _, _, _ = gloria_bound(img, words_, prologue_out_bytes(ga, shape),
                                       2)
     print(f"K3 {name}: kernel_ms {ms3:.4f} plain_ms {plain3:.4f} bound_ms "
           f"{bound3:.4f} ({by}: 2 products, {gflop:.1f} GFLOP); the "
           f"backward's prologue alone {ms_pro:.4f} ms (bound {pro_bound:.4f} "
-          f"ms) on {card}", flush=True)
+          f"ms), prologue + K4a {ms4a:.4f} ms, prologue + K4a + K4b "
+          f"{ms_both:.4f} ms (K4b alone {ms_both - ms4a:.4f} ms) on {card}",
+          flush=True)
     del img, words_, cap, cot
     torch.cuda.empty_cache()
 
@@ -1216,7 +1283,7 @@ def main() -> int:
     k2_all = k2_train + g256["K2"] + text["K2"]
 
     def row(name, source, replaces, launches, r, **extra):
-        extra.update({k: r[k] for k in ("k4a_only_ms", "prologue_ms",
+        extra.update({k: r[k] for k in ("k4a_only_ms", "both_ms", "prologue_ms",
                                         "prologue_bound_ms", "ms_b256",
                                         "bound_ms_b256") if k in r})
         return {"name": name, "route": "cuda", "source": source,
@@ -1229,7 +1296,8 @@ def main() -> int:
     gtpu = "medmoe_tpu/ops/pallas/gloria_attention.py"
     print(json.dumps({"kernels": [
         row("expert_fusion_gather", "medmoe_torch/csrc/expert_fusion.cu",
-            "medmoe_tpu/ops/pallas/expert_fusion.py:113", k1_all, k1),
+            "medmoe_tpu/ops/pallas/expert_fusion.py:113", k1_all, k1,
+            functions=list(K1_KERNELS)),
         row("expert_fusion_gather_bwd",
             "medmoe_torch/csrc/expert_fusion_bwd.cu",
             "medmoe_tpu/ops/pallas/expert_fusion.py:233", k2_all, k2),
@@ -1241,6 +1309,7 @@ def main() -> int:
             prologue_launches=g256["prologue"]),
         row("gloria_similarity_backward d_words", f"{gsrc}_bwd.cu",
             f"{gtpu}:274", text["K4b"], gl["K4b"],
+            functions=["dwords_gemm_kernel", "dwords_wei_kernel"],
             prologue_launches=text["prologue"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,33 +1,47 @@
-// Fused MedMoE expert branch, gather mode, forward — for sm_90a.
+// Fused MedMoE expert branch, gather mode, forward (K1) — for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` (driven by `_fwd_pallas`) in
-// medmoe_tpu/ops/pallas/expert_fusion.py. What it computes, the rounding
-// points, and why it is two launches: see the module docstring of
-// medmoe_torch/ops/expert_fusion.py, which wraps it. In short, per sample b
-// with expert e = idx[b]:
-//   proj_kernel: h_s = bf16(relu(x_s·Wp[e,s] + bp[e,s]))      per scale s
-//   attn_kernel: per 64-row tile of P, for every scale
-//                u_s = bf16(lerp of two h_s rows)
-//                logit_s = Σ_c bf16(relu(u_s·W1[e] + b1[e]))_c · w2[e]_c
-//                att = bf16(softmax_s(logit)), out = Σ_s att_s·u_s (f32)
-// Matrix products use WMMA bf16 16×16×16 tiles with f32 accumulators.
+// medmoe_tpu/ops/pallas/expert_fusion.py. What it computes and the rounding
+// points: see the module docstring of medmoe_torch/ops/expert_fusion.py,
+// which wraps it. Per sample b with expert e = idx[b], for each scale s:
+//   h_s = bf16(relu(x_s·Wp[e,s] + bp[e,s])),  u_s = bf16(lerp of h_s)
+//   logit_s = Σ_c bf16(relu(u_s·W1[e] + b1[e]))_c · w2[e]_c
+//   att = bf16(softmax_s(logit)),  out = Σ_s att_s·u_s (f32)
+//
+// What bounds it on the H100: operations. At flagship shapes (P=3136,
+// E=768, H=384, 4 scales) a sample takes ≈8.3 GFLOP, 90% of it the
+// attention MLP (0.27 ms of bf16 tensor-core time at B=32), against ≈11 MB
+// of inputs and output.
+//
+// Four passes over a chunk of images (the wrapper sizes the chunk and
+// allocates h_s, u_s and the partial logits):
+//   1. proj_kernel (WMMA tiles): h_s for every scale to a bf16 scratch;
+//   2. fwd_u_kernel: u_s = bf16(lerp(h_s)) to a bf16 scratch for each scale
+//      with P_s < P;
+//   3. fwd_logit_kernel (GEMM core, M = P, N = H, K = E): each 128-wide N
+//      tile's partial logits, a_s never stored;
+//   4. fwd_combine_kernel (streaming, a warp a row of P): the partial
+//      logits in tile order, the softmax over scales, out = Σ_s att_s·u_s.
+// Passes 2 and 3 are K2's first two passes without d_att and a_s
+// (expert_fusion_passes.cuh): the backward recomputes this very forward.
+// Every sum runs in a fixed order, without atomics.
+//
+// A block reads idx[b] itself and offsets its weight pointers, in place of
+// the TPU kernel's scalar-prefetch index maps; an out-of-range id writes NaN
+// to that sample's output only.
 //
 // Shapes the kernels take (the wrapper checks them): 1..MAX_SCALES scales,
-// D_s % 8 == 0, E % 32 == 0, H % 16 == 0 and H <= 8·16·MAX_NF, P % P_s == 0.
+// D_s % 8 == 0, E % 32 == 0, H % 8 == 0, P % P_s == 0.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (medmoe_torch/ops/_build.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "expert_fusion_passes.cuh"
+
 #include <mma.h>
 #include <stdint.h>
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-#define MAX_SCALES 4
-#define THREADS 256
 
 // projection tile: 64 rows of P_s × 128 columns of E, K in chunks of 32
 #define PM 64
@@ -36,11 +50,6 @@ typedef __nv_bfloat16 bf16;
 #define PX_LD (PK + 8)
 #define PW_LD (PN + 8)
 #define PC_LD (PN + 4)
-
-// attention tile: 64 rows of P; W1 streamed in chunks of 32 rows of E
-#define AM 64
-#define AK 32
-#define MAX_NF 3  // column fragments of H per warp
 
 struct ProjArgs {
   const bf16* x[MAX_SCALES];   // [B, P_s, D_s]
@@ -53,37 +62,22 @@ struct ProjArgs {
   int n_scales;
 };
 
-struct AttnArgs {
-  const bf16* h[MAX_SCALES];   // [B, P_s, E]
+struct FwdArgs {
+  const bf16* h[MAX_SCALES];   // [B, P_s, E] projections (pass 1)
+  bf16* u[MAX_SCALES];         // [B, P, E] u_s scratch (h_s itself at P_s = P)
   int P[MAX_SCALES];
   int n_scales;
   const bf16* w1;              // [K, E, H]
   const float* b1;             // [K, H], rounded through bf16
   const float* w2;             // [K, H], rounded through bf16
+  const int* idx;              // [B]
+  float* lpart;                // [B, S, ⌈H/128⌉, P] scratch: partial logits
   float* out;                  // [B, P, E]
-  int P_out;
+  int P_out, K, E, H;
 };
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gptr) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gptr));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // ---------------------------------------------------------------------------
-// launch 1: per-scale projection h_s = bf16(relu(x_s·Wp[e,s] + bp[e,s]))
+// pass 1: per-scale projection h_s = bf16(relu(x_s·Wp[e,s] + bp[e,s]))
 // grid (Σ_s tiles_s, B); 8 warps as 2 × 4, each a 32 × 32 output block
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS)
@@ -94,7 +88,7 @@ proj_kernel(ProjArgs a, const int* __restrict__ idx, int K, int E) {
 
   const int b = blockIdx.y;
   const int e = idx[b];
-  if (e < 0 || e >= K) return;  // attn_kernel fills this sample with NaN
+  if (e < 0 || e >= K) return;  // the combine fills this sample with NaN
 
   int t = blockIdx.x;
   int s = 0;
@@ -173,241 +167,81 @@ proj_kernel(ProjArgs a, const int* __restrict__ idx, int K, int E) {
 }
 
 // ---------------------------------------------------------------------------
-// launch 2: upsample + cross-scale attention + combine
+// passes 2 and 3: u_s, and the partial logits (expert_fusion_passes.cuh)
 // ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS) fwd_u_kernel(FwdArgs a) { u_rows<false>(a); }
 
-// Source rows and weight of output row p of a P_s → P linear upsample with
-// integer ratio: the phase form of medmoe_tpu's interp_patches (offsets and
-// weights in double, as numpy computes them, then the weight in f32).
-__device__ __forceinline__ void lerp_rows(int p, int Ps, int P, int& i0, int& i1,
-                                          float& w) {
-  const int r = P / Ps;
-  const int q = p / r, ph = p - q * r;
-  const double off = ((double)ph + 0.5) / (double)r - 0.5;
-  const double c = floor(off);
-  w = (float)(off - c);
-  if (c < 0.0) {
-    i0 = q > 0 ? q - 1 : 0;
-    i1 = q;
-  } else {
-    i0 = q;
-    i1 = q + 1 < Ps ? q + 1 : Ps - 1;
-  }
-}
-
-// x0·(1-w) + x1·w in f32, two roundings and no fused multiply-add, as the
-// JAX package's XLA path computes it
-__device__ __forceinline__ float lerp(float x0, float x1, float w) {
-  return __fadd_rn(__fmul_rn(x0, __fsub_rn(1.0f, w)), __fmul_rn(x1, w));
-}
-
-// N (4 or 8) consecutive bf16 values → f32, as one 8- or 16-byte load
-template <int N>
-__device__ __forceinline__ void load_bf16(const bf16* __restrict__ src, float* f) {
-  if (N == 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(src);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) f[q] = __bfloat162float(e[q]);
-  } else {
-    const uint2 v = *reinterpret_cast<const uint2*>(src);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) f[q] = __bfloat162float(e[q]);
-  }
-}
-
-// N consecutive u values of row p, columns [c, c+N), of one scale, in f32
-// (already rounded to bf16)
-template <int N>
-__device__ __forceinline__ void load_u(const bf16* __restrict__ hs, int Ps, int P,
-                                       int E, int p, int c, float* u) {
-  if (Ps == P) {
-    load_bf16<N>(hs + (size_t)p * E + c, u);
-    return;
-  }
-  int i0, i1;
-  float w;
-  lerp_rows(p, Ps, P, i0, i1, w);
-  float x1[N];
-  load_bf16<N>(hs + (size_t)i0 * E + c, u);
-  load_bf16<N>(hs + (size_t)i1 * E + c, x1);
-#pragma unroll
-  for (int q = 0; q < N; ++q) u[q] = round_bf16(lerp(u[q], x1[q], w));
-}
-
-__global__ void __launch_bounds__(THREADS)
-attn_kernel(AttnArgs a, const int* __restrict__ idx, int K, int E, int H,
-            int tile_bytes) {
+__global__ void __launch_bounds__(gemm::kThreads, ActTile::MIN_BLOCKS) fwd_logit_kernel(FwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* us = reinterpret_cast<bf16*>(smem);           // [AM][E + 8]
-  float* cs = reinterpret_cast<float*>(smem);         // [AM][H + 4], aliases us
-  bf16* w1s = reinterpret_cast<bf16*>(smem + tile_bytes);  // 2 × [AK][H + 8]
-  const int w1_bytes = ((2 * AK * (H + 8) * 2) + 127) / 128 * 128;
-  float* logit = reinterpret_cast<float*>(smem + tile_bytes + w1_bytes);  // [S][AM]
+  act_tile<false>(a, smem);
+}
 
-  const int b = blockIdx.y;
-  const int m0 = blockIdx.x * AM;
-  const int P = a.P_out;
-  const int e = idx[b];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  float* out = a.out + (size_t)b * P * E;
-
-  if (e < 0 || e >= K) {  // out-of-range expert id: poison the sample
-    for (int i = tid; i < AM * E; i += THREADS) {
-      const int p = m0 + i / E;
-      if (p < P) out[(size_t)p * E + i % E] = __int_as_float(0x7fc00000);
-    }
+// ---------------------------------------------------------------------------
+// pass 4: the logits in tile order (as K2's row step sums them), att =
+// bf16(softmax over scales), out = Σ_s att_s·u_s in f32; a warp a row of P,
+// 8 columns a lane, grid (⌈P/8⌉, B)
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS) fwd_combine_kernel(FwdArgs a) {
+  const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int P = a.P_out, E = a.E, S = a.n_scales;
+  const int p = blockIdx.x * 8 + warp;
+  if (p >= P) return;
+  float* out = a.out + ((size_t)b * P + p) * E;
+  if (bad_expert(a, a.idx[b])) {  // out-of-range expert id: poison the sample
+    for (int c = lane * 4; c < E; c += 128)
+      *reinterpret_cast<float4*>(out + c) = make_float4(nan_f(), nan_f(), nan_f(), nan_f());
     return;
   }
-
-  const int uld = E + 8, wld = H + 8, cld = H + 4;
-  const bf16* w1 = a.w1 + (size_t)e * E * H;
-  const float* b1 = a.b1 + (size_t)e * H;
-  const float* w2 = a.w2 + (size_t)e * H;
-  const int n_cf = H / 16;   // column fragments of H, dealt round-robin to warps
-  const int n_chunks = E / AK;
-  const int w1_vecs = AK * H / 8;
-
-  auto load_w1_chunk = [&](int chunk, int buf) {
-    bf16* dst = w1s + buf * AK * wld;
-    const bf16* src = w1 + (size_t)chunk * AK * H;
-    for (int i = tid; i < w1_vecs; i += THREADS) {
-      const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-      cp_async16(dst + r * wld + c, src + (size_t)r * H + c);
+  const int tiles_n = cdiv(a.H, ActTile::BN);
+  float l[MAX_SCALES], att[MAX_SCALES];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int s = 0; s < MAX_SCALES; ++s) {
+    l[s] = 0.0f;
+    if (s < S) {
+      const float* lp = a.lpart + (((size_t)b * S + s) * tiles_n) * P + p;
+      for (int t = 0; t < tiles_n; ++t) l[s] += lp[(size_t)t * P];
+      mx = fmaxf(mx, l[s]);
     }
-    cp_async_commit();
-  };
-
-  for (int s = 0; s < a.n_scales; ++s) {
-    load_w1_chunk(0, 0);
-
-    // u tile of this scale → shared memory (rows past P are zero)
-    const bf16* hs = a.h[s] + (size_t)b * a.P[s] * E;
-    const int Ps = a.P[s];
-    for (int i = tid; i < AM * (E / 8); i += THREADS) {
-      const int r = i / (E / 8), c = (i % (E / 8)) * 8;
-      const int p = m0 + r;
-      __align__(16) bf16 o[8];
-      if (p < P) {
-        float u[8];
-        load_u<8>(hs, Ps, P, E, p, c, u);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) o[q] = __float2bfloat16_rn(u[q]);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) o[q] = __float2bfloat16_rn(0.0f);
-      }
-      *reinterpret_cast<uint4*>(us + r * uld + c) = *reinterpret_cast<const uint4*>(o);
-    }
-
-    // a_pre = u · W1[e]: [AM, E] × [E, H]; warp w owns column fragments
-    // w, w + 8, w + 16 of H and all four 16-row fragments of the tile
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][MAX_NF];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < MAX_NF; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    for (int chunk = 0; chunk < n_chunks; ++chunk) {
-      if (chunk + 1 < n_chunks) {
-        load_w1_chunk(chunk + 1, (chunk + 1) & 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* wb = w1s + (chunk & 1) * AK * wld;
-      if (warp < n_cf) {
-#pragma unroll
-        for (int kk = 0; kk < AK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            wmma::load_matrix_sync(fa[i], us + i * 16 * uld + chunk * AK + kk, uld);
-#pragma unroll
-          for (int j = 0; j < MAX_NF; ++j) {
-            const int cf = warp + 8 * j;
-            if (cf < n_cf) {
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-              wmma::load_matrix_sync(fb, wb + kk * wld + cf * 16, wld);
-#pragma unroll
-              for (int i = 0; i < 4; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-    // accumulators → shared memory (over the u tile, no longer read)
-#pragma unroll
-    for (int j = 0; j < MAX_NF; ++j) {
-      const int cf = warp + 8 * j;
-      if (cf < n_cf) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wmma::store_matrix_sync(cs + i * 16 * cld + cf * 16, acc[i][j], cld,
-                                  wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-
-    // logit[row] = Σ_c bf16(relu(a_pre + b1))_c · w2_c: four threads a row,
-    // each a stride-4 quarter of the columns, then a fixed-order shuffle sum
-    {
-      const int row = tid >> 2, part = tid & 3;
-      float sum = 0.0f;
-      for (int c = part; c < H; c += 4) {
-        float v = cs[row * cld + c] + b1[c];
-        v = round_bf16(v > 0.0f ? v : 0.0f);
-        sum += v * w2[c];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) logit[s * AM + row] = sum;
-    }
-    __syncthreads();
   }
-
-  // softmax over scales in f32, rounded to bf16 (in place of the logits)
-  if (tid < AM) {
-    float m = logit[tid];
-    for (int s = 1; s < a.n_scales; ++s) m = fmaxf(m, logit[s * AM + tid]);
-    float ex[MAX_SCALES];
-    float z = 0.0f;
-    for (int s = 0; s < a.n_scales; ++s) {
-      ex[s] = expf(logit[s * AM + tid] - m);
-      z += ex[s];
-    }
-    for (int s = 0; s < a.n_scales; ++s) logit[s * AM + tid] = round_bf16(ex[s] / z);
-  }
-  __syncthreads();
-
-  // out = Σ_s att_s · u_s in f32, u recomputed from h_s; 4 columns a thread
-  for (int i = tid; i < AM * (E / 4); i += THREADS) {
-    const int r = i / (E / 4), c = (i % (E / 4)) * 4;
-    const int p = m0 + r;
-    if (p >= P) continue;
-    float o[4];
-    for (int s = 0; s < a.n_scales; ++s) {
-      float u[4];
-      load_u<4>(a.h[s] + (size_t)b * a.P[s] * E, a.P[s], P, E, p, c, u);
-      const float att = logit[s * AM + r];
+  float z = 0.0f;
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        o[q] = s == 0 ? __fmul_rn(u[q], att) : __fadd_rn(o[q], __fmul_rn(u[q], att));
+  for (int s = 0; s < MAX_SCALES; ++s) {
+    att[s] = s < S ? expf(l[s] - mx) : 0.0f;
+    z += att[s];
+  }
+#pragma unroll
+  for (int s = 0; s < MAX_SCALES; ++s) att[s] = round_bf16(att[s] / z);
+
+  for (int c = lane * 8; c < E; c += 256) {
+    float o[8];
+#pragma unroll
+    for (int s = 0; s < MAX_SCALES; ++s) {
+      if (s >= S) break;
+      float u[8];
+      load8_bf16(a.u[s] + ((size_t)b * P + p) * E + c, u);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        o[q] = s == 0 ? __fmul_rn(u[q], att[s]) : __fadd_rn(o[q], __fmul_rn(u[q], att[s]));
     }
-    *reinterpret_cast<float4*>(out + (size_t)p * E + c) = make_float4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<float4*>(out + c) = make_float4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<float4*>(out + c + 4) = make_float4(o[4], o[5], o[6], o[7]);
   }
 }
 
-static int round_up(int n, int m) { return (n + m - 1) / m * m; }
-static int imax(int a, int b) { return a > b ? a : b; }
+template <class Kernel>
+static cudaError_t launch(Kernel k, dim3 grid, int smem, cudaStream_t st, const FwdArgs& a) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  k<<<grid, THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
 
 extern "C" {
 
-// The projection launch alone: h_s for every scale into `hs`. The forward
+// The projection pass alone: h_s for every scale into `hs`. The forward
 // below runs it first; the backward (csrc/expert_fusion_bwd.cu) recomputes
 // its residuals with it, as the TPU backward recomputes its forward chain.
 int medmoe_expert_fusion_proj(int n_scales, const void* const* xs, const void* const* wps,
@@ -435,39 +269,47 @@ int medmoe_expert_fusion_proj(int n_scales, const void* const* xs, const void* c
   return (int)cudaGetLastError();
 }
 
-// Returns a cudaError_t: 0 when both launches were accepted.
+// K1 for a chunk of B images: the four passes, through the scratch hs
+// [B, P_s, E] and us [B, P, E] bf16 (us[s] unused at P_s = P) and lpart
+// [B, S, lpart_tiles, P] f32; fewer partial-logit tiles than ⌈H/128⌉ is
+// rejected. Returns a cudaError_t: 0 when every launch was accepted.
 int medmoe_expert_fusion_fwd(int n_scales, const void* const* xs, const void* const* wps,
-                             const void* const* bps, void* const* hs, const int* Ps,
-                             const int* Ds, const void* w1, const void* b1, const void* w2,
-                             const void* idx, void* out, int B, int K, int E, int H, int P,
-                             void* stream) {
-  if (n_scales < 1 || n_scales > MAX_SCALES || E % 32 || H % 16 || H > 8 * 16 * MAX_NF)
+                             const void* const* bps, void* const* hs, void* const* us,
+                             const int* Ps, const int* Ds, const void* w1, const void* b1,
+                             const void* w2, const void* idx, void* lpart, int lpart_tiles,
+                             void* out, int B, int K, int E, int H, int P, void* stream) {
+  if (n_scales < 1 || n_scales > MAX_SCALES || E % 32 || H < 8 || H % 8 || B < 1 ||
+      B > 65535 || lpart_tiles < cdiv(H, ActTile::BN))
     return (int)cudaErrorInvalidValue;
-  AttnArgs aa;
+  FwdArgs a;
   for (int s = 0; s < n_scales; ++s) {
     if (Ps[s] < 1 || P % Ps[s]) return (int)cudaErrorInvalidValue;
-    aa.h[s] = static_cast<const bf16*>(hs[s]);
-    aa.P[s] = Ps[s];
+    a.h[s] = static_cast<const bf16*>(hs[s]);
+    a.u[s] = Ps[s] == P ? static_cast<bf16*>(hs[s]) : static_cast<bf16*>(us[s]);
+    a.P[s] = Ps[s];
   }
-  aa.n_scales = n_scales;
-  aa.w1 = static_cast<const bf16*>(w1);
-  aa.b1 = static_cast<const float*>(b1);
-  aa.w2 = static_cast<const float*>(w2);
-  aa.out = static_cast<float*>(out);
-  aa.P_out = P;
+  a.n_scales = n_scales;
+  a.w1 = static_cast<const bf16*>(w1);
+  a.b1 = static_cast<const float*>(b1);
+  a.w2 = static_cast<const float*>(w2);
+  a.idx = static_cast<const int*>(idx);
+  a.lpart = static_cast<float*>(lpart);
+  a.out = static_cast<float*>(out);
+  a.P_out = P;
+  a.K = K;
+  a.E = E;
+  a.H = H;
 
   int rc = medmoe_expert_fusion_proj(n_scales, xs, wps, bps, hs, Ps, Ds, idx, B, K, E, stream);
   if (rc != 0) return rc;
-
-  const int tile_bytes = round_up(imax(AM * (E + 8) * 2, AM * (H + 4) * 4), 128);
-  const int smem = tile_bytes + round_up(2 * AK * (H + 8) * 2, 128) + MAX_SCALES * AM * 4;
-  cudaError_t err =
-      cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int* id = static_cast<const int*>(idx);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  attn_kernel<<<dim3((P + AM - 1) / AM, B), THREADS, smem, st>>>(aa, id, K, E, H, tile_bytes);
-  return (int)cudaGetLastError();
+  cudaError_t err;
+  if ((err = launch(fwd_u_kernel, dim3(cdiv(P, 8), B), 0, st, a)) != cudaSuccess) return (int)err;
+  if ((err = launch(fwd_logit_kernel, dim3(cdiv(P, ActTile::BM) * cdiv(H, ActTile::BN),
+                                           n_scales, B),
+                    ActTile::SMEM, st, a)) != cudaSuccess)
+    return (int)err;
+  return (int)launch(fwd_combine_kernel, dim3(cdiv(P, 8), B), 0, st, a);
 }
 
 const char* medmoe_cuda_error_string(int code) {

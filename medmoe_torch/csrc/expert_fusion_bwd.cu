@@ -38,6 +38,8 @@
 //      h_0, read in place), and d_att_s, d_out read once for all scales;
 //   2. bwd_act_kernel (core, M = P, N = H, K = E): a_s = bf16(relu(u_s·W1
 //      + b1)) to a scratch, and each 128-wide N tile's partial logits;
+//   (passes 1 and 2 are K1's u and logit passes, expert_fusion_passes.cuh,
+//   with d_att and a_s kept: K2's logits are K1's, bit for bit)
 //   3. bwd_row_kernel (streaming, 64 rows a block): the logits summed in
 //      tile order, the softmax over scales and its backward, bf16(att32)
 //      for pass 4, bf16(dz_a) over a_s in place, the tile's dw2/db1 sums;
@@ -68,21 +70,15 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (medmoe_torch/ops/_build.py).
 
-#include <cuda_runtime.h>
+#include "expert_fusion_passes.cuh"
 
-#include "gemm_core.cuh"
-
-typedef __nv_bfloat16 bf16;
-
-#define MAX_SCALES 4
-#define THREADS 256
 #define ROW_TM 64     // rows of P a block of the row step
 #define T_ROWS 8      // source rows a block of the transposed upsample, one a warp
 #define T_COLS 256    // columns a block of the transposed upsample, 8 a lane
 #define T_WIN 128     // destination rows the transposed upsample stages at once
 
 // the products' tiles: 128 × 128, 8 warps of 64 × 32, a 4-slice ring
-using ActTile = gemm::Tile<128, 128, 64, 32, 4, gemm::kKN>;             // u · W1
+// (ActTile, u · W1: expert_fusion_passes.cuh)
 using NkTile = gemm::Tile<128, 128, 64, 32, 4, gemm::kNK>;              // · W1ᵀ, · Wpᵀ
 using WgTile = gemm::Tile<128, 128, 64, 32, 4, gemm::kKN, gemm::kKM>;   // xᵀ · dz
 
@@ -123,168 +119,24 @@ struct BwdArgs {
   int P_out, K, E, H;
 };
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
-
-__device__ __forceinline__ bool bad_expert(const BwdArgs& a, int e) { return e < 0 || e >= a.K; }
-
-// Source rows and weight of output row p of a P_s → P linear upsample with
-// integer ratio: the forward's phase form (csrc/expert_fusion.cu), so that u
-// is the forward's own, bit for bit. Once a row, not per element.
-__device__ __forceinline__ void lerp_rows(int p, int Ps, int P, int& i0, int& i1,
-                                          float& w) {
-  const int r = P / Ps;
-  const int q = p / r, ph = p - q * r;
-  const double off = ((double)ph + 0.5) / (double)r - 0.5;
-  const double c = floor(off);
-  w = (float)(off - c);
-  if (c < 0.0) {
-    i0 = q > 0 ? q - 1 : 0;
-    i1 = q;
-  } else {
-    i0 = q;
-    i1 = q + 1 < Ps ? q + 1 : Ps - 1;
-  }
-}
-
-__device__ __forceinline__ float lerp(float x0, float x1, float w) {
-  return __fadd_rn(__fmul_rn(x0, __fsub_rn(1.0f, w)), __fmul_rn(x1, w));
-}
-
-__device__ __forceinline__ void load8_bf16(const bf16* __restrict__ src, float* f) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-  for (int q = 0; q < 8; ++q) f[q] = __bfloat162float(e[q]);
-}
-
-__device__ __forceinline__ void store8_bf16(bf16* dst, const float* f) {
-  __align__(16) bf16 o[8];
-#pragma unroll
-  for (int q = 0; q < 8; ++q) o[q] = __float2bfloat16_rn(f[q]);
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
-}
-
 __device__ __forceinline__ void store4_bf16(bf16* dst, float4 v) {
   __align__(8) __nv_bfloat162 o[2] = {__floats2bfloat162_rn(v.x, v.y),
                                       __floats2bfloat162_rn(v.z, v.w)};
   *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-static __host__ __device__ int cdiv(int n, int m) { return (n + m - 1) / m; }
-
 // ---------------------------------------------------------------------------
 // pass 1: u_s to scratch (P_s < P) and d_att_s; a warp a row, grid (⌈P/8⌉, B)
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS) bwd_u_kernel(BwdArgs a) {
-  const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int P = a.P_out, E = a.E, S = a.n_scales;
-  const int p = blockIdx.x * 8 + warp;
-  if (p >= P || bad_expert(a, a.idx[b])) return;
-  int i0[MAX_SCALES], i1[MAX_SCALES];
-  float w[MAX_SCALES], acc[MAX_SCALES];
-#pragma unroll
-  for (int s = 0; s < MAX_SCALES; ++s) {
-    i0[s] = i1[s] = p;
-    w[s] = acc[s] = 0.0f;
-    if (s < S && a.P[s] != P) lerp_rows(p, a.P[s], P, i0[s], i1[s], w[s]);
-  }
-  const float* d = a.dout + ((size_t)b * P + p) * E;
-  for (int c = lane * 8; c < E; c += 256) {
-    const float4 g0 = *reinterpret_cast<const float4*>(d + c);
-    const float4 g1 = *reinterpret_cast<const float4*>(d + c + 4);
-    const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-#pragma unroll
-    for (int s = 0; s < MAX_SCALES; ++s) {
-      if (s >= S) break;
-      const int Ps = a.P[s];
-      const bf16* hs = a.h[s] + (size_t)b * Ps * E;
-      float u[8];
-      load8_bf16(hs + (size_t)i0[s] * E + c, u);
-      if (Ps != P) {
-        float x1[8];
-        load8_bf16(hs + (size_t)i1[s] * E + c, x1);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) u[q] = round_bf16(lerp(u[q], x1[q], w[s]));
-        store8_bf16(a.u[s] + ((size_t)b * P + p) * E + c, u);
-      }
-      float part = 0.0f;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) part += g[q] * u[q];
-      acc[s] += part;
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < MAX_SCALES; ++s) {
-    if (s >= S) break;
-    const float v = warp_sum(acc[s]);
-    if (lane == 0) a.datt[((size_t)b * S + s) * P + p] = v;
-  }
-}
+__global__ void __launch_bounds__(THREADS) bwd_u_kernel(BwdArgs a) { u_rows<true>(a); }
 
 // ---------------------------------------------------------------------------
 // pass 2: a_s = bf16(relu(u_s·W1 + b1)) and partial logits; grid (M tiles ×
 // N tiles, S, B)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(gemm::kThreads, ActTile::MIN_BLOCKS) bwd_act_kernel(BwdArgs a) {
-  using Cfg = ActTile;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int E = a.E, H = a.H, P = a.P_out, S = a.n_scales;
-  const int tiles_n = cdiv(H, Cfg::BN);
-  const int nt = blockIdx.x % tiles_n, m0 = (blockIdx.x / tiles_n) * Cfg::BM, n0 = nt * Cfg::BN;
-  const int s = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int e = a.idx[b];
-  if (bad_expert(a, e)) return;
-  const bf16* u = a.u[s] + (size_t)b * P * E;
-  const bf16* w1 = a.w1 + (size_t)e * E * H;
-
-  auto load_a = [&](bf16* as, int k0) {  // u rows m0.., E contiguous
-    for (int v = tid; v < Cfg::BM * (gemm::BK / 8); v += gemm::kThreads) {
-      const int r = v >> 2, c = (v & 3) * 8, m = m0 + r, k = k0 + c;
-      const bool ok = m < P && k < E;
-      gemm::cp16(as + r * gemm::LDK + c, ok ? u + (size_t)m * E + k : u, ok);
-    }
-  };
-  auto load_b = [&](bf16* bs, int k0) {  // W1 rows k0.., H contiguous
-    for (int v = tid; v < gemm::BK * (Cfg::BN / 8); v += gemm::kThreads) {
-      const int kr = v / (Cfg::BN / 8), n = (v % (Cfg::BN / 8)) * 8, k = k0 + kr;
-      const bool ok = k < E && n0 + n < H;
-      gemm::cp16(bs + kr * Cfg::LDN + n, ok ? w1 + (size_t)k * H + n0 + n : w1, ok);
-    }
-  };
-  float acc[Cfg::MI][Cfg::NI][4];
-  gemm::mainloop<Cfg>(smem, E, load_a, load_b, acc);
-  float* cs = reinterpret_cast<float*>(smem);
-  gemm::store_tile<Cfg>(cs, acc);
-
-  // two threads a row, 64 columns each, in order; the halves added after
-  const float* b1 = a.b1 + (size_t)e * H;
-  const float* w2 = a.w2 + (size_t)e * H;
-  bf16* act = a.act[s] + (size_t)b * P * H;
-  const int r = tid >> 1, half = tid & 1, m = m0 + r;
-  float sum = 0.0f;
-  for (int c = half * (Cfg::BN / 2); c < (half + 1) * (Cfg::BN / 2) && n0 + c < H; c += 8) {
-    const int n = n0 + c;
-    float v[8];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const float x = cs[r * Cfg::LDC + c + q] + b1[n + q];
-      v[q] = round_bf16(x > 0.0f ? x : 0.0f);
-      sum += v[q] * w2[n + q];
-    }
-    if (m < P) store8_bf16(act + (size_t)m * H + n, v);
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  if (half == 0 && m < P) a.lpart[(((size_t)b * S + s) * tiles_n + nt) * P + m] = sum;
+  act_tile<true>(a, smem);
 }
 
 // ---------------------------------------------------------------------------

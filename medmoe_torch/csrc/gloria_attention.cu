@@ -11,7 +11,8 @@
 //   cos[t] = ⟨w_t, wei_t⟩ / max(‖w_t‖·‖wei_t‖, 1e-8)
 //   sim[b,i] = temp3 · log Σ_{t<cap_i} exp(temp2·cos[t])
 // The prologue (`medmoe_gloria_pair_cotangents`) goes on to bf16(d_wei) and
-// four per-word vectors for K4a/K4b (csrc/gloria_attention_bwd.cu).
+// four per-word vectors for K4a/K4b (csrc/gloria_attention_bwd.cu) and,
+// when d_words is asked for, K4b's f32 terms (dwords_wei_kernel).
 //
 // What bounds it on the H100: operations. Two products of 2·M·T·D per pair,
 // 7.89 TFLOP each at B=256, flagship shapes and T = 25 (16.0 ms of bf16
@@ -37,6 +38,9 @@
 //     cos, Σ_t row, then sim (K3), or the tail of `_cell_cotangents` (the
 //     prologue): dnum, c2, d_wei = bf16(dnum·w + dnwei/max(‖wei‖, 1e-20)·wei),
 //     s = Σ_d bf16(d_wei)·wei and Σ_m e.
+//   dwords_wei_kernel (the prologue, for K4b): Σ_b dnum·wei [B_txt, D, TPAD]
+//     from F2's f32 wei, and Σ_b c2 [B_txt, TPAD], the images in order
+//     across the chunks: d_words' two terms that take no product.
 // The softmax over M needs no running maximum: 0 <= a1 <= 1, so temp1·a1
 // never exceeds e_off = max(temp1, 0), and e lies in [exp(-|temp1|), 1] (the
 // wrapper takes |temp1| <= 80); a2 = e/Σe. ctx is exactly bf16, so the hi
@@ -155,7 +159,8 @@ sim_e_kernel(GloriaArgs a, PassArgs p, int b0) {
       const float4 s4 = *reinterpret_cast<const float4*>(crow + j);
       x[j] = s4.x, x[j + 1] = s4.y, x[j + 2] = s4.z, x[j + 3] = s4.w;
     }
-    // a1: softmax over the words t < cap (t >= T left out), as word_softmax4
+    // a1: softmax over the words t < cap (masked at NEG_INF, as the JAX
+    // package), the padded words t >= T left out
     float mx = -INFINITY;
 #pragma unroll
     for (int j = 0; j < WPT; ++j) {
@@ -390,6 +395,35 @@ sim_finish_kernel(GloriaArgs a, PassArgs p, int b0, int nb, float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
+// K4b's f32 terms over one chunk: wsum [B_txt, D, TPAD] += Σ_b dnum·wei and
+// c2sum [B_txt, TPAD] += Σ_b c2, the chunk's images in order (the first
+// chunk starts them at 0); a thread an element, no atomics
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS)
+dwords_wei_kernel(GloriaArgs a, PassArgs p, int b0, int nb, const float* __restrict__ vecs,
+                  float* __restrict__ wsum, float* __restrict__ c2sum) {
+  const int D = a.D, Bt = a.Bt, TPAD = a.TPAD;
+  const long long n = (long long)Bt * D * TPAD;
+  for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x; v < n;
+       v += (long long)gridDim.x * blockDim.x) {
+    const int t = (int)(v % TPAD);
+    const long long id = v / TPAD;
+    const int d = (int)(id % D), i = (int)(id / D);
+    const float* vec = vecs + ((size_t)b0 * Bt + i) * N_VECS * TPAD + t;
+    const float* wei = p.wei + (size_t)i * D * TPAD + (size_t)d * TPAD + t;
+    float s = b0 == 0 ? 0.0f : wsum[v];
+    for (int bl = 0; bl < nb; ++bl)
+      s += vec[((size_t)bl * Bt * N_VECS + V_DNUM) * TPAD] * wei[(size_t)bl * Bt * D * TPAD];
+    wsum[v] = s;
+    if (d == 0) {
+      float c = b0 == 0 ? 0.0f : c2sum[(size_t)i * TPAD + t];
+      for (int bl = 0; bl < nb; ++bl) c += vec[((size_t)bl * Bt * N_VECS + V_C2) * TPAD];
+      c2sum[(size_t)i * TPAD + t] = c;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 static PassArgs pass_args(const GloriaArgs& a, void* e, void* esum, void* part, void* wei) {
@@ -416,10 +450,12 @@ static cudaError_t launch_e(const GloriaArgs& a, const PassArgs& p, int b0, int 
   return cudaGetLastError();
 }
 
-// F1, F2 and F3 over the chunks of images in order
+// F1, F2 and F3 over the chunks of images in order (and K4b's f32 terms
+// when wsum is given)
 template <bool kBwd>
 static int run_passes(const GloriaArgs& a, const PassArgs& p, int chunk, float* sim,
-                      const float* g, bf16* dwei, float* vecs, void* stream) {
+                      const float* g, bf16* dwei, float* vecs, float* wsum, float* c2sum,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(sim_wei_kernel<kBwd>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, F2_SMEM);
@@ -442,6 +478,13 @@ static int run_passes(const GloriaArgs& a, const PassArgs& p, int chunk, float* 
                                                                              g, dwei, vecs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    if (wsum != nullptr) {
+      const long long n = (long long)a.Bt * a.D * a.TPAD;
+      dwords_wei_kernel<<<(int)((n + THREADS - 1) / THREADS), THREADS, 0, st>>>(a, p, b0, nb, vecs,
+                                                                               wsum, c2sum);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
   }
   return 0;
 }
@@ -459,23 +502,28 @@ int medmoe_gloria_sim(const void* ctx, const void* words, const void* cap, int B
     return (int)cudaErrorInvalidValue;
   const GloriaArgs a = make_args(ctx, words, cap, Bi, Bt, M, D, T, temp1, temp2, temp3);
   return run_passes<false>(a, pass_args(a, e, esum, part, nullptr), chunk,
-                           static_cast<float*>(out), nullptr, nullptr, nullptr, stream);
+                           static_cast<float*>(out), nullptr, nullptr, nullptr, nullptr, nullptr,
+                           stream);
 }
 
 // The backward's prologue: the forward chain again, then the cotangents
 // down to bf16(d_wei) [Bi·Bt, D, TPAD] and the per-word vectors
 // [Bi·Bt, 4, TPAD] for the upstream cotangent g [Bi, Bt] f32; the scratch
-// of K3 and wei [chunk, Bt, D, TPAD] f32.
+// of K3 and wei [chunk, Bt, D, TPAD] f32. With wsum [Bt, D, TPAD] and c2sum
+// [Bt, TPAD] (both or neither) also K4b's terms Σ_b dnum·wei and Σ_b c2.
 int medmoe_gloria_pair_cotangents(const void* ctx, const void* words, const void* cap, int Bi,
                                   int Bt, int M, int D, int T, float temp1, float temp2,
                                   float temp3, const void* g, void* e, void* esum, void* part,
-                                  void* wei, int chunk, void* dwei, void* vecs, void* stream) {
-  if (!shapes_ok(Bi, Bt, M, D, T) || chunk < 1 || chunk > 65535)
+                                  void* wei, int chunk, void* dwei, void* vecs, void* wsum,
+                                  void* c2sum, void* stream) {
+  if (!shapes_ok(Bi, Bt, M, D, T) || chunk < 1 || chunk > 65535 ||
+      (wsum == nullptr) != (c2sum == nullptr))
     return (int)cudaErrorInvalidValue;
   const GloriaArgs a = make_args(ctx, words, cap, Bi, Bt, M, D, T, temp1, temp2, temp3);
   return run_passes<true>(a, pass_args(a, e, esum, part, wei), chunk, nullptr,
                           static_cast<const float*>(g), static_cast<bf16*>(dwei),
-                          static_cast<float*>(vecs), stream);
+                          static_cast<float*>(vecs), static_cast<float*>(wsum),
+                          static_cast<float*>(c2sum), stream);
 }
 
 const char* medmoe_cuda_error_string(int code) {

@@ -13,56 +13,46 @@
 //                         in exact arithmetic, and needs no pass over M)
 //   d_scores = a1·(temp1·d_z - Σ_t a1·temp1·d_z)
 //   K4a: d_ctx[b,m,:] += bf16(a2)[m,:]·bf16(d_wei)ᵀ + bf16(d_scores)[m,:]·wᵀ
-//   K4b: d_w[i] += Σ_m ctx[m,:]ᵀ·(bf16(d_scores) + dnum·a2)[m,:]  + c2·w
-// (dnum·wei = Σ_m ctx·dnum·a2 is folded into the same product, with
-// dnum·a2 split into bf16 hi + lo as the forward splits a2.)
+//   K4b: d_w[i] = Σ_b ctx_bᵀ·bf16(d_scores_bi) + Σ_b dnum_bi·wei_bi + (Σ_b c2_bi)·w_i
 //
 // What bounds them on the H100: operations. At B=256 and flagship shapes
 // K4a is three products of 7.89 TFLOP (d_a2 and the two d_ctx products,
-// 23.9 ms of bf16 tensor-core time) and K4b two (d_a2, d_words; 16.0 ms);
-// the recompute of scores (one more product each) is not counted.
+// 23.9 ms of bf16 tensor-core time) and K4b one (d_words, 8.0 ms), beside
+// the d_a2 product it shares with K4a; the recompute of scores (one more
+// product) is not counted.
 //
-// K4a: two passes on one tiled GEMM core (csrc/gemm_core.cuh). For an image
-// b, with the pair loop moved into the products' K and N:
+// One host loop runs both, per chunk of images (the wrapper sizes the chunk,
+// Z ≈1.6 GB at flagship), on one tiled GEMM core (csrc/gemm_core.cuh). For
+// an image b, with the pair loop moved into the products' K and N:
 //   pass 1 (dctx_z_kernel): [scores | d_a2] = ctx_b [M, D] · [w_i | d_wei_bi]
 //     [D, B_txt·2·TPAD], the row step in the epilogue, which writes
 //     Z_b[m, i, :] = [bf16(a2) | bf16(d_scores)] (the rounding points of
 //     the TPU kernel); a 128-wide tile holds whole captions, so the
 //     epilogue sees every word of a row;
-//   pass 2 (dctx_gemm_kernel): d_ctx[b] = Z_b [M, B_txt·2·TPAD] ·
+//   pass 2, K4a (dctx_gemm_kernel): d_ctx[b] = Z_b [M, B_txt·2·TPAD] ·
 //     [bf16(d_wei)ᵀ ; wᵀ] [B_txt·2·TPAD, D], B read K-contiguous straight
-//     from the scratch, the K loop over the captions in order: no atomics,
-//     the same sum on every run.
-// The single pass it replaces kept a [32, D] f32 tile of d_ctx in registers
-// (a wider one does not fit) and streamed every caption's words and d_wei
-// through shared memory for it: ≈617 GB of L2 traffic at B=256 with no load
-// hidden behind a product, on 32×32 WMMA tiles. The two passes are dense
-// products with 128-wide tiles and a cp.async ring, for ≈53 GB of Z through
-// device memory at B=256; Z lives in chunks of images (the wrapper sizes
-// them, ≈1.6 GB at flagship). Both are mma.sync; wgmma comes next.
-//
-// K4b: one block per (caption, share of the images) walks its images and
-// their M tiles in order and keeps the caption's [D, TP] d_words in
-// registers; a second launch sums the shares in order and adds c2·w.
-// Products use WMMA bf16 16×16×16 tiles with f32 accumulators: the
-// [32, 32] scores and d_a2 tiles over a quarter of D a warp,
-// the row step 8 threads a row, no product behind a branch. Above T = 32
-// a third grid axis takes the word tiles, and every M tile forms the
-// scores and d_a2 of all word tiles for the row step's sums over T.
+//     from the scratch, the K loop over the captions in order;
+//   K4b (dwords_gemm_kernel): d_words [D, B_txt·TPAD] += ctx_chunkᵀ ·
+//     Zds, A M-contiguous straight from ctx, B the d_scores half of Z's
+//     rows, K over the chunk's images and rows in order; the epilogue adds
+//     the tile into the f32 accumulator that the prologue started with
+//     Σ_b dnum·wei (f32 wei, as the TPU kernel), in chunk order, and the
+//     last chunk's adds (Σ_b c2)·w and writes d_words [B_txt, D, T].
+// No atomics: every sum runs in a fixed order, the same on every run. Pass
+// 1 runs once a chunk for both cotangents; K4a or K4b is skipped when its
+// cotangent is not asked for. Every T <= 128 takes one pass of K4b: a word
+// column of the product needs no other word. All are mma.sync; wgmma
+// comes next.
 //
 // The per-pair scratch is B_img·B_txt·D·TPAD bf16 (3.2 GB at B=256, D=768,
-// TPAD=32) plus B_img·B_txt·4·TPAD f32, allocated by the wrapper.
+// TPAD=32) plus B_img·B_txt·4·TPAD f32, allocated by the wrapper, and, for
+// d_words, the accumulator B_txt·D·TPAD f32 (25 MB at flagship).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (medmoe_torch/ops/_build.py).
 
 #include "gemm_core.cuh"
 #include "gloria_common.cuh"
-
-#define MTB 32             // rows of M a tile
-#define OLD3 (3 * TP + 8)  // K4b: [d_scores | hi(dnum·a2) | lo(dnum·a2)]
-
-#define PARTS 4            // warps that share one [MTB, TP] product
 
 // ---------------------------------------------------------------------------
 // K4a pass 1: Z = [bf16(a2) | bf16(d_scores)]; grid (M tiles, caption
@@ -155,7 +145,8 @@ dctx_z_kernel(GloriaArgs a, const bf16* __restrict__ dwei, const float* __restri
       x[j] = s4.x, x[j + 1] = s4.y, x[j + 2] = s4.z, x[j + 3] = s4.w;
       dd[j] = d4.x, dd[j + 1] = d4.y, dd[j + 2] = d4.z, dd[j + 3] = d4.w;
     }
-    // a1: softmax over the words t < cap (t >= T left out), as word_softmax4
+    // a1: softmax over the words t < cap (masked at NEG_INF, as the JAX
+    // package), the padded words t >= T left out
     float mx = -INFINITY;
 #pragma unroll
     for (int j = 0; j < WPT; ++j) {
@@ -248,9 +239,80 @@ dctx_gemm_kernel(GloriaArgs a, const bf16* __restrict__ dwei, const bf16* __rest
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4b: d_words += ctx_chunkᵀ · Zds; grid (D tiles, word tiles); the last
+// chunk also adds (Σ c2)·w and writes d_words [B_txt, D, T]
+// ---------------------------------------------------------------------------
+using WTile = gemm::Tile<128, 128, 64, 32, 4, gemm::kKN, gemm::kKM>;
+
+__global__ void __launch_bounds__(gemm::kThreads, WTile::MIN_BLOCKS)
+dwords_gemm_kernel(GloriaArgs a, const bf16* __restrict__ z, int b0, int nb,
+                   float* __restrict__ wsum, const float* __restrict__ c2sum,
+                   float* __restrict__ dw) {
+  using Cfg = WTile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = a.D, M = a.M, Bt = a.Bt, T = a.T, tpad = a.TPAD, cw = 2 * a.TPAD;
+  const int m0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * Cfg::BN;  // d, word column
+  const int N = Bt * tpad, K = nb * M;
+  const size_t zld = (size_t)Bt * cw;
+  const int tid = threadIdx.x;
+  const bf16* ctx = a.ctx + (size_t)b0 * M * D;
+
+  // A = ctxᵀ: slice rows k (the chunk's rows, image by image), columns d
+  // contiguous
+  auto load_a = [&](bf16* as, int k0) {
+    for (int v = tid; v < gemm::BK * (Cfg::BM / 8); v += gemm::kThreads) {
+      const int kr = v / (Cfg::BM / 8), c = (v % (Cfg::BM / 8)) * 8, k = k0 + kr, d = m0 + c;
+      const bool ok = k < K && d < D;
+      gemm::cp16(as + kr * Cfg::LDM + c, ok ? ctx + (size_t)k * D + d : ctx, ok);
+    }
+  };
+  // B = bf16(d_scores): row k of Z, word column n = i·TPAD + t at i·2·TPAD +
+  // TPAD + t, N contiguous
+  auto load_b = [&](bf16* bs, int k0) {
+    for (int v = tid; v < gemm::BK * (Cfg::BN / 8); v += gemm::kThreads) {
+      const int kr = v / (Cfg::BN / 8), c = (v % (Cfg::BN / 8)) * 8, k = k0 + kr, n = n0 + c;
+      const bool ok = k < K && n < N;
+      gemm::cp16(bs + kr * Cfg::LDN + c,
+                 ok ? z + (size_t)k * zld + (size_t)(n / tpad) * cw + tpad + n % tpad : z, ok);
+    }
+  };
+
+  float acc[Cfg::MI][Cfg::NI][4];
+  gemm::mainloop<Cfg>(smem, K, load_a, load_b, acc);
+  float* cs = reinterpret_cast<float*>(smem);
+  gemm::store_tile<Cfg>(cs, acc);
+
+  // four words of one caption a thread: the accumulator [B_txt, D, TPAD]
+  // plus this chunk's tile, stored back, or (last chunk) plus (Σ c2)·w to
+  // d_words
+  const bool last = b0 + nb == a.Bi;
+  for (int v = tid; v < Cfg::BM * (Cfg::BN / 4); v += gemm::kThreads) {
+    const int r = v / (Cfg::BN / 4), c = (v % (Cfg::BN / 4)) * 4, d = m0 + r, n = n0 + c;
+    if (d >= D || n >= N) continue;
+    const int i = n / tpad, t = n % tpad;
+    const size_t at = ((size_t)i * D + d) * tpad + t;
+    const float4 w4 = *reinterpret_cast<const float4*>(wsum + at);
+    const float* cv = cs + r * Cfg::LDC + c;
+    const float x[4] = {w4.x + cv[0], w4.y + cv[1], w4.z + cv[2], w4.w + cv[3]};
+    if (!last) {
+      *reinterpret_cast<float4*>(wsum + at) = make_float4(x[0], x[1], x[2], x[3]);
+      continue;
+    }
+    float* out = dw + ((size_t)i * D + d) * T;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (t + j < T)
+        out[t + j] = x[j] + c2sum[(size_t)i * tpad + t + j] * __bfloat162float(a.words[at + j]);
+  }
+}
+
+// pass 1 over the chunks of images in order, then K4a's pass 2 (dctx) and
+// K4b (dw) for the chunk, each when asked for
 template <int NT>
-static int launch_dctx(const GloriaArgs& a, const bf16* dwei, const float* vecs, bf16* z,
-                       int chunk, float* dctx, cudaStream_t st) {
+static int launch_cotangents(const GloriaArgs& a, const bf16* dwei, const float* vecs, bf16* z,
+                             int chunk, float* dctx, float* wsum, const float* c2sum, float* dw,
+                             cudaStream_t st) {
   using Z = ZTile<NT>;
   constexpr int CPT = Z::BN / (2 * TP * NT);
   const int zsmem = z_smem_bytes<NT>();
@@ -260,316 +322,63 @@ static int launch_dctx(const GloriaArgs& a, const bf16* dwei, const float* vecs,
   err = cudaFuncSetAttribute(dctx_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              GTile::SMEM);
   if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dwords_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WTile::SMEM);
+  if (err != cudaSuccess) return (int)err;
   for (int b0 = 0; b0 < a.Bi; b0 += chunk) {
     const int nb = a.Bi - b0 < chunk ? a.Bi - b0 : chunk;
     dctx_z_kernel<NT><<<dim3((a.M + Z::BM - 1) / Z::BM, (a.Bt + CPT - 1) / CPT, nb),
                         gemm::kThreads, zsmem, st>>>(a, dwei, vecs, z, b0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    dctx_gemm_kernel<<<dim3((a.D + GTile::BN - 1) / GTile::BN, (a.M + GTile::BM - 1) / GTile::BM,
-                            nb),
-                       gemm::kThreads, GTile::SMEM, st>>>(a, dwei, z, dctx, b0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    if (dctx != nullptr) {
+      dctx_gemm_kernel<<<dim3((a.D + GTile::BN - 1) / GTile::BN,
+                              (a.M + GTile::BM - 1) / GTile::BM, nb),
+                         gemm::kThreads, GTile::SMEM, st>>>(a, dwei, z, dctx, b0);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    if (dw != nullptr) {
+      dwords_gemm_kernel<<<dim3((a.D + WTile::BM - 1) / WTile::BM,
+                                (a.Bt * a.TPAD + WTile::BN - 1) / WTile::BN),
+                           gemm::kThreads, WTile::SMEM, st>>>(a, z, b0, nb, wsum, c2sum, dw);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
   }
   return 0;
 }
 
-// ---------------------------------------------------------------------------
-// K4b
-// ---------------------------------------------------------------------------
-// ctx tile, words, d_wei, the partial scores and d_a2 tiles, the bf16
-// operand, the pair's vectors
-static int bwd_smem_bytes(int D, int tpad) {
-  const int r0 = round_up(MTB * (D + 8) * 2, 128);
-  const int r1 = 2 * round_up(D * WLD * 2, 128);
-  const int r2 = round_up(2 * PARTS * MTB * SLD * 4 + MTB * OLD3 * 2, 128);
-  const int r3 = N_VECS * tpad * 4;
-  return r0 + r1 + r2 + r3;
-}
-
-struct BwdSmem {
-  bf16* cs;
-  bf16* ws;
-  bf16* dws;
-  float* sc;
-  float* da;
-  bf16* op;
-  float* vec;
-};
-
-__device__ __forceinline__ BwdSmem carve(unsigned char* smem, int D) {
-  BwdSmem s;
-  unsigned char* p = smem;
-  s.cs = reinterpret_cast<bf16*>(p);
-  p += round_up(MTB * (D + 8) * 2, 128);
-  s.ws = reinterpret_cast<bf16*>(p);
-  p += round_up(D * WLD * 2, 128);
-  s.dws = reinterpret_cast<bf16*>(p);
-  p += round_up(D * WLD * 2, 128);
-  s.sc = reinterpret_cast<float*>(p);
-  s.da = s.sc + PARTS * MTB * SLD;
-  s.op = reinterpret_cast<bf16*>(s.da + PARTS * MTB * SLD);
-  p += round_up(2 * PARTS * MTB * SLD * 4 + MTB * OLD3 * 2, 128);
-  s.vec = reinterpret_cast<float*>(p);
-  return s;
-}
-
-// scores = ctx_tile·w (warps 0-3) and d_a2 = ctx_tile·bf16(d_wei) (warps
-// 4-7), [MTB, TP] each, as PARTS partial tiles
-__device__ __forceinline__ void tile_products(const BwdSmem& s, int D) {
-  const int warp = threadIdx.x >> 5;
-  if (warp < PARTS)
-    tile_times_dt(s.cs, s.ws, D, warp, PARTS, s.sc);
-  else
-    tile_times_dt(s.cs, s.dws, D, warp - PARTS, PARTS, s.da);
-}
-
-// Row r of the tile, words 4q..4q+3 (8 threads a row): a2 and d_scores of
-// the pair.
-__device__ __forceinline__ void row_cotangents(const GloriaArgs& a, const BwdSmem& s, int r,
-                                               int q, bool row_live, int cap, float* a2,
-                                               float* dsc) {
-  float v[4], d[4], a1[4], da1[4];
-  sum_parts(s.sc, PARTS, r, q, v);
-  sum_parts(s.da, PARTS, r, q, d);
-  word_softmax4(v, q, cap, a.T, a1);
-  float tsum = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int t = 4 * q + j;
-    const bool live = row_live && t < a.T;
-    a2[j] = live ? expf(a.temp1 * a1[j] - a.e_off) / s.vec[V_COLSUM * TP + t] : 0.0f;
-    da1[j] = a.temp1 * (a2[j] * (d[j] - s.vec[V_S * TP + t]));
-    tsum += a1[j] * da1[j];
-  }
-  tsum = row_sum8(tsum);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const bool live = row_live && 4 * q + j < a.T;
-    dsc[j] = live ? a1[j] * (da1[j] - tsum) : 0.0f;
-  }
-}
-
-// The same over nt word tiles (T > 32): scores v and d_a2 d of every tile,
-// Σ_t a1·d_a1 over all of them; a2 and d_scores of word tile wt.
-__device__ __forceinline__ void row_cotangents_tiles(const GloriaArgs& a, const float* vec,
-                                                     const float (*v)[4], const float (*d)[4],
-                                                     int wt, int q, bool row_live, int cap,
-                                                     float* a2, float* dsc) {
-  const int nt = a.NT, tpad = a.TPAD;
-  float a1[MAX_NT][4], da1w[4];
-  word_softmax_tiles(v, nt, q, cap, a.T, a1);
-  float tsum = 0.0f;
-  for (int w = 0; w < nt; ++w)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = TP * w + 4 * q + j;
-      const bool live = row_live && t < a.T;
-      const float x = live ? expf(a.temp1 * a1[w][j] - a.e_off) / vec[V_COLSUM * tpad + t] : 0.0f;
-      const float da1 = a.temp1 * (x * (d[w][j] - vec[V_S * tpad + t]));
-      tsum += a1[w][j] * da1;
-      if (w == wt) {
-        a2[j] = x;
-        da1w[j] = da1;
-      }
-    }
-  tsum = row_sum8(tsum);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const bool live = row_live && TP * wt + 4 * q + j < a.T;
-    dsc[j] = live ? a1[wt][j] * (da1w[j] - tsum) : 0.0f;
-  }
-}
-
-// per-share partial d_words [n_split, Bt, D, TPAD] f32 and Σ c2
-// [n_split, Bt, TPAD]; grid (Bt, n_split, word tiles)
-template <bool kMulti>
-__global__ void __launch_bounds__(THREADS, 1)
-dwords_kernel(GloriaArgs a, const bf16* __restrict__ dwei, const float* __restrict__ vecs,
-              float* __restrict__ part, float* __restrict__ c2part, int n_split) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int D = a.D, M = a.M;
-  const int nt = kMulti ? a.NT : 1;
-  const int tpad = kMulti ? a.TPAD : TP;
-  const int wt = kMulti ? (int)blockIdx.z : 0, t0 = wt * TP;
-  const BwdSmem s = carve(smem, D);
-  const int i = blockIdx.x, split = blockIdx.y;
-  const int b0 = (int)((long long)a.Bi * split / n_split);
-  const int b1 = (int)((long long)a.Bi * (split + 1) / n_split);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int row = tid >> 3, q = tid & 7;  // the row step: 8 threads a row
-  const int n_df = D / 16, tf = warp & 1;
-  const int cap = a.cap[i];
-  const int cld = D + 8;
-  const bf16* words = a.words + (size_t)i * D * tpad;
-
-  if (!kMulti) load_dt(s.ws, words, D);  // complete at the first wait
-
-  // d_words [D, TP]: warp owns column fragment tf, row fragments (warp>>1) + 4j
-  Acc acc[N_ACC];
-#pragma unroll
-  for (int j = 0; j < N_ACC; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  float c2sum = 0.0f;
-
-  for (int b = b0; b < b1; ++b) {
-    const size_t pair = (size_t)b * a.Bt + i;
-    const bf16* ctx = a.ctx + (size_t)b * M * D;
-    for (int m0 = 0; m0 < M; m0 += MTB) {
-      if (m0 == 0) {
-        if (!kMulti) load_dt(s.dws, dwei + pair * D * TP, D);
-        for (int v = tid; v < N_VECS * tpad; v += THREADS)
-          s.vec[v] = vecs[pair * N_VECS * tpad + v];
-      }
-      load_ctx_tile(s.cs, ctx, m0, MTB, M, D);
-      float a2[4], dsc[4];
-      if constexpr (!kMulti) {
-        cp_async_wait_sync();
-        if (m0 == 0 && tid < TP) c2sum += s.vec[V_C2 * TP + tid];
-        tile_products(s, D);
-        __syncthreads();
-        row_cotangents(a, s, row, q, m0 + row < M, cap, a2, dsc);
-      } else {
-        float v[MAX_NT][4], d[MAX_NT][4];
-        for (int w = 0; w < nt; ++w) {  // scores and d_a2 of every word tile
-          load_dt(s.ws, words + w * TP, D, tpad);
-          load_dt(s.dws, dwei + pair * D * tpad + w * TP, D, tpad);
-          cp_async_wait_sync();
-          if (w == 0 && m0 == 0 && tid < TP) c2sum += s.vec[V_C2 * tpad + t0 + tid];
-          tile_products(s, D);
-          __syncthreads();
-          sum_parts(s.sc, PARTS, row, q, v[w]);
-          sum_parts(s.da, PARTS, row, q, d[w]);
-          __syncthreads();
-        }
-        row_cotangents_tiles(a, s.vec, v, d, wt, q, m0 + row < M, cap, a2, dsc);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = 4 * q + j;
-        const float x = s.vec[V_DNUM * tpad + t0 + t] * a2[j];
-        const bf16 hi = __float2bfloat16_rn(x);
-        s.op[row * OLD3 + t] = __float2bfloat16_rn(dsc[j]);
-        s.op[row * OLD3 + TP + t] = hi;
-        s.op[row * OLD3 + 2 * TP + t] = __float2bfloat16_rn(x - __bfloat162float(hi));
-      }
-      __syncthreads();
-      // acc += ctx_tileᵀ · (bf16(d_scores) + hi + lo)
-#pragma unroll
-      for (int k = 0; k < MTB; k += 16) {
-        FragB f0, f1, f2;
-        wmma::load_matrix_sync(f0, s.op + k * OLD3 + tf * 16, OLD3);
-        wmma::load_matrix_sync(f1, s.op + k * OLD3 + TP + tf * 16, OLD3);
-        wmma::load_matrix_sync(f2, s.op + k * OLD3 + 2 * TP + tf * 16, OLD3);
-#pragma unroll
-        for (int g = 0; g < N_ACC; g += N_ACC / 3) {
-          FragAT fa[N_ACC / 3];
-#pragma unroll
-          for (int u = 0; u < N_ACC / 3; ++u) {
-            const int df = min((warp >> 1) + 4 * (g + u), n_df - 1);
-            wmma::load_matrix_sync(fa[u], s.cs + k * cld + df * 16, cld);
-          }
-#pragma unroll
-          for (int u = 0; u < N_ACC / 3; ++u) wmma::mma_sync(acc[g + u], fa[u], f0, acc[g + u]);
-#pragma unroll
-          for (int u = 0; u < N_ACC / 3; ++u) wmma::mma_sync(acc[g + u], fa[u], f1, acc[g + u]);
-#pragma unroll
-          for (int u = 0; u < N_ACC / 3; ++u) wmma::mma_sync(acc[g + u], fa[u], f2, acc[g + u]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  float* out = part + ((size_t)split * a.Bt + i) * D * tpad + t0;
-#pragma unroll
-  for (int j = 0; j < N_ACC; ++j) {
-    const int df = (warp >> 1) + 4 * j;
-    if (df < n_df)
-      wmma::store_matrix_sync(out + df * 16 * tpad + tf * 16, acc[j], tpad, wmma::mem_row_major);
-  }
-  if (tid < TP) c2part[((size_t)split * a.Bt + i) * tpad + t0 + tid] = c2sum;
-}
-
-// d_words [Bt, D, T] = Σ_split part + (Σ_split c2)·w, in split order
-__global__ void dwords_reduce_kernel(const float* __restrict__ part,
-                                     const float* __restrict__ c2part,
-                                     const bf16* __restrict__ words, float* __restrict__ dw,
-                                     int Bt, int D, int T, int tpad, int n_split) {
-  const long long n = (long long)Bt * D * T;
-  for (long long v = blockIdx.x * (long long)blockDim.x + threadIdx.x; v < n;
-       v += (long long)gridDim.x * blockDim.x) {
-    const int t = (int)(v % T);
-    const long long id = v / T;
-    const int d = (int)(id % D), i = (int)(id / D);
-    float sum = 0.0f, c2 = 0.0f;
-    for (int sp = 0; sp < n_split; ++sp) {
-      sum += part[(((size_t)sp * Bt + i) * D + d) * tpad + t];
-      c2 += c2part[((size_t)sp * Bt + i) * tpad + t];
-    }
-    dw[v] = sum + c2 * __bfloat162float(words[((size_t)i * D + d) * tpad + t]);
-  }
-}
-
-template <bool kMulti>
-static int launch_dwords(const GloriaArgs& a, const bf16* dwei, const float* vecs, float* part,
-                         float* c2part, int n_split, cudaStream_t st) {
-  const int smem = bwd_smem_bytes(a.D, a.TPAD);
-  cudaError_t err = cudaFuncSetAttribute(dwords_kernel<kMulti>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dwords_kernel<kMulti><<<dim3(a.Bt, n_split, a.NT), THREADS, smem, st>>>(a, dwei, vecs, part,
-                                                                         c2part, n_split);
-  return (int)cudaGetLastError();
-}
-
 extern "C" {
 
-// K4a: d_ctx [Bi, M, D] f32 from the prologue's scratch, through
-// z [chunk, M, Bt·2·TPAD] bf16 (scratch), chunk images at a time. Returns
-// a cudaError_t: 0 when the launches were accepted.
-int medmoe_gloria_dctx(const void* ctx, const void* words, const void* cap, int Bi, int Bt,
-                       int M, int D, int T, float temp1, const void* dwei, const void* vecs,
-                       void* z, int chunk, void* dctx, void* stream) {
-  if (!shapes_ok(Bi, Bt, M, D, T) || chunk < 1 || chunk > 65535)
+// K4a and K4b from the prologue's scratch, through z [chunk, M, Bt·2·TPAD]
+// bf16 (scratch), chunk images at a time: d_ctx [Bi, M, D] f32 when dctx
+// is given; d_words [Bt, D, T] f32 when dw is given, with wsum [Bt, D,
+// TPAD] and c2sum [Bt, TPAD] as the prologue left them (wsum is summed
+// into). Returns a cudaError_t: 0 when the launches were accepted.
+int medmoe_gloria_cotangents(const void* ctx, const void* words, const void* cap, int Bi, int Bt,
+                             int M, int D, int T, float temp1, const void* dwei, const void* vecs,
+                             void* z, int chunk, void* dctx, void* wsum, const void* c2sum,
+                             void* dw, void* stream) {
+  if (!shapes_ok(Bi, Bt, M, D, T) || chunk < 1 || chunk > 65535 ||
+      (dctx == nullptr && dw == nullptr) ||
+      (dw != nullptr && (wsum == nullptr || c2sum == nullptr)))
     return (int)cudaErrorInvalidValue;
   const GloriaArgs a = make_args(ctx, words, cap, Bi, Bt, M, D, T, temp1, 0.0f, 0.0f);
-  const bf16* dw = static_cast<const bf16*>(dwei);
+  const bf16* dq = static_cast<const bf16*>(dwei);
   const float* vv = static_cast<const float*>(vecs);
   bf16* zz = static_cast<bf16*>(z);
-  float* out = static_cast<float*>(dctx);
+  float* dc = static_cast<float*>(dctx);
+  float* ws = static_cast<float*>(wsum);
+  const float* c2 = static_cast<const float*>(c2sum);
+  float* out = static_cast<float*>(dw);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (a.NT) {
-    case 1: return launch_dctx<1>(a, dw, vv, zz, chunk, out, st);
-    case 2: return launch_dctx<2>(a, dw, vv, zz, chunk, out, st);
-    case 3: return launch_dctx<3>(a, dw, vv, zz, chunk, out, st);
-    default: return launch_dctx<4>(a, dw, vv, zz, chunk, out, st);
+    case 1: return launch_cotangents<1>(a, dq, vv, zz, chunk, dc, ws, c2, out, st);
+    case 2: return launch_cotangents<2>(a, dq, vv, zz, chunk, dc, ws, c2, out, st);
+    case 3: return launch_cotangents<3>(a, dq, vv, zz, chunk, dc, ws, c2, out, st);
+    default: return launch_cotangents<4>(a, dq, vv, zz, chunk, dc, ws, c2, out, st);
   }
-}
-
-// K4b: d_words [Bt, D, T] f32, through the partial sums part
-// [n_split, Bt, D, TPAD] and c2part [n_split, Bt, TPAD] (scratch).
-int medmoe_gloria_dwords(const void* ctx, const void* words, const void* cap, int Bi, int Bt,
-                         int M, int D, int T, float temp1, const void* dwei, const void* vecs,
-                         void* part, void* c2part, int n_split, void* dw, void* stream) {
-  if (!shapes_ok(Bi, Bt, M, D, T) || n_split < 1 || n_split > Bi || n_split > 65535)
-    return (int)cudaErrorInvalidValue;
-  const GloriaArgs a = make_args(ctx, words, cap, Bi, Bt, M, D, T, temp1, 0.0f, 0.0f);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* dwq = static_cast<const bf16*>(dwei);
-  const float* vv = static_cast<const float*>(vecs);
-  float* pp = static_cast<float*>(part);
-  float* cp = static_cast<float*>(c2part);
-  const int rc = a.NT == 1 ? launch_dwords<false>(a, dwq, vv, pp, cp, n_split, st)
-                           : launch_dwords<true>(a, dwq, vv, pp, cp, n_split, st);
-  if (rc != 0) return rc;
-  const long long n = (long long)Bt * D * T;
-  const int blocks = (int)((n + THREADS - 1) / THREADS < 65535 ? (n + THREADS - 1) / THREADS
-                                                                 : 65535);
-  dwords_reduce_kernel<<<blocks, THREADS, 0, st>>>(
-      pp, cp, static_cast<const bf16*>(words), static_cast<float*>(dw), Bt, D, T, a.TPAD,
-      n_split);
-  return (int)cudaGetLastError();
 }
 
 const char* medmoe_cuda_error_string(int code) {

@@ -95,8 +95,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "expert_fusion":
         arr_p, arr_i = ctypes.POINTER(vp), ctypes.POINTER(i)
         lib.medmoe_expert_fusion_fwd.argtypes = [
-            i, arr_p, arr_p, arr_p, arr_p, arr_i, arr_i,
-            vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+            i, arr_p, arr_p, arr_p, arr_p, arr_p, arr_i, arr_i,
+            vp, vp, vp, vp, vp, i, vp, i, i, i, i, i, vp]
         lib.medmoe_expert_fusion_fwd.restype = i
         lib.medmoe_expert_fusion_proj.argtypes = [
             i, arr_p, arr_p, arr_p, arr_p, arr_i, arr_i, vp, i, i, i, vp]
@@ -113,13 +113,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.medmoe_gloria_sim.argtypes = shape + [vp, vp, vp, i, vp, vp]
         lib.medmoe_gloria_sim.restype = i
         lib.medmoe_gloria_pair_cotangents.argtypes = (
-            shape + [vp, vp, vp, vp, vp, i, vp, vp, vp])
+            shape + [vp, vp, vp, vp, vp, i, vp, vp, vp, vp, vp])
         lib.medmoe_gloria_pair_cotangents.restype = i
     elif name == "gloria_attention_bwd":
         shape = [vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp, vp]
-        lib.medmoe_gloria_dctx.argtypes = shape + [vp, i, vp, vp]
-        lib.medmoe_gloria_dctx.restype = i
-        lib.medmoe_gloria_dwords.argtypes = shape + [vp, vp, i, vp, vp]
-        lib.medmoe_gloria_dwords.restype = i
+        lib.medmoe_gloria_cotangents.argtypes = shape + [vp, i, vp, vp, vp,
+                                                         vp, vp]
+        lib.medmoe_gloria_cotangents.restype = i
     lib.medmoe_cuda_error_string.argtypes = [i]
     lib.medmoe_cuda_error_string.restype = ctypes.c_char_p

@@ -12,30 +12,32 @@ Biases round through bf16 before they are added in f32. ``attn_b2`` adds
 one constant to every scale's logit and cancels in the softmax, so the
 kernel skips it.
 
-Kernel note. ``csrc/expert_fusion.cu`` replaces the Pallas TPU kernel
-``_fwd_kernel`` driven by ``_fwd_pallas`` in
+Kernel note. ``csrc/expert_fusion.cu`` (K1) replaces the Pallas TPU
+kernel ``_fwd_kernel`` driven by ``_fwd_pallas`` in
 medmoe_tpu/ops/pallas/expert_fusion.py. On the H100 it is bound by
 operations: at B=32 and flagship shapes it does ≈265 GFLOP (≈0.87 GFLOP
 of projections and ≈7.4 GFLOP of attention MLP per sample) against ≈344
 MB of traffic, ≈0.27 ms of bf16 tensor-core time against ≈0.10 ms of
-memory time. The design puts the attention MLP — 90% of the operations —
-on the tensor cores (WMMA bf16 tiles, f32 accumulators) and keeps its
-[P, H] activations out of device memory:
+memory time. It runs four passes over chunks of images
+(``fwd_image_chunk``: as many as fit in the scratch budget, 80 flagship
+images), the attention MLP — 90% of the operations — on the GEMM core of
+``csrc/gemm_core.cuh``:
 
-  1. a projection launch writes h_s for every scale to a bf16 scratch
-     buffer [B, P_s, E] (≈205 MB at B=32), which the wrapper allocates;
-  2. an attention launch runs one block per (sample, 64-row tile of P):
-     for each scale it lerps the tile's u rows from h_s into shared memory
-     (the TPU kernel's dense interpolation matrix existed only because
-     Mosaic cannot gather), multiplies them by W1[e] streamed through
-     shared memory in 32-row chunks, and folds relu(·+b1)·w2 into the
-     logits without storing a; it then takes the softmax over scales,
-     recomputes the u rows and writes ``out`` once.
+  1. a projection pass writes h_s for every scale to a bf16 scratch;
+  2. a streaming pass writes u_s = bf16(lerp(h_s)) for each scale with
+     P_s < P (the TPU kernel's dense interpolation matrix existed only
+     because Mosaic cannot gather);
+  3. a product u_s·W1 per scale whose epilogue folds bf16(relu(·+b1))·w2
+     into each 128-wide tile's partial logits, never storing a_s;
+  4. a streaming pass sums the partial logits in tile order, takes the
+     softmax over scales and writes ``out`` = Σ_s att_s·u_s once.
 
-Each block reads expert_idx[b] itself and offsets its weight pointers,
-in place of the TPU kernel's scalar-prefetch index maps. A shared-memory
-block holds one [64, E] tile, never a whole [P, E] map (the TPU kernel
-kept every map of a sample in 100 MiB of VMEM).
+Passes 2 and 3 are the backward's first two passes without d_att and a_s
+(``csrc/expert_fusion_passes.cuh``), so K2 differentiates the forward K1
+took. Each block reads expert_idx[b] itself and offsets its weight
+pointers, in place of the TPU kernel's scalar-prefetch index maps; no
+block holds a whole [P, E] map (the TPU kernel kept every map of a sample
+in 100 MiB of VMEM).
 
 The backward (K2, ``csrc/expert_fusion_bwd.cu``) replaces the Pallas
 ``_bwd_kernel`` driven by ``_bwd_pallas``. ``expert_fusion_gather_bwd``
@@ -87,13 +89,13 @@ from medmoe_torch.ops._scratch import images_in_budget
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-MAX_SCALES = 4          # csrc/expert_fusion.cu MAX_SCALES
-MAX_HIDDEN = 384        # K1: 8 warps × 16 columns × MAX_NF fragments
-_SMEM_LIMIT = 232448    # bytes of shared memory a block may use (H100)
-# csrc/expert_fusion_bwd.cu's tiles that size K2's partial sums (its C entry
-# rejects scratch that holds fewer): the products' 128-wide tiles, the row
-# step's ROW_TM rows of P and the transposed upsample's T_ROWS source rows
-_BWD_TM, _BWD_ROW_TM, _BWD_T_ROWS = 128, 64, 8
+MAX_SCALES = 4          # csrc/expert_fusion_passes.cuh MAX_SCALES
+MAX_HIDDEN = 2048       # K2's row step: a thread for each 8 columns of H
+# the tiles that size the kernels' partial sums (their C entries reject
+# scratch that holds fewer): the products' 128-wide tiles (K1's and K2's
+# partial logits), K2's row step's ROW_TM rows of P and its transposed
+# upsample's T_ROWS source rows
+_TM, _BWD_ROW_TM, _BWD_T_ROWS = 128, 64, 8
 
 
 def expert_fusion_supported(p_list: Sequence[int], p_max: int) -> bool:
@@ -110,35 +112,23 @@ def use_fused_expert(p_list: Sequence[int], p_max: int,
     return dtype == torch.bfloat16 and expert_fusion_supported(p_list, p_max)
 
 
-def _attn_smem_bytes(e: int, h: int) -> int:
-    """Dynamic shared memory of the attention launch (mirrors the .cu)."""
-    def up(n):
-        return (n + 127) // 128 * 128
-
-    tile = up(max(64 * (e + 8) * 2, 64 * (h + 4) * 4))
-    w1 = up(2 * 32 * (h + 8) * 2)
-    return tile + w1 + MAX_SCALES * 64 * 4
-
-
 def check_kernel_limits(e: int, h: int, d_list: Sequence[int]) -> None:
     """Raise ValueError unless the expert-branch kernels K1 (forward) and
     K2 (backward) both take expert width E, attention hidden width H and
-    pyramid widths D_s: 1..4 scales, D_s % 8 == 0, E % 32 == 0 and
-    H % 16 == 0 with H <= 384 (K1's attention tile; K2 takes E % 8 and
-    H % 8), and K1's attention tile within a block's shared memory.
-    Shapes only, so a trainer calls it before the first step and K1's
-    wrapper before its launch: a forward that K2 cannot differentiate
-    never starts."""
+    pyramid widths D_s: 1..4 scales, D_s % 8 == 0 (16-byte rows of x),
+    E % 32 == 0 (K1's projection pass; K2 takes E % 8), H % 8 == 0 (16-byte
+    rows of a_s and W1) and 8 <= H <= 2048 (K2's row step takes a thread for
+    each 8 columns of H). Shapes only, so a trainer calls it before the
+    first step and K1's wrapper before its launch: a forward that K2 cannot
+    differentiate never starts."""
     d_list = list(d_list)
     if not 1 <= len(d_list) <= MAX_SCALES or any(d % 8 for d in d_list):
         raise ValueError(f"the expert-branch kernels take 1..{MAX_SCALES} "
                          f"pyramid widths, each a multiple of 8; got {d_list}")
-    if e % 32 or h % 16 or h > MAX_HIDDEN:
+    if e % 32 or h % 8 or not 8 <= h <= MAX_HIDDEN:
         raise ValueError(f"the expert-branch kernels take E % 32 == 0 and "
-                         f"H % 16 == 0 with H <= {MAX_HIDDEN}; got E={e}, "
+                         f"H % 8 == 0 with 8 <= H <= {MAX_HIDDEN}; got E={e}, "
                          f"H={h}")
-    if _attn_smem_bytes(e, h) > _SMEM_LIMIT:
-        raise ValueError(f"E={e} needs more shared memory than a block has")
 
 
 def _check(xs, wp, bp, w1, b1, w2, b2, expert_idx) -> Tuple[int, ...]:
@@ -207,9 +197,9 @@ def expert_fusion_gather(xs: Sequence[torch.Tensor],
     bf16) + stacked float32 expert parameters + per-sample expert ids
     → fused [B, P, E] float32 map.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
-    version. A CUDA sample whose expert id is out of range gets a NaN
-    output row block instead of a host sync to check the ids."""
+    CUDA tensors launch the kernel over chunks of images (or raise); CPU
+    tensors run the plain version. A CUDA sample whose expert id is out of
+    range gets a NaN output instead of a host sync to check the ids."""
     global LAUNCHES
     b, k, e, h, p = _check(xs, wp, bp, w1, b1, w2, b2, expert_idx)
     if expert_idx.device.type == "cpu":
@@ -226,25 +216,37 @@ def expert_fusion_gather(xs: Sequence[torch.Tensor],
     from medmoe_torch.ops import _build
 
     lib = _build.load("expert_fusion")
-    bf = torch.bfloat16
+    dev = xs[0].device
     wp_k, bp_k, w1_k, b1_k, w2_k, idx_k = _kernel_params(
         wp, bp, w1, b1, w2, k, h, expert_idx)
-    hs = [torch.empty((b, x.shape[1], e), dtype=bf, device=x.device)
-          for x in xs]
     n = len(xs)
+    p_s = [x.shape[1] for x in xs]
+    # scratch for one chunk of images (fwd_scratch_bytes; ≈21 MB a flagship
+    # image): h_s, u_s (P_s < P only) and the partial logits
+    nc, _ = fwd_image_chunk(b, p_s, e, h)
+    tiles = -(-h // _TM)
+    hs = [torch.empty((nc, q, e), dtype=torch.bfloat16, device=dev)
+          for q in p_s]
+    us = [torch.empty((nc, p, e), dtype=torch.bfloat16, device=dev)
+          if q != p else None for q in p_s]
+    lpart = torch.empty((nc, n, tiles, p), dtype=torch.float32, device=dev)
     ptrs = ctypes.c_void_p * MAX_SCALES
     ints = ctypes.c_int * MAX_SCALES
 
-    def arr(ts):
-        return ptrs(*[t.data_ptr() for t in ts])
+    def arr(ts, c0=0):            # pointers to image c0 of each tensor
+        return ptrs(*[None if t is None else t[c0:].data_ptr() for t in ts])
 
-    with torch.cuda.device(xs[0].device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.medmoe_expert_fusion_fwd(
-            n, arr(xs), arr(wp_k), arr(bp_k), arr(hs),
-            ints(*[x.shape[1] for x in xs]), ints(*[x.shape[2] for x in xs]),
-            w1_k.data_ptr(), b1_k.data_ptr(), w2_k.data_ptr(),
-            idx_k.data_ptr(), out.data_ptr(), b, k, e, h, p, stream)
+        for c0 in range(0, b, nc):
+            rc = lib.medmoe_expert_fusion_fwd(
+                n, arr(xs, c0), arr(wp_k), arr(bp_k), arr(hs), arr(us),
+                ints(*p_s), ints(*[x.shape[2] for x in xs]),
+                w1_k.data_ptr(), b1_k.data_ptr(), w2_k.data_ptr(),
+                idx_k[c0:].data_ptr(), lpart.data_ptr(), tiles,
+                out[c0:].data_ptr(), min(b, c0 + nc) - c0, k, e, h, p, stream)
+            if rc:
+                break
     if rc != 0:
         raise RuntimeError("expert_fusion kernel launch failed: "
                            + lib.medmoe_cuda_error_string(rc).decode())
@@ -317,9 +319,8 @@ def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
     d_wp[s] [B, D_s, E], d_bp[s] [B, E], d_w1 [B, E, H], d_b1 [B, H],
     d_w2 [B, H] (attn_b2's gradient is exactly zero).
 
-    CUDA tensors run K1's projection launch and K2 (or raise: a shape whose
-    shared memory exceeds a block's fails at launch); CPU tensors run the
-    plain version. A CUDA sample whose expert id is out of range
+    CUDA tensors run K1's projection pass and K2 (or raise); CPU tensors
+    run the plain version. A CUDA sample whose expert id is out of range
     gets NaN in all of its outputs."""
     global BWD_LAUNCHES
     b, k, e, h, p = _check(xs, wp, bp, w1, b1, w2, None, expert_idx)
@@ -421,10 +422,10 @@ def _bwd_parts(p_list: Sequence[int], h: int) -> list:
     128-wide tiles of H (partial logits), then the row step's 64-row tiles
     of P (partial dw2 and db1)."""
     p = max(p_list)
-    dbp = [-(-p // _BWD_TM) if q == p else -(-q // _BWD_T_ROWS)
+    dbp = [-(-p // _TM) if q == p else -(-q // _BWD_T_ROWS)
            for q in p_list]
     return (dbp + [0] * (MAX_SCALES - len(dbp))
-            + [-(-h // _BWD_TM), -(-p // _BWD_ROW_TM)])
+            + [-(-h // _TM), -(-p // _BWD_ROW_TM)])
 
 
 def bwd_scratch_bytes(p_list: Sequence[int], e: int, h: int) -> int:
@@ -440,6 +441,25 @@ def bwd_scratch_bytes(p_list: Sequence[int], e: int, h: int) -> int:
             + s * p * (2 + parts[MAX_SCALES]) * 4
             + parts[MAX_SCALES + 1] * 2 * h * 4
             + sum(parts[:MAX_SCALES]) * e * 4)
+
+
+def fwd_scratch_bytes(p_list: Sequence[int], e: int, h: int) -> int:
+    """Device scratch of K1 for one image (``expert_fusion_gather``): bf16
+    h_s of every scale, bf16 u_s of every scale with P_s < P and the f32
+    partial logits of each scale's 128-wide tiles of H."""
+    p, s = max(p_list), len(p_list)
+    lerped = sum(q != p for q in p_list)
+    return (sum(p_list) * e * 2 + lerped * p * e * 2
+            + s * -(-h // _TM) * p * 4)
+
+
+def fwd_image_chunk(b: int, p_list: Sequence[int], e: int,
+                    h: int) -> Tuple[int, int]:
+    """(images, bytes) of the chunk K1 runs its passes over: as many images
+    as fit in 1.7 GB of scratch, at least one, at most the batch."""
+    per_image = fwd_scratch_bytes(p_list, e, h)
+    images = images_in_budget(b, per_image)
+    return images, images * per_image
 
 
 def bwd_image_chunk(b: int, p_list: Sequence[int], e: int,

@@ -26,13 +26,16 @@ Kernels. ``csrc/gloria_attention.cu`` replaces ``_sim_kernel`` (K3) and
 holds the backward's prologue, the forward chain again with the
 cotangents down to bf16(d_wei) per pair: both run two products on the
 GEMM core of ``csrc/gemm_core.cuh`` (F1: scores and e; F2: wei) and a
-finishing kernel (F3). ``csrc/gloria_attention_bwd.cu`` replaces
-``_dctx_kernel`` (K4a, two passes on the same core) and ``_dwords_kernel``
-(K4b). Their design notes are in the sources. F1/F2's bf16 hi and lo of e
-and K4a's bf16 [a2 | d_scores] live in chunks of images (``image_chunk``:
-16 images, 1.6 GB at flagship); between the prologue and K4a/K4b the
+finishing kernel (F3); for d_words the prologue also sums K4b's f32 terms
+Σ_b dnum·wei and Σ_b c2 from F2's wei. ``csrc/gloria_attention_bwd.cu``
+replaces ``_dctx_kernel`` (K4a) and ``_dwords_kernel`` (K4b): one C entry
+runs, per chunk of images, the pass that writes Z = [bf16(a2) |
+bf16(d_scores)] once, then K4a's product over Z and K4b's product
+ctxᵀ·Zds on the same core. Their design notes are in the sources. F1/F2's
+bf16 hi and lo of e and Z live in chunks of images (``image_chunk``: 16
+images, 1.6 GB at flagship); between the prologue and K4a/K4b the
 per-pair cotangents live in device memory (``backward_scratch_bytes``:
-5.4 GB at B=256, D=768, T <= 32, the prologue's chunk included). Not
+5.3 GB at B=256, D=768, T <= 32, the prologue's chunk included). Not
 ported: the TPU kernel's lane packing, ``_segment_max``, the indicator
 matmuls and the ``shard_map`` wrapper (Mosaic and SPMD devices), and its
 environment switches.
@@ -181,19 +184,15 @@ def _pass_scratch(b_img: int, b_txt: int, m: int, d: int, t: int,
 def backward_scratch_bytes(b_img: int, b_txt: int, m: int, d: int,
                            t: int = WORD_TILE) -> int:
     """Device scratch of one kernel backward: bf16(d_wei) and the per-word
-    vectors per pair, K4b's partial sums, and the prologue's passes over
-    one chunk of images (E, partial sums, wei; ``_pass_scratch``). K4a's
-    Z: ``image_chunk``."""
+    vectors per pair, K4b's f32 accumulators (Σ dnum·wei [B_txt, D, TPAD]
+    and Σ c2 [B_txt, TPAD], when d_words is asked for), and the prologue's
+    passes over one chunk of images (E, partial sums, wei;
+    ``_pass_scratch``). Z: ``image_chunk``."""
     pairs, tp = b_img * b_txt, _tpad(t)
     _, shapes = _pass_scratch(b_img, b_txt, m, d, t, wei=True)
     passes = sum(math.prod(s) * dt.itemsize for s, dt in shapes)
     return (pairs * d * tp * 2 + pairs * 4 * tp * 4
-            + _dwords_split(b_img, b_txt) * b_txt * (d + 1) * tp * 4 + passes)
-
-
-def _dwords_split(b_img: int, b_txt: int) -> int:
-    """Shares of the images K4b sums separately (≈1024 blocks)."""
-    return max(1, min(b_img, 1024 // b_txt))
+            + b_txt * (d + 1) * tp * 4 + passes)
 
 
 def _stream():
@@ -308,8 +307,9 @@ def gloria_similarity_backward(img: torch.Tensor, words: torch.Tensor,
     similarity matrix for its cotangent g [B_img, B_txt]; None for an input
     not asked for.
 
-    CUDA tensors run the prologue and K4a (d_img), then K4b (d_words), or
-    raise; CPU tensors run the plain version."""
+    CUDA tensors run the prologue, then K4a (d_img) and K4b (d_words) over
+    one pass that writes Z per chunk of images, or raise; CPU tensors run
+    the plain version."""
     global DCTX_LAUNCHES, DWORDS_LAUNCHES
     bi, bt, d, m, t = _check(img, words, cap_lens, temp1)
     if not isinstance(g, torch.Tensor) or tuple(g.shape) != (bi, bt) \
@@ -320,16 +320,19 @@ def gloria_similarity_backward(img: torch.Tensor, words: torch.Tensor,
                                                temp2, temp3, need_img,
                                                need_words)
     check_kernel_limits(d, t, temp1)
-    pairs = pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3)
+    pairs = pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3,
+                            need_words)
     d_img = d_words = None
+    if not (need_img or need_words):
+        return d_img, d_words
+    d_ctx, d_w = cotangents_of(pairs, need_img, need_words)
     if need_img:
-        d_ctx = dctx_of(pairs)
         DCTX_LAUNCHES += 1
         h, w = img.shape[2:]
         d_img = d_ctx.to(img.dtype).reshape(bi, h, w, d).permute(0, 3, 1, 2)
     if need_words:
-        d_words = dwords_of(pairs).to(words.dtype)
         DWORDS_LAUNCHES += 1
+        d_words = d_w.to(words.dtype)
     return d_img, d_words
 
 
@@ -343,19 +346,22 @@ class PairScratch(NamedTuple):
     temp1: float
     dwei: torch.Tensor         # [B_img·B_txt, D, TPAD] bf16(d_wei)
     vecs: torch.Tensor         # [B_img·B_txt, 4, TPAD] f32
+    wsum: Optional[torch.Tensor]    # [B_txt, D, TPAD] f32 Σ_b dnum·wei (K4b)
+    c2sum: Optional[torch.Tensor]   # [B_txt, TPAD] f32 Σ_b c2 (K4b)
 
     def args(self):
         return (self.ctx.data_ptr(), self.words.data_ptr(),
                 self.caps.data_ptr(), *self.dims, self.temp1)
 
 
-def pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3
-                    ) -> PairScratch:
+def pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3,
+                    need_words: bool = False) -> PairScratch:
     """The backward's prologue on CUDA tensors that passed ``_check`` and
     ``check_kernel_limits``: the forward chain again, down to bf16(d_wei)
-    and the per-word vectors of every pair. ``gloria_similarity_backward``
-    runs it and counts the launches of what follows; ``dctx_of`` and
-    ``dwords_of`` read it."""
+    and the per-word vectors of every pair, and with ``need_words`` K4b's
+    f32 terms Σ_b dnum·wei and Σ_b c2. ``gloria_similarity_backward`` runs
+    it and counts the launches of what follows; ``cotangents_of`` reads
+    it."""
     global PROLOGUE_LAUNCHES
     from medmoe_torch.ops import _build
 
@@ -365,62 +371,61 @@ def pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3
     ctx, words_p, caps = _kernel_inputs(img, words, cap_lens)
     tp = words_p.shape[2]
     g = g.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=img.device)
     p = PairScratch(ctx, words_p, caps, (bi, bt, m, d, t), float(temp1),
                     torch.empty((bi * bt, d, tp), dtype=torch.bfloat16,
                                 device=img.device),
-                    torch.empty((bi * bt, 4, tp), dtype=torch.float32,
-                                device=img.device))
+                    torch.empty((bi * bt, 4, tp), **f32),
+                    torch.empty((bt, d, tp), **f32) if need_words else None,
+                    torch.empty((bt, tp), **f32) if need_words else None)
     chunk, shapes = _pass_scratch(bi, bt, m, d, t, wei=True)
     scratch = [torch.empty(s, dtype=dt, device=img.device) for s, dt in shapes]
     with torch.cuda.device(img.device):
         rc = lib.medmoe_gloria_pair_cotangents(
             *p.args(), float(temp2), float(temp3), g.data_ptr(),
             *(s.data_ptr() for s in scratch), chunk, p.dwei.data_ptr(),
-            p.vecs.data_ptr(), _stream())
+            p.vecs.data_ptr(), _ptr(p.wsum), _ptr(p.c2sum), _stream())
     del scratch
     _raise(lib, rc, "gloria_attention backward prologue")
     PROLOGUE_LAUNCHES += 1
     return p
 
 
-def dctx_of(p: PairScratch) -> torch.Tensor:
-    """K4a: d_ctx [B_img, M, D] float32 from the prologue's scratch, both
-    passes over chunks of images (``image_chunk``)."""
+def cotangents_of(p: PairScratch, need_img: bool = True,
+                  need_words: bool = False
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """K4a and K4b from the prologue's scratch: (d_ctx [B_img, M, D]
+    float32 or None, d_words [B_txt, D, T] float32 or None), over chunks of
+    images (``image_chunk``), each chunk's Z written once for both. d_words
+    needs a prologue run with ``need_words`` and sums into its accumulator:
+    one d_words a prologue."""
     from medmoe_torch.ops import _build
 
+    if need_words and p.wsum is None:
+        raise ValueError("d_words needs the prologue's K4b terms: run "
+                         "pair_cotangents with need_words=True")
     lib = _build.load("gloria_attention_bwd")
     bi, bt, m, d, t = p.dims
     dev = p.ctx.device
-    d_ctx = torch.empty((bi, m, d), dtype=torch.float32, device=dev)
+    d_ctx = torch.empty((bi, m, d), dtype=torch.float32, device=dev) \
+        if need_img else None
+    d_w = torch.empty((bt, d, t), dtype=torch.float32, device=dev) \
+        if need_words else None
     chunk, _ = image_chunk(bi, bt, m, t)
     z = torch.empty((chunk, m, bt * 2 * p.words.shape[2]), dtype=torch.bfloat16,
                     device=dev)
     with torch.cuda.device(dev):
-        rc = lib.medmoe_gloria_dctx(*p.args(), p.dwei.data_ptr(),
-                                    p.vecs.data_ptr(), z.data_ptr(), chunk,
-                                    d_ctx.data_ptr(), _stream())
-    _raise(lib, rc, "gloria_attention_bwd d_ctx (K4a)")
-    return d_ctx
+        rc = lib.medmoe_gloria_cotangents(
+            *p.args(), p.dwei.data_ptr(), p.vecs.data_ptr(), z.data_ptr(),
+            chunk, _ptr(d_ctx), _ptr(p.wsum if need_words else None),
+            _ptr(p.c2sum if need_words else None), _ptr(d_w), _stream())
+    _raise(lib, rc, "gloria_attention_bwd (K4a/K4b)")
+    return d_ctx, d_w
 
 
-def dwords_of(p: PairScratch) -> torch.Tensor:
-    """K4b: d_words [B_txt, D, T] float32 from the prologue's scratch."""
-    from medmoe_torch.ops import _build
-
-    lib = _build.load("gloria_attention_bwd")
-    bi, bt, m, d, t = p.dims
-    dev = p.ctx.device
-    tp = p.words.shape[2]
-    n_split = _dwords_split(bi, bt)
-    part = torch.empty((n_split, bt, d, tp), dtype=torch.float32, device=dev)
-    c2part = torch.empty((n_split, bt, tp), dtype=torch.float32, device=dev)
-    dw = torch.empty((bt, d, t), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.medmoe_gloria_dwords(
-            *p.args(), p.dwei.data_ptr(), p.vecs.data_ptr(), part.data_ptr(),
-            c2part.data_ptr(), n_split, dw.data_ptr(), _stream())
-    _raise(lib, rc, "gloria_attention_bwd d_words (K4b)")
-    return dw
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device address, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def gloria_similarity_bwd_reference(img: torch.Tensor, words: torch.Tensor,
@@ -485,9 +490,9 @@ class GloriaSimilarity(torch.autograd.Function):
     """``GloriaSimilarity.apply(img_features, words_emb, cap_lens, temp1,
     temp2, temp3)`` → [B_img, B_txt] float32, with its gradient.
 
-    CUDA: forward is K3; backward is the prologue and K4a, then K4b only
+    CUDA: forward is K3; backward is the prologue and K4a, and K4b only
     when ``words_emb`` needs a gradient (with BERT frozen and no text
-    projection it feeds nothing, and it would cost as much as K3). CPU:
+    projection it feeds nothing). CPU:
     the plain versions, which skip d_words under the same condition. Only
     the inputs are saved: the backward recomputes the rest."""
 

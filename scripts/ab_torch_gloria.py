@@ -1,6 +1,6 @@
 """A/B of the port's kernels between checkouts, on one CUDA card.
 
-    python3 scripts/ab_torch_gloria.py [--k2 | --step] DIR [DIR ...]
+    python3 scripts/ab_torch_gloria.py [--k1 | --k2 | --step] DIR [DIR ...]
 
 In each checkout, in the order given (parent, change, change, parent, to
 cancel drift), and in a process of its own that builds that checkout's
@@ -10,16 +10,25 @@ kernels:
   flagship shapes with captions of 25 words (every GLoRIA kernel against
   its plain version, and the times of both), then K3 and the backward's
   prologue alone timed at B=256 flagship with captions of 40 words, then
-  a digest of the bits of K3, the prologue and K4a on fixed inputs (made
-  with numpy), which must be the same in every checkout: the check that a
-  change to the shared GEMM core left those kernels' results alone;
+  the backward of the image's cotangent alone (the prologue + K4a) and of
+  both cotangents (the prologue + K4a + K4b; the difference is K4b alone)
+  timed at captions of 25 and 40 words, then a digest of the bits of K3,
+  the prologue and K4a on fixed inputs (made with numpy), which must be
+  the same in every checkout: the check that a change to the shared GEMM
+  core left those kernels' results alone;
+- with ``--k1``, the expert-branch forward leg: ``chip_smoke.phase_k1``
+  (K1 against its plain version at B=32 flagship and on odd shapes), then
+  K1 timed at B=32 and B=256 flagship with the peak device memory of each
+  call;
 - with ``--k2``, the expert-branch backward leg: ``chip_smoke.phase_k2``
   (K2 against its plain version at B=32 flagship and on odd shapes, and
   the times of both), then K2 timed at B=256 flagship (a gloria256 step's
   shape) with the peak device memory of that call;
 - with ``--step``, the end-to-end leg: ``chip_smoke.phase_gloria_train``,
   two gloria256 optimizer steps of 256 pairs at full width through the
-  train CLI, then one warm step timed, with the peak device memory.
+  train CLI, then one warm step timed, with the peak device memory; then
+  ``chip_smoke.phase_text_train``, the same with BERT training (the path
+  that runs K4b), one step and one warm step timed.
 
 Prints the card's name and power limit first; exits non-zero when a
 checkout's run fails or the GLoRIA digests differ.
@@ -59,6 +68,20 @@ pro = c.cuda_ms(lambda: ga.pair_cotangents(img, words, cap, cot, *temps),
 print(f"ab T=40: K3 {k3:.4f} ms, the backward's prologue alone {pro:.4f} ms "
       f"on {card}", flush=True)
 del img, words, cap, cot
+for t in (25, 40):
+    img, words, cap, cot = c.gloria_inputs(torch, 256, 256, 768, 56, 56, t,
+                                           seed=24)
+    ms = [c.cuda_ms(lambda: ga.gloria_similarity_backward(
+              img, words, cap, cot, *temps, need_words=need_words),
+              iters=2, warmup=1)
+          for need_words in (False, True)]
+    print(f"ab T={t}: prologue + K4a {ms[0]:.4f} ms, prologue + K4a + K4b "
+          f"{ms[1]:.4f} ms, K4b alone {ms[1] - ms[0]:.4f} ms on {card}",
+          flush=True)
+    del img, words, cap, cot
+    torch.cuda.empty_cache()
+# K4a alone: cotangents_of, or dctx_of in checkouts that predate it
+k4a = getattr(ga, "cotangents_of", None) or (lambda p: (ga.dctx_of(p),))
 for shape in ((3, 5, 48, 12, 11, 40), (2, 3, 768, 56, 56, 25)):
     b_img, b_txt, d, h, w, t = shape
     rng = np.random.RandomState(0)
@@ -70,7 +93,7 @@ for shape in ((3, 5, 48, 12, 11, 40), (2, 3, 768, 56, 56, 25)):
     cap, cot = cap.cuda(), cot.cuda()
     sim = ga.gloria_similarity_forward(img, words, cap, *temps)
     pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
-    dctx = ga.dctx_of(pairs)
+    dctx = k4a(pairs)[0]
     digest = hashlib.sha256()
     for out in (sim, pairs.dwei, pairs.vecs, dctx):
         digest.update(out.float().cpu().numpy().tobytes())
@@ -99,11 +122,33 @@ print(f"ab B=256: K2 {ms:.4f} ms (bound {bound:.4f} ms), peak memory of "
 '''
 
 
-STEP = PRELUDE + r'''
-c.phase_gloria_train(torch, card)
+K1 = PRELUDE + r'''
+from medmoe_torch.ops import expert_fusion as ef
+
+c.phase_k1(torch, ef)
+for b in (32, 256):
+    args = c.k1_inputs(torch, b=b, p_list=(3136, 784, 196, 49),
+                       d_list=(96, 192, 384, 768), e=768, h=384, k=6,
+                       seed=17)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = c.cuda_ms(lambda: ef.expert_fusion_gather(*args),
+                   iters=20 if b == 32 else 5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops, nbytes = c.k1_work(args)
+    bound = max(flops / c.PEAK_BF16_FLOPS, nbytes / c.PEAK_BYTES) * 1e3
+    print(f"ab B={b}: K1 {ms:.4f} ms (bound {bound:.4f} ms), peak memory of "
+          f"the call {peak:.2f} GB on {card}", flush=True)
+    del args
+    torch.cuda.empty_cache()
 '''
 
-LEGS = {"--k2": K2, "--step": STEP}
+STEP = PRELUDE + r'''
+c.phase_gloria_train(torch, card)
+c.phase_text_train(torch, card)
+'''
+
+LEGS = {"--k1": K1, "--k2": K2, "--step": STEP}
 
 
 def main() -> int:

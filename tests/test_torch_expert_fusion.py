@@ -216,9 +216,9 @@ def _bad_expert_id(a):
 
 def _hidden_too_wide(a):
     k, e, _ = a[3].shape
-    a[3] = torch.zeros(k, e, 400)
-    a[4] = torch.zeros(k, 400)
-    a[5] = torch.zeros(k, 400, 1)
+    a[3] = torch.zeros(k, e, 2056)
+    a[4] = torch.zeros(k, 2056)
+    a[5] = torch.zeros(k, 2056, 1)
 
 
 def _non_contiguous(a):
@@ -251,5 +251,88 @@ class TestWrapperContract:
         with pytest.raises(exc):
             ef.expert_fusion_gather(*a)
 
-    def test_smem_mirror_fits_flagship(self):
-        assert ef._attn_smem_bytes(768, 384) == 150528 <= ef._SMEM_LIMIT
+    def test_forward_scratch_fits_flagship(self):
+        # h_s, u_s of the three lerped scales and 4 × 3 partial-logit tiles
+        # an image; a serving wave of 32 is one chunk, B=256 four
+        assert ef.fwd_scratch_bytes((3136, 784, 196, 49), 768, 384) == \
+            4165 * 768 * 2 + 3 * 3136 * 768 * 2 + 4 * 3 * 3136 * 4
+        assert ef.fwd_image_chunk(32, (3136, 784, 196, 49), 768, 384)[0] == 32
+        assert ef.fwd_image_chunk(256, (3136, 784, 196, 49), 768, 384)[0] == 80
+
+
+def _staged_forward(xs, wp, bp, w1, b1, w2, idx, tile=128):
+    """The staging of csrc/expert_fusion.cu's passes in torch ops, f32 sums
+    of bf16 values: h_s and u_s as the plain version rounds them; per scale
+    the attention MLP's 128-wide tiles of H, each tile's partial logit the
+    sum of its two 64-column halves (two threads a row), the tiles summed
+    in order; att = bf16(softmax over scales); out = Σ_s att_s·u_s in scale
+    order. attn_b2 cancels in the softmax and is left out, as the kernel
+    leaves it out."""
+    bf = torch.bfloat16
+    ix = idx.long()
+    p_max = max(x.shape[1] for x in xs)
+
+    def sel(param):
+        return param[ix].to(bf).float()
+
+    w1s, b1s, w2s = sel(w1), sel(b1), sel(w2)[..., 0]
+    h_dim = w1s.shape[2]
+    us, logits = [], []
+    for s, x in enumerate(xs):
+        h = torch.relu(torch.bmm(x.to(bf).float(), sel(wp[s]))
+                       + sel(bp[s])[:, None, :]).to(bf)
+        u = tmoe.interp_patches(h, p_max, dim=1).float()
+        logit = torch.zeros(u.shape[:2])
+        for n0 in range(0, h_dim, tile):
+            part = torch.zeros(u.shape[:2])
+            for c0 in range(n0, min(n0 + tile, h_dim), tile // 2):
+                c1 = min(c0 + tile // 2, h_dim)
+                a = torch.relu(torch.bmm(u, w1s[:, :, c0:c1])
+                               + b1s[:, None, c0:c1]).to(bf).float()
+                part = part + (a * w2s[:, None, c0:c1]).sum(-1)
+            logit = logit + part
+        us.append(u)
+        logits.append(logit)
+    att = torch.softmax(torch.stack(logits, -1), dim=-1).to(bf).float()
+    out = us[0] * att[..., 0:1]
+    for s in range(1, len(us)):
+        out = out + us[s] * att[..., s:s + 1]
+    return out
+
+
+@pytest.mark.parametrize("h", [16, 160, 384])
+def test_staged_forward_matches_plain_version_and_jax(h):
+    """The kernel's decomposition of the forward (partial logits over
+    128-wide tiles of H, summed in tile order, then the combine) against
+    the plain version and the JAX ``_fwd_kernel`` in interpret mode, at H =
+    16 (one ragged tile), 160 (two, the second ragged) and 384 (three), in
+    bf16 at the JAX package's fused-vs-XLA tolerance (LOOSE)."""
+    rng = np.random.RandomState(h)
+    e = 64
+    pyramid = [rng.randn(B, p, d).astype(np.float32)
+               for p, d in zip(P_LIST, D_LIST)]
+    idx = np.array([0, 1, 2, 2, 1, 0], np.int32)
+    params = {}
+    for s, d in enumerate(D_LIST):
+        params[f"proj_w{s}"] = (rng.randn(K, d, e) / np.sqrt(d)).astype(np.float32)
+        params[f"proj_b{s}"] = (0.1 * rng.randn(K, e)).astype(np.float32)
+    params.update(
+        attn_w1=(rng.randn(K, e, h) / np.sqrt(e)).astype(np.float32),
+        attn_b1=(0.1 * rng.randn(K, h)).astype(np.float32),
+        attn_w2=(rng.randn(K, h, 1) / np.sqrt(h)).astype(np.float32),
+        attn_b2=(0.1 * rng.randn(K, 1)).astype(np.float32))
+    xs, wp, bp, w1, b1, w2, b2, tidx = _torch_args(pyramid, idx, params,
+                                                   torch.bfloat16)
+    got = _staged_forward(xs, wp, bp, w1, b1, w2, tidx)
+    want = ef.expert_fusion_gather_reference(xs, wp, bp, w1, b1, w2, b2, tidx)
+    torch.testing.assert_close(got, want, **LOOSE)
+    jxs = [jnp.asarray(x, jnp.bfloat16) for x in pyramid]
+    with pltpu.force_tpu_interpret_mode():
+        jout = jef._fwd_pallas(
+            jxs, [jnp.asarray(params[f"proj_w{s}"]) for s in range(len(P_LIST))],
+            [jnp.asarray(params[f"proj_b{s}"]) for s in range(len(P_LIST))],
+            jnp.asarray(params["attn_w1"]), jnp.asarray(params["attn_b1"]),
+            jnp.asarray(params["attn_w2"]), jnp.asarray(idx),
+            jef._interp_mats(list(P_LIST), P_LIST[0]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jout, np.float32),
+                               **LOOSE)

@@ -5,8 +5,9 @@ transposed upsample reads: held here exactly against the JAX package's
 dense ``linear_interp_matrix(p_s, p)``, at the pyramid's upsample ratios
 and at ragged ones. ``transposed_lerp`` (its plain version) is held
 against Gᵀ·x at 1e-6 relative (float32 sums in another order).
-``bwd_image_chunk`` sizes the scratch K2 runs its passes over, within the
-budget ``images_in_budget`` shares with the GLoRIA kernels.
+``bwd_image_chunk`` and ``fwd_image_chunk`` size the scratch K2 and K1 run
+their passes over, within the budget ``images_in_budget`` shares with the
+GLoRIA kernels.
 """
 
 import numpy as np
@@ -124,3 +125,23 @@ def test_scratch_of_a_lerped_scale():
     # each), a, the row step's logits and its dbp tiles
     assert two - one == (16 * 64 * 4 + 64 * 64 * 4 + 64 * 32 * 2 + 64 * 3 * 4
                          + 2 * 64 * 4)
+
+
+@pytest.mark.parametrize("b,want", [(32, 32), (256, 80), (81, 80), (1, 1)])
+def test_forward_image_chunk_flagship(b, want):
+    # K1's chunk: ≈21 MB an image, 80 flagship images in 1.7 GB
+    images, nbytes = ef.fwd_image_chunk(b, FLAGSHIP_P, 768, 384)
+    assert images == want
+    assert nbytes == images * ef.fwd_scratch_bytes(FLAGSHIP_P, 768, 384)
+    assert nbytes <= 1.7e9
+
+
+def test_forward_scratch_by_hand():
+    # h of every scale (4165 rows), u of the three lerped scales, the
+    # partial logits of 3 tiles of H = 384 for 4 scales; one scale of P
+    # rows needs no u, and H = 160 two tiles
+    p, e, h = 3136, 768, 384
+    assert ef.fwd_scratch_bytes(FLAGSHIP_P, e, h) == \
+        4165 * e * 2 + 3 * p * e * 2 + 4 * 3 * p * 4 == 20_998_656
+    assert ef.fwd_scratch_bytes((64,), 64, 160) == 64 * 64 * 2 + 2 * 64 * 4
+    assert ef.fwd_image_chunk(4, (400_000, 200_000), 768, 384)[0] == 1

@@ -226,17 +226,17 @@ class TestFunction:
 
     def test_scratch_bytes_at_b256(self):
         # captions of 40 words pad to two tiles of 32: bf16(d_wei) and 4
-        # per-word vectors per pair, K4b's partial sums over 4 shares of the
-        # images, and the prologue's passes over 8 images: E, Σ_m e of 25 M
-        # tiles, 3 sums of 6 D tiles, and wei
+        # per-word vectors per pair, K4b's f32 accumulators (Σ dnum·wei and
+        # Σ c2 per caption), and the prologue's passes over 8 images: E,
+        # Σ_m e of 25 M tiles, 3 sums of 6 D tiles, and wei
         n = 256 * 64
         assert ga.backward_scratch_bytes(256, 256, 3136, 768, 40) == \
-            256 * 256 * (768 * 64 * 2 + 4 * 64 * 4) + 4 * 256 * 769 * 64 * 4 \
+            256 * 256 * (768 * 64 * 2 + 4 * 64 * 4) + 256 * 769 * 64 * 4 \
             + 8 * (2 * n * 3136 * 2 + 25 * n * 4 + 6 * 3 * n * 4
                    + 256 * 768 * 64 * 4)
         # M rounds up to 8 in E; its M tiles and D tiles to 128
         assert ga.backward_scratch_bytes(3, 5, 35, 48, 9) == \
-            15 * (48 * 32 * 2 + 4 * 32 * 4) + 3 * 5 * 49 * 32 * 4 \
+            15 * (48 * 32 * 2 + 4 * 32 * 4) + 5 * 49 * 32 * 4 \
             + 3 * (2 * 160 * 40 * 2 + 160 * 4 + 3 * 160 * 4
                    + 5 * 48 * 32 * 4)
 
@@ -255,7 +255,7 @@ class TestFunction:
         assert images * per_image <= 1.7e9 < (images + 1) * per_image
         n = 256 * tp
         assert ga.backward_scratch_bytes(256, 256, 3136, 768, t) == \
-            256 * 256 * (768 * tp * 2 + 4 * tp * 4) + 4 * 256 * 769 * tp * 4 \
+            256 * 256 * (768 * tp * 2 + 4 * tp * 4) + 256 * 769 * tp * 4 \
             + images * (per_image + 25 * n * 4 + 6 * 3 * n * 4
                         + 256 * 768 * tp * 4)
 
@@ -334,3 +334,71 @@ def test_staged_form_matches_reference_and_jax(t):
                                jnp.asarray(cap), *TEMPS)
     np.testing.assert_allclose(got.numpy(), np.asarray(jax_sim), rtol=1e-4,
                                atol=1e-5)
+
+
+def _staged_dwords(img, words, cap, g, temps, chunk):
+    """The staging of K4b in torch ops, f32 sums of bf16 values: per pair
+    the prologue's dnum, c2 and f32 wei and pass 1's bf16(d_scores) (Z's
+    second half), as the plain version forms them; then d_words = Σ_b
+    dnum·wei (f32 wei, images in order) + Σ over chunks of images of one
+    product ctx_chunkᵀ·bf16(d_scores) [D, B_txt·T] (K = the chunk's images'
+    rows), added in chunk order, + (Σ_b c2)·w."""
+    temp1, temp2, temp3 = temps
+    bf = torch.bfloat16
+    b_img, d, h, w = img.shape
+    ctx, wt = ga._plain_inputs(*_torch(img, words))          # [B, D, M]
+    caps = torch.from_numpy(cap).long()
+    cell = ga._plain_chain(ctx, wt, caps, temp1, temp2)
+    dcos = torch.from_numpy(g).T[..., None] * (temp2 * temp3) * cell["row"] \
+        / cell["rowsum"]
+    den, mask = cell["den"], (cell["den_raw"] > 1e-8).float()
+    dnum = dcos / den                                         # [B_txt, B, T]
+    dden = -dcos * cell["num"] / (den * den) * mask
+    c2 = dden * cell["nwei"] / torch.clamp(cell["nw"], min=1e-20)
+    d_wei = dnum[:, :, None] * cell["w32"] + (
+        dden * cell["nw"] / torch.clamp(cell["nwei"], min=1e-20)
+    )[:, :, None] * cell["wei"]
+    d_a2 = torch.einsum("bdm,cbdt->cbmt", ctx, d_wei.to(bf).float())
+    a1, a2 = cell["a1"], cell["a2"]
+    d_a1 = temp1 * a2 * (d_a2 - torch.sum(a2 * d_a2, dim=2, keepdim=True))
+    ds = (a1 * (d_a1 - torch.sum(a1 * d_a1, dim=-1, keepdim=True))).to(bf) \
+        .float()                                              # [B_txt, B, M, T]
+    b_txt, t = wt.shape[0], wt.shape[2]
+    acc = torch.zeros((b_txt, d, t))
+    c2sum = torch.zeros((b_txt, t))
+    for b in range(b_img):                 # the prologue's f32 terms
+        acc = acc + dnum[:, b, None, :] * cell["wei"][:, b]
+        c2sum = c2sum + c2[:, b]
+    for b0 in range(0, b_img, chunk):      # one product a chunk of images
+        b1 = min(b_img, b0 + chunk)
+        a = ctx[b0:b1].permute(1, 0, 2).reshape(d, -1)        # [D, K]
+        z = ds[:, b0:b1].permute(1, 2, 0, 3).reshape(a.shape[1], -1)
+        acc = acc + (a @ z).reshape(d, b_txt, t).permute(1, 0, 2)
+    return acc + c2sum[:, None, :] * wt
+
+
+@pytest.mark.parametrize("shape,chunks", [
+    ((3, 5, 32, 12, 11, 9), (1, 2, 3)),      # M = 132, B_img != B_txt
+    ((4, 4, 64, 6, 6, 40), (1, 3)),          # captions of 40 words
+])
+def test_staged_dwords_matches_reference_and_jax(shape, chunks):
+    """K4b's decomposition (the f32 Σ dnum·wei and (Σ c2)·w terms apart
+    from one product over Z's bf16(d_scores) a chunk of images) against the
+    plain version, for every chunk size: within 1e-5·max|ref| (only the f32
+    order of the sums over images differs); and against the JAX kernel's
+    d_words in interpret mode within 2e-3·max|ref| (TestAgainstJax's
+    backward tolerance)."""
+    img, words, cap, wgt = _inputs(*shape, seed=9)
+    _, want = ga.gloria_similarity_bwd_reference(*_torch(img, words, cap, wgt),
+                                                 *TEMPS)
+
+    def loss(w_):
+        return jnp.sum(jnp.asarray(wgt) * gloria_similarity_pallas(
+            jnp.asarray(img), w_, jnp.asarray(cap), *TEMPS))
+
+    with pltpu.force_tpu_interpret_mode():
+        jax_words = np.asarray(jax.grad(loss)(jnp.asarray(words)))
+    for chunk in chunks:
+        got = _staged_dwords(img, words, cap, wgt, TEMPS, chunk)
+        _close(got, want, 1e-5)
+        _close(got, jax_words, 2e-3)

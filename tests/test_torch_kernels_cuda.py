@@ -27,11 +27,14 @@ rounding boundary moves its term by one bf16 step. Worst measured on the
 H100 at B=256 flagship and on the odd shapes with the single-pass K4a:
 K3 2.4e-7·max|ref|; d_img 3.2e-3·max|ref| and d_words 3.6e-3·max|ref|,
 with at most 4.6e-4 of the elements beyond 2e-3·max|ref|. Expert-branch
-widths the kernels do not take (E % 32, K1's) raise before K1 launches.
+widths the kernels do not take (``check_kernel_limits``: E % 32, H % 8,
+H <= 2048) raise before K1 launches.
 
-K2 and the GLoRIA kernels sum without atomics, so two calls agree bit for
-bit, and K2 run over chunks of images agrees bit for bit with K2 run over
-the whole batch at once.
+The kernels sum without atomics, so two calls agree bit for bit; K1 and
+K2 run over chunks of images agree bit for bit with one chunk (a sample's
+outputs are its own). K4b sums over images chunk by chunk, so its chunks
+reorder that sum: d_words over other chunk sizes agrees within the
+tolerance above, not bit for bit.
 """
 
 import hashlib
@@ -123,6 +126,63 @@ class TestExpertFusionKernel:
         args = _inputs(dev, 2, (64, 16), (8, 16), 80, 3, [1, 0])
         before = ef.LAUNCHES
         with pytest.raises(ValueError):
+            ef.expert_fusion_gather(*args)
+        assert ef.LAUNCHES == before
+
+    @pytest.mark.parametrize("e,h", [(64, 2056), (64, 36)])
+    def test_hidden_width_the_limits_refuse_raises_before_k1_launches(
+            self, dev, e, h):
+        # H past K2's row step (2048) or not a multiple of 8
+        args = _inputs(dev, 2, (64, 16), (8, 16), e, 3, [1, 0], h=h)
+        before = ef.LAUNCHES
+        with pytest.raises(ValueError):
+            ef.expert_fusion_gather(*args)
+        assert ef.LAUNCHES == before
+
+    @pytest.mark.parametrize("h", [8, 160, 392])
+    def test_matches_plain_version_odd_hidden(self, dev, h):
+        # one, two (the second ragged) and four 128-wide tiles of H
+        args = _inputs(dev, 3, (100, 25), (32, 24), 64, 2, [1, 0, 1], seed=6,
+                       h=h)
+        out = ef.expert_fusion_gather(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ef.expert_fusion_gather_reference(*args),
+                                   **LOOSE)
+
+    def test_chunks_of_images_match_plain_version(self, dev, monkeypatch):
+        # B = 5 over chunks of 2 images (2, 2, 1): the same bits as one
+        # chunk, and the plain version across each chunk boundary
+        args = _inputs(dev, 5, (64, 16, 4), (8, 16, 32), 64, 3,
+                       [2, 0, 1, 1, 0], seed=4)
+        whole = ef.expert_fusion_gather(*args)
+        per_image = ef.fwd_scratch_bytes((64, 16, 4), 64, 32)
+        monkeypatch.setattr(_scratch, "CHUNK_BYTES", 2 * per_image + 1)
+        assert ef.fwd_image_chunk(5, (64, 16, 4), 64, 32)[0] == 2
+        before = ef.LAUNCHES
+        chunked = ef.expert_fusion_gather(*args)
+        torch.cuda.synchronize()
+        assert ef.LAUNCHES == before + 1
+        assert torch.equal(chunked, whole)
+        torch.testing.assert_close(chunked,
+                                   ef.expert_fusion_gather_reference(*args),
+                                   **LOOSE)
+
+    def test_is_the_same_on_every_run(self, dev):
+        args = _inputs(dev, 2, (3136, 784, 196, 49), (96, 192, 384, 768), 768,
+                       6, [5, 2], seed=5, h=384)
+        runs = [ef.expert_fusion_gather(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+
+    def test_undersized_logit_scratch_is_rejected(self, dev, monkeypatch):
+        # the C entry holds the partial-logit scratch against its own
+        # 128-wide tiles of H: sized for 256-wide tiles (one tile at H =
+        # 160, two needed), it raises before any pass runs
+        args = _inputs(dev, 2, (64, 16), (8, 16), 64, 3, [1, 0], h=160)
+        monkeypatch.setattr(ef, "_TM", 256)
+        before = ef.LAUNCHES
+        with pytest.raises(RuntimeError, match="launch failed"):
             ef.expert_fusion_gather(*args)
         assert ef.LAUNCHES == before
 
@@ -368,6 +428,52 @@ class TestGloriaKernels:
         with pytest.raises(ValueError):
             ga.gloria_similarity_backward(img, words, cap, cot, temp1)
 
+    @pytest.mark.parametrize("shape", [
+        (2, 2, 768, 56, 56, 25),    # flagship widths
+        (3, 5, 48, 5, 7, 40),       # two word tiles
+        (2, 3, 64, 9, 9, 128),      # T at its limit
+        (3, 5, 48, 12, 11, 9),      # M = 132, ragged captions, B_img != B_txt
+    ])
+    def test_dwords_alone_matches_plain_version(self, dev, shape):
+        # K4b without K4a's second pass (the words' cotangent only)
+        img, words, cap, cot = _gloria_inputs(dev, *shape, seed=6)
+        before = (ga.DCTX_LAUNCHES, ga.DWORDS_LAUNCHES)
+        d_img, d_words = ga.gloria_similarity_backward(img, words, cap, cot,
+                                                       need_img=False)
+        torch.cuda.synchronize()
+        assert d_img is None
+        assert (ga.DCTX_LAUNCHES, ga.DWORDS_LAUNCHES) == (before[0],
+                                                          before[1] + 1)
+        _, ref = ga.gloria_similarity_bwd_reference(img, words, cap, cot,
+                                                    need_img=False)
+        assert torch.isfinite(d_words).all()
+        _gloria_close(d_words, ref)
+
+    def test_dwords_is_the_same_on_every_run(self, dev):
+        # K4b sums over images in chunk order, without atomics
+        img, words, cap, cot = _gloria_inputs(dev, 3, 5, 48, 12, 11, 40, seed=7)
+        runs = [ga.gloria_similarity_backward(img, words, cap, cot)[1]
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+
+    @pytest.mark.parametrize("images", [1, 2])
+    def test_dwords_over_chunks_of_images(self, dev, monkeypatch, images):
+        # five images over chunks of 1 or 2: the sum over images reordered,
+        # so within the tolerance of the whole-batch run, not bit for bit
+        img, words, cap, cot = _gloria_inputs(dev, 5, 3, 48, 12, 11, 40,
+                                              seed=8)
+        whole = ga.gloria_similarity_backward(img, words, cap, cot)
+        per_image = ga.image_chunk(5, 3, 132, 40)[1] // 5
+        monkeypatch.setattr(_scratch, "CHUNK_BYTES", images * per_image + 1)
+        assert ga.image_chunk(5, 3, 132, 40)[0] == images
+        chunked = ga.gloria_similarity_backward(img, words, cap, cot)
+        torch.cuda.synchronize()
+        ref = ga.gloria_similarity_bwd_reference(img, words, cap, cot)
+        for a, w, r in zip(chunked, whole, ref):
+            _gloria_close(a, w)
+            _gloria_close(a, r)
+
     def test_dctx_is_the_same_on_every_run(self, dev):
         # K4a sums over captions in a fixed order, without atomics
         img, words, cap, cot = _gloria_inputs(dev, 3, 5, 48, 5, 7, 40, seed=3)
@@ -422,7 +528,7 @@ class TestGloriaKernels:
         temps = (4.0, 5.0, 10.0)
         sim = ga.gloria_similarity_forward(img, words, cap, *temps)
         pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
-        dctx = ga.dctx_of(pairs)
+        dctx, _ = ga.cotangents_of(pairs)
         got = hashlib.sha256()
         for out in (sim, pairs.dwei, pairs.vecs, dctx):
             got.update(out.float().cpu().numpy().tobytes())

@@ -51,18 +51,23 @@ def test_gloria_limits_raise(d, t, temp1):
     (128, 16, (8,)),
     (96, 48, FLAGSHIP_PYRAMID),           # E % 64 != 0: K2 takes E % 8
     (32, 16, (8, 16)),
+    (768, 392, FLAGSHIP_PYRAMID),         # H past 384: no attention tile in
+    (1536, 384, FLAGSHIP_PYRAMID),        # shared memory limits H or E
+    (32, 8, (8,)),                        # H at its lower edge
+    (768, 2048, FLAGSHIP_PYRAMID),        # H at K2's row step's edge
 ])
 def test_expert_limits_pass(e, h, d_list):
     ef.check_kernel_limits(e, h, d_list)
 
 
 @pytest.mark.parametrize("e,h,d_list", [
-    (80, 48, FLAGSHIP_PYRAMID),           # E % 32 (K1's attention tile)
+    (80, 48, FLAGSHIP_PYRAMID),           # E % 32 (K1's projection pass)
     (48, 16, (8, 16)),
-    (768, 392, FLAGSHIP_PYRAMID),         # H past 384
+    (768, 2056, FLAGSHIP_PYRAMID),        # H past K2's row step
+    (768, 388, FLAGSHIP_PYRAMID),         # H % 8
+    (768, 0, FLAGSHIP_PYRAMID),           # no hidden width
     (768, 376, FLAGSHIP_PYRAMID[:3] + (764,)),   # D_s % 8
     (768, 384, (96, 192, 384, 768, 768)),        # five scales
-    (1536, 384, FLAGSHIP_PYRAMID),        # K1's attention tile
 ])
 def test_expert_limits_raise(e, h, d_list):
     with pytest.raises(ValueError):
