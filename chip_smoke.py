@@ -52,9 +52,26 @@
      and what moved; then one warm step, timed;
   9. text training: one step of the same run with
      model.model.text.freeze_bert=false, where K4b runs once and BERT moves;
- 10. prints {"kernels": [...]}, with each kernel's launches counted over
+ 10. training from disk: writes 6 train shards and 1 val shard of 64
+     JPEG pairs (256 x 320, so resize and pad run) with the port's
+     ShardWriter, then trains experiment=pretraining_medmoe_ddp
+     data=unimed callbacks=default from them at full width (accumulation
+     cut from 80 to 2, 4 micro-batches an epoch, 1 val batch): 1 epoch
+     (epoch_000 and last written), a resume for 3 epochs that sends itself
+     SIGTERM after the first step of epoch 1 (a preemption checkpoint
+     whose sidecar names epoch 0), a second resume that finishes epochs
+     1-2 with uint8 images; checks the step count across each resume, the
+     restored parameters and Adam state against the file bit for bit,
+     save_top_k files plus last; serves the best checkpoint through the
+     serve CLI (embed mode, the val shard's 64 images as files) and holds
+     the embeddings against the trained module's own (cosine > 0.999);
+     prints the trainer's pairs/s and loader wait share, the checkpoint's
+     size, the save and resume times, the served img/s and the warm
+     disk-backed path with f32 and uint8 images;
+ 11. prints {"kernels": [...]}, with each kernel's launches counted over
      every phase that drives the model (serving, both trainings, text
-     training), and, last, the device line.
+     training, training from disk and its serving), and, last, the device
+     line.
 
 Any failed check exits non-zero. Needs one CUDA card; fails without one.
 ``--profile`` adds torch.profiler breakdowns of one serving wave, one
@@ -710,8 +727,9 @@ def reset_launch_counts():
     ga.DCTX_LAUNCHES = ga.DWORDS_LAUNCHES = 0
 
 
-def drive_train(torch, overrides):
-    """The train CLI's ``train`` on ``overrides``, with every launch count
+def drive_train(torch, overrides, root=None):
+    """The train CLI's ``train`` on ``overrides`` (under ``paths.root_dir``
+    ``root``, a temporary directory when None), with every launch count
     set to 0 just before and read just after, and the experts that
     training routed to recorded. Returns (cfg, metrics, objs, counts,
     routed, seconds, peak GB)."""
@@ -731,7 +749,9 @@ def drive_train(torch, overrides):
             routed.append(idx.detach())
         return idx, w
 
-    with tempfile.TemporaryDirectory() as root:
+    with contextlib.ExitStack() as stack:
+        if root is None:
+            root = stack.enter_context(tempfile.TemporaryDirectory())
         cfg = compose("train", overrides + [f"paths.root_dir={root}"])
         extras(cfg)
         torch.cuda.synchronize()
@@ -785,7 +805,13 @@ def phase_train(torch, ef, card: str):
           f"BERT unchanged; K1 launches {k1}, K2 launches {k2}; "
           f"{pairs_s:.1f} pairs/s over the epoch (first step included); "
           f"peak memory {peak_gb:.2f} GB on {card}", flush=True)
-    time_trainer_windows(torch, trainer, module, objs["datamodule"], 4, 2)
+    dm = objs["datamodule"]
+    warm, share, alone = time_trainer_windows(torch, trainer, module, dm, 4,
+                                              8)
+    print(f"train: warm trainer path, 2 windows of 4 x {dm.batch_size}: "
+          f"{warm:.1f} pairs/s, loader wait {100 * share:.1f}% of the time; "
+          f"the synthetic data alone on the host: {alone:.1f} pairs/s",
+          flush=True)
     if "--profile" in sys.argv:
         profile_train_step(torch, trainer, module, objs["datamodule"])
     return k1, k2, pairs_s
@@ -828,40 +854,47 @@ def check_moved(torch, module, seed: int, routed, label: str,
 
 
 def time_trainer_windows(torch, trainer, module, datamodule, accum: int,
-                         n_windows: int):
-    """The trainer's data path and step, warm: ``n_windows`` windows of
-    ``accum`` micro-batches of the next epoch, each micro-batch drawn and
-    copied on the prefetch thread as ``Trainer.fit`` does, on the host
-    clock; then the same number of synthetic batches drawn alone on the
-    host, which bounds what the trainer can reach."""
+                         n=None, epoch: int = 1):
+    """The trainer's data path and step, warm: ``n`` micro-batches of
+    ``epoch`` (the whole epoch when None) in windows of ``accum``, each
+    drawn and copied on the prefetch thread as ``Trainer.fit`` does, on
+    the host clock; first the same batches drawn alone on the host, which
+    bounds what the trainer can reach. Returns (pairs/s, the share of the
+    time blocked in ``next`` on the prefetch queue, the loader alone's
+    pairs/s)."""
     import itertools
 
     from medmoe_torch.data.prefetch import prefetch
+    from medmoe_torch.train.loop import _timed
     from medmoe_torch.train.step import build_train_step
 
-    n = accum * n_windows
-    pairs = n * datamodule.batch_size
+    def batches():
+        return itertools.islice(datamodule.train_dataloader(epoch), n)
+
+    t0 = time.perf_counter()
+    n_alone = sum(len(b["cap_lens"]) for b in batches())
+    alone_s = time.perf_counter() - t0
     step = build_train_step(module, accum)
-    window = []
+    waits, window, pairs = [0.0], [], 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for batch in itertools.islice(prefetch(datamodule.train_dataloader(1),
-                                           trainer.prefetch_batches,
-                                           trainer.to_device), n):
+    for batch in _timed(prefetch(batches(), trainer.prefetch_batches,
+                                 trainer.to_device), waits):
         window.append(batch)
+        pairs += len(batch["cap_lens"])
         if len(window) == accum:
             trainer.state, _ = step(trainer.state, window)
             window = []
     torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for _ in itertools.islice(datamodule.train_dataloader(2), n):
-        pass
-    data_s = time.perf_counter() - t0
-    print(f"train: warm trainer path, {n_windows} windows of {accum} x "
-          f"{datamodule.batch_size}: {warm_s:.3f} s = {pairs / warm_s:.1f} "
-          f"pairs/s; the synthetic data alone on the host: {data_s:.3f} s = "
-          f"{pairs / data_s:.1f} pairs/s", flush=True)
+    seconds = time.perf_counter() - t0
+    check(pairs == n_alone, f"the trainer drew {pairs} pairs, the loader "
+          f"alone {n_alone}")
+    if n is None:
+        check(pairs == datamodule.steps_per_epoch * datamodule.batch_size,
+              f"an epoch of {pairs} pairs, expected "
+              f"{datamodule.steps_per_epoch} batches of "
+              f"{datamodule.batch_size}")
+    return pairs / seconds, waits[0] / seconds, n_alone / alone_s
 
 
 def profile_train_step(torch, trainer, module, datamodule):
@@ -1229,6 +1262,364 @@ def phase_text_train(torch, card: str):
     return counts
 
 
+DISK_SHARD = 64                   # pairs a shard
+DISK_MODALITIES = ("chest x-ray of the lungs", "ct scan of the abdomen",
+                   "mri of the brain", "ultrasound of the thyroid",
+                   "histopathology slide of tissue",
+                   "fundus photograph of the retina")
+
+
+def write_disk_data(root: str, seed: int = 7):
+    """Tar shards written by the port's ShardWriter from numpy seeds: one
+    train shard of DISK_SHARD pairs per modality label 0-5
+    (train/dataset-{000001..000006}.tar) and one val shard
+    (val/dataset-000007.tar), each pair a non-square (256 x 320) JPEG at
+    quality 90, a multi-template caption and a ``cls`` label; the val
+    shard's images also as files under serve/. Returns (train URLs in the
+    ``::`` multi-source syntax, val URL, serve dir)."""
+    import numpy as np
+    from PIL import Image
+
+    from medmoe_torch.data.shard_writer import ShardWriter
+
+    rng = np.random.RandomState(seed)
+
+    def jpeg() -> bytes:
+        # a smooth field plus noise: JPEG sizes of a real scan, not of noise
+        base = Image.fromarray((rng.rand(16, 20, 3) * 255).astype(np.uint8))
+        arr = np.asarray(base.resize((320, 256), Image.BILINEAR),
+                         dtype=np.int16)
+        arr = arr + rng.randint(-12, 13, arr.shape)
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            buf, format="JPEG", quality=90)
+        return buf.getvalue()
+
+    def caption(label: int, i: int) -> str:
+        name = DISK_MODALITIES[label]
+        return (f"{name}, case {i}_radimagenet_{name} with findings "
+                f"{i % 7}_radimagenet_an image of {name}")
+
+    urls = []
+    for label in range(6):
+        path = os.path.join(root, "train", f"dataset-{label + 1:06d}.tar")
+        with ShardWriter(path) as w:
+            for i in range(DISK_SHARD):
+                w.write({"__key__": f"m{label}_{i:04d}", "jpg": jpeg(),
+                         "txt": caption(label, i), "cls": label})
+        urls.append(path)
+    val = os.path.join(root, "val", "dataset-000007.tar")
+    serve_dir = os.path.join(root, "serve")
+    os.makedirs(serve_dir)
+    with ShardWriter(val) as w:
+        for i in range(DISK_SHARD):
+            data = jpeg()
+            w.write({"__key__": f"v_{i:04d}", "jpg": data,
+                     "txt": caption(i % 6, i), "cls": i % 6})
+            with open(os.path.join(serve_dir, f"v_{i:04d}.jpg"), "wb") as f:
+                f.write(data)
+    return "::".join(urls), val, serve_dir
+
+
+def disk_overrides(train_urls: str, val_url: str, epochs: int):
+    return [
+        "experiment=pretraining_medmoe_ddp", "data=unimed",
+        "callbacks=default", "trainer.checkpoint_on_signal=true",
+        f"data.train_data_paths={train_urls}",
+        f"data.val_data_paths={val_url}",
+        f"data.num_workers={min(8, os.cpu_count() or 1)}",
+        "trainer.accumulate_grad_batches=2", "trainer.limit_train_batches=4",
+        "trainer.limit_val_batches=1", "trainer.num_sanity_val_steps=0",
+        f"trainer.max_epochs={epochs}", "logger=csv",
+        "extras.print_config=false", "trainer.log_every_n_steps=1"]
+
+
+@contextlib.contextmanager
+def step_hooks(before=None, after=None):
+    """Call ``before(state)`` ahead of the first optimizer step the trainer
+    takes, and ``after(state)`` after every one."""
+    from medmoe_torch.train import loop
+
+    real_build = loop.build_train_step
+    first = [before]
+
+    def build(module, accum_steps=1):
+        step = real_build(module, accum_steps)
+
+        def hooked(state, window):
+            if first[0] is not None:
+                first[0](state)
+                first[0] = None
+            out = step(state, window)
+            if after is not None:
+                after(state)
+            return out
+        return hooked
+
+    loop.build_train_step = build
+    try:
+        yield
+    finally:
+        loop.build_train_step = real_build
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str, seconds: list):
+    """Append the wall seconds of every call of ``owner.<name>`` to
+    ``seconds``."""
+    real = getattr(owner, name)
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            seconds.append(time.perf_counter() - t)
+
+    setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def check_restored(torch, path: str, label: str):
+    """A ``before`` hook: the trainer's parameters and Adam state equal
+    the checkpoint file's, bit for bit, before the first resumed step."""
+    from medmoe_torch.utils.checkpoint import load_checkpoint
+
+    def hook(state):
+        saved = load_checkpoint(path)
+        live = state.state_dict()
+        for k, v in live["model"].items():
+            check(torch.equal(v.cpu(), saved["model"][k]),
+                  f"{label}: restored {k} differs from the checkpoint")
+        for i, s in live["optimizer"]["state"].items():
+            for k, v in s.items():
+                check(torch.equal(v.cpu(), saved["optimizer"]["state"][i][k]),
+                      f"{label}: restored Adam {k} of parameter {i} differs")
+        check(state.step == saved["step"], f"{label}: step {state.step} vs "
+              f"the checkpoint's {saved['step']}")
+        print(f"{label}: {len(live['model'])} parameters and "
+              f"{len(live['optimizer']['state'])} Adam states equal the "
+              f"checkpoint's, bit for bit, before the first resumed step "
+              f"(step {state.step})", flush=True)
+    return hook
+
+
+def epoch_line(trainer) -> str:
+    return "; ".join(
+        f"epoch {i}: {h['pairs_per_sec']:.1f} pairs/s, loader wait "
+        f"{100 * h['loader_wait_share']:.1f}% of the train phase"
+        for i, h in enumerate(trainer.metrics_history))
+
+
+def phase_disk_train(torch, card: str):
+    """experiment=pretraining_medmoe_ddp from tar shards on disk at full
+    width: train 1 epoch (epoch_000 and last written), resume for 3 and
+    preempt it with SIGTERM after the first step of epoch 1, resume again
+    and finish epochs 1-2 (images as uint8), then serve the best
+    checkpoint through the serve CLI. Returns the launch counts summed
+    over the four runs."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from medmoe_torch.cli import serve
+    from medmoe_torch.data.transforms import ImageTransform, decode_image
+    from medmoe_torch.eval.zero_shot import make_image_embedder
+    from medmoe_torch.train import loop
+    from medmoe_torch.train.callbacks import ModelCheckpoint
+    from medmoe_torch.utils.checkpoint import (finalize_saves,
+                                               load_checkpoint, read_meta,
+                                               save_checkpoint)
+    from medmoe_torch.utils.instantiate import instantiate
+
+    print("disk train: accumulate_grad_batches cut from 80 to 2, 4 "
+          "micro-batches of 32 an epoch, 1 val batch", flush=True)
+    total = {}
+    work = tempfile.mkdtemp(prefix="medmoe_disk_")
+    try:
+        t0 = time.perf_counter()
+        train_urls, val_url, serve_dir = write_disk_data(work)
+        print(f"disk train: wrote 6 train shards and 1 val shard of "
+              f"{DISK_SHARD} JPEG pairs in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        root = os.path.join(work, "run")
+        ckdir = os.path.join(root, "logs", "train", "runs", "checkpoints")
+        last = os.path.join(ckdir, "last")
+
+        resume_s = []
+
+        def run(label, epochs, *extra, before=None, after=None):
+            # what the checkpoints stall the loop: ModelCheckpoint at each
+            # epoch end (the best, then last, async as shipped) and at
+            # train end (the commit), and a preemption's blocking save
+            ends, commits, preempts = [], [], []
+            with step_hooks(before, after), \
+                    timed_calls(ModelCheckpoint, "on_epoch_end", ends), \
+                    timed_calls(ModelCheckpoint, "on_train_end", commits), \
+                    timed_calls(loop.Trainer, "_preempt_checkpoint",
+                                preempts), \
+                    timed_calls(loop.Trainer, "_resume", resume_s):
+                cfg, metrics, objs, counts, _, seconds, peak = drive_train(
+                    torch, disk_overrides(train_urls, val_url, epochs)
+                    + list(extra), root)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            trainer = objs["trainer"]
+            stalls = ", ".join(f"{t:.3f}" for t in ends)
+            print(f"{label}: {seconds:.1f} s, step {trainer.state.step}, "
+                  f"launches {counts}; {epoch_line(trainer)}; checkpoint "
+                  f"stall at each epoch end [{stalls}] s, at train end "
+                  f"{commits[0]:.3f} s"
+                  + "".join(f", preemption save {t:.3f} s" for t in preempts)
+                  + f"; peak memory {peak:.2f} GB on {card}", flush=True)
+            return cfg, objs, counts
+
+        # 1. one epoch: epoch_000 and last, each with its sidecar
+        _, objs, counts = run("disk train 1", 1)
+        trainer = objs["trainer"]
+        check(trainer.state.step == 2, f"run 1: {trainer.state.step} steps")
+        check(counts["K2"] == 4 and counts["K1"] >= 4,
+              f"run 1: launches {counts} for 4 micro-batches")
+        for name in ("epoch_000", "last"):
+            check(os.path.isfile(os.path.join(ckdir, name)) and
+                  read_meta(os.path.join(ckdir, name)) is not None,
+                  f"run 1 wrote no {name} with a sidecar")
+        h = trainer.metrics_history[-1]
+        check(math.isfinite(h["train/loss"]) and math.isfinite(h["val/loss"]),
+              f"run 1: losses {h}")
+        del objs, trainer
+        ckpt_gb = os.path.getsize(last) / 1e9
+
+        # 2. resume for 3 epochs; SIGTERM after the first step of epoch 1
+        def preempt(state):
+            if state.step == 3:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        handler = signal.getsignal(signal.SIGTERM)
+        _, objs, _ = run("disk train 2 (preempted)", 3, f"ckpt_path={last}",
+                         before=check_restored(torch, last, "resume 1"),
+                         after=preempt)
+        trainer = objs["trainer"]
+        meta = read_meta(last)
+        check(trainer.interrupted and trainer.state.step == 3,
+              f"run 2: interrupted {trainer.interrupted} at step "
+              f"{trainer.state.step}")
+        check(meta["epoch"] == 0 and meta.get("preempted") is True,
+              f"run 2: last's sidecar {meta}")
+        check(signal.getsignal(signal.SIGTERM) is handler,
+              "run 2 left its SIGTERM handler installed")
+        del objs, trainer
+
+        # 3. resume again and finish epochs 1-2, shipping uint8 images
+        cfg, objs, _ = run("disk train 3 (uint8)", 3, f"ckpt_path={last}",
+                           "data.emit_uint8=true",
+                           before=check_restored(torch, last, "resume 2"))
+        trainer, module = objs["trainer"], objs["module"]
+        check(trainer.state.step == 7 and not trainer.interrupted,
+              f"run 3 ended at step {trainer.state.step}")
+        check(len(trainer.metrics_history) == 2 and all(
+            math.isfinite(h["train/loss"]) and h["train/grad_norm"] > 0
+            for h in trainer.metrics_history), "run 3: losses not finite")
+        kept = sorted(n for n in os.listdir(ckdir)
+                      if not n.endswith((".meta.json", ".tmp")))
+        top_k = int(cfg.callbacks.model_checkpoint.save_top_k)
+        check(len(kept) == top_k + 1 and "last" in kept,
+              f"checkpoints {kept} for save_top_k={top_k} plus last")
+        best = trainer.best_model_path
+        check(bool(best) and os.path.basename(best) in kept,
+              f"best_model_path {best!r} not among {kept}")
+        resumes = ", ".join(f"{t:.2f}" for t in resume_s)
+        print(f"disk train: checkpoints {kept}, best {os.path.basename(best)};"
+              f" checkpoint {ckpt_gb:.3f} GB; resumes (load + restore) "
+              f"{resumes} s on {card}", flush=True)
+
+        # 4. serve the best checkpoint; hold it against the trained module
+        module.model.load_state_dict(load_checkpoint(best)["model"])
+        module.model.eval()
+        files = sorted(os.listdir(serve_dir))
+        transform = ImageTransform(int(cfg.model.model.vision.image_size),
+                                   train=False)
+        images = np.stack([transform(decode_image(
+            open(os.path.join(serve_dir, f), "rb").read())) for f in files])
+        want = make_image_embedder(module.model)(images).float()
+        wave_s = []
+        real_waves = serve.serve_waves
+
+        def timed_waves(*a, **k):
+            t = time.perf_counter()
+            try:
+                return real_waves(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                wave_s.append(time.perf_counter() - t)
+
+        out = io.StringIO()
+        serve.serve_waves = timed_waves
+        reset_launch_counts()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = serve.main([f"ckpt_path={best}", "data=unimed",
+                                 "serve.mode=embed",
+                                 f"serve.input={serve_dir}",
+                                 f"paths.root_dir={root}"])
+        finally:
+            serve.serve_waves = real_waves
+        counts = launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        check(rc == 0, f"serve exited {rc}")
+        recs = [json.loads(line) for line in out.getvalue().splitlines()]
+        check([os.path.basename(r["path"]) for r in recs] == files,
+              f"served {len(recs)} records for {len(files)} images")
+        got = torch.tensor([r["embedding"] for r in recs],
+                           device=want.device)
+        cos = (got * want).sum(-1).min().item()
+        check(cos > 0.999, f"served embeddings vs the module's: cosine {cos}")
+        check(counts["K1"] == len(files) // WAVE,
+              f"serve launched K1 {counts['K1']} times")
+        print(f"disk serve: {len(recs)} images in {wave_s[0]:.3f} s of waves "
+              f"= {len(recs) / wave_s[0]:.1f} img/s (decode on the prefetch "
+              f"thread included); min cosine against the trained module "
+              f"{cos:.6f}; K1 launches {counts['K1']} on {card}", flush=True)
+
+        # 5. one isolated save of the trained state, blocking and async
+        path = os.path.join(work, "timed", "ckpt")
+        t = time.perf_counter()
+        save_checkpoint(path, trainer.state, extra={"epoch": 0})
+        blocking_s = time.perf_counter() - t
+        t = time.perf_counter()
+        save_checkpoint(path, trainer.state, extra={"epoch": 0},
+                        blocking=False)
+        call_s = time.perf_counter() - t
+        finalize_saves()
+        async_s = time.perf_counter() - t
+        print(f"disk train: one isolated save of "
+              f"{os.path.getsize(path) / 1e9:.3f} GB: blocking "
+              f"{blocking_s:.2f} s; async call {call_s:.2f} s "
+              f"(the copy to the host), {async_s:.2f} s to commit on {card}",
+              flush=True)
+
+        # 6. the warm disk-backed path over an epoch, f32 and uint8
+        for uint8 in (False, True):
+            dm = instantiate(dict(cfg.data, emit_uint8=uint8))
+            pairs_s, share, alone = time_trainer_windows(
+                torch, trainer, module, dm, 2, epoch=5)
+            print(f"disk train warm epoch: emit_uint8={str(uint8).lower()} "
+                  f"{pairs_s:.1f} pairs/s, loader wait {100 * share:.1f}% "
+                  f"of the time; the loader alone on the host {alone:.1f} "
+                  f"pairs/s; on {card}", flush=True)
+        del objs, trainer, module
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "medmoe_torch")):
@@ -1273,14 +1664,16 @@ def main() -> int:
     phase_gloria_wide(torch, ga, card)
     g256 = phase_gloria_train(torch, card)
     text = phase_text_train(torch, card)
+    disk = phase_disk_train(torch, card)
     print(f"main paths: serving {img_s:.1f} img/s with K1 launched "
           f"{serve_launches} times; pretraining_medmoe_ddp training "
           f"{pairs_s:.1f} pairs/s with K1 launched {k1_train} and K2 "
           f"{k2_train} times; gloria256 launches {g256}; text training "
-          f"launches {text}", flush=True)
+          f"launches {text}; disk train, resume and serve launches {disk}",
+          flush=True)
     # K1 and K2 run in every phase that drives the model
-    k1_all = serve_launches + k1_train + g256["K1"] + text["K1"]
-    k2_all = k2_train + g256["K2"] + text["K2"]
+    k1_all = serve_launches + k1_train + g256["K1"] + text["K1"] + disk["K1"]
+    k2_all = k2_train + g256["K2"] + text["K2"] + disk["K2"]
 
     def row(name, source, replaces, launches, r, **extra):
         extra.update({k: r[k] for k in ("k4a_only_ms", "both_ms", "prologue_ms",

@@ -17,9 +17,13 @@ then encode_image + cosine argmax), emitting one JSON line per image.
 ``serve_waves`` is the wave loop on already-decoded image arrays, so a
 caller without an image decoder (chip_smoke.py) drives the same loop.
 
+``ckpt_path`` takes a checkpoint the port's trainer wrote
+(``<output_dir>/checkpoints/epoch_NNN`` or ``last``) or a ``weights.npz``
+that ``python -m medmoe_tpu.cli.export`` wrote from a JAX run.
+
 Usage:
-  python -m medmoe_torch.cli.serve ckpt_path=<weights.npz> data=unimed \\
-      serve.input=scans/ serve.mode=classify
+  python -m medmoe_torch.cli.serve ckpt_path=<checkpoint or weights.npz> \\
+      data=unimed serve.input=scans/ serve.mode=classify
   find scans -name '*.jpg' | python -m medmoe_torch.cli.serve \\
       ckpt_path=... serve.input=-
 """

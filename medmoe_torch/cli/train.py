@@ -6,6 +6,8 @@ hydra-style ``key=value`` arguments.
         data=synthetic
     python -m medmoe_torch.cli.train experiment=pretraining_medmoe_ddp \\
         data=synthetic debug=fdr trainer.accelerator=cpu
+    python -m medmoe_torch.cli.train experiment=pretraining_medmoe_ddp \\
+        ckpt_path=logs/train/runs/checkpoints/last      # resume
 
 Training runs on the CUDA card; ``trainer.accelerator=cpu`` asks for the
 CPU. ``--multirun`` and ``hparams_search`` are not ported yet.
@@ -47,7 +49,8 @@ def _instantiate_group(node) -> List:
 
 @task_wrapper
 def train(cfg) -> Tuple[Dict[str, float], Dict]:
-    """Instantiate everything from the config, fit, optionally test
+    """Instantiate everything from the config, fit (resuming from
+    ``ckpt_path`` when set), optionally test with the best checkpoint
     (reference src/train.py:42-108)."""
     seed_everything(cfg.get("seed"))
 
@@ -79,7 +82,10 @@ def train(cfg) -> Tuple[Dict[str, float], Dict]:
         if trainer.metrics_history:
             metrics.update(trainer.metrics_history[-1])
     if cfg.get("test", False):
-        metrics.update(trainer.test(module, datamodule))
+        ckpt = trainer.best_model_path
+        if not ckpt:
+            log.warning("best ckpt not found — testing with current weights")
+        metrics.update(trainer.test(module, datamodule, ckpt_path=ckpt))
     return metrics, {"trainer": trainer, "module": module,
                      "datamodule": datamodule}
 

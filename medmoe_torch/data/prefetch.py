@@ -15,9 +15,12 @@ for batch i+1 rides alongside the device's work on batch i instead of
 serializing with it.
 
 Early exit is safe: closing the generator (or a break in the consuming
-for-loop, which triggers GeneratorExit) signals the worker to stop, so a
-truncated epoch (limit_train_batches, preemption) does not leak a thread
-blocked on a full queue.
+for-loop, which triggers GeneratorExit) signals the worker to stop and
+waits for it (up to ``JOIN_TIMEOUT_S``) to finish the item in hand and
+close its source, so a truncated epoch (limit_train_batches, preemption)
+leaves no thread behind: neither one blocked on a full queue nor one still
+inside torch or PIL when the interpreter exits (a daemon thread running
+C++ code at exit aborts the process).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Callable, Iterable, Iterator, Optional
 __all__ = ["prefetch"]
 
 _SENTINEL = object()
+JOIN_TIMEOUT_S = 60.0
 
 
 class _WorkerError:
@@ -115,3 +119,5 @@ def prefetch(iterable: Iterable, depth: int = 2,
             yield item
     finally:
         stop.set()
+        if thread is not threading.current_thread():
+            thread.join(JOIN_TIMEOUT_S)

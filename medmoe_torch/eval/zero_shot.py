@@ -13,6 +13,8 @@ from torch import nn
 
 from medmoe_torch.bridge import load_jax_params, load_npz
 from medmoe_torch.models.medmoe import init_weights
+from medmoe_torch.utils.checkpoint import (checkpoint_kind,
+                                           load_model_weights)
 from medmoe_torch.utils.instantiate import instantiate
 
 
@@ -78,11 +80,23 @@ def default_class_names(cfg, datamodule) -> List[str]:
                 or [str(i) for i in range(datamodule.num_classes)])
 
 
+def load_weights(model: nn.Module, path: str) -> nn.Module:
+    """Fill ``model`` from ``path``: a checkpoint the port's trainer wrote
+    (its model ``state_dict``) or a ``weights.npz`` in the JAX exporter's
+    layout (through the bridge). Both are zip archives; the archive's
+    members decide, and anything else raises."""
+    if checkpoint_kind(path) == "torch":
+        load_model_weights(model, path)
+    else:
+        load_jax_params(model, load_npz(path))
+    return model
+
+
 def load_for_eval(cfg, device=None, datamodule=None, tokenizer=None):
     """(model, datamodule, tokenizer) for an eval/serving surface: build
     ``MedMoE`` from ``cfg.model.model``, fill it from a generator seeded
-    with ``cfg.seed``, then load ``cfg.ckpt_path`` (a ``weights.npz`` in
-    the JAX exporter's layout) through the bridge. ``device`` defaults to
+    with ``cfg.seed``, then load ``cfg.ckpt_path`` (``load_weights``: a
+    port checkpoint or a JAX ``weights.npz``). ``device`` defaults to
     ``cfg.device``, and that to CUDA."""
     dev = resolve_device(device if device is not None else cfg.get("device"))
     datamodule = datamodule or instantiate(cfg.data)
@@ -93,5 +107,5 @@ def load_for_eval(cfg, device=None, datamodule=None, tokenizer=None):
     model = instantiate(cfg.model.model)
     init_weights(model, cfg.get("seed") or 0)
     if cfg.get("ckpt_path"):
-        load_jax_params(model, load_npz(cfg.ckpt_path))
+        load_weights(model, cfg.ckpt_path)
     return model.to(dev).eval(), datamodule, tokenizer

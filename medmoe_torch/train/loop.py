@@ -1,21 +1,30 @@
 """The Trainer: epoch loop, accumulation windows, validation, the plateau
-scheduler and logging (counterpart of medmoe_tpu/train/loop.py; reference
-src/train.py:73-101 + configs/trainer/*), in one process on one device.
+scheduler, callbacks, checkpoints and logging (counterpart of
+medmoe_tpu/train/loop.py; reference src/train.py:73-101 +
+configs/trainer/*), in one process on one device.
 
-Knobs kept from the JAX Trainer: max epochs, gradient clip and
+Knobs kept from the JAX Trainer: min/max epochs, gradient clip and
 accumulation (with the leftover window flushed at epoch end, as Lightning
 does), limit_{train,val,test}_batches, overfit_batches,
-num_sanity_val_steps, check_val_every_n_epoch, log_every_n_steps and
-detect_anomaly (``torch.autograd.set_detect_anomaly``, scoped to ``fit``).
-Not ported yet, and refused when asked for: several processes or nodes,
-an expert-parallel mesh, callbacks, resuming from a checkpoint, the
-profiler and the preemption handlers.
+num_sanity_val_steps, check_val_every_n_epoch, log_every_n_steps,
+detect_anomaly (``torch.autograd.set_detect_anomaly``, scoped to
+``fit``), callbacks, resuming from a checkpoint (``fit(ckpt_path=...)``)
+and the preemption handlers (SIGTERM / SIGUSR1 → a blocking ``last``
+checkpoint at the next step boundary, then stop). Not ported yet, and
+refused when asked for: several processes or nodes, an expert-parallel
+mesh and the profiler.
+
+Resume is exact at an epoch boundary: the data order, the caption draws
+and the dropout generators are all seeded from (seed, epoch), and the
+checkpoint holds the parameters, the Adam state, the step and the
+scheduler.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, Iterator, List, Optional
 
 import torch
 
@@ -24,6 +33,9 @@ from medmoe_torch.models.layers import set_generator
 from medmoe_torch.train.optim import get_learning_rate, set_learning_rate
 from medmoe_torch.train.state import TrainState, param_count
 from medmoe_torch.train.step import build_eval_step, build_train_step
+from medmoe_torch.utils.checkpoint import (load_model_weights, read_meta,
+                                           restore_checkpoint,
+                                           save_checkpoint)
 from medmoe_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -56,10 +68,38 @@ def _limit(iterable: Iterable, limit: Optional[float],
         yield from iterable
         return
     limit = int(limit)
-    for i, item in enumerate(iterable):
-        if i >= limit:
-            return
-        yield item
+    try:
+        for i, item in enumerate(iterable):
+            if i >= limit:
+                return
+            yield item
+    finally:
+        # an epoch cut short stops its loader's threads now, not at GC
+        _close(iterable)
+
+
+def _close(iterable) -> None:
+    close = getattr(iterable, "close", None)
+    if close is not None:
+        close()
+
+
+def _timed(iterable: Iterable, waits: List[float]) -> Iterator:
+    """Yield from ``iterable``, adding the seconds each ``next`` blocks
+    (on the prefetch queue: the host's loader falling behind) to
+    ``waits[0]``."""
+    it = iter(iterable)
+    try:
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            waits[0] += time.perf_counter() - t0
+            yield item
+    finally:
+        _close(it)
 
 
 def resolve_accelerator(accelerator: str) -> torch.device:
@@ -78,7 +118,7 @@ def resolve_accelerator(accelerator: str) -> torch.device:
 
 
 class Trainer:
-    def __init__(self, max_epochs: int = 10,
+    def __init__(self, min_epochs: int = 1, max_epochs: int = 10,
                  accelerator: str = "gpu", devices: Any = 1,
                  num_nodes: int = 1,
                  accumulate_grad_batches: int = 1,
@@ -98,7 +138,7 @@ class Trainer:
                  default_root_dir: str = ".",
                  callbacks: Optional[List] = None,
                  loggers: Optional[List] = None,
-                 checkpoint_on_signal: bool = False,
+                 checkpoint_on_signal: bool = True,
                  seed: int = 0):
         if devices not in (1, "1", "auto") or int(num_nodes or 1) > 1:
             raise NotImplementedError(
@@ -110,14 +150,8 @@ class Trainer:
         if profiler:
             raise NotImplementedError("the trainer's profiler is not ported "
                                       "yet; use trainer.profiler=null")
-        if checkpoint_on_signal:
-            raise NotImplementedError(
-                "preemption checkpoints are not ported yet; use "
-                "trainer.checkpoint_on_signal=false")
-        if callbacks:
-            raise NotImplementedError("trainer callbacks are not ported yet; "
-                                      "use callbacks=none")
         self.device = resolve_accelerator(accelerator)
+        self.min_epochs = min_epochs
         self.max_epochs = max_epochs
         self.accumulate_grad_batches = max(int(accumulate_grad_batches), 1)
         self.gradient_clip_val = gradient_clip_val
@@ -132,15 +166,83 @@ class Trainer:
         self.steps_per_epoch = steps_per_epoch
         self.prefetch_batches = int(prefetch_batches)
         self.default_root_dir = default_root_dir
+        self.callbacks = callbacks or []
         self.loggers = loggers or []
         self.seed = seed
 
         self.state: Optional[TrainState] = None
         self.module = None
         self.scheduler = None
+        self.best_model_path: Optional[str] = None
+        #: the checkpoint this fit resumed from (None for a fresh run)
+        self.resumed_from: Optional[str] = None
         self.metrics_history: List[Dict[str, float]] = []
+        self.checkpoint_on_signal = checkpoint_on_signal
+        self._preempt_requested = False
+        self.interrupted = False
 
     # ------------------------------------------------------------------
+    def request_preemption(self) -> None:
+        """Checkpoint and stop at the next step boundary (the analogue of
+        the reference's submitit SIGUSR1 + requeue,
+        configs/hydra/launcher/base_submitit_slurm.yaml:25)."""
+        self._preempt_requested = True
+
+    def _install_signal_handlers(self) -> Dict[int, Any]:
+        """SIGTERM and SIGUSR1 → ``request_preemption``; returns the
+        handlers they replace. Outside the main thread ``signal.signal``
+        raises ValueError, and nothing is installed."""
+        if not self.checkpoint_on_signal:
+            return {}
+        import signal
+
+        def handler(signum, frame):
+            log.info(f"received signal {signum}: will checkpoint and stop "
+                     f"at the next step boundary")
+            self.request_preemption()
+
+        previous = {}
+        try:
+            for sig in (signal.SIGTERM, getattr(signal, "SIGUSR1", None)):
+                if sig is not None:
+                    previous[sig] = signal.signal(sig, handler)
+        except ValueError:
+            pass        # not the main thread (e.g. under a test runner)
+        return previous
+
+    @staticmethod
+    def _restore_signal_handlers(previous: Dict[int, Any]) -> None:
+        import signal
+
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+
+    def _preempt_checkpoint(self, epoch: int) -> str:
+        """A blocking ``last`` checkpoint mid-epoch, in the callbacks'
+        checkpoint directory. Its sidecar names the previous epoch, so a
+        resume re-runs the interrupted one (the data is seeded by epoch;
+        steps within it are not replayable)."""
+        dirpath = None
+        for cb in self.callbacks:
+            dirpath = getattr(cb, "dirpath", None) or dirpath
+        path = os.path.join(dirpath or os.path.join(self.default_root_dir,
+                                                    "checkpoints"), "last")
+        save_checkpoint(path, self.state,
+                        extra={"epoch": epoch - 1, "preempted": True,
+                               **self.checkpoint_extra()})
+        log.info(f"preemption checkpoint written to {path}")
+        return path
+
+    def checkpoint_extra(self) -> Dict[str, Any]:
+        """Loop state saved beside the train state: the plateau
+        scheduler's best and patience (so a resume keeps the LR trajectory)
+        and the seed."""
+        extra: Dict[str, Any] = {"seed": int(self.seed)}
+        if self.scheduler is not None and hasattr(self.scheduler,
+                                                  "state_dict"):
+            extra["scheduler"] = self.scheduler.state_dict()
+        return extra
+
     def _log(self, metrics: Dict[str, float], step: int) -> None:
         for logger in self.loggers:
             logger.log_metrics(metrics, step)
@@ -168,15 +270,30 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def fit(self, module, datamodule, ckpt_path: Optional[str] = None) -> None:
-        if ckpt_path:
-            raise NotImplementedError("resuming from a checkpoint is not "
-                                      "ported yet; use ckpt_path=null")
-        if self.detect_anomaly:
-            with torch.autograd.set_detect_anomaly(True):
-                return self._fit(module, datamodule)
-        return self._fit(module, datamodule)
+        previous = self._install_signal_handlers()
+        try:
+            if self.detect_anomaly:
+                with torch.autograd.set_detect_anomaly(True):
+                    return self._fit(module, datamodule, ckpt_path)
+            return self._fit(module, datamodule, ckpt_path)
+        finally:
+            self._restore_signal_handlers(previous)
 
-    def _fit(self, module, datamodule) -> None:
+    def _resume(self, ckpt_path: str) -> int:
+        """Restore the train state and the scheduler from ``ckpt_path``;
+        returns the epoch to start at (0 without a sidecar, as JAX)."""
+        payload = restore_checkpoint(ckpt_path, self.state)
+        meta = read_meta(ckpt_path)
+        start_epoch = int(meta.get("epoch", -1)) + 1 if meta else 0
+        sched = payload.get("scheduler") or (meta or {}).get("scheduler")
+        if self.scheduler is not None and sched:
+            self.scheduler.load_state_dict(sched)
+        self.resumed_from = ckpt_path
+        log.info(f"resumed from {ckpt_path} at step {self.state.step}, "
+                 f"epoch {start_epoch}")
+        return start_epoch
+
+    def _fit(self, module, datamodule, ckpt_path: Optional[str]) -> None:
         self.module = module
         module.init_params(self.seed)
         module.model.to(self.device)
@@ -184,6 +301,8 @@ class Trainer:
         tx = module.make_optimizer(gradient_clip_val=self.gradient_clip_val)
         self.state = TrainState.create(module.model, tx)
         self.scheduler = module.make_scheduler()
+        self.resumed_from = None
+        start_epoch = self._resume(ckpt_path) if ckpt_path else 0
 
         step_cache: Dict[int, Any] = {}
 
@@ -197,6 +316,8 @@ class Trainer:
 
         self._log({"model/params_M": param_count(module.model) / 1e6},
                   self.state.step)
+        for cb in self.callbacks:
+            cb.on_train_start(self)
 
         if self.num_sanity_val_steps:
             for i, batch in enumerate(datamodule.val_dataloader()):
@@ -208,12 +329,13 @@ class Trainer:
         overfit_cache: List = []
         accum = self.accumulate_grad_batches
 
-        for epoch in range(self.max_epochs):
+        for epoch in range(start_epoch, self.max_epochs):
             set_generator(module.model, self.epoch_generator(epoch))
             epoch_metrics: Dict[str, List] = {}
             micro_batches: List = []
             t_epoch = time.time()
             n_pairs = 0
+            waits = [0.0]
 
             if self.overfit_batches:
                 if not overfit_cache:
@@ -241,7 +363,8 @@ class Trainer:
                     epoch_metrics.setdefault(f"train/{k}", []).append(v)
                 return metrics
 
-            for batch in train_iter:
+            timed = _timed(train_iter, waits)
+            for batch in timed:
                 micro_batches.append(batch)
                 if len(micro_batches) < accum:
                     continue
@@ -254,6 +377,16 @@ class Trainer:
                     host["lr"] = get_learning_rate(self.state.optimizer)
                     host["epoch"] = epoch
                     self._log(host, global_step)
+                if self._preempt_requested:
+                    break
+            timed.close()           # stops the prefetch threads early too
+
+            if self._preempt_requested:
+                self._preempt_checkpoint(epoch)
+                self.interrupted = True
+                log.info(f"stopping after the preemption checkpoint (epoch "
+                         f"{epoch}, step {global_step})")
+                break
 
             # the leftover window steps the optimizer too (Lightning)
             if micro_batches:
@@ -266,6 +399,8 @@ class Trainer:
             agg["epoch_time_s"] = time.time() - t_epoch
             if train_time > 0 and n_pairs:
                 agg["pairs_per_sec"] = n_pairs / train_time
+                # the share of the train phase spent waiting on the loader
+                agg["loader_wait_share"] = waits[0] / train_time
             self.metrics_history.append(agg)
             self._log(agg, global_step)
             log.info(f"epoch {epoch}: " + ", ".join(
@@ -278,6 +413,19 @@ class Trainer:
                     log.info(f"ReduceLROnPlateau: lr {current} -> {new_lr}")
                     set_learning_rate(self.state.optimizer, new_lr)
 
+            stop = False
+            for cb in self.callbacks:
+                cb.on_epoch_end(self, epoch, agg)
+                if cb.should_stop and epoch + 1 >= self.min_epochs:
+                    stop = True
+            if stop:
+                log.info("early stopping triggered")
+                break
+
+        for cb in self.callbacks:
+            cb.on_train_end(self)
+            if getattr(cb, "best_path", None):
+                self.best_model_path = cb.best_path
         for logger in self.loggers:
             logger.finalize()
 
@@ -300,16 +448,16 @@ class Trainer:
 
     def test(self, module, datamodule,
              ckpt_path: Optional[str] = None) -> Dict[str, float]:
-        """Eval metrics on the test split with the current weights (after
-        ``fit``, or freshly initialized)."""
-        if ckpt_path:
-            raise NotImplementedError("restoring a checkpoint is not ported "
-                                      "yet; use ckpt_path=null")
+        """Eval metrics on the test split with the weights of
+        ``ckpt_path`` when given, else the current ones (after ``fit``, or
+        freshly initialized)."""
         if self.module is not module:
             self.module = module
             module.init_params(self.seed)
             module.model.to(self.device)
             self._check_kernel_limits(module, datamodule)
+        if ckpt_path:
+            load_model_weights(module.model, ckpt_path)
         out = self._evaluate(datamodule.test_dataloader(),
                              self.limit_test_batches,
                              getattr(datamodule, "test_steps_per_epoch",

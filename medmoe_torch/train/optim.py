@@ -99,3 +99,10 @@ class reduce_lr_on_plateau:  # noqa: N801 — config-surface name
             self.num_bad_epochs = 0
             return max(current_lr * self.factor, self.min_lr)
         return current_lr
+
+    def state_dict(self) -> dict:
+        return {"best": self.best, "num_bad_epochs": self.num_bad_epochs}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.best = state["best"]
+        self.num_bad_epochs = state["num_bad_epochs"]

@@ -1,11 +1,13 @@
 """Train state (counterpart of medmoe_tpu/train/state.py): the model, its
 optimizer over the trainable parameters, the clip value and the step
-count. PyTorch updates the parameters in place."""
+count. PyTorch updates the parameters in place. ``state_dict`` holds what
+a checkpoint restores: the model, the Adam state (none for frozen
+parameters, as optax.masked keeps none) and the step."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -44,6 +46,19 @@ class TrainState:
         for p in self.params:
             p.grad = None
         self.step += 1
+        return self
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": int(self.step)}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> "TrainState":
+        """Load ``state`` in place (the model strictly); shapes are checked
+        by the caller (utils/checkpoint.restore_checkpoint)."""
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
         return self
 
 

@@ -54,8 +54,8 @@ class CSVLogger(BaseLogger):
         # must be re-read whenever metrics.csv EXISTS ON DISK — not only
         # while our own handle is open: after finalize() (fit → test logs
         # into the same file) or on a resumed run, _file is None but the
-        # history is there, and opening 'w' without the re-read would
-        # silently destroy it.
+        # history is there. The widened file is written to metrics.csv.tmp
+        # and moved over the original, so a crash mid-rewrite loses no row.
         path = os.path.join(self.save_dir, "metrics.csv")
         rows = []
         if self._file is not None:
@@ -70,12 +70,16 @@ class CSVLogger(BaseLogger):
                                         | set(reader.fieldnames))
         os.makedirs(self.save_dir, exist_ok=True)
         self._fields = new_fields
-        self._file = open(path, "w", newline="")
+        tmp = path + ".tmp"
+        with open(tmp, "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=self._fields, restval="")
+            writer.writeheader()
+            for row in rows:
+                writer.writerow(row)
+        os.replace(tmp, path)
+        self._file = open(path, "a", newline="")
         self._writer = csv.DictWriter(self._file, fieldnames=self._fields,
                                       restval="")
-        self._writer.writeheader()
-        for row in rows:
-            self._writer.writerow(row)
 
     def log_metrics(self, metrics: Dict[str, Any], step: int) -> None:
         if not _is_main_process():

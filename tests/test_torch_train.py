@@ -293,7 +293,7 @@ class TestEntryPoints:
     @pytest.mark.parametrize("kw", [dict(devices=2), dict(num_nodes=2),
                                     dict(mesh={"expert": 2}),
                                     dict(profiler="simple"),
-                                    dict(checkpoint_on_signal=True)])
+                                    dict(devices="2")])
     def test_unported_trainer_options_raise(self, kw):
         with pytest.raises(NotImplementedError):
             loop.Trainer(accelerator="cpu", **kw)
@@ -304,8 +304,11 @@ class TestEntryPoints:
                 model=MedMoE(DotDict(dict(VISION, dtype="float32")),
                              DotDict(TEXT)),
                 loss=DotDict(LOSS, soft_label=True))
-        with pytest.raises(NotImplementedError):
-            loop.Trainer(accelerator="cpu").fit(None, None, ckpt_path="x")
+        # resume is ported: a checkpoint that is not there raises before
+        # any step
+        with pytest.raises(FileNotFoundError):
+            loop.Trainer(accelerator="cpu").fit(
+                _tiny_module(0.0), None, ckpt_path="no/such/checkpoint")
 
     def test_eval_step_is_deterministic(self):
         module = _tiny_module(0.3)

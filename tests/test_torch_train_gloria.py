@@ -141,7 +141,14 @@ class TestConfigs:
         cfg = compose("train", [f"experiment={experiment}"])
         ref = jcompose("train", [f"experiment={experiment}"])
         assert cfg.trainer.accelerator == "gpu"
-        assert cfg.get("callbacks") is None
+        # the callback stack composes as the JAX package's, port targets
+        assert sorted(cfg.callbacks) == sorted(ref.callbacks)
+        for name, node in cfg.callbacks.items():
+            want = dict(ref.callbacks[name])
+            assert node["_target_"] == want.pop("_target_").replace(
+                "medmoe_tpu.", "medmoe_torch.")
+            assert {k: v for k, v in node.items() if k != "_target_"} == want
+        assert cfg.trainer.min_epochs == ref.trainer.min_epochs == 1
         assert cfg.trainer.accumulate_grad_batches == accum \
             == ref.trainer.accumulate_grad_batches
         for key in ("seed", "data.batch_size", "trainer.gradient_clip_val",
