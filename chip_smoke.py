@@ -68,10 +68,25 @@
      prints the trainer's pairs/s and loader wait share, the checkpoint's
      size, the save and resume times, the served img/s and the warm
      disk-backed path with f32 and uint8 images;
- 11. prints {"kernels": [...]}, with each kernel's launches counted over
+ 11. eval and deployment on that best checkpoint and those shards:
+     python -m medmoe_torch.cli.eval_zs zero-shot over a CheXpert tree it
+     writes (256 frontal JPEGs of 320 x 390, 5 tasks with both classes;
+     per-task AUROC in [0, 1], their macro mean, accuracy; K1 once per
+     batch of 64; the embeddings against the plain expert path, cosine >
+     0.999; the warm encode img/s), retrieval over the val shard (R@1/5/10
+     and median rank in range) and the linear probe over the 6 train
+     shards (three accuracies in [0, 1]; a head step's time), cli.eval
+     (the trainer's test loop, finite metrics), two steps of
+     model=classification model.freeze_encoder=false (a finite loss, K1
+     and K2 once per micro-batch, the routed experts' rows and Swin
+     moved; a warm step's time) and cli.export for cuda with a symbolic
+     batch (its round trip; the image program at b = 1 and 32 launches K1
+     once each, unit norm, cosine > 0.999 against the live embedder; the
+     export's seconds and the programs' sizes);
+ 12. prints {"kernels": [...]}, with each kernel's launches counted over
      every phase that drives the model (serving, both trainings, text
-     training, training from disk and its serving), and, last, the device
-     line.
+     training, training from disk and its serving, eval and export),
+     and, last, the device line.
 
 Any failed check exits non-zero. Needs one CUDA card; fails without one.
 ``--profile`` adds torch.profiler breakdowns of one serving wave, one
@@ -86,8 +101,10 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
@@ -1414,16 +1431,15 @@ def epoch_line(trainer) -> str:
         for i, h in enumerate(trainer.metrics_history))
 
 
-def phase_disk_train(torch, card: str):
+def phase_disk_train(torch, card: str, work: str):
     """experiment=pretraining_medmoe_ddp from tar shards on disk at full
-    width: train 1 epoch (epoch_000 and last written), resume for 3 and
-    preempt it with SIGTERM after the first step of epoch 1, resume again
-    and finish epochs 1-2 (images as uint8), then serve the best
-    checkpoint through the serve CLI. Returns the launch counts summed
-    over the four runs."""
-    import shutil
+    width, under ``work``: train 1 epoch (epoch_000 and last written),
+    resume for 3 and preempt it with SIGTERM after the first step of epoch
+    1, resume again and finish epochs 1-2 (images as uint8), then serve the
+    best checkpoint through the serve CLI. Returns the launch counts summed
+    over the four runs, and (train URLs, val URL, the best checkpoint) for
+    phase_eval."""
     import signal
-    import tempfile
 
     import numpy as np
 
@@ -1440,183 +1456,457 @@ def phase_disk_train(torch, card: str):
     print("disk train: accumulate_grad_batches cut from 80 to 2, 4 "
           "micro-batches of 32 an epoch, 1 val batch", flush=True)
     total = {}
-    work = tempfile.mkdtemp(prefix="medmoe_disk_")
-    try:
-        t0 = time.perf_counter()
-        train_urls, val_url, serve_dir = write_disk_data(work)
-        print(f"disk train: wrote 6 train shards and 1 val shard of "
-              f"{DISK_SHARD} JPEG pairs in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        root = os.path.join(work, "run")
-        ckdir = os.path.join(root, "logs", "train", "runs", "checkpoints")
-        last = os.path.join(ckdir, "last")
+    t0 = time.perf_counter()
+    train_urls, val_url, serve_dir = write_disk_data(work)
+    print(f"disk train: wrote 6 train shards and 1 val shard of "
+          f"{DISK_SHARD} JPEG pairs in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    root = os.path.join(work, "run")
+    ckdir = os.path.join(root, "logs", "train", "runs", "checkpoints")
+    last = os.path.join(ckdir, "last")
 
-        resume_s = []
+    resume_s = []
 
-        def run(label, epochs, *extra, before=None, after=None):
-            # what the checkpoints stall the loop: ModelCheckpoint at each
-            # epoch end (the best, then last, async as shipped) and at
-            # train end (the commit), and a preemption's blocking save
-            ends, commits, preempts = [], [], []
-            with step_hooks(before, after), \
-                    timed_calls(ModelCheckpoint, "on_epoch_end", ends), \
-                    timed_calls(ModelCheckpoint, "on_train_end", commits), \
-                    timed_calls(loop.Trainer, "_preempt_checkpoint",
-                                preempts), \
-                    timed_calls(loop.Trainer, "_resume", resume_s):
-                cfg, metrics, objs, counts, _, seconds, peak = drive_train(
-                    torch, disk_overrides(train_urls, val_url, epochs)
-                    + list(extra), root)
-            for k, v in counts.items():
-                total[k] = total.get(k, 0) + v
-            trainer = objs["trainer"]
-            stalls = ", ".join(f"{t:.3f}" for t in ends)
-            print(f"{label}: {seconds:.1f} s, step {trainer.state.step}, "
-                  f"launches {counts}; {epoch_line(trainer)}; checkpoint "
-                  f"stall at each epoch end [{stalls}] s, at train end "
-                  f"{commits[0]:.3f} s"
-                  + "".join(f", preemption save {t:.3f} s" for t in preempts)
-                  + f"; peak memory {peak:.2f} GB on {card}", flush=True)
-            return cfg, objs, counts
-
-        # 1. one epoch: epoch_000 and last, each with its sidecar
-        _, objs, counts = run("disk train 1", 1)
-        trainer = objs["trainer"]
-        check(trainer.state.step == 2, f"run 1: {trainer.state.step} steps")
-        check(counts["K2"] == 4 and counts["K1"] >= 4,
-              f"run 1: launches {counts} for 4 micro-batches")
-        for name in ("epoch_000", "last"):
-            check(os.path.isfile(os.path.join(ckdir, name)) and
-                  read_meta(os.path.join(ckdir, name)) is not None,
-                  f"run 1 wrote no {name} with a sidecar")
-        h = trainer.metrics_history[-1]
-        check(math.isfinite(h["train/loss"]) and math.isfinite(h["val/loss"]),
-              f"run 1: losses {h}")
-        del objs, trainer
-        ckpt_gb = os.path.getsize(last) / 1e9
-
-        # 2. resume for 3 epochs; SIGTERM after the first step of epoch 1
-        def preempt(state):
-            if state.step == 3:
-                os.kill(os.getpid(), signal.SIGTERM)
-
-        handler = signal.getsignal(signal.SIGTERM)
-        _, objs, _ = run("disk train 2 (preempted)", 3, f"ckpt_path={last}",
-                         before=check_restored(torch, last, "resume 1"),
-                         after=preempt)
-        trainer = objs["trainer"]
-        meta = read_meta(last)
-        check(trainer.interrupted and trainer.state.step == 3,
-              f"run 2: interrupted {trainer.interrupted} at step "
-              f"{trainer.state.step}")
-        check(meta["epoch"] == 0 and meta.get("preempted") is True,
-              f"run 2: last's sidecar {meta}")
-        check(signal.getsignal(signal.SIGTERM) is handler,
-              "run 2 left its SIGTERM handler installed")
-        del objs, trainer
-
-        # 3. resume again and finish epochs 1-2, shipping uint8 images
-        cfg, objs, _ = run("disk train 3 (uint8)", 3, f"ckpt_path={last}",
-                           "data.emit_uint8=true",
-                           before=check_restored(torch, last, "resume 2"))
-        trainer, module = objs["trainer"], objs["module"]
-        check(trainer.state.step == 7 and not trainer.interrupted,
-              f"run 3 ended at step {trainer.state.step}")
-        check(len(trainer.metrics_history) == 2 and all(
-            math.isfinite(h["train/loss"]) and h["train/grad_norm"] > 0
-            for h in trainer.metrics_history), "run 3: losses not finite")
-        kept = sorted(n for n in os.listdir(ckdir)
-                      if not n.endswith((".meta.json", ".tmp")))
-        top_k = int(cfg.callbacks.model_checkpoint.save_top_k)
-        check(len(kept) == top_k + 1 and "last" in kept,
-              f"checkpoints {kept} for save_top_k={top_k} plus last")
-        best = trainer.best_model_path
-        check(bool(best) and os.path.basename(best) in kept,
-              f"best_model_path {best!r} not among {kept}")
-        resumes = ", ".join(f"{t:.2f}" for t in resume_s)
-        print(f"disk train: checkpoints {kept}, best {os.path.basename(best)};"
-              f" checkpoint {ckpt_gb:.3f} GB; resumes (load + restore) "
-              f"{resumes} s on {card}", flush=True)
-
-        # 4. serve the best checkpoint; hold it against the trained module
-        module.model.load_state_dict(load_checkpoint(best)["model"])
-        module.model.eval()
-        files = sorted(os.listdir(serve_dir))
-        transform = ImageTransform(int(cfg.model.model.vision.image_size),
-                                   train=False)
-        images = np.stack([transform(decode_image(
-            open(os.path.join(serve_dir, f), "rb").read())) for f in files])
-        want = make_image_embedder(module.model)(images).float()
-        wave_s = []
-        real_waves = serve.serve_waves
-
-        def timed_waves(*a, **k):
-            t = time.perf_counter()
-            try:
-                return real_waves(*a, **k)
-            finally:
-                torch.cuda.synchronize()
-                wave_s.append(time.perf_counter() - t)
-
-        out = io.StringIO()
-        serve.serve_waves = timed_waves
-        reset_launch_counts()
-        try:
-            with contextlib.redirect_stdout(out):
-                rc = serve.main([f"ckpt_path={best}", "data=unimed",
-                                 "serve.mode=embed",
-                                 f"serve.input={serve_dir}",
-                                 f"paths.root_dir={root}"])
-        finally:
-            serve.serve_waves = real_waves
-        counts = launch_counts()
+    def run(label, epochs, *extra, before=None, after=None):
+        # what the checkpoints stall the loop: ModelCheckpoint at each
+        # epoch end (the best, then last, async as shipped) and at
+        # train end (the commit), and a preemption's blocking save
+        ends, commits, preempts = [], [], []
+        with step_hooks(before, after), \
+                timed_calls(ModelCheckpoint, "on_epoch_end", ends), \
+                timed_calls(ModelCheckpoint, "on_train_end", commits), \
+                timed_calls(loop.Trainer, "_preempt_checkpoint",
+                            preempts), \
+                timed_calls(loop.Trainer, "_resume", resume_s):
+            cfg, metrics, objs, counts, _, seconds, peak = drive_train(
+                torch, disk_overrides(train_urls, val_url, epochs)
+                + list(extra), root)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-        check(rc == 0, f"serve exited {rc}")
-        recs = [json.loads(line) for line in out.getvalue().splitlines()]
-        check([os.path.basename(r["path"]) for r in recs] == files,
-              f"served {len(recs)} records for {len(files)} images")
-        got = torch.tensor([r["embedding"] for r in recs],
-                           device=want.device)
-        cos = (got * want).sum(-1).min().item()
-        check(cos > 0.999, f"served embeddings vs the module's: cosine {cos}")
-        check(counts["K1"] == len(files) // WAVE,
-              f"serve launched K1 {counts['K1']} times")
-        print(f"disk serve: {len(recs)} images in {wave_s[0]:.3f} s of waves "
-              f"= {len(recs) / wave_s[0]:.1f} img/s (decode on the prefetch "
-              f"thread included); min cosine against the trained module "
-              f"{cos:.6f}; K1 launches {counts['K1']} on {card}", flush=True)
+        trainer = objs["trainer"]
+        stalls = ", ".join(f"{t:.3f}" for t in ends)
+        print(f"{label}: {seconds:.1f} s, step {trainer.state.step}, "
+              f"launches {counts}; {epoch_line(trainer)}; checkpoint "
+              f"stall at each epoch end [{stalls}] s, at train end "
+              f"{commits[0]:.3f} s"
+              + "".join(f", preemption save {t:.3f} s" for t in preempts)
+              + f"; peak memory {peak:.2f} GB on {card}", flush=True)
+        return cfg, objs, counts
 
-        # 5. one isolated save of the trained state, blocking and async
-        path = os.path.join(work, "timed", "ckpt")
-        t = time.perf_counter()
-        save_checkpoint(path, trainer.state, extra={"epoch": 0})
-        blocking_s = time.perf_counter() - t
-        t = time.perf_counter()
-        save_checkpoint(path, trainer.state, extra={"epoch": 0},
-                        blocking=False)
-        call_s = time.perf_counter() - t
-        finalize_saves()
-        async_s = time.perf_counter() - t
-        print(f"disk train: one isolated save of "
-              f"{os.path.getsize(path) / 1e9:.3f} GB: blocking "
-              f"{blocking_s:.2f} s; async call {call_s:.2f} s "
-              f"(the copy to the host), {async_s:.2f} s to commit on {card}",
-              flush=True)
+    # 1. one epoch: epoch_000 and last, each with its sidecar
+    _, objs, counts = run("disk train 1", 1)
+    trainer = objs["trainer"]
+    check(trainer.state.step == 2, f"run 1: {trainer.state.step} steps")
+    check(counts["K2"] == 4 and counts["K1"] >= 4,
+          f"run 1: launches {counts} for 4 micro-batches")
+    for name in ("epoch_000", "last"):
+        check(os.path.isfile(os.path.join(ckdir, name)) and
+              read_meta(os.path.join(ckdir, name)) is not None,
+              f"run 1 wrote no {name} with a sidecar")
+    h = trainer.metrics_history[-1]
+    check(math.isfinite(h["train/loss"]) and math.isfinite(h["val/loss"]),
+          f"run 1: losses {h}")
+    del objs, trainer
+    ckpt_gb = os.path.getsize(last) / 1e9
 
-        # 6. the warm disk-backed path over an epoch, f32 and uint8
-        for uint8 in (False, True):
-            dm = instantiate(dict(cfg.data, emit_uint8=uint8))
-            pairs_s, share, alone = time_trainer_windows(
-                torch, trainer, module, dm, 2, epoch=5)
-            print(f"disk train warm epoch: emit_uint8={str(uint8).lower()} "
-                  f"{pairs_s:.1f} pairs/s, loader wait {100 * share:.1f}% "
-                  f"of the time; the loader alone on the host {alone:.1f} "
-                  f"pairs/s; on {card}", flush=True)
-        del objs, trainer, module
-        torch.cuda.empty_cache()
+    # 2. resume for 3 epochs; SIGTERM after the first step of epoch 1
+    def preempt(state):
+        if state.step == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    handler = signal.getsignal(signal.SIGTERM)
+    _, objs, _ = run("disk train 2 (preempted)", 3, f"ckpt_path={last}",
+                     before=check_restored(torch, last, "resume 1"),
+                     after=preempt)
+    trainer = objs["trainer"]
+    meta = read_meta(last)
+    check(trainer.interrupted and trainer.state.step == 3,
+          f"run 2: interrupted {trainer.interrupted} at step "
+          f"{trainer.state.step}")
+    check(meta["epoch"] == 0 and meta.get("preempted") is True,
+          f"run 2: last's sidecar {meta}")
+    check(signal.getsignal(signal.SIGTERM) is handler,
+          "run 2 left its SIGTERM handler installed")
+    del objs, trainer
+
+    # 3. resume again and finish epochs 1-2, shipping uint8 images
+    cfg, objs, _ = run("disk train 3 (uint8)", 3, f"ckpt_path={last}",
+                       "data.emit_uint8=true",
+                       before=check_restored(torch, last, "resume 2"))
+    trainer, module = objs["trainer"], objs["module"]
+    check(trainer.state.step == 7 and not trainer.interrupted,
+          f"run 3 ended at step {trainer.state.step}")
+    check(len(trainer.metrics_history) == 2 and all(
+        math.isfinite(h["train/loss"]) and h["train/grad_norm"] > 0
+        for h in trainer.metrics_history), "run 3: losses not finite")
+    kept = sorted(n for n in os.listdir(ckdir)
+                  if not n.endswith((".meta.json", ".tmp")))
+    top_k = int(cfg.callbacks.model_checkpoint.save_top_k)
+    check(len(kept) == top_k + 1 and "last" in kept,
+          f"checkpoints {kept} for save_top_k={top_k} plus last")
+    best = trainer.best_model_path
+    check(bool(best) and os.path.basename(best) in kept,
+          f"best_model_path {best!r} not among {kept}")
+    resumes = ", ".join(f"{t:.2f}" for t in resume_s)
+    print(f"disk train: checkpoints {kept}, best {os.path.basename(best)};"
+          f" checkpoint {ckpt_gb:.3f} GB; resumes (load + restore) "
+          f"{resumes} s on {card}", flush=True)
+
+    # 4. serve the best checkpoint; hold it against the trained module
+    module.model.load_state_dict(load_checkpoint(best)["model"])
+    module.model.eval()
+    files = sorted(os.listdir(serve_dir))
+    transform = ImageTransform(int(cfg.model.model.vision.image_size),
+                               train=False)
+    images = np.stack([transform(decode_image(
+        open(os.path.join(serve_dir, f), "rb").read())) for f in files])
+    want = make_image_embedder(module.model)(images).float()
+    wave_s = []
+    real_waves = serve.serve_waves
+
+    def timed_waves(*a, **k):
+        t = time.perf_counter()
+        try:
+            return real_waves(*a, **k)
+        finally:
+            torch.cuda.synchronize()
+            wave_s.append(time.perf_counter() - t)
+
+    out = io.StringIO()
+    serve.serve_waves = timed_waves
+    reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = serve.main([f"ckpt_path={best}", "data=unimed",
+                             "serve.mode=embed",
+                             f"serve.input={serve_dir}",
+                             f"paths.root_dir={root}"])
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        serve.serve_waves = real_waves
+    counts = launch_counts()
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    check(rc == 0, f"serve exited {rc}")
+    recs = [json.loads(line) for line in out.getvalue().splitlines()]
+    check([os.path.basename(r["path"]) for r in recs] == files,
+          f"served {len(recs)} records for {len(files)} images")
+    got = torch.tensor([r["embedding"] for r in recs],
+                       device=want.device)
+    cos = (got * want).sum(-1).min().item()
+    check(cos > 0.999, f"served embeddings vs the module's: cosine {cos}")
+    check(counts["K1"] == len(files) // WAVE,
+          f"serve launched K1 {counts['K1']} times")
+    print(f"disk serve: {len(recs)} images in {wave_s[0]:.3f} s of waves "
+          f"= {len(recs) / wave_s[0]:.1f} img/s (decode on the prefetch "
+          f"thread included); min cosine against the trained module "
+          f"{cos:.6f}; K1 launches {counts['K1']} on {card}", flush=True)
+
+    # 5. one isolated save of the trained state, blocking and async
+    path = os.path.join(work, "timed", "ckpt")
+    t = time.perf_counter()
+    save_checkpoint(path, trainer.state, extra={"epoch": 0})
+    blocking_s = time.perf_counter() - t
+    t = time.perf_counter()
+    save_checkpoint(path, trainer.state, extra={"epoch": 0},
+                    blocking=False)
+    call_s = time.perf_counter() - t
+    finalize_saves()
+    async_s = time.perf_counter() - t
+    print(f"disk train: one isolated save of "
+          f"{os.path.getsize(path) / 1e9:.3f} GB: blocking "
+          f"{blocking_s:.2f} s; async call {call_s:.2f} s "
+          f"(the copy to the host), {async_s:.2f} s to commit on {card}",
+          flush=True)
+
+    # 6. the warm disk-backed path over an epoch, f32 and uint8
+    for uint8 in (False, True):
+        dm = instantiate(dict(cfg.data, emit_uint8=uint8))
+        pairs_s, share, alone = time_trainer_windows(
+            torch, trainer, module, dm, 2, epoch=5)
+        print(f"disk train warm epoch: emit_uint8={str(uint8).lower()} "
+              f"{pairs_s:.1f} pairs/s, loader wait {100 * share:.1f}% "
+              f"of the time; the loader alone on the host {alone:.1f} "
+              f"pairs/s; on {card}", flush=True)
+    del objs, trainer, module
+    torch.cuda.empty_cache()
+    return total, (train_urls, val_url, best)
+
+
+CHEX_IMAGES = 256
+CHEX_BATCH = 64            # configs/data/chexpert.yaml batch_size
+
+
+def write_chexpert(root: str, n: int = CHEX_IMAGES, seed: int = 11) -> str:
+    """A CheXpert tree from a numpy seed: valid.csv and ``n`` frontal
+    JPEGs of 320 x 390 (width x height) under valid/, each row with the 5
+    competition tasks' labels, both classes in every task."""
+    import csv
+
+    import numpy as np
+    from PIL import Image
+
+    from medmoe_torch.data.datamodules import CheXpertDataModule
+
+    rng = np.random.RandomState(seed)
+    tasks = CheXpertDataModule.COMPETITION_TASKS
+    labels = rng.randint(0, 2, (n, len(tasks)))
+    labels[0], labels[1] = 0, 1
+    os.makedirs(os.path.join(root, "valid"))
+    rows = []
+    for i in range(n):
+        base = Image.fromarray((rng.rand(13, 10, 3) * 255).astype(np.uint8))
+        arr = np.asarray(base.resize((320, 390), Image.BILINEAR),
+                         dtype=np.int16) + rng.randint(-12, 13, (390, 320, 3))
+        rel = f"valid/patient{i:05d}_study1_view1_frontal.jpg"
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, rel), format="JPEG", quality=90)
+        rows.append({"Path": f"CheXpert-v1.0/{rel}",
+                     "Frontal/Lateral": "Frontal",
+                     **{t: float(v) for t, v in zip(tasks, labels[i])}})
+    with open(os.path.join(root, "valid.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    return root
+
+
+def run_cli(torch, main, argv):
+    """A CLI's ``main(argv)`` with every launch count set to 0 just before
+    and read just after. Returns (its result, the launch counts, seconds,
+    the JSON object of the last line it printed)."""
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    check(bool(lines), f"{main.__module__} printed no JSON line")
+    return result, counts, seconds, json.loads(lines[-1])
+
+
+def phase_eval(torch, ef, card: str, work: str, train_urls: str,
+               val_url: str, best: str):
+    """The eval and deployment surfaces at full width on what
+    phase_disk_train trained (its best checkpoint, its shards): zero-shot
+    CheXpert (cli.eval_zs), retrieval and the linear probe over the UniMed
+    shards, the trainer's test loop (cli.eval), two steps of classification
+    fine-tuning (cli.train model=classification) and the encoders' export
+    (cli.export) with a symbolic batch. Returns the K1 and K2 launches of
+    these surfaces."""
+    import numpy as np
+
+    from medmoe_torch.cli import eval as eval_cli
+    from medmoe_torch.cli import eval_zs
+    from medmoe_torch.cli import export as export_cli
+    from medmoe_torch.config import DotDict, compose
+    from medmoe_torch.data.datamodules import CheXpertDataModule
+    from medmoe_torch.eval import export as tex
+    from medmoe_torch.eval import linear_probe as tlp
+    from medmoe_torch.eval.zero_shot import (encode_class_prompts,
+                                             load_for_eval,
+                                             make_image_embedder)
+    from medmoe_torch.train.classification import ClassificationModule
+
+    total = {"K1": 0, "K2": 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    common = [f"paths.root_dir={os.path.join(work, 'eval')}",
+              "extras.print_config=false"]
+    workers = f"data.num_workers={min(8, os.cpu_count() or 1)}"
+    unimed = ["data=unimed", f"data.train_data_paths={train_urls}",
+              f"data.val_data_paths={val_url}", "data.batch_size=32",
+              workers, f"ckpt_path={best}"] + common
+
+    # 1. zero-shot CheXpert through the eval CLI
+    t0 = time.perf_counter()
+    chex = write_chexpert(os.path.join(work, "chexpert"))
+    print(f"eval: wrote a CheXpert tree of {CHEX_IMAGES} frontal JPEGs "
+          f"(320 x 390) in {time.perf_counter() - t0:.1f} s", flush=True)
+    zs_args = ["data=chexpert", f"data.data_dir={chex}",
+               f"ckpt_path={best}"] + common
+    metrics, counts, seconds, printed = run_cli(torch, eval_zs.main, zs_args)
+    add(counts)
+    names = CheXpertDataModule.COMPETITION_TASKS
+    aucs = [metrics.get(f"zero_shot/auroc/{n}", math.nan) for n in names]
+    check(printed == metrics, "eval_zs printed other metrics than it returned")
+    check(all(0.0 <= a <= 1.0 for a in aucs), f"per-task AUROCs {aucs}")
+    check(abs(metrics["zero_shot/auroc"] - float(np.mean(aucs))) < 1e-12,
+          f"macro AUROC {metrics['zero_shot/auroc']} vs {np.mean(aucs)}")
+    check(0.0 <= metrics["zero_shot/accuracy"] <= 1.0
+          and metrics["zero_shot/n"] == CHEX_IMAGES, f"zero-shot {metrics}")
+    check(counts["K1"] == -(-CHEX_IMAGES // CHEX_BATCH),
+          f"zero-shot launched K1 {counts['K1']} times for "
+          f"{-(-CHEX_IMAGES // CHEX_BATCH)} batches")
+    # the same images through the embedder, timed warm, and through the
+    # plain expert path (comparison launches: not counted)
+    model, dm, tok = load_for_eval(compose("eval_zs", zs_args))
+    embed = make_image_embedder(model)
+    batches = [b["image"] for b in dm.test_dataloader()]
+    class_emb = encode_class_prompts(model, tok, names,
+                                     "this is a photo of {}", 25)
+    embed(batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = torch.cat([embed(b) for b in batches])
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    with plain_expert_path(ef):
+        plain = torch.cat([embed(b) for b in batches])
+    cos = (emb * plain).sum(-1).min().item()
+    sim_err = (emb @ class_emb.T - plain @ class_emb.T).abs().max().item()
+    check(cos > 0.999, f"zero-shot embeddings vs the plain expert path: "
+          f"cosine {cos}")
+    print(f"eval zero-shot: CheXpert AUROC {metrics['zero_shot/auroc']:.4f} "
+          f"(tasks {', '.join(f'{a:.4f}' for a in aucs)}), accuracy "
+          f"{metrics['zero_shot/accuracy']:.4f}; the CLI {seconds:.1f} s "
+          f"(model init and JPEG decode included), K1 launches "
+          f"{counts['K1']}; encode {CHEX_IMAGES / enc_s:.1f} img/s warm "
+          f"({len(batches)} batches of {CHEX_BATCH}); vs the plain expert "
+          f"path: min cosine {cos:.6f}, similarities max abs diff "
+          f"{sim_err:.2e}; on {card}", flush=True)
+
+    # 2. retrieval over the val shard
+    metrics, counts, seconds, _ = run_cli(
+        torch, eval_zs.main, unimed + ["eval.protocol=retrieval"])
+    add(counts)
+    for d in ("i2t", "t2i"):
+        r = [metrics[f"retrieval/{d}_r@{k}"] for k in (1, 5, 10)]
+        check(all(0.0 <= x <= 1.0 for x in r) and r == sorted(r),
+              f"{d} recall {r}")
+        check(1.0 <= metrics[f"retrieval/{d}_median_rank"] <= DISK_SHARD,
+              f"{d} median rank {metrics[f'retrieval/{d}_median_rank']}")
+    check(counts["K1"] == DISK_SHARD // 32, f"retrieval launched K1 "
+          f"{counts['K1']} times")
+    print(f"eval retrieval: {json.dumps(metrics)}; {seconds:.1f} s, K1 "
+          f"launches {counts['K1']} on {card}", flush=True)
+
+    # 3. the linear probe: the 6 train shards once each, the val shard
+    metrics, counts, seconds, _ = run_cli(
+        torch, eval_zs.main, unimed + ["eval.protocol=linear_probe",
+                                       "data.resampled=false",
+                                       "eval.linear_probe.epochs=50"])
+    add(counts)
+    accs = [metrics[f"linear_probe/acc@{p}%"] for p in (1, 10, 100)]
+    check(all(0.0 <= a <= 1.0 for a in accs), f"probe accuracies {accs}")
+    check(counts["K1"] == (6 * DISK_SHARD + DISK_SHARD) // 32,
+          f"the probe launched K1 {counts['K1']} times")
+    rng = np.random.RandomState(3)
+    x = rng.randn(6 * DISK_SHARD, 768).astype(np.float32)
+    y = rng.randint(0, 6, 6 * DISK_SHARD)
+    tlp._train_head(x, y, 6, 1e-3, 50, False, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tlp._train_head(x, y, 6, 1e-3, 50, False, "cuda")
+    torch.cuda.synchronize()
+    head_ms = (time.perf_counter() - t0) * 1e3 / 50
+    print(f"eval linear probe: accuracies at 1/10/100% {accs}; {seconds:.1f}"
+          f" s for {6 * DISK_SHARD} + {DISK_SHARD} images and 3 heads, K1 "
+          f"launches {counts['K1']}; a head step on {6 * DISK_SHARD} x 768 "
+          f"features {head_ms:.3f} ms on {card}", flush=True)
+
+    # 4. the trainer's test loop on the val shard (cli.eval)
+    metrics, counts, seconds, _ = run_cli(
+        torch, eval_cli.main, unimed + ["trainer.limit_test_batches=2"])
+    add(counts)
+    check(all(math.isfinite(v) for v in metrics.values())
+          and "test/loss" in metrics, f"cli.eval metrics {metrics}")
+    check(counts["K1"] == 2, f"cli.eval launched K1 {counts['K1']} times")
+    print(f"eval test loop: {json.dumps(metrics)}; {seconds:.1f} s, K1 "
+          f"launches {counts['K1']} on {card}", flush=True)
+
+    # 5. two steps of classification fine-tuning (the modality label)
+    overrides = [o for o in disk_overrides(train_urls, val_url, 1)
+                 if not o.startswith(("callbacks=",
+                                      "trainer.limit_train_batches=",
+                                      "trainer.accumulate_grad_batches=",
+                                      "trainer.limit_val_batches="))]
+    cfg, metrics, objs, counts, routed, seconds, peak = drive_train(
+        torch, overrides + [
+            "model=classification", "model.freeze_encoder=false",
+            "model.num_classes=6", "model.multilabel=false",
+            "callbacks=none", "trainer.limit_train_batches=2",
+            "trainer.accumulate_grad_batches=1",
+            "trainer.limit_val_batches=0"], os.path.join(work, "cls"))
+    add(counts)
+    trainer, module = objs["trainer"], objs["module"]
+    steps = trainer.state.step
+    check(steps == 2 and math.isfinite(metrics["train/loss"]),
+          f"classification: step {steps}, metrics {metrics}")
+    check(counts["K1"] == counts["K2"] == 2,
+          f"classification launches {counts} for 2 micro-batches")
+    # against the same seeded init: the routed experts' rows and Swin moved
+    # (weight decay 1e-6 moves the unrouted rows too)
+    init_mod = ClassificationModule(vision=DotDict(cfg.model.model.vision),
+                                    num_classes=6, freeze_encoder=False)
+    init_mod.init_params(cfg.seed)
+    init = init_mod.model.state_dict()
+    now = {k: v.detach().cpu() for k, v in module.model.state_dict().items()}
+    experts = sorted(set(torch.cat(routed).flatten().tolist()))
+    bank = "encoder.swin_moe.moe.experts.proj_w0"
+    moved = [e for e in range(now[bank].shape[0])
+             if not torch.equal(now[bank][e], init[bank][e])]
+    check(set(experts) <= set(moved), f"classification: routed experts "
+          f"{experts}, moved bank rows {moved}")
+    for k in ("encoder.swin_moe.swin.patch_embed.proj.weight",
+              "encoder.swin_moe.swin.stage3_block1.mlp.fc2.weight",
+              "head.classifier.weight"):
+        check(not torch.equal(now[k], init[k]), f"classification: {k} "
+              f"did not move")
+    batch = trainer.to_device(next(iter(
+        objs["datamodule"].train_dataloader(1))))
+    step_ms = warm_step_ms(torch, trainer, module, batch)
+    print(f"eval classification fine-tuning: {steps} steps in "
+          f"{seconds:.1f} s (init included), loss {metrics['train/loss']:.4f}"
+          f", acc {metrics['train/acc']:.4f}; launches {counts}; routed "
+          f"experts {experts}, bank rows {moved} moved, Swin moved; warm "
+          f"step of 32 {step_ms:.1f} ms; peak memory {peak:.2f} GB on {card}",
+          flush=True)
+    del objs, trainer, module, batch
+    torch.cuda.empty_cache()
+
+    # 6. export with a symbolic batch; the image program on the card
+    out = os.path.join(work, "export")
+    manifest, counts, seconds, printed = run_cli(
+        torch, export_cli.main, unimed + ["export.platforms=[cuda]",
+                                          f"export.dir={out}"])
+    add(counts)
+    check(manifest["platforms"] == ["cuda"] and manifest["image"]["input"]
+          == "float32[b,224,224,3]", f"manifest {manifest}")
+    check(counts["K1"] == 2, f"export (its round trip: the live module and "
+          f"the program) launched K1 {counts['K1']} times")
+    image = tex.call_exported(out, "image", "cuda")
+    x = torch.from_numpy(batches[0][:32]).cuda()
+    for b in (1, 32):
+        before = ef.LAUNCHES
+        got = image(x[:b])
+        torch.cuda.synchronize()
+        total["K1"] += ef.LAUNCHES - before
+        check(ef.LAUNCHES == before + 1, f"the image program at b={b} "
+              f"launched K1 {ef.LAUNCHES - before} times")
+        err = (got.norm(dim=-1) - 1).abs().max().item()
+        check(got.shape == (b, 768) and err < 1e-3,
+              f"the image program at b={b}: {tuple(got.shape)}, |norm-1| "
+              f"{err}")
+    cos = (got * embed(x)).sum(-1).min().item()
+    check(cos > 0.999, f"the image program vs the live embedder: cosine "
+          f"{cos}")
+    sizes = ", ".join(f"{k} {v / 1e6:.1f} MB"
+                      for k, v in printed["bytes"].items())
+    print(f"eval export: {seconds:.1f} s (model init, two torch.export "
+          f"traces, saves and the round trip included); {sizes}; round "
+          f"trip max abs err {manifest['roundtrip_max_abs_err']['cuda']} "
+          f"(bound {tex.ROUNDTRIP_ATOL}); the image "
+          f"program at b=1 and 32 launches K1 once each, min cosine "
+          f"against the live embedder {cos:.6f}, on {card}", flush=True)
+    del model, embed, image
+    torch.cuda.empty_cache()
     return total
 
 
@@ -1664,16 +1954,22 @@ def main() -> int:
     phase_gloria_wide(torch, ga, card)
     g256 = phase_gloria_train(torch, card)
     text = phase_text_train(torch, card)
-    disk = phase_disk_train(torch, card)
+    work = tempfile.mkdtemp(prefix="medmoe_disk_")
+    try:
+        disk, trained = phase_disk_train(torch, card, work)
+        ev = phase_eval(torch, ef, card, work, *trained)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     print(f"main paths: serving {img_s:.1f} img/s with K1 launched "
           f"{serve_launches} times; pretraining_medmoe_ddp training "
           f"{pairs_s:.1f} pairs/s with K1 launched {k1_train} and K2 "
           f"{k2_train} times; gloria256 launches {g256}; text training "
-          f"launches {text}; disk train, resume and serve launches {disk}",
-          flush=True)
+          f"launches {text}; disk train, resume and serve launches {disk}; "
+          f"eval, classification and export launches {ev}", flush=True)
     # K1 and K2 run in every phase that drives the model
-    k1_all = serve_launches + k1_train + g256["K1"] + text["K1"] + disk["K1"]
-    k2_all = k2_train + g256["K2"] + text["K2"] + disk["K2"]
+    k1_all = serve_launches + k1_train + g256["K1"] + text["K1"] \
+        + disk["K1"] + ev["K1"]
+    k2_all = k2_train + g256["K2"] + text["K2"] + disk["K2"] + ev["K2"]
 
     def row(name, source, replaces, launches, r, **extra):
         extra.update({k: r[k] for k in ("k4a_only_ms", "both_ms", "prologue_ms",

@@ -76,7 +76,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -252,6 +252,27 @@ def expert_fusion_gather(xs: Sequence[torch.Tensor],
                            + lib.medmoe_cuda_error_string(rc).decode())
     LAUNCHES += 1
     return out
+
+
+@torch.library.custom_op("medmoe::expert_fusion_gather", mutates_args=())
+def expert_fusion_gather_op(xs: List[torch.Tensor], wp: List[torch.Tensor],
+                            bp: List[torch.Tensor], w1: torch.Tensor,
+                            b1: torch.Tensor, w2: torch.Tensor,
+                            b2: torch.Tensor,
+                            expert_idx: torch.Tensor) -> torch.Tensor:
+    """``expert_fusion_gather`` as a registered op, the one entry to K1 for
+    training, serving and the exported graph: on CUDA tensors it launches
+    K1 (or raises), on CPU tensors it runs the plain version. The pointer
+    arrays and the CPU range check stay inside the op, out of any graph
+    that ``torch.export`` traces."""
+    return expert_fusion_gather(xs, wp, bp, w1, b1, w2, b2, expert_idx)
+
+
+@expert_fusion_gather_op.register_fake
+def _expert_fusion_gather_fake(xs, wp, bp, w1, b1, w2, b2, expert_idx):
+    p = max(x.shape[1] for x in xs)
+    return xs[0].new_empty((expert_idx.shape[0], p, w1.shape[1]),
+                           dtype=torch.float32)
 
 
 def expert_fusion_gather_reference(xs: Sequence[torch.Tensor],
@@ -603,10 +624,11 @@ class FusedExpertGather(torch.autograd.Function):
     ``FusedExpertGather.apply(expert_idx, w1, b1, w2, b2, *xs, *wp, *bp)``
     → [B, P, E] float32.
 
-    CUDA: forward is K1, backward is K2 then the bank scatter. CPU: forward
-    is the plain version and backward is autograd through it — the math
-    the JAX package's XLA path differentiates. Only the inputs are kept for
-    the backward, which recomputes the rest."""
+    CUDA: forward is K1 (through ``expert_fusion_gather_op``), backward is
+    K2 then the bank scatter. CPU: forward is the plain version and
+    backward is autograd through it — the math the JAX package's XLA path
+    differentiates. Only the inputs are kept for the backward, which
+    recomputes the rest."""
 
     @staticmethod
     def forward(ctx, expert_idx, w1, b1, w2, b2, *flat):
@@ -614,7 +636,8 @@ class FusedExpertGather(torch.autograd.Function):
         xs, wp, bp = flat[:n], flat[n:2 * n], flat[2 * n:]
         ctx.n = n
         ctx.save_for_backward(expert_idx, w1, b1, w2, b2, *flat)
-        return expert_fusion_gather(xs, wp, bp, w1, b1, w2, b2, expert_idx)
+        return expert_fusion_gather_op(list(xs), list(wp), list(bp), w1, b1,
+                                       w2, b2, expert_idx)
 
     @staticmethod
     def backward(ctx, g):

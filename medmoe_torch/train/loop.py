@@ -358,13 +358,15 @@ class Trainer:
                 nonlocal global_step, n_pairs
                 self.state, metrics = step_fn(self.state, window)
                 global_step += 1
-                n_pairs += sum(len(b["cap_lens"]) for b in window)
+                n_pairs += sum(b["image"].shape[0] for b in window)
                 for k, v in metrics.items():
                     epoch_metrics.setdefault(f"train/{k}", []).append(v)
                 return metrics
 
             timed = _timed(train_iter, waits)
+            n_batches = 0
             for batch in timed:
+                n_batches += 1
                 micro_batches.append(batch)
                 if len(micro_batches) < accum:
                     continue
@@ -380,6 +382,12 @@ class Trainer:
                 if self._preempt_requested:
                     break
             timed.close()           # stops the prefetch threads early too
+            if not n_batches and epoch == start_epoch \
+                    and self.limit_train_batches != 0:
+                raise ValueError(
+                    "the train dataloader yielded no batches — check the "
+                    "data paths (data.train_data_paths / data.data_dir) and "
+                    "that batch_size does not exceed the dataset size")
 
             if self._preempt_requested:
                 self._preempt_checkpoint(epoch)

@@ -66,7 +66,7 @@ class MedMoEPretrainingModule:
         if bool(self.loss_cfg.get("soft_label", False)):
             raise NotImplementedError(
                 "soft_label losses (the frozen tool-BERT targets) are not "
-                "ported yet (ROADMAP.md Queue 1 item 14)")
+                "ported yet (ROADMAP.md Queue 1)")
         self.block_size = self.loss_cfg.get("block_size", None)
         if bool(self.loss_cfg.get("global_negatives", False)):
             self.block_size = None

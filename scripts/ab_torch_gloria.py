@@ -1,6 +1,7 @@
 """A/B of the port's kernels between checkouts, on one CUDA card.
 
-    python3 scripts/ab_torch_gloria.py [--k1 | --k2 | --step] DIR [DIR ...]
+    python3 scripts/ab_torch_gloria.py [--k1 | --k2 | --step | --serve] \
+        DIR [DIR ...]
 
 In each checkout, in the order given (parent, change, change, parent, to
 cancel drift), and in a process of its own that builds that checkout's
@@ -28,7 +29,12 @@ kernels:
   two gloria256 optimizer steps of 256 pairs at full width through the
   train CLI, then one warm step timed, with the peak device memory; then
   ``chip_smoke.phase_text_train``, the same with BERT training (the path
-  that runs K4b), one step and one warm step timed.
+  that runs K4b), one step and one warm step timed;
+- with ``--serve``, the small-batch leg, where the host's dispatch sets
+  the rate: ``chip_smoke.phase_serve`` (8 full-width serving waves of 32,
+  img/s) and ``chip_smoke.phase_train`` (two pretraining_medmoe_ddp
+  steps of 4 micro-batches of 32 through the train CLI, then the warm
+  trainer path, pairs/s).
 
 Prints the card's name and power limit first; exits non-zero when a
 checkout's run fails or the GLoRIA digests differ.
@@ -148,7 +154,14 @@ c.phase_gloria_train(torch, card)
 c.phase_text_train(torch, card)
 '''
 
-LEGS = {"--k1": K1, "--k2": K2, "--step": STEP}
+SERVE = PRELUDE + r'''
+from medmoe_torch.ops import expert_fusion as ef
+
+c.phase_serve(torch, ef, card, *c.full_width_config())
+c.phase_train(torch, ef, card)
+'''
+
+LEGS = {"--k1": K1, "--k2": K2, "--step": STEP, "--serve": SERVE}
 
 
 def main() -> int:

@@ -440,6 +440,27 @@ class TestResume:
             assert torch.equal(v, saved[k]), k
 
 
+class TestEmptyTrainLoader:
+    @pytest.mark.parametrize("extra", [[], ["trainer.overfit_batches=2"]])
+    def test_both_packages_raise(self, tmp_path, extra):
+        """Shard paths that match no file: the JAX trainer raises before it
+        builds its parameters; the port's raises when the first epoch's
+        loader yields no batch (it used to train nothing and return)."""
+        from medmoe_tpu.cli.train import train as jtrain
+        from medmoe_tpu.config import compose as jcompose
+        from medmoe_torch.cli.train import train as ttrain
+
+        missing = [f"data.train_data_paths={tmp_path}/none-{{000001..000002}}"
+                   f".tar", f"data.val_data_paths={tmp_path}/none-val.tar",
+                   *extra]
+        with pytest.raises(ValueError, match="yielded no batches"):
+            jtrain(jcompose("train", TINY + missing + [
+                "trainer.devices=1", f"paths.root_dir={tmp_path / 'jax'}"]))
+        with pytest.raises(ValueError, match="yielded no batches"):
+            ttrain(compose("train", TINY + missing + [
+                f"paths.root_dir={tmp_path / 'torch'}"]))
+
+
 class TestPreemption:
     def test_request_preemption_mid_epoch(self, shards, tmp_path,
                                           monkeypatch):

@@ -104,6 +104,31 @@ class TestExpertFusionKernel:
         assert torch.isfinite(out).all()
         torch.testing.assert_close(out, ref, **LOOSE)
 
+    @pytest.mark.parametrize("b", [0, 2])
+    def test_registered_op_is_the_wrapper(self, dev, b):
+        """``medmoe::expert_fusion_gather`` (training, serving and exported
+        programs enter K1 through it) launches K1 once (none for an empty
+        batch) and gives the wrapper's bits; its fake implementation gives
+        the same shape."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        xs, wp, bp, *rest = _inputs(dev, 2, (3136, 784, 196, 49),
+                                    (96, 192, 384, 768), 768, 6, [5, 2])
+        xs = [x[:b] for x in xs]
+        rest[-1] = rest[-1][:b]
+        want = ef.expert_fusion_gather(xs, wp, bp, *rest)
+        before = ef.LAUNCHES
+        got = torch.ops.medmoe.expert_fusion_gather(list(xs), list(wp),
+                                                    list(bp), *rest)
+        torch.cuda.synchronize()
+        assert ef.LAUNCHES == before + (b > 0) and torch.equal(got, want)
+        with FakeTensorMode() as mode:
+            fake = torch.ops.medmoe.expert_fusion_gather(
+                *[[mode.from_tensor(t) for t in ts] for ts in (xs, wp, bp)],
+                *[mode.from_tensor(t) for t in rest])
+        assert fake.shape == want.shape and fake.dtype == want.dtype
+        assert fake.device == want.device
+
     def test_out_of_range_expert_poisons_only_its_sample(self, dev):
         args = list(_inputs(dev, 2, (64, 16), (8, 16), 64, 3, [1, 3]))
         out = ef.expert_fusion_gather(*args)

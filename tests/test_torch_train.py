@@ -310,6 +310,24 @@ class TestEntryPoints:
             loop.Trainer(accelerator="cpu").fit(
                 _tiny_module(0.0), None, ckpt_path="no/such/checkpoint")
 
+    def test_unported_messages_name_a_live_roadmap_queue(self):
+        """A "not ported yet" message names its ROADMAP.md queue without an
+        item number: items are renumbered as they land (the soft-label one
+        named an item 14 that no longer existed)."""
+        import pathlib
+        import re
+
+        with pytest.raises(NotImplementedError) as err:
+            MedMoEPretrainingModule(
+                model=MedMoE(DotDict(dict(VISION, dtype="float32")),
+                             DotDict(TEXT)),
+                loss=DotDict(LOSS, soft_label=True))
+        assert "(ROADMAP.md Queue 1)" in str(err.value)
+        port = pathlib.Path(__file__).resolve().parents[1] / "medmoe_torch"
+        stale = [str(f) for f in port.rglob("*.py")
+                 if re.search(r"Queue \d+ item", f.read_text())]
+        assert not stale
+
     def test_eval_step_is_deterministic(self):
         module = _tiny_module(0.3)
         batch = {k: torch.from_numpy(v)
