@@ -83,14 +83,34 @@
      batch (its round trip; the image program at b = 1 and 32 launches K1
      once each, unit norm, cosine > 0.999 against the live embedder; the
      export's seconds and the programs' sizes);
- 12. prints {"kernels": [...]}, with each kernel's launches counted over
+ 12. K3, the prologue + K4a and both cotangents (K4b) at the rectangular
+     shape each rank of a two-rank gloria256 launches, 128 images
+     against 256 captions, held against their plain versions and timed
+     beside their bounds;
+ 13. the MoE modes: the expert branch at experiment=moe_single_modality's
+     shape (4 experts, top-2, B=64, bf16, full width) in gather mode (K1
+     twice a forward, K2 twice a backward) against topk (capacity factor
+     2: nothing drops) and dense, outputs and gradients; then 2 optimizer
+     steps of moe_single_modality as shipped (topk, capacity 1.5;
+     accumulation cut from 10 to 2) and 1 of zero_shot_dense (no MoE);
+ 14. data-parallel training: one gloria256 step of 256 in one process
+     (drop rates 0), then the same global batch as two gloo ranks of 128
+     on the one card (this script with --ddp-rank, two processes on
+     cuda:0, each one node of one card, through the train CLI's main),
+     held against it (loss, grad_norm, the update), K3 once at 128 x 256
+     on each rank; then one step through a one-rank NCCL group that the
+     port's maybe_initialize opens; each with its warm step and peak
+     memory;
+ 15. prints {"kernels": [...]}, with each kernel's launches counted over
      every phase that drives the model (serving, both trainings, text
-     training, training from disk and its serving, eval and export),
-     and, last, the device line.
+     training, training from disk and its serving, eval and export, the
+     MoE-mode trainings and the data-parallel steps), and, last, the
+     device line.
 
 Any failed check exits non-zero. Needs one CUDA card; fails without one.
 ``--profile`` adds torch.profiler breakdowns of one serving wave, one
-B=32 training step and one gloria256 step.
+B=32 training step and one gloria256 step; ``--only gloria_rect,moe_modes,ddp``
+runs just those phases (no kernels line).
 """
 
 from __future__ import annotations
@@ -1910,6 +1930,540 @@ def phase_eval(torch, ef, card: str, work: str, train_urls: str,
     return total
 
 
+# ---------------------------------------------------------------------------
+# data-parallel training, the rectangular GLoRIA shape, the MoE modes
+# ---------------------------------------------------------------------------
+
+RECT = (GLORIA_BATCH // 2, GLORIA_BATCH)    # one of two ranks' images x all captions
+
+
+def phase_gloria_rect(torch, ga, card: str, words: int = 25):
+    """K3, the prologue + K4a and both cotangents (K4b) against their plain
+    versions at the shape each rank of a two-rank gloria256 launches:
+    B_img = 128 images against B_txt = 256 captions at full width; their
+    times beside their bounds. Returns {kernel: rect_* fields}."""
+    temps = (4.0, 5.0, 10.0)
+    b_img, b_txt = RECT
+    shape = (b_img, b_txt, 768, 56, 56, words)
+    name = f"rectangular {b_img}x{b_txt} T={words}"
+    img, words_, cap, cot = gloria_inputs(torch, *shape, seed=24)
+    out = ga.gloria_similarity_forward(img, words_, cap, *temps)
+    torch.cuda.synchronize()
+    ref = ga.gloria_similarity_reference(img, words_, cap, *temps)
+    err3 = gloria_err(torch, out, ref, f"K3 {name}", "fwd")
+    del out, ref
+    d_img, d_words = ga.gloria_similarity_backward(img, words_, cap, cot,
+                                                   *temps)
+    torch.cuda.synchronize()
+    r_img, r_words = ga.gloria_similarity_bwd_reference(img, words_, cap,
+                                                        cot, *temps)
+    err4a = gloria_err(torch, d_img, r_img, f"K4a {name} d_img", "bwd")
+    err4b = gloria_err(torch, d_words, r_words, f"K4b {name} d_words", "bwd")
+    del d_img, d_words, r_img, r_words
+    torch.cuda.empty_cache()
+
+    def bwd(need_img, need_words, plain=False):
+        fn = ga.gloria_similarity_bwd_reference if plain \
+            else ga.gloria_similarity_backward
+        return lambda: fn(img, words_, cap, cot, *temps, need_img=need_img,
+                          need_words=need_words)
+
+    ms3 = cuda_ms(lambda: ga.gloria_similarity_forward(img, words_, cap,
+                                                       *temps),
+                  iters=3, warmup=1)
+    plain3 = cuda_ms(lambda: ga.gloria_similarity_reference(
+        img, words_, cap, *temps), iters=1, warmup=0)
+    ms_pro = cuda_ms(bwd(False, False), iters=2, warmup=1)
+    ms4a = cuda_ms(bwd(True, False), iters=2, warmup=1)
+    plain4a = cuda_ms(bwd(True, False, True), iters=1, warmup=0)
+    ms_both = cuda_ms(bwd(True, True), iters=2, warmup=1)
+    plain4b = cuda_ms(bwd(False, True, True), iters=1, warmup=0)
+    out_img = img.numel() * img.element_size()
+    results = {}
+    for key, ms, plain, err, products, out_bytes in (
+            ("K3", ms3, plain3, err3, 2, b_img * b_txt * 4),
+            ("K4a", ms4a, plain4a, err4a, 3, out_img + b_img * b_txt * 4),
+            ("K4b", ms_both - ms4a, plain4b, err4b, 1,
+             words_.numel() * 2 + b_img * b_txt * 4)):
+        bound, by, gflop, mb = gloria_bound(img, words_, out_bytes, products)
+        results[key] = {"rect_shape": f"{b_img}x{b_txt}",
+                        "rect_max_abs_err": err, "rect_ms": ms,
+                        "rect_plain_ms": plain, "rect_bound_ms": bound}
+        print(f"{key} {name}: kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+              f"bound_ms {bound:.4f} ({by}: {products} products, "
+              f"{gflop:.1f} GFLOP, {mb:.1f} MB) on {card}", flush=True)
+    pro_bound, _, _, _ = gloria_bound(img, words_,
+                                      prologue_out_bytes(ga, shape), 2)
+    print(f"K4 {name}: the backward's prologue alone {ms_pro:.4f} ms (bound "
+          f"{pro_bound:.4f} ms), prologue + K4a {ms4a:.4f} ms, prologue + "
+          f"K4a + K4b {ms_both:.4f} ms on {card}", flush=True)
+    del img, words_, cap, cot
+    torch.cuda.empty_cache()
+    return results
+
+
+DDP_LR = 5e-5                        # experiment=gloria256's lr
+DDP_OVERRIDES = [
+    "experiment=gloria256", "data=synthetic",
+    f"data.num_samples={2 * GLORIA_BATCH}", "trainer.max_epochs=1",
+    "trainer.limit_train_batches=1", "trainer.limit_val_batches=0",
+    "trainer.num_sanity_val_steps=0", "callbacks=none", "logger=csv",
+    "extras.print_config=false", "trainer.log_every_n_steps=1",
+    "model.model.vision.drop_path_rate=0.0",
+    "model.model.text.hidden_dropout_prob=0.0",
+    "model.model.text.attention_probs_dropout_prob=0.0"]
+
+
+def trainable_state(module):
+    return {n: p.detach().float().cpu()
+            for n, p in module.model.named_parameters() if p.requires_grad}
+
+
+def step_timer(seconds: list):
+    """step_hooks' ``after``: the wall time of each optimizer step, the
+    device synced at both ends."""
+    import torch
+
+    t = [None]
+
+    def before(_state):
+        torch.cuda.synchronize()
+        t[0] = time.perf_counter()
+
+    def after(_state):
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t[0])
+        t[0] = time.perf_counter()
+    return before, after
+
+
+def probe_collectives(torch, dist) -> dict:
+    """Which of all_gather, all_gather_into_tensor and all_reduce the group's
+    backend takes on CUDA tensors (printed; the port calls all_gather and
+    all_reduce, and a refusal there fails the phase)."""
+    x = torch.full((2, 3), float(dist.get_rank()), device="cuda")
+    took = {}
+    for name, call in (
+            ("all_gather", lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(dist.get_world_size())],
+                x)),
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                torch.empty((2 * dist.get_world_size(), 3), device="cuda"),
+                x)),
+            ("all_reduce", lambda: dist.all_reduce(x.clone()))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            took[name] = "ok"
+        except Exception as exc:          # reported, then judged by the caller
+            took[name] = f"{type(exc).__name__}: {str(exc)[:120]}"
+    return took
+
+
+def ddp_rank_main() -> int:
+    """One rank of phase_ddp: joins a gloo group on cuda:0 from the
+    environment phase_ddp sets, then runs the train CLI's ``main`` as one
+    of two nodes of one card (a node batch of 128); writes its launch
+    counts, K3's shapes, metrics, step time and peak memory, and rank 0 its
+    trained parameters, under ``--ddp-out``."""
+    out = sys.argv[sys.argv.index("--ddp-out") + 1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+        rank=rank, world_size=2, timeout=datetime.timedelta(seconds=300))
+    from medmoe_torch.cli import train as cli
+    from medmoe_torch.ops import gloria_attention as ga
+
+    probe = probe_collectives(torch, dist)
+    captured, shapes, seconds = {}, [], []
+    real_train, real_fwd = cli.train, ga.gloria_similarity_forward
+
+    def train(cfg):
+        metrics, objs = real_train(cfg)
+        captured.update(objs)
+        return metrics, objs
+
+    def fwd(img, words, *a):
+        shapes.append([img.shape[0], words.shape[0]])
+        return real_fwd(img, words, *a)
+
+    cli.train, ga.gloria_similarity_forward = train, fwd
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        with step_hooks(*step_timer(seconds)):
+            cli.main(DDP_OVERRIDES + [
+                "trainer=ddp", "trainer.devices=1", "trainer.num_nodes=2",
+                f"data.batch_size={GLORIA_BATCH // 2}",
+                f"paths.root_dir={os.path.join(out, f'rank{rank}')}"])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        trainer = captured["trainer"]
+        if rank == 0:
+            torch.save(trainable_state(captured["module"]),
+                       os.path.join(out, "params.pt"))
+        result = {"rank": rank, "counts": counts, "k3_shapes": list(shapes),
+                  "metrics": trainer.metrics_history[-1],
+                  "step_s": list(seconds), "steps": trainer.state.step,
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        batch = trainer.to_device(next(iter(
+            captured["datamodule"].train_dataloader(1))))
+        result["warm_ms"] = warm_step_ms(torch, trainer, captured["module"],
+                                         batch)
+        result.update({
+            "device": str(trainer.device), "probe": probe,
+            "backend": dist.get_backend(), "world": dist.get_world_size()})
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def hold_update(torch, got, want, init, steps: int, lr: float, label: str):
+    """The bf16 policy of tests/test_torch_train.py: the cosine of the whole
+    update > 0.9, and every element within 2·steps·lr."""
+    bound = 2 * steps * lr
+    dots = ng = nw = 0.0
+    worst = 0.0
+    for k, w in want.items():
+        g, i = got[k], init[k]
+        worst = max(worst, (g - w).abs().max().item())
+        dg, dw = (g - i).flatten().double(), (w - i).flatten().double()
+        dots += float(dg @ dw)
+        ng += float(dg @ dg)
+        nw += float(dw @ dw)
+    cos = dots / math.sqrt(ng * nw)
+    print(f"{label}: parameters against the single-process step: cosine of "
+          f"the whole update {cos:.6f} (> 0.9), largest element difference "
+          f"{worst:.3e} (bound 2*steps*lr = {bound:.1e})", flush=True)
+    check(cos > 0.9 and worst <= bound,
+          f"{label}: the update differs from the single-process step's")
+    return cos, worst
+
+
+def phase_ddp(torch, card: str):
+    """experiment=gloria256 at full width with a global batch of 256 as two
+    ranks of 128 on the one card (two gloo processes on cuda:0, each one
+    node of one card), held against the single-process step on the same
+    seed (drop rates 0); then one step through a one-rank NCCL group that
+    the port's maybe_initialize opens. Returns the launch counts of the
+    main path: the single-process step, both ranks and the NCCL step."""
+    from medmoe_torch.cli.train import main as cli_main
+    from medmoe_torch.models.medmoe import init_weights
+
+    # the single-process reference: one step of 256, drop rates 0
+    seconds = []
+    with step_hooks(*step_timer(seconds)):
+        cfg, metrics, objs, counts, _, _, peak_gb = drive_train(
+            torch, DDP_OVERRIDES)
+    module, trainer = objs["module"], objs["trainer"]
+    ref = trainable_state(module)
+    init = init_weights(type(module.model)(module.model.vision,
+                                           module.model.text),
+                        seed=cfg.seed).state_dict()
+    init = {k: init[k].float() for k in ref}
+    total = dict(counts)
+    batch = trainer.to_device(next(iter(objs["datamodule"].train_dataloader(1))))
+    warm = warm_step_ms(torch, trainer, module, batch)
+    print(f"ddp: single-process step of {GLORIA_BATCH}: loss "
+          f"{metrics['train/loss']:.6f} grad_norm "
+          f"{metrics['train/grad_norm']:.6f}, first step "
+          f"{seconds[0] * 1e3:.1f} ms, warm step {warm:.1f} ms, peak "
+          f"{peak_gb:.2f} GB; launches {counts}", flush=True)
+    del batch, trainer
+    del objs, module
+    torch.cuda.empty_cache()
+
+    # two gloo ranks of 128 on cuda:0
+    work = tempfile.mkdtemp(prefix="medmoe_ddp_")
+    try:
+        env = dict(os.environ, WORLD_SIZE="2", LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ddp-rank",
+             "--ddp-out", work], env=dict(env, RANK=str(r)))
+            for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=420) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        check(rcs == [0, 0], f"ddp: the rank processes exited with {rcs}")
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+                 for r in range(2)]
+        got = torch.load(os.path.join(work, "params.pt"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"ddp: gloo on CUDA tensors takes {ranks[0]['probe']}", flush=True)
+    for r in ranks:
+        c = r["counts"]
+        print(f"ddp rank {r['rank']} ({r['backend']}, world {r['world']}, "
+              f"{r['device']}): {r['steps']} step, K3 shapes "
+              f"{r['k3_shapes']}, launches {c}, step wall: first "
+              f"{r['step_s'][0] * 1e3:.1f} ms, warm {r['warm_ms']:.1f} ms; "
+              f"peak memory {r['peak_gb']:.2f} GB on {card}", flush=True)
+        check(r["backend"] == "gloo" and r["world"] == 2
+              and r["device"] == "cuda:0", f"ddp rank {r['rank']}: "
+              f"{r['backend']} world {r['world']} on {r['device']}")
+        check(r["steps"] == 1, f"ddp rank {r['rank']}: {r['steps']} steps")
+        check(r["k3_shapes"] == [list(RECT)], f"ddp rank {r['rank']}: K3 "
+              f"shapes {r['k3_shapes']}, want one at {RECT}")
+        check(c["K3"] == c["prologue"] == c["K4a"] == 1 and c["K4b"] == 0,
+              f"ddp rank {r['rank']}: GLoRIA launches {c}")
+        check(c["K1"] == c["K2"] == 1, f"ddp rank {r['rank']}: K1/K2 "
+              f"launches {c} for one micro-batch")
+        for k, v in c.items():
+            total[k] += v
+    m = ranks[0]["metrics"]
+    check(m == ranks[1]["metrics"] or all(
+        abs(m[k] - ranks[1]["metrics"][k]) <= 1e-6 * abs(m[k])
+        for k in m if k.startswith("train/")),
+        "ddp: the ranks' averaged metrics differ")
+    for key in ("train/loss", "train/grad_norm"):
+        rel = abs(m[key] - metrics[key]) / abs(metrics[key])
+        print(f"ddp: {key} two ranks {m[key]:.6f} against one process "
+              f"{metrics[key]:.6f}: rel {rel:.2e} (rtol 2e-2)", flush=True)
+        check(rel <= 2e-2, f"ddp: {key} differs from the single process")
+    hold_update(torch, got, ref, init, 1, DDP_LR, "ddp two ranks")
+    print(f"ddp: two ranks of {GLORIA_BATCH // 2} in {wall:.1f} s of wall "
+          f"time (both processes' start, build load, init and the step)",
+          flush=True)
+
+    # one rank over NCCL, the group opened by the port's maybe_initialize
+    saved = {k: os.environ.get(k) for k in ("RANK", "LOCAL_RANK",
+                                            "WORLD_SIZE", "MASTER_ADDR",
+                                            "MASTER_PORT")}
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    import torch.distributed as dist
+
+    from medmoe_torch.cli import train as cli
+    from medmoe_torch.parallel.multihost import maybe_initialize
+
+    captured, seconds = {}, []
+    real_train = cli.train
+
+    def train(cfg_):
+        out = real_train(cfg_)
+        captured.update(out[1])
+        return out
+
+    cli.train = train
+    root = tempfile.mkdtemp(prefix="medmoe_nccl_")
+    try:
+        check(maybe_initialize(1, "gpu"), "ddp: maybe_initialize opened no "
+              "group")
+        backend = dist.get_backend()
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with step_hooks(*step_timer(seconds)):
+            nccl = cli_main(DDP_OVERRIDES + ["trainer=ddp", "trainer.devices=1",
+                                             f"data.batch_size={GLORIA_BATCH}",
+                                             f"paths.root_dir={root}"])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        got = trainable_state(captured["module"])
+        peak_nccl = torch.cuda.max_memory_allocated() / 1e9
+        batch = captured["trainer"].to_device(next(iter(
+            captured["datamodule"].train_dataloader(1))))
+        warm = warm_step_ms(torch, captured["trainer"], captured["module"],
+                            batch)
+        del batch
+    finally:
+        cli.train = real_train
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(backend == "nccl", f"ddp: the one-rank group ran {backend}")
+    check(captured["module"].ddp is not None, "ddp: no DDP wrapper")
+    for key in ("train/loss", "train/grad_norm"):
+        check(math.isfinite(nccl[key]) and nccl[key] > 0,
+              f"ddp nccl: {key} = {nccl[key]}")
+    check(counts["K3"] == counts["K4a"] == counts["K1"] == counts["K2"] == 1,
+          f"ddp nccl: launches {counts}")
+    hold_update(torch, got, ref, init, 1, DDP_LR, "ddp nccl")
+    print(f"ddp: one NCCL rank of {GLORIA_BATCH}: loss {nccl['train/loss']:.6f} "
+          f"grad_norm {nccl['train/grad_norm']:.6f} (one process: "
+          f"{metrics['train/loss']:.6f}, {metrics['train/grad_norm']:.6f}); "
+          f"first step {seconds[0] * 1e3:.1f} ms, warm step {warm:.1f} ms, "
+          f"peak {peak_nccl:.2f} GB; launches {counts} on {card}", flush=True)
+    for k, v in counts.items():
+        total[k] += v
+    del captured, got, ref, init
+    torch.cuda.empty_cache()
+    return total
+
+
+MOE_OVERRIDES = [
+    "experiment=moe_single_modality", "data=synthetic",
+    "data.num_samples=256", "trainer.max_epochs=1",
+    "trainer.accumulate_grad_batches=2", "trainer.limit_train_batches=4",
+    "trainer.limit_val_batches=1", "trainer.num_sanity_val_steps=0",
+    "callbacks=none", "logger=csv", "extras.print_config=false",
+    "trainer.log_every_n_steps=1"]
+DENSE_OVERRIDES = [
+    "experiment=zero_shot_dense", "data=synthetic",
+    f"data.num_samples={GLORIA_BATCH}", "trainer.max_epochs=1",
+    "trainer.accumulate_grad_batches=1", "trainer.limit_train_batches=1",
+    "trainer.limit_val_batches=0", "trainer.num_sanity_val_steps=0",
+    "callbacks=none", "logger=csv", "extras.print_config=false",
+    "trainer.log_every_n_steps=1"]
+
+
+def moe_grads(torch, fn, leaves, cot):
+    """fn() → [B, P, E] f32; (the output, its gradients at ``leaves`` for
+    the cotangent ``cot``)."""
+    for t in leaves:
+        t.grad = None
+    out = fn()
+    grads = torch.autograd.grad(out, leaves, cot)
+    return out.detach(), grads
+
+
+def hold_close(torch, got, want, name: str, rtol: float) -> float:
+    """Every element within rtol·max|want| of ``want``."""
+    scale = want.abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and err <= rtol * scale
+    print(f"{name}: max_abs_err {err:.3e} max|ref| {scale:.3e} (limit "
+          f"{rtol:g}*max|ref|) {'ok' if ok else 'MISMATCH'}", flush=True)
+    check(ok, f"{name}: disagrees")
+    return err
+
+
+def phase_moe_modes(torch, ef, card: str):
+    """The expert branch at moe_single_modality's shape (4 experts, top-2,
+    B = 64, bf16, full width) in gather mode (K1 twice a forward, K2 twice
+    a backward) against topk (capacity factor 2: 64 slots an expert, all
+    that top-2 over 64 samples can send it, so nothing drops) and against
+    dense; then 2 optimizer steps of experiment=moe_single_modality as
+    shipped (topk, capacity factor 1.5; accumulation cut from 10 to 2) and
+    one of experiment=zero_shot_dense (no MoE). Returns the launch counts
+    of the two training runs."""
+    from medmoe_torch.models import moe as tmoe
+
+    b, k = 64, 4
+    p_list, d_list = (3136, 784, 196, 49), (96, 192, 384, 768)
+    xs, wp, bp, w1, b1, w2, b2, _ = k1_inputs(torch, b, p_list, d_list, 768,
+                                              384, k, seed=31)
+    bank = tmoe.ExpertBank(tmoe.MoEConfig(num_experts=k, hidden_dims=d_list,
+                                          output_dim=768, top_k=2)).cuda()
+    with torch.no_grad():
+        for s in range(4):
+            getattr(bank, f"proj_w{s}").copy_(wp[s])
+            getattr(bank, f"proj_b{s}").copy_(bp[s])
+        for name, t in (("attn_w1", w1), ("attn_b1", b1), ("attn_w2", w2),
+                        ("attn_b2", b2)):
+            getattr(bank, name).copy_(t)
+    g = torch.Generator(device="cuda").manual_seed(32)
+    probs = torch.softmax(torch.randn((b, k), generator=g, device="cuda"), -1)
+    idx, w = tmoe.topk_routing(probs, 2)
+    check(len(set(idx.flatten().tolist())) == k, "moe: an expert is unused")
+    cot = torch.randn((b, 3136, 768), generator=g, device="cuda") / 3136
+    pyr = [x.detach().clone().requires_grad_() for x in xs]
+    leaves = pyr + list(bank.parameters())
+    names = [f"d_x{s}" for s in range(4)] + [n for n, _ in
+                                             bank.named_parameters()]
+    onehot = (idx.long()[..., None] == torch.arange(k, device="cuda"))
+    combine = torch.sum(onehot.float() * w[..., None], dim=1)
+    runs = {}
+    for mode, fn in (
+            ("gather", lambda: bank.apply_gathered(pyr, idx, w)),
+            ("topk", lambda: bank.apply_dispatched(pyr, idx, 2.0, w)),
+            ("dense", lambda: bank.apply_dense(pyr, combine))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = (ef.LAUNCHES, ef.BWD_LAUNCHES)
+        out, grads = moe_grads(torch, fn, leaves, cot)
+        torch.cuda.synchronize()
+        launched = (ef.LAUNCHES - before[0], ef.BWD_LAUNCHES - before[1])
+        ms = cuda_ms(lambda: moe_grads(torch, fn, leaves, cot), iters=2,
+                     warmup=0)
+        runs[mode] = (out, grads)
+        print(f"moe {mode}: forward + backward {ms:.2f} ms, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, K1/K2 "
+              f"launches {launched} on {card}", flush=True)
+        if mode == "gather":
+            check(launched == (2, 2), f"moe gather top-2 launched K1/K2 "
+                  f"{launched} times, want twice each")
+        else:
+            check(launched == (0, 0), f"moe {mode} launched K1/K2")
+        torch.cuda.empty_cache()
+    # gather (K1/K2) against the grouped einsums: the kernels' bf16 rounding
+    # points are the JAX kernel's, the einsum modes' the JAX XLA path's,
+    # equal in value up to f32 order; a bf16 flip moves single elements
+    want_out, want_grads = runs["gather"]
+    for mode in ("topk", "dense"):
+        out, grads = runs[mode]
+        hold_close(torch, out, want_out, f"moe {mode} vs gather: out", 2e-2)
+        for name, got, want in zip(names, grads, want_grads):
+            if name == "attn_b2":
+                continue       # zero in exact arithmetic (a softmax shift)
+            hold_close(torch, got, want, f"moe {mode} vs gather: {name}",
+                       3e-2)
+    del runs, want_out, want_grads, pyr, leaves, bank, xs
+    torch.cuda.empty_cache()
+
+    total = {}
+    for label, overrides, steps in (("moe_single_modality", MOE_OVERRIDES, 2),
+                                    ("zero_shot_dense", DENSE_OVERRIDES, 1)):
+        seconds = []
+        with step_hooks(*step_timer(seconds)):
+            cfg, metrics, objs, counts, routed, wall, peak_gb = drive_train(
+                torch, overrides)
+        trainer, module = objs["trainer"], objs["module"]
+        check(trainer.state.step == steps, f"{label}: {trainer.state.step} "
+              f"optimizer steps, want {steps}")
+        for key in ("train/loss", "train/grad_norm"):
+            check(key in metrics and math.isfinite(metrics[key])
+                  and metrics[key] > 0, f"{label}: {key} not finite positive")
+        check(counts["K1"] == counts["K2"] == 0, f"{label}: K1/K2 launched "
+              f"{counts}")
+        experts, moved = check_moved(
+            torch, module, cfg.seed,
+            routed or [torch.zeros(0, dtype=torch.long)], label)
+        print(f"{label}: {steps} optimizer steps, loss "
+              f"{metrics['train/loss']:.6f} grad_norm "
+              f"{metrics['train/grad_norm']:.6f}; routed experts {experts}, "
+              f"{moved} bank rows moved, Swin moved, frozen BERT unchanged; "
+              f"launches {counts}; steps "
+              f"{[round(s * 1e3, 1) for s in seconds]} ms; peak "
+              f"{peak_gb:.2f} GB on {card}", flush=True)
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+        del objs, trainer, module
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "medmoe_torch")):
@@ -1946,6 +2500,17 @@ def main() -> int:
             if "Used" in line or "spill" in line or "error" in line:
                 print(f"build {name}: {line.strip()}", flush=True)
 
+    if "--only" in sys.argv:         # a quick look at some of the phases
+        only = sys.argv[sys.argv.index("--only") + 1].split(",")
+        for name in only:
+            {"gloria_rect": lambda: phase_gloria_rect(torch, ga, card),
+             "moe_modes": lambda: phase_moe_modes(torch, ef, card),
+             "ddp": lambda: phase_ddp(torch, card)}[name]()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     k1 = phase_k1(torch, ef)
     serve_launches, img_s = phase_serve(torch, ef, card, *full_width_config())
     k2 = phase_k2(torch, ef)
@@ -1960,16 +2525,24 @@ def main() -> int:
         ev = phase_eval(torch, ef, card, work, *trained)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    rect = phase_gloria_rect(torch, ga, card)
+    moe = phase_moe_modes(torch, ef, card)
+    ddp = phase_ddp(torch, card)
     print(f"main paths: serving {img_s:.1f} img/s with K1 launched "
           f"{serve_launches} times; pretraining_medmoe_ddp training "
           f"{pairs_s:.1f} pairs/s with K1 launched {k1_train} and K2 "
           f"{k2_train} times; gloria256 launches {g256}; text training "
           f"launches {text}; disk train, resume and serve launches {disk}; "
-          f"eval, classification and export launches {ev}", flush=True)
+          f"eval, classification and export launches {ev}; MoE-mode "
+          f"training launches {moe}; data-parallel launches (one process, "
+          f"both ranks, the NCCL rank) {ddp}", flush=True)
     # K1 and K2 run in every phase that drives the model
     k1_all = serve_launches + k1_train + g256["K1"] + text["K1"] \
-        + disk["K1"] + ev["K1"]
-    k2_all = k2_train + g256["K2"] + text["K2"] + disk["K2"] + ev["K2"]
+        + disk["K1"] + ev["K1"] + moe["K1"] + ddp["K1"]
+    k2_all = k2_train + g256["K2"] + text["K2"] + disk["K2"] + ev["K2"] \
+        + moe["K2"] + ddp["K2"]
+    gl_all = {k: g256[k] + text[k] + moe[k] + ddp[k]
+              for k in ("K3", "prologue", "K4a", "K4b")}
 
     def row(name, source, replaces, launches, r, **extra):
         extra.update({k: r[k] for k in ("k4a_only_ms", "both_ms", "prologue_ms",
@@ -1991,15 +2564,15 @@ def main() -> int:
             "medmoe_torch/csrc/expert_fusion_bwd.cu",
             "medmoe_tpu/ops/pallas/expert_fusion.py:233", k2_all, k2),
         row("gloria_similarity_forward", f"{gsrc}.cu", f"{gtpu}:73",
-            g256["K3"], gl["K3"],
-            functions=[k.split()[-1] for k in K3_KERNELS]),
+            gl_all["K3"], gl["K3"],
+            functions=[k.split()[-1] for k in K3_KERNELS], **rect["K3"]),
         row("gloria_similarity_backward d_ctx", f"{gsrc}_bwd.cu",
-            f"{gtpu}:242", g256["K4a"], gl["K4a"],
-            prologue_launches=g256["prologue"]),
+            f"{gtpu}:242", gl_all["K4a"], gl["K4a"],
+            prologue_launches=gl_all["prologue"], **rect["K4a"]),
         row("gloria_similarity_backward d_words", f"{gsrc}_bwd.cu",
-            f"{gtpu}:274", text["K4b"], gl["K4b"],
+            f"{gtpu}:274", gl_all["K4b"], gl["K4b"],
             functions=["dwords_gemm_kernel", "dwords_wei_kernel"],
-            prologue_launches=text["prologue"])]}))
+            prologue_launches=text["prologue"], **rect["K4b"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2007,4 +2580,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ddp_rank_main() if "--ddp-rank" in sys.argv else main())

@@ -11,18 +11,41 @@ hydra-style ``key=value`` arguments.
 
 Training runs on the CUDA card; ``trainer.accelerator=cpu`` asks for the
 CPU. ``--multirun`` and ``hparams_search`` are not ported yet.
+
+Data-parallel training (the reference's ``trainer=ddp trainer.devices=8``):
+
+    python -m medmoe_torch.cli.train experiment=gloria256 data=synthetic \
+        trainer=ddp trainer.devices=2                # this CLI starts rank 1
+    torchrun --nproc_per_node=2 -m medmoe_torch.cli.train \
+        experiment=gloria256 data=synthetic trainer=ddp trainer.devices=2
+    python -m medmoe_torch.cli.train ... trainer=ddp_sim   # 2 CPU ranks, gloo
+
+Without a launch environment and with ``trainer.devices > 1`` the CLI
+starts ``devices - 1`` more processes of itself with torchrun's variables
+set (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``) and becomes rank 0; it stops the others when one fails.
+Under torchrun or Slurm it only joins the group. ``data.batch_size`` is
+one node's batch, split over its ranks.
 """
 
 from __future__ import annotations
 
+import os
 import random
+import socket
+import subprocess
 import sys
+import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from medmoe_torch.config import compose, to_dict
+from medmoe_torch.parallel.multihost import cluster_env, maybe_initialize
+from medmoe_torch.train.loop import resolve_devices
 from medmoe_torch.utils.instantiate import instantiate
 from medmoe_torch.utils.logging import get_logger
 from medmoe_torch.utils.task import extras, get_metric_value, task_wrapper
@@ -53,9 +76,15 @@ def train(cfg) -> Tuple[Dict[str, float], Dict]:
     ``ckpt_path`` when set), optionally test with the best checkpoint
     (reference src/train.py:42-108)."""
     seed_everything(cfg.get("seed"))
+    tcfg = cfg.get("trainer") or {}
+    accelerator = tcfg.get("accelerator", "gpu")
+    # the group comes first: the data split reads the rank
+    maybe_initialize(tcfg.get("num_nodes", 1), accelerator)
 
     log.info(f"instantiating datamodule <{cfg.data._target_}>")
-    datamodule = instantiate(cfg.data)
+    datamodule = instantiate(
+        cfg.data, ranks_per_node=resolve_devices(tcfg.get("devices", 1),
+                                                 accelerator))
     # the embedding table must cover the tokenizer's vocabulary (a corpus-
     # built vocab can exceed the configured size); the model is built with
     # its final shape, so this is settled before the module exists
@@ -90,16 +119,90 @@ def train(cfg) -> Tuple[Dict[str, float], Dict]:
                      "datamodule": datamodule}
 
 
-def _run_one(overrides: List[str]) -> Dict[str, float]:
-    cfg = compose("train", overrides)
+def _run_one(cfg) -> Dict[str, float]:
     if cfg.get("hparams_search"):
         raise NotImplementedError("hparams_search sweeps are not ported yet")
+    tcfg = cfg.get("trainer") or {}
+    # the group before extras: only rank 0 writes the config tree
+    maybe_initialize(tcfg.get("num_nodes", 1), tcfg.get("accelerator", "gpu"))
     extras(cfg)
     metrics, _ = train(cfg)
     metric_name = cfg.get("optimized_metric")
     if metric_name:
         get_metric_value(metrics, metric_name)
     return metrics
+
+
+#: marks a rank that this CLI started, with its launcher's pid
+_LAUNCHER_ENV = "MEDMOE_LAUNCHER_PID"
+_GROUP_ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE",
+              "MASTER_ADDR", "MASTER_PORT")
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _watch(check, what: str) -> None:
+    """A daemon thread that ends this process when ``check()`` returns a
+    message: a rank that died leaves the others waiting in a collective
+    until its timeout."""
+    def run():
+        while True:
+            msg = check()
+            if msg:
+                log.error(f"{what}: {msg}; stopping")
+                sys.stdout.flush()
+                os._exit(1)
+            time.sleep(1.0)
+
+    threading.Thread(target=run, daemon=True, name=f"medmoe-{what}").start()
+
+
+def _launch_node(cfg, overrides: List[str]) -> List[subprocess.Popen]:
+    """Start this node's ranks 1 … devices-1 when no launch environment
+    exists and ``trainer.devices > 1``; this process becomes rank 0 (its
+    environment is set here). Returns the started processes."""
+    launcher = os.environ.get(_LAUNCHER_ENV)
+    if launcher:                      # a rank this CLI started: watch it
+        _watch(lambda: "the launching rank exited"
+               if os.getppid() != int(launcher) else None, "launcher")
+    tcfg = cfg.get("trainer") or {}
+    accelerator = tcfg.get("accelerator", "gpu")
+    devices = resolve_devices(tcfg.get("devices", 1), accelerator)
+    if devices <= 1 or cluster_env() is not None or dist.is_initialized():
+        return []
+    if int(tcfg.get("num_nodes", 1) or 1) > 1:
+        return []                     # maybe_initialize raises for this
+    env = {"WORLD_SIZE": str(devices), "LOCAL_WORLD_SIZE": str(devices),
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
+           _LAUNCHER_ENV: str(os.getpid())}
+    if "OMP_NUM_THREADS" not in os.environ:
+        # one intra-op thread a rank unless asked otherwise, as torchrun
+        # sets for several processes a node
+        env["OMP_NUM_THREADS"] = "1"
+        torch.set_num_threads(1)
+    children = []
+    for rank in range(1, devices):
+        children.append(subprocess.Popen(
+            [sys.executable, "-m", "medmoe_torch.cli.train", *overrides],
+            env={**os.environ, **env, "RANK": str(rank),
+                 "LOCAL_RANK": str(rank)}))
+    os.environ.update({k: v for k, v in env.items()
+                       if k in _GROUP_ENV})
+    os.environ.update({"RANK": "0", "LOCAL_RANK": "0"})
+
+    def failed():
+        for rank, child in enumerate(children, 1):
+            if child.poll() not in (None, 0):
+                return f"rank {rank} exited with code {child.returncode}"
+        return None
+
+    _watch(failed, "rank watch")
+    log.info(f"started ranks 1-{devices - 1} of {devices}")
+    return children
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
@@ -109,7 +212,29 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
         return {}
     if any(a in ("-m", "--multirun") for a in overrides):
         raise NotImplementedError("--multirun is not ported yet")
-    return _run_one(overrides)
+    cfg = compose("train", overrides)
+    saved = {k: os.environ.get(k) for k in _GROUP_ENV}
+    owns_group = not (dist.is_available() and dist.is_initialized())
+    children = _launch_node(cfg, overrides)
+    try:
+        metrics = _run_one(cfg)
+    except BaseException:
+        for child in children:
+            child.terminate()
+        raise
+    finally:
+        if owns_group and dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for rank, child in enumerate(children, 1):
+        if child.wait() != 0:
+            raise RuntimeError(f"rank {rank} exited with code "
+                               f"{child.returncode}")
+    return metrics
 
 
 if __name__ == "__main__":

@@ -10,7 +10,17 @@ and exposes ``steps_per_epoch`` when known. Every loader is the JAX
 package's, step for step: the same shard order, shuffle buffer, caption
 draws, row shuffles and PIL transforms give bit-equal batches on the same
 files. The process split comes from ``torch.distributed``'s rank and
-world size. The constructors take the same config fields as
+world size: rank r of n takes rows r, r + n, r + 2n, ... of the globally
+ordered list, trimmed so that every rank gets the same count and so the
+same number of steps an epoch.
+
+``data.batch_size`` is the batch of one node, as in the JAX package, where
+one process drives a host's chips: each of a node's ``ranks_per_node``
+ranks (``trainer.devices``, which the train CLI passes) loads
+``batch_size // ranks_per_node`` rows — the reference's global batch //
+world size. Across nodes the global batch is ``batch_size × num_nodes``.
+A node batch that does not divide over its ranks raises. The constructors
+take the same config fields as
 ``medmoe_tpu``'s modules, so the copied ``configs/data/*.yaml``
 instantiate unchanged. ``use_native`` (the C++ decode helper) is refused
 until that helper is ported.
@@ -54,8 +64,17 @@ class BaseDataModule:
     def __init__(self, batch_size: int = 32, num_workers: int = 0,
                  image_size: int = 224, max_length: int = 25,
                  vocab_path: Optional[str] = None, seed: int = 0,
-                 emit_uint8: bool = False, **_ignored):
-        self.batch_size = batch_size
+                 emit_uint8: bool = False, ranks_per_node: int = 1,
+                 **_ignored):
+        ranks_per_node = int(ranks_per_node)
+        if ranks_per_node < 1 or batch_size % ranks_per_node:
+            raise ValueError(
+                f"data.batch_size={batch_size} is the batch of one node and "
+                f"must divide evenly over its {ranks_per_node} ranks "
+                f"(trainer.devices)")
+        #: the node's batch; ``batch_size`` is this rank's share of it
+        self.node_batch_size = batch_size
+        self.batch_size = batch_size // ranks_per_node
         self.num_workers = num_workers
         self.image_size = image_size
         self.max_length = max_length

@@ -1,27 +1,39 @@
 """Modality-routed Mixture-of-Experts multi-scale fusion (counterpart of
-medmoe_tpu/models/moe.py), gather mode.
+medmoe_tpu/models/moe.py).
 
   * ``Expert``: per-scale 1×1 projection (+ReLU) to a common dim, linear
     interpolation of every scale to the largest patch count, cross-scale
     attention (MLP → softmax over scales), weighted sum (reference
     src/models/components/swin.py:32-80).
   * Routing: router MLP(768→128→K) on the mean-pooled final hidden state,
-    softmax, top-1 argmax (reference swin.py:94-108). Gather mode computes
-    only each sample's selected expert — the same outputs as the
-    reference's all-experts-then-select at 1/K the work.
+    softmax, top-k (reference swin.py:94-108), the combine weights the
+    top-k probabilities renormalized (exactly 1.0 at k = 1).
+  * Modes (``MoEConfig.mode``):
+      - ``gather``: only each sample's selected experts, one expert-branch
+        pass per slot, weighted sum — at k = 1 the reference's
+        all-experts-then-select at 1/K the work;
+      - ``dense``: every expert on every sample, contracted with a [B, K]
+        combine matrix;
+      - ``topk``: capacity dispatch (GShard): each (sample, slot) lands in
+        a [K, C] slot table, the experts run grouped over it, assignments
+        past an expert's capacity are dropped;
+      - ``ep`` (``topk`` with the bank sharded over ranks) is not ported
+        yet and raises.
 
-The expert branch itself is ``ops/expert_fusion.py``: in bfloat16 the
-autograd Function ``FusedExpertGather`` (hand-written CUDA kernels for the
-forward, K1, and the backward, K2, on a card; the plain version and
+The gather mode's expert branch is ``ops/expert_fusion.py``: in bfloat16
+the autograd Function ``FusedExpertGather`` (hand-written CUDA kernels for
+the forward, K1, and the backward, K2, on a card; the plain version and
 autograd through it on the CPU), the plain PyTorch version in float32 (the
-numerics-debug setting). The ``dense``/``topk``/``ep`` modes of the JAX
-package are not ported yet.
+numerics-debug setting). ``dense`` and ``topk`` are grouped products in
+PyTorch, with the JAX package's rounding points: biases rounded to the
+compute dtype, products of compute-dtype values summed in float32, and the
+fused map kept float32 in every mode.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +52,7 @@ class MoEConfig:
     router_hidden_dim: int = 128
     mode: str = "gather"
     top_k: int = 1
+    capacity_factor: float = 1.25
     dtype: torch.dtype = torch.bfloat16
 
 
@@ -138,12 +151,28 @@ class ExpertBank(nn.Module):
                      for s in range(len(self.config.hidden_dims)))
 
     def apply_gathered(self, pyramid: Sequence[torch.Tensor],
-                       expert_idx: torch.Tensor) -> torch.Tensor:
-        """expert_idx [B] or [B, 1] (top-1; its combine weight is exactly
-        1.0) → the routed expert's fused map [B, P, E]."""
-        if expert_idx.ndim == 2:
-            expert_idx = expert_idx[:, 0]
-        return self._gather_one(pyramid, expert_idx)
+                       expert_idx: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """expert_idx [B] (top-1) or [B, k] with combine ``weights`` [B, k]
+        → the weighted sum of the slots' gathered-expert maps [B, P, E]
+        float32. One slot (k = 1) has combine weight exactly 1.0 and is
+        returned unscaled."""
+        if expert_idx.ndim == 1:
+            return self._gather_one(pyramid, expert_idx)
+        k = expert_idx.shape[1]
+        if k == 1:
+            return self._gather_one(pyramid, expert_idx[:, 0])
+        if weights is None:
+            raise ValueError(
+                f"apply_gathered: expert_idx has k={k} slots; pass the "
+                f"[B, k] combine weights from topk_routing")
+        out = None
+        for j in range(k):
+            slot = self._gather_one(pyramid, expert_idx[:, j])
+            slot = slot * weights[:, j, None, None].to(slot.dtype)
+            out = slot if out is None else out + slot
+        return out
 
     def _gather_one(self, pyramid: Sequence[torch.Tensor],
                     expert_idx: torch.Tensor) -> torch.Tensor:
@@ -158,7 +187,7 @@ class ExpertBank(nn.Module):
         p_list = [f.shape[1] for f in pyramid]
         args = (tuple(self.proj_w), tuple(self.proj_b), self.attn_w1,
                 self.attn_b1, self.attn_w2, self.attn_b2,
-                expert_idx.to(torch.int32))
+                expert_idx.to(torch.int32).contiguous())
         if expert_fusion.use_fused_expert(p_list, max(p_list), dt):
             xs = tuple(f.to(dt).contiguous() for f in pyramid)
             wp, bp, w1, b1, w2, b2, idx = args
@@ -168,20 +197,128 @@ class ExpertBank(nn.Module):
             tuple(pyramid), *args, dtype=dt)
 
 
+    def _rounded(self, param: torch.Tensor) -> torch.Tensor:
+        """``param`` rounded to the compute dtype, as float32."""
+        return param.to(self.config.dtype).float()
+
+    def _grouped(self, xs: Sequence[torch.Tensor], eq_proj: str,
+                 eq_attn: str, eq_logit: str) -> torch.Tensor:
+        """The expert branch over every expert's rows: ``xs[s]`` [..., P_s,
+        D_s] of compute-dtype values (the rows of each expert's slots, or
+        every sample) → the fused maps [K, N, P, E] float32. ``eq_proj``
+        contracts a scale with the stacked projections to [K, N, P_s, E];
+        ``eq_attn`` and ``eq_logit`` the attention MLP."""
+        dt = self.config.dtype
+        p_max = max(x.shape[-2] for x in xs)
+        scale_feats = []
+        for s, x in enumerate(xs):
+            h = torch.einsum(eq_proj, x.float(), self._rounded(self.proj_w[s]))
+            h = torch.relu(h + self._rounded(self.proj_b[s])[:, None, None, :])
+            scale_feats.append(interp_patches(h.to(dt), p_max, dim=2))
+        logits = []
+        for h in scale_feats:
+            a = torch.einsum(eq_attn, h.float(), self._rounded(self.attn_w1))
+            a = torch.relu(a + self._rounded(self.attn_b1)[:, None, None, :])
+            l = torch.einsum(eq_logit, a.to(dt).float(),
+                             self._rounded(self.attn_w2))
+            logits.append(l[..., 0] + self._rounded(self.attn_b2)[:, None,
+                                                                  None, 0])
+        attn = torch.softmax(torch.stack(logits, dim=-1), dim=-1).to(dt)
+        fused = None
+        for s, h in enumerate(scale_feats):
+            term = h.float() * attn[..., s, None].float()
+            fused = term if fused is None else fused + term
+        return fused
+
+    def apply_dispatched(self, pyramid: Sequence[torch.Tensor],
+                         expert_idx: torch.Tensor, capacity_factor: float,
+                         weights: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """Capacity dispatch (``topk`` mode): every (sample, slot)
+        assignment lands in a [K, C] slot table, C = ceil(B·k·factor / K);
+        the experts run grouped over their slots; each slot's output is
+        scaled by its combine weight and summed back per sample.
+        Assignments past an expert's capacity contribute zero.
+
+        expert_idx [B] (top-1) or [B, k]; weights the matching combine
+        weights (None: 1.0 a slot). → [B, P, E] float32."""
+        dt = self.config.dtype
+        k = self.config.num_experts
+        if expert_idx.ndim == 1:
+            expert_idx = expert_idx[:, None]
+        b, k_slots = expert_idx.shape
+        if weights is None:
+            weights = torch.ones((b, k_slots), dtype=torch.float32,
+                                 device=expert_idx.device)
+        capacity = max(1, int(np.ceil(b * k_slots * capacity_factor / k)))
+        dispatch, combine = make_dispatch_tensors(expert_idx, weights, k,
+                                                  capacity)
+        disp = dispatch.to(dt).float()
+        xs = [torch.einsum("kcb,bpd->kcpd", disp, f.to(dt).float()).to(dt)
+              for f in pyramid]
+        fused = self._grouped(xs, "kcpd,kde->kcpe", "kcpe,keh->kcph",
+                              "kcph,kho->kcpo")              # [K, C, P, E]
+        return torch.einsum("kcb,kcpe->bpe", combine, fused)
+
+    def apply_dense(self, pyramid: Sequence[torch.Tensor],
+                    combine: torch.Tensor) -> torch.Tensor:
+        """Every expert on every sample (``dense`` mode), the expert axis
+        contracted with the [B, K] ``combine`` matrix (one-hot rows at top-1,
+        the reference's all-then-select; renormalized top-k probabilities
+        otherwise). → [B, P, E] float32."""
+        dt = self.config.dtype
+        xs = [f.to(dt) for f in pyramid]
+        fused = self._grouped(xs, "bpd,kde->kbpe", "kbpe,keh->kbph",
+                              "kbph,kho->kbpo")              # [K, B, P, E]
+        return torch.einsum("bk,kbpe->bpe", combine.float(), fused)
+
+
 def topk_routing(router_probs: torch.Tensor, k: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B, K] router probs → ([B, 1] expert ids int32, [B, 1] combine
-    weights, the top probability renormalized: exactly 1.0).
+    """[B, K] router probs → ([B, k] expert ids int32, [B, k] combine
+    weights float32: the top-k probabilities renormalized to sum to 1; one
+    probability renormalizes to exactly 1.0).
 
-    Top-1 takes the first maximum (``argmax``), so ties go to the lower
-    index as in ``jax.lax.top_k``. k > 1 is not ported yet."""
-    if k != 1:
-        raise NotImplementedError(f"top-{k} routing is not ported yet; "
-                                  f"use router_top_k=1")
-    idx = torch.argmax(router_probs, dim=-1, keepdim=True)
+    The experts come in descending order of probability, and equal
+    probabilities in ascending expert order, as ``jax.lax.top_k`` gives
+    them (a stable sort)."""
+    if not 1 <= k <= router_probs.shape[-1]:
+        raise ValueError(f"top-{k} routing over {router_probs.shape[-1]} "
+                         f"experts")
+    _, order = torch.sort(router_probs, dim=-1, descending=True, stable=True)
+    idx = order[..., :k]
     vals = torch.gather(router_probs, -1, idx)
     weights = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
     return idx.to(torch.int32), weights.float()
+
+
+def make_dispatch_tensors(expert_idx: torch.Tensor, weights: torch.Tensor,
+                          num_experts: int, capacity: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-form dispatch and combine tensors.
+
+    expert_idx [B, k], weights [B, k] →
+      dispatch [K, C, B]: 1.0 where slot (e, c) holds sample b;
+      combine  [K, C, B]: dispatch times the assignment's combine weight.
+
+    An assignment's position in its expert is the count of earlier
+    assignments to the same expert, sample-major over the flattened [B·k]
+    list. Assignments at a position ≥ ``capacity`` are dropped from both."""
+    b, k_slots = expert_idx.shape
+    flat = expert_idx.reshape(-1).long()                           # [B·k]
+    onehot = (flat[:, None] == torch.arange(
+        num_experts, device=flat.device)[None, :]).to(torch.int64)
+    position = torch.cumsum(onehot, dim=0) - onehot
+    pos = torch.sum(position * onehot, dim=1)                      # [B·k]
+    kept = (pos < capacity).float()
+    oh_e = onehot.float() * kept[:, None]
+    oh_c = (torch.clamp(pos, max=capacity - 1)[:, None] == torch.arange(
+        capacity, device=flat.device)[None, :]).float()
+    assign = (oh_e[:, :, None] * oh_c[:, None, :]).reshape(
+        b, k_slots, num_experts, capacity)
+    dispatch = assign.sum(dim=1).permute(1, 2, 0)                  # [K, C, B]
+    combine = torch.einsum("bjkc,bj->kcb", assign, weights.float())
+    return dispatch, combine
 
 
 class MoE(nn.Module):
@@ -193,13 +330,21 @@ class MoE(nn.Module):
                                  calls them 'router_logits'.
     """
 
+    MODES = ("gather", "dense", "topk")
+
     def __init__(self, config: MoEConfig):
         super().__init__()
         cfg = config
-        if cfg.mode != "gather" or cfg.top_k != 1:
+        if cfg.mode == "ep":
             raise NotImplementedError(
-                f"moe mode {cfg.mode!r} with top_k={cfg.top_k} is not "
-                f"ported yet; use 'gather' with top_k=1")
+                "moe mode 'ep' (the expert bank sharded over ranks) is not "
+                "ported yet (ROADMAP.md Queue 1); use 'topk', 'gather' or "
+                "'dense'")
+        if cfg.mode not in self.MODES:
+            raise ValueError(f"unknown moe mode {cfg.mode!r}")
+        if not 1 <= int(cfg.top_k) <= cfg.num_experts:
+            raise ValueError(f"router top_k={cfg.top_k} with "
+                             f"{cfg.num_experts} experts")
         self.config = cfg
         self.router_fc1 = Dense(cfg.router_input_dim, cfg.router_hidden_dim,
                                 dtype=torch.float32)
@@ -209,10 +354,20 @@ class MoE(nn.Module):
 
     def forward(self, pyramid: Sequence[torch.Tensor],
                 router_feat: torch.Tensor):
+        cfg = self.config
         x = torch.relu(self.router_fc1(router_feat.float()))
         router_probs = torch.softmax(self.router_fc2(x), dim=-1)   # [B, K]
-        top_idx, _ = topk_routing(router_probs, 1)
-        fused = self.experts.apply_gathered(pyramid, top_idx)
+        top_idx, top_w = topk_routing(router_probs, int(cfg.top_k))
+        if cfg.mode == "gather":
+            fused = self.experts.apply_gathered(pyramid, top_idx, top_w)
+        elif cfg.mode == "dense":
+            onehot = (top_idx.long()[..., None] == torch.arange(
+                cfg.num_experts, device=top_idx.device)).float()
+            combine = torch.sum(onehot * top_w[..., None], dim=1)   # [B, K]
+            fused = self.experts.apply_dense(pyramid, combine)
+        else:
+            fused = self.experts.apply_dispatched(
+                pyramid, top_idx, cfg.capacity_factor, top_w)
         b, p, d = fused.shape
         hw = int(round(p ** 0.5))
         global_feat = fused.mean(dim=1)                             # [B, D]

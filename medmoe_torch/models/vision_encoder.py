@@ -45,6 +45,7 @@ class SwinMoEVisionTower(nn.Module):
                 router_input_dim=swin_cfg.stage_dims[-1],
                 mode=str(cfg.get("moe_mode", "gather")),
                 top_k=int(cfg.get("router_top_k", 1)),
+                capacity_factor=float(cfg.get("capacity_factor", 1.25)),
                 dtype=dtype))
 
     def forward(self, pixels: torch.Tensor):

@@ -88,6 +88,55 @@ def auto_text_chunk(b: int, m: int, t: int, budget_bytes: int = 2 << 30,
     return 1
 
 
+def _sim_block(context, words_c, mask_c, lens_c, temp1, temp2, temp3, agg):
+    """context [Bi, D, M], words_c [c, D, T], mask_c [c, T] → (sim [c, Bi],
+    attn)."""
+    wei_context, attn = attention_fn(words_c, context, temp1, mask_c)
+    row_sim = cosine_similarity(words_c[:, None], wei_context, dim=2)
+    row_sim = row_sim * temp2
+    row_sim = torch.where(mask_c[:, None, :], torch.exp(row_sim), 0.0)
+    if agg == "sum":
+        s = torch.sum(row_sim, dim=-1)                       # [c, Bi]
+    else:
+        s = torch.sum(row_sim, dim=-1) / torch.clamp(lens_c[:, None], min=1)
+    return torch.log(s) * temp3, attn
+
+
+def gloria_local_similarities(img_features: torch.Tensor,
+                              words_emb: torch.Tensor, cap_lens: torch.Tensor,
+                              temp1: float = 4.0, temp2: float = 5.0,
+                              temp3: float = 10.0, agg: str = "sum",
+                              text_chunk: Any = "auto") -> torch.Tensor:
+    """The einsum path's [B_img, B_txt] similarity matrix of img_features
+    [B_img, D, H, W] against words_emb [B_txt, D, T]:
+    similarities[b_img, i_text] = temp3 · log Σ_{t<cap_len_i} exp(temp2 ·
+    cos(word, attended context)). B_img and B_txt may differ (a rank's
+    images against every rank's captions).
+
+    ``text_chunk`` bounds peak memory: the [Bt, Bi, M, T] tensors are built
+    for ``text_chunk`` captions at a time, each block under
+    ``torch.utils.checkpoint`` (recomputed in the backward) — the same
+    numbers. None → one pass."""
+    bi, d, h, w = img_features.shape
+    bt, t = words_emb.shape[0], words_emb.shape[-1]
+    if text_chunk == "auto":
+        text_chunk = auto_text_chunk(bi, h * w, t, n_texts=bt)
+    context = img_features.reshape(bi, d, h * w)
+    word_mask = torch.arange(t, device=cap_lens.device)[None, :] \
+        < cap_lens[:, None]                                  # [Bt, T]
+    temps = (temp1, temp2, temp3, agg)
+    if text_chunk and bt > text_chunk and bt % text_chunk == 0:
+        blocks = [checkpoint(lambda *a: _sim_block(context, *a, *temps)[0],
+                             words_emb[i:i + text_chunk],
+                             word_mask[i:i + text_chunk],
+                             cap_lens[i:i + text_chunk], use_reentrant=False)
+                  for i in range(0, bt, text_chunk)]
+        sim = torch.cat(blocks, dim=0)                       # [i, b]
+    else:
+        sim = _sim_block(context, words_emb, word_mask, cap_lens, *temps)[0]
+    return sim.T                                             # [b_img, i_text]
+
+
 def gloria_local_loss(img_features: torch.Tensor, words_emb: torch.Tensor,
                       cap_lens: torch.Tensor, temp1: float = 4.0,
                       temp2: float = 5.0, temp3: float = 10.0,
@@ -96,53 +145,27 @@ def gloria_local_loss(img_features: torch.Tensor, words_emb: torch.Tensor,
     """Batched GLoRIA local (word-region) contrastive loss.
 
     img_features [B, D, H, W]; words_emb [B, D, T]; cap_lens [B] int.
-    similarities[b_img, i_text] = temp3 · log Σ_{t<cap_len_i} exp(temp2 ·
-    cos(word, attended context)); symmetric CE on the B×B matrix.
-
-    ``text_chunk`` bounds peak memory: the [Bt, Bi, M, T] tensors are built
-    for ``text_chunk`` captions at a time, each block under
-    ``torch.utils.checkpoint`` (recomputed in the backward) — the same
-    numbers. None → one pass."""
+    The symmetric cross entropy on the B×B matrix of
+    ``gloria_local_similarities`` (whose ``text_chunk`` it takes);
+    ``return_att_maps`` adds the diagonal attention maps (one pass)."""
     b, d, h, w = img_features.shape
     t = words_emb.shape[-1]
-    if text_chunk == "auto":
-        text_chunk = auto_text_chunk(b, h * w, t)
-    context = img_features.reshape(b, d, h * w)
-    word_mask = torch.arange(t, device=cap_lens.device)[None, :] \
-        < cap_lens[:, None]                                  # [B, T]
-
-    def sim_block(words_c, mask_c, lens_c):
-        """words_c [c, D, T], mask_c [c, T] → (sim [c, B], attn)."""
-        wei_context, attn = attention_fn(words_c, context, temp1, mask_c)
-        row_sim = cosine_similarity(words_c[:, None], wei_context, dim=2)
-        row_sim = row_sim * temp2
-        row_sim = torch.where(mask_c[:, None, :], torch.exp(row_sim), 0.0)
-        if agg == "sum":
-            s = torch.sum(row_sim, dim=-1)                   # [c, B]
-        else:
-            s = torch.sum(row_sim, dim=-1) \
-                / torch.clamp(lens_c[:, None], min=1)
-        return torch.log(s) * temp3, attn
-
-    if text_chunk and b > text_chunk and b % text_chunk == 0 \
-            and not return_att_maps:
-        blocks = [checkpoint(lambda *a: sim_block(*a)[0],
-                             words_emb[i:i + text_chunk],
-                             word_mask[i:i + text_chunk],
-                             cap_lens[i:i + text_chunk], use_reentrant=False)
-                  for i in range(0, b, text_chunk)]
-        sim = torch.cat(blocks, dim=0)                       # [i, b]
-        attn = None
-    else:
-        sim, attn = sim_block(words_emb, word_mask, cap_lens)
-
-    similarities = sim.T                                     # [b_img, i_text]
-    loss0 = _cross_entropy_diag(similarities)
-    loss1 = _cross_entropy_diag(similarities.T)
     att_maps = None
-    if return_att_maps and attn is not None:
+    if return_att_maps:
+        context = img_features.reshape(b, d, h * w)
+        word_mask = torch.arange(t, device=cap_lens.device)[None, :] \
+            < cap_lens[:, None]
+        sim, attn = _sim_block(context, words_emb, word_mask, cap_lens,
+                               temp1, temp2, temp3, agg)
+        similarities = sim.T
         diag = torch.diagonal(attn, dim1=0, dim2=1)          # [T, M, B]
         att_maps = diag.permute(2, 0, 1).reshape(b, t, h, w)
+    else:
+        similarities = gloria_local_similarities(
+            img_features, words_emb, cap_lens, temp1, temp2, temp3, agg,
+            text_chunk)
+    loss0 = _cross_entropy_diag(similarities)
+    loss1 = _cross_entropy_diag(similarities.T)
     return GloriaLocalOutput(loss0=loss0, loss1=loss1, att_maps=att_maps)
 
 
@@ -225,15 +248,31 @@ class GLORIALocalContrastiveLoss:
         fused = on_cuda and agg == "sum" and (batch is None or batch > 64)
         return "pallas" if fused else "xla"
 
+    def similarities(self, img_features, words_emb, cap_lens, temp1=4.0,
+                     temp2=5.0, temp3=10.0, agg="sum",
+                     batch: Optional[int] = None) -> torch.Tensor:
+        """The [B_img, B_txt] similarity matrix by the path ``impl_for``
+        picks for a batch of ``batch`` pairs (None: B_img) — a rank's
+        images against all ranks' captions under global negatives, where
+        the batch the dispatch reads is the global one."""
+        batch = img_features.shape[0] if batch is None else batch
+        if self.impl_for(agg, batch, img_features.is_cuda) == "pallas":
+            if img_features.is_cuda:       # before the kernels' first launch
+                check_kernel_limits(img_features.shape[1], words_emb.shape[2],
+                                    temp1)
+            return gloria_similarity(img_features, words_emb, cap_lens,
+                                     temp1, temp2, temp3)
+        return gloria_local_similarities(img_features, words_emb, cap_lens,
+                                         temp1, temp2, temp3, agg,
+                                         text_chunk=self.text_chunk)
+
     def __call__(self, img_features, words_emb, cap_lens, temp1=4.0,
                  temp2=5.0, temp3=10.0, agg="sum", scores=None,
                  thresholds=None):
         if self.resolve_impl(agg, img_features) == "pallas":
-            if img_features.is_cuda:       # before the kernels' first launch
-                check_kernel_limits(img_features.shape[1], words_emb.shape[2],
-                                    temp1)
-            similarities = gloria_similarity(img_features, words_emb,
-                                             cap_lens, temp1, temp2, temp3)
+            similarities = self.similarities(img_features, words_emb,
+                                             cap_lens, temp1, temp2, temp3,
+                                             agg)
             return GloriaLocalOutput(
                 loss0=_cross_entropy_diag(similarities),
                 loss1=_cross_entropy_diag(similarities.T))

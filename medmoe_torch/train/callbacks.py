@@ -179,7 +179,8 @@ class EarlyStopping(Callback):
 
 class ProgressBar(Callback):
     """One progress line an epoch (the reference's RichProgressBar
-    analogue): epoch counter, wall time, throughput and the losses."""
+    analogue): epoch counter, wall time, throughput and the losses. Rank 0
+    prints it."""
 
     def __init__(self, refresh_rate: int = 1):
         self.refresh_rate = max(int(refresh_rate), 1)
@@ -188,7 +189,7 @@ class ProgressBar(Callback):
     def on_epoch_end(self, trainer, epoch: int,
                      metrics: Dict[str, float]) -> None:
         self._n += 1
-        if self._n % self.refresh_rate:
+        if self._n % self.refresh_rate or _process_index() != 0:
             return
         total = getattr(trainer, "max_epochs", "?")
         parts = [f"epoch {epoch + 1}/{total}"]

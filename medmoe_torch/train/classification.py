@@ -60,6 +60,9 @@ class ClassificationModule:
                                                    self.num_classes)
         else:
             self.model = ImageClassifier(encoder, width, self.num_classes)
+        #: the data-parallel wrapper of ``model`` that training steps run
+        #: through (set by the trainer under a process group)
+        self.ddp = None
 
     def init_params(self, seed: int) -> None:
         """Fill the parameters from ``seed`` (flax's initializer
@@ -77,8 +80,12 @@ class ClassificationModule:
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Forward + loss; train or eval mode is the model's own flag."""
-        logits = self.model(batch["image"])
+        """Forward + loss; train or eval mode is the model's own flag. A
+        step that needs gradients runs through the data-parallel wrapper
+        when the trainer set one."""
+        run = self.ddp if self.ddp is not None and torch.is_grad_enabled() \
+            else self.model
+        logits = run(batch["image"])
         labels = batch["label"]
         if self.multilabel or labels.ndim > 1:
             loss = F.binary_cross_entropy_with_logits(logits, labels.float())

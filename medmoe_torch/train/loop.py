@@ -11,8 +11,21 @@ detect_anomaly (``torch.autograd.set_detect_anomaly``, scoped to
 ``fit``), callbacks, resuming from a checkpoint (``fit(ckpt_path=...)``)
 and the preemption handlers (SIGTERM / SIGUSR1 → a blocking ``last``
 checkpoint at the next step boundary, then stop). Not ported yet, and
-refused when asked for: several processes or nodes, an expert-parallel
-mesh and the profiler.
+refused when asked for: an expert-parallel mesh and the profiler.
+
+Data-parallel training: ``devices`` ranks a node on ``num_nodes`` nodes,
+one process a rank, joined in one ``torch.distributed`` group
+(``parallel/multihost.py``; the train CLI starts a node's processes, or
+torchrun does). Each rank trains on ``cuda:{LOCAL_RANK}`` (NCCL) or the
+CPU (gloo), with the model wrapped in DistributedDataParallel: gradients
+are averaged once a step (``train/step.py``), so the clip and the logged
+``grad_norm`` read the global gradient. The ranks agree on preemption at
+every step boundary (an all-reduce MAX of the flag, JAX's
+``_preempt_agreed``), the epoch's train, validation and test metrics are
+averaged over the ranks before any callback or logger reads them (so
+every rank makes the same early-stopping and checkpoint decision), and
+only rank 0 writes checkpoints, sidecars and logs, the others waiting at a
+barrier.
 
 Resume is exact at an epoch boundary: the data order, the caption draws
 and the dropout generators are all seeded from (seed, epoch), and the
@@ -30,6 +43,8 @@ import torch
 
 from medmoe_torch.data.prefetch import prefetch
 from medmoe_torch.models.layers import set_generator
+from medmoe_torch.parallel import collectives as C
+from medmoe_torch.parallel.multihost import local_rank, maybe_initialize
 from medmoe_torch.train.optim import get_learning_rate, set_learning_rate
 from medmoe_torch.train.state import TrainState, param_count
 from medmoe_torch.train.step import build_eval_step, build_train_step
@@ -102,19 +117,36 @@ def _timed(iterable: Iterable, waits: List[float]) -> Iterator:
         _close(it)
 
 
-def resolve_accelerator(accelerator: str) -> torch.device:
-    """``gpu``/``cuda`` → the CUDA card (raises without one); ``cpu`` → the
-    CPU, the only way to get it."""
+def resolve_accelerator(accelerator: str, index: int = 0) -> torch.device:
+    """``gpu``/``cuda`` → the CUDA card ``index`` (raises without one);
+    ``cpu`` → the CPU, the only way to get it."""
     if accelerator in ("gpu", "cuda"):
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "trainer.accelerator=gpu and no CUDA device is available; "
                 "pass trainer.accelerator=cpu to train on the CPU")
-        return torch.device("cuda")
+        return torch.device("cuda", index)
     if accelerator == "cpu":
         return torch.device("cpu")
     raise ValueError(f"trainer.accelerator must be gpu or cpu, got "
                      f"{accelerator!r}")
+
+
+def resolve_devices(devices: Any, accelerator: str) -> int:
+    """A node's ranks: ``auto`` is every visible card (one rank on the
+    CPU); an int is checked against the visible cards."""
+    on_card = accelerator in ("gpu", "cuda")
+    visible = torch.cuda.device_count() if on_card else None
+    if devices == "auto":
+        return max(1, visible or 0) if on_card else 1
+    n = int(devices)
+    if n < 1:
+        raise ValueError(f"trainer.devices must be >= 1 or auto, got "
+                         f"{devices!r}")
+    if on_card and torch.cuda.is_available() and n > visible:
+        raise ValueError(f"trainer.devices={n} but {visible} CUDA "
+                         f"device(s) are visible")
+    return n
 
 
 class Trainer:
@@ -140,17 +172,27 @@ class Trainer:
                  loggers: Optional[List] = None,
                  checkpoint_on_signal: bool = True,
                  seed: int = 0):
-        if devices not in (1, "1", "auto") or int(num_nodes or 1) > 1:
-            raise NotImplementedError(
-                "multi-device (DDP) training is not ported yet; use "
-                "trainer.devices=1 trainer.num_nodes=1")
         if int((mesh or {}).get("expert", 1) or 1) > 1:
-            raise NotImplementedError("an expert-parallel mesh is not ported "
-                                      "yet; use trainer.mesh.expert=1")
+            raise NotImplementedError(
+                "an expert-parallel mesh is not ported yet (ROADMAP.md Queue "
+                "1); use trainer.mesh.expert=1")
         if profiler:
             raise NotImplementedError("the trainer's profiler is not ported "
                                       "yet; use trainer.profiler=null")
-        self.device = resolve_accelerator(accelerator)
+        self.devices = resolve_devices(devices, accelerator)
+        self.num_nodes = int(num_nodes or 1)
+        world = self.devices * self.num_nodes
+        maybe_initialize(self.num_nodes, accelerator)
+        if C.get_world_size() != world or (world > 1 and not C.in_group()):
+            raise RuntimeError(
+                f"trainer.devices={self.devices} x trainer.num_nodes="
+                f"{self.num_nodes} needs {world} processes in one group, one "
+                f"a device; found {C.get_world_size()}. Launch through "
+                f"python -m medmoe_torch.cli.train (which starts a node's "
+                f"processes) or torchrun")
+        self.device = resolve_accelerator(accelerator, local_rank())
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
         self.min_epochs = min_epochs
         self.max_epochs = max_epochs
         self.accumulate_grad_batches = max(int(accumulate_grad_batches), 1)
@@ -187,6 +229,12 @@ class Trainer:
         the reference's submitit SIGUSR1 + requeue,
         configs/hydra/launcher/base_submitit_slurm.yaml:25)."""
         self._preempt_requested = True
+
+    def _preempt_agreed(self) -> bool:
+        """At a step boundary: whether any rank was asked to preempt (an
+        all-reduce MAX under a process group, so every rank stops at the
+        same step)."""
+        return C.any_rank(self._preempt_requested, self.device)
 
     def _install_signal_handlers(self) -> Dict[int, Any]:
         """SIGTERM and SIGUSR1 → ``request_preemption``; returns the
@@ -230,6 +278,7 @@ class Trainer:
         save_checkpoint(path, self.state,
                         extra={"epoch": epoch - 1, "preempted": True,
                                **self.checkpoint_extra()})
+        C.barrier()
         log.info(f"preemption checkpoint written to {path}")
         return path
 
@@ -246,6 +295,21 @@ class Trainer:
     def _log(self, metrics: Dict[str, float], step: int) -> None:
         for logger in self.loggers:
             logger.log_metrics(metrics, step)
+
+    def _across_ranks(self, metrics: Dict[str, float]) -> Dict[str, float]:
+        """Every value averaged over the ranks (``pairs_per_sec`` summed: the
+        global rate); unchanged outside a process group. Every rank must
+        call it with the same keys."""
+        if not C.in_group():
+            return metrics
+        keys = sorted(metrics)
+        mean = C.all_reduce_mean(torch.tensor(
+            [float(metrics[k]) for k in keys], dtype=torch.float64,
+            device=self.device)).cpu().tolist()
+        out = dict(zip(keys, mean))
+        if "pairs_per_sec" in out:
+            out["pairs_per_sec"] *= C.get_world_size()
+        return out
 
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """numpy host batch → tensors on the trainer's device (through
@@ -303,6 +367,21 @@ class Trainer:
         self.scheduler = module.make_scheduler()
         self.resumed_from = None
         start_epoch = self._resume(ckpt_path) if ckpt_path else 0
+        module.ddp = None
+        if C.in_group():
+            # checkpoints keep the bare model's keys (no "module." prefix),
+            # so they resume on any number of ranks
+            import warnings
+
+            from torch.nn.parallel import DistributedDataParallel
+
+            with warnings.catch_warnings():
+                # the buffers are constants (index tables): never synced
+                warnings.simplefilter("ignore", FutureWarning)
+                module.ddp = DistributedDataParallel(
+                    module.model,
+                    device_ids=[self.device] if self.device.type == "cuda"
+                    else None, broadcast_buffers=False)
 
         step_cache: Dict[int, Any] = {}
 
@@ -348,11 +427,16 @@ class Trainer:
                 loader = datamodule.train_dataloader(epoch=epoch)
                 steps = self.steps_per_epoch or getattr(
                     datamodule, "steps_per_epoch", None)
+                batches = _limit(loader, self.limit_train_batches, steps,
+                                 "train")
+                if C.in_group() and steps:
+                    # every rank takes the epoch's step count, also when
+                    # its shards hold more rows than another rank's
+                    batches = _limit(batches, int(steps), steps)
                 # each micro-batch reaches the device on the prefetch
                 # thread while the step before it runs
-                train_iter = prefetch(
-                    _limit(loader, self.limit_train_batches, steps, "train"),
-                    self.prefetch_batches, self.to_device)
+                train_iter = prefetch(batches, self.prefetch_batches,
+                                      self.to_device)
 
             def run(window: List, step_fn) -> Dict[str, torch.Tensor]:
                 nonlocal global_step, n_pairs
@@ -365,6 +449,7 @@ class Trainer:
 
             timed = _timed(train_iter, waits)
             n_batches = 0
+            preempted = False
             for batch in timed:
                 n_batches += 1
                 micro_batches.append(batch)
@@ -375,11 +460,13 @@ class Trainer:
                 # metrics stay on the device; the host reads them every
                 # log_every_n_steps and once an epoch
                 if global_step % self.log_every_n_steps == 0:
-                    host = {f"train/{k}": float(v) for k, v in metrics.items()}
+                    host = self._across_ranks(
+                        {f"train/{k}": float(v) for k, v in metrics.items()})
                     host["lr"] = get_learning_rate(self.state.optimizer)
                     host["epoch"] = epoch
                     self._log(host, global_step)
-                if self._preempt_requested:
+                if self._preempt_agreed():
+                    preempted = self._preempt_requested = True
                     break
             timed.close()           # stops the prefetch threads early too
             if not n_batches and epoch == start_epoch \
@@ -389,7 +476,7 @@ class Trainer:
                     "data paths (data.train_data_paths / data.data_dir) and "
                     "that batch_size does not exceed the dataset size")
 
-            if self._preempt_requested:
+            if preempted:
                 self._preempt_checkpoint(epoch)
                 self.interrupted = True
                 log.info(f"stopping after the preemption checkpoint (epoch "
@@ -409,6 +496,7 @@ class Trainer:
                 agg["pairs_per_sec"] = n_pairs / train_time
                 # the share of the train phase spent waiting on the loader
                 agg["loader_wait_share"] = waits[0] / train_time
+            agg = self._across_ranks(agg)
             self.metrics_history.append(agg)
             self._log(agg, global_step)
             log.info(f"epoch {epoch}: " + ", ".join(
@@ -426,6 +514,7 @@ class Trainer:
                 cb.on_epoch_end(self, epoch, agg)
                 if cb.should_stop and epoch + 1 >= self.min_epochs:
                     stop = True
+            C.barrier()
             if stop:
                 log.info("early stopping triggered")
                 break
@@ -436,6 +525,7 @@ class Trainer:
                 self.best_model_path = cb.best_path
         for logger in self.loggers:
             logger.finalize()
+        C.barrier()
 
     # ------------------------------------------------------------------
     def _evaluate(self, loader, limit, steps, what: str,
@@ -466,9 +556,8 @@ class Trainer:
             self._check_kernel_limits(module, datamodule)
         if ckpt_path:
             load_model_weights(module.model, ckpt_path)
-        out = self._evaluate(datamodule.test_dataloader(),
-                             self.limit_test_batches,
-                             getattr(datamodule, "test_steps_per_epoch",
-                                     None), "test")
+        out = self._across_ranks(self._evaluate(
+            datamodule.test_dataloader(), self.limit_test_batches,
+            getattr(datamodule, "test_steps_per_epoch", None), "test"))
         self._log(out, self.state.step if self.state else 0)
         return out

@@ -12,6 +12,22 @@ state for it. ``block_size`` computes the contrastive losses on blocks of
 the batch and averages them — the per-rank losses of the reference's DDP
 runs; ``global_negatives`` uses the whole batch instead.
 
+Under a process group of n ranks (data-parallel training, ``train/loop.py``)
+the losses are the JAX package's over the global batch, the ranks' batches
+in rank order:
+
+- without blocks (``global_negatives``, or a ``block_size`` that covers the
+  global batch), the codes, the words and the caption lengths are gathered
+  from every rank (GLOBAL backprop, ``parallel/collectives.py``); each rank
+  computes its own images' rows of the local similarity against all
+  captions (K3 on a [B/n, B] shape on the card), gathers the rows into the
+  [B, B] matrix and takes both cross entropies on it. Every rank computes
+  the same loss; the gathers' backward sums the ranks' cotangents, and the
+  data-parallel mean of the gradients is then the global batch's gradient;
+- with blocks, each rank computes its own blocks, with no gather. A block
+  must lie within one rank: a ``block_size`` that does not divide the
+  per-rank batch raises.
+
 The soft-label path (a frozen tool BERT scoring text similarity) is not
 ported yet: ``soft_label: true`` raises.
 """
@@ -27,6 +43,7 @@ from medmoe_torch.models.medmoe import MedMoE, init_weights
 from medmoe_torch.models.moe import ExpertBank
 from medmoe_torch.ops import expert_fusion, gloria_attention
 from medmoe_torch.ops import losses as L
+from medmoe_torch.parallel import collectives as C
 from medmoe_torch.train.optim import Adam, adam
 from medmoe_torch.utils.instantiate import instantiate
 
@@ -70,6 +87,9 @@ class MedMoEPretrainingModule:
         self.block_size = self.loss_cfg.get("block_size", None)
         if bool(self.loss_cfg.get("global_negatives", False)):
             self.block_size = None
+        #: the data-parallel wrapper of ``model`` that training steps run
+        #: through (set by the trainer under a process group)
+        self.ddp = None
         # local-loss inputs ride in the towers' compute dtype unless
         # loss.loss_dtype overrides it (null → float32)
         ldt = self.loss_cfg.get("loss_dtype",
@@ -106,8 +126,11 @@ class MedMoEPretrainingModule:
         if not isinstance(self.local_loss, L.GLORIALocalContrastiveLoss):
             return
         batch = batch_size
-        if batch is not None and self.block_size:
-            batch = min(batch, int(self.block_size))
+        if batch is not None:
+            if self._gathers(batch):
+                batch *= C.get_world_size()
+            elif self.block_size:
+                batch = min(batch, int(self.block_size))
         if self.local_loss.impl_for(self.agg, batch, True) == "pallas":
             tower = self.model.image_encoder.swin_moe
             d = tower.moe.config.output_dim if tower.moe is not None \
@@ -118,6 +141,45 @@ class MedMoEPretrainingModule:
     def trainable_mask(self) -> Dict[str, bool]:
         """Parameter name → trainable (False on frozen towers)."""
         return {n: p.requires_grad for n, p in self.model.named_parameters()}
+
+    def _gathers(self, batch: int) -> bool:
+        """True when, under a process group, the losses of a per-rank batch
+        of ``batch`` pairs span the global batch (gathered from every
+        rank); False outside a group and for per-rank blocks. Raises for a
+        block that would span two ranks."""
+        if not C.in_group():
+            return False
+        bs = self.block_size
+        world = C.get_world_size()
+        if not bs or int(bs) >= batch * world:
+            return True
+        if batch % int(bs):
+            raise ValueError(
+                f"loss.block_size={bs} does not divide the per-rank batch "
+                f"{batch}: a block must lie within one rank's rows (a block "
+                f"across ranks is not supported)")
+        return False
+
+    def _global_losses(self, img_g, img_l, txt_g, txt_l, cap_lens, local_fn,
+                       global_fn):
+        """(local, global) loss over the global batch under a process
+        group: each rank's image rows of the local similarity against
+        every rank's captions, gathered into the [B, B] matrix."""
+        G = C.BackpropType.GLOBAL
+        words = C.gather_tensor(txt_l, G)
+        caps = C.gather_tensor(cap_lens, C.BackpropType.NONE)
+        if hasattr(self.local_loss, "similarities"):
+            rows = self.local_loss.similarities(
+                img_l, words, caps, temp1=self.temp1, temp2=self.temp2,
+                temp3=self.temp3, agg=self.agg, batch=words.shape[0])
+            sim = C.gather_tensor(rows, G)                   # [B, B]
+            l_loss = L._cross_entropy_diag(sim) \
+                + L._cross_entropy_diag(sim.T)
+        else:
+            l_loss = local_fn(C.gather_tensor(img_l, G), words, caps)
+        g_loss = global_fn(C.gather_tensor(img_g, G),
+                           C.gather_tensor(txt_g, G))
+        return l_loss, g_loss
 
     def _blocked(self, fn, *tensors):
         """A loss over blocks of ``block_size`` rows, averaged (per-rank DDP
@@ -136,8 +198,11 @@ class MedMoEPretrainingModule:
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Forward + losses. Train or eval mode (dropout, drop-path) is the
         model's own ``training`` flag. Returns (loss, metrics), every metric
-        a 0-d device tensor."""
-        img_g, img_l, txt_g, txt_l, router_probs = self.model(batch)
+        a 0-d device tensor. A step that needs gradients runs through the
+        data-parallel wrapper when the trainer set one."""
+        run = self.ddp if self.ddp is not None and torch.is_grad_enabled() \
+            else self.model
+        img_g, img_l, txt_g, txt_l, router_probs = run(batch)
         cap_lens = batch["cap_lens"]
 
         def local_fn(il, tl, cl):
@@ -152,8 +217,13 @@ class MedMoEPretrainingModule:
         if self.loss_dtype is not None:
             img_l = img_l.to(self.loss_dtype)
             txt_l = txt_l.to(self.loss_dtype)
-        l_loss = self._blocked(local_fn, img_l, txt_l, cap_lens)
-        g_loss = self._blocked(global_fn, img_g, txt_g)
+        if self._gathers(img_l.shape[0]):
+            l_loss, g_loss = self._global_losses(img_g, img_l, txt_g, txt_l,
+                                                 cap_lens, local_fn,
+                                                 global_fn)
+        else:
+            l_loss = self._blocked(local_fn, img_l, txt_l, cap_lens)
+            g_loss = self._blocked(global_fn, img_g, txt_g)
 
         if router_probs is not None and "label" in batch:
             c_loss = L.router_classification_loss(router_probs,

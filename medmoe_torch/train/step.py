@@ -2,15 +2,21 @@
 reference medmoe_module.py:318-339 + Lightning's accumulation).
 
 One optimizer step runs a Python loop over the micro-batches: each one's
-forward and backward, its gradients summed into float32 accumulators. The
-sum is scaled by 1/accum (the metrics are averaged the same way), the
-global norm of that mean gradient is recorded as ``grad_norm`` before
-clipping, then the clip and Adam run on it. Metrics stay device tensors:
-nothing here waits for the device.
+forward and backward, its gradients summed into the float32 parameters'
+``.grad``. The sum is scaled by 1/accum (the metrics are averaged the same
+way), the global norm of that mean gradient is recorded as ``grad_norm``
+before clipping, then the clip and Adam run on it. Metrics stay device
+tensors: nothing here waits for the device.
+
+Under data-parallel training (``module.ddp``, a DistributedDataParallel
+wrapper) every micro-batch but the last runs under ``no_sync``, so the
+gradients are averaged over the ranks once a step, in the last backward;
+``grad_norm`` and the clip then read that reduced, global gradient.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -33,16 +39,20 @@ def build_train_step(module, accum_steps: int = 1) -> Callable:
                              f"{len(micro_batches)}")
         module.model.train()
         params = state.params
-        acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        for p in params:
+            p.grad = None
+        ddp = getattr(module, "ddp", None)
         metrics_acc: Batch = {}
-        for micro in micro_batches:
-            loss, metrics = module.loss_fn(micro)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            for a, g in zip(acc, grads):
-                if g is not None:
-                    a.add_(g)
+        for i, micro in enumerate(micro_batches):
+            last = i == len(micro_batches) - 1
+            with (ddp.no_sync() if ddp is not None and not last
+                  else contextlib.nullcontext()):
+                loss, metrics = module.loss_fn(micro)
+                loss.backward()
             for k, v in metrics.items():
                 metrics_acc[k] = metrics_acc[k] + v if k in metrics_acc else v
+        acc = [p.grad if p.grad is not None
+               else torch.zeros_like(p, dtype=torch.float32) for p in params]
         if accum_steps > 1:
             inv = 1.0 / accum_steps
             for a in acc:

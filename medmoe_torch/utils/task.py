@@ -16,7 +16,7 @@ import warnings
 from typing import Any, Callable, Dict, Optional
 
 from medmoe_torch.config import DotDict, to_dict
-from medmoe_torch.utils.logging import get_logger
+from medmoe_torch.utils.logging import _process_index, get_logger
 
 log = get_logger(__name__)
 
@@ -53,7 +53,7 @@ def extras(cfg: DotDict) -> None:
         warnings.filterwarnings("ignore")
     if ex.get("enforce_tags"):
         enforce_tags(cfg)
-    if ex.get("print_config"):
+    if ex.get("print_config") and _process_index() == 0:
         print_config_tree(cfg, save_dir=cfg.select("paths.output_dir"))
 
 

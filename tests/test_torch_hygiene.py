@@ -49,6 +49,17 @@ class TestImportHygiene:
         assert len(files) > 20
         assert any(f.endswith("chip_smoke.py") for f in files)
 
+    def test_scan_covers_the_parallel_package_and_the_rank_worker(self):
+        """The data-parallel modules are scanned with the port, and the
+        two-process tests' rank worker (tests/torch_rank_worker.py) keeps
+        the same rule, so a rank starts without JAX."""
+        files = {os.path.relpath(f, ROOT) for f in _port_files()}
+        assert {"medmoe_torch/parallel/collectives.py",
+                "medmoe_torch/parallel/multihost.py"} <= files
+        worker = os.path.join(ROOT, "tests", "torch_rank_worker.py")
+        roots = {mod for mod, _ in _imported_roots(worker)}
+        assert "medmoe_torch" in roots and not roots & FORBIDDEN
+
     def test_no_jax_or_jax_package_imports(self):
         bad = [(os.path.relpath(f, ROOT), line, mod)
                for f in _port_files()

@@ -31,11 +31,14 @@ class TestMoE:
         assert tidx.dtype == torch.int32
 
     def test_top_two_not_ported(self):
-        probs = torch.full((2, 6), 1 / 6)
-        with pytest.raises(NotImplementedError, match="top-2"):
-            tmoe.topk_routing(probs, 2)
-        with pytest.raises(NotImplementedError, match="top_k=2"):
-            tmoe.MoE(tmoe.MoEConfig(top_k=2))
+        """Top-2 routing is ported (this test held its refusal before):
+        the two most probable experts, renormalized weights, as JAX."""
+        probs = np.array([[0.2, 0.5, 0.3], [0.4, 0.4, 0.2]], np.float32)
+        jidx, jw = jmoe.topk_routing(jnp.asarray(probs), 2)
+        tidx, tw = tmoe.topk_routing(torch.from_numpy(probs), 2)
+        np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+        np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-6)
+        assert tmoe.MoE(tmoe.MoEConfig(top_k=2)).config.top_k == 2
 
     @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
     def test_router_and_gather_outputs(self, dt, tmp_path):
@@ -64,5 +67,9 @@ class TestMoE:
         assert_close(tl, jl, dt)
 
     def test_other_modes_not_ported(self):
-        with pytest.raises(NotImplementedError, match="dense"):
-            tmoe.MoE(tmoe.MoEConfig(mode="dense"))
+        """Of the JAX package's modes only ``ep`` is still to port; dense
+        and topk build."""
+        with pytest.raises(NotImplementedError, match="'ep'"):
+            tmoe.MoE(tmoe.MoEConfig(mode="ep"))
+        for mode in ("dense", "topk"):
+            assert tmoe.MoE(tmoe.MoEConfig(mode=mode)).config.mode == mode

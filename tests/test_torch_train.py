@@ -295,7 +295,12 @@ class TestEntryPoints:
                                     dict(profiler="simple"),
                                     dict(devices="2")])
     def test_unported_trainer_options_raise(self, kw):
-        with pytest.raises(NotImplementedError):
+        """The expert-parallel mesh and the profiler are not ported yet.
+        Several devices or nodes are (data-parallel training), and raise
+        here because no process group of that size exists."""
+        exc = NotImplementedError if "mesh" in kw or "profiler" in kw \
+            else RuntimeError
+        with pytest.raises(exc):
             loop.Trainer(accelerator="cpu", **kw)
 
     def test_soft_label_and_resume_raise(self):

@@ -1,0 +1,102 @@
+"""One rank of the two-process tests of tests/test_torch_parallel.py. It
+imports no JAX, so a rank starts in a few seconds.
+
+    python -m tests.torch_rank_worker SPEC.json RANK
+
+SPEC holds ``init`` (a ``file://`` store), ``world``, ``task`` and the
+task's inputs; the rank writes its result to ``<out>.<rank>.json``. The
+group's join and every collective have a 60 s deadline, so a rank that
+hangs fails instead of waiting on the others.
+
+Tasks:
+
+- ``gather``: ``gather_tensor`` of this rank's rows of ``x`` with each
+  backprop type, the values and the gradient of Σ y·(w + rank);
+- ``train``: the train CLI's ``main`` on ``overrides`` inside the group this
+  worker opened, optionally sending itself SIGTERM after optimizer step
+  ``sigterm_after`` when it is rank ``sigterm_rank``.
+"""
+
+import datetime
+import json
+import os
+import signal
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def _gather(spec, rank):
+    from medmoe_torch.parallel import collectives as C
+
+    x_all = np.asarray(spec["x"], np.float32)
+    w = np.asarray(spec["w"], np.float32) + rank
+    n = x_all.shape[0] // spec["world"]
+    out = {"rank": C.get_rank(), "world": C.get_world_size(),
+           "any": C.any_rank(rank == 1, torch.device("cpu")),
+           "mean": C.all_reduce_mean(torch.tensor([float(rank)])).item()}
+    for kind in ("global", "local", "none"):
+        x = torch.from_numpy(x_all[rank * n:(rank + 1) * n]).requires_grad_()
+        y = C.gather_tensor(x, C.BackpropType.from_str(kind))
+        if y.requires_grad:
+            (y * torch.from_numpy(w)).sum().backward()
+        grad = x.grad if x.grad is not None else torch.zeros_like(x)
+        out[kind] = {"y": y.detach().tolist(), "grad": grad.tolist()}
+    return out
+
+
+def _train(spec, rank):
+    from medmoe_torch.cli import train as cli
+    from medmoe_torch.train import loop
+
+    captured = {}
+    real_train = cli.train
+
+    def train(cfg):
+        metrics, objs = real_train(cfg)
+        captured.update(objs)
+        return metrics, objs
+
+    cli.train = train
+    if spec.get("sigterm_rank") == rank:
+        real_build = loop.build_train_step
+
+        def build(module, accum_steps=1):
+            step = real_build(module, accum_steps)
+
+            def signalling(state, window):
+                out = step(state, window)
+                if state.step == spec["sigterm_after"]:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return out
+            return signalling
+
+        loop.build_train_step = build
+    cli.main(spec["overrides"])
+    trainer = captured["trainer"]
+    return {"rank": rank, "world": dist.get_world_size(),
+            "step": trainer.state.step, "interrupted": trainer.interrupted,
+            "history": trainer.metrics_history}
+
+
+def main():
+    spec_path, rank = sys.argv[1], int(sys.argv[2])
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=spec["init"], rank=rank,
+                            world_size=spec["world"],
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        result = {"gather": _gather, "train": _train}[spec["task"]](spec,
+                                                                      rank)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump(result, f)
+
+
+if __name__ == "__main__":
+    main()
