@@ -2138,9 +2138,10 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def hold_update(torch, got, want, init, steps: int, lr: float, label: str):
+def hold_update(torch, got, want, init, steps: int, lr: float, label: str,
+                min_cos: float = 0.9):
     """The bf16 policy of tests/test_torch_train.py: the cosine of the whole
-    update > 0.9, and every element within 2·steps·lr."""
+    update > ``min_cos`` (0.9), and every element within 2·steps·lr."""
     bound = 2 * steps * lr
     dots = ng = nw = 0.0
     worst = 0.0
@@ -2153,9 +2154,10 @@ def hold_update(torch, got, want, init, steps: int, lr: float, label: str):
         nw += float(dw @ dw)
     cos = dots / math.sqrt(ng * nw)
     print(f"{label}: parameters against the single-process step: cosine of "
-          f"the whole update {cos:.6f} (> 0.9), largest element difference "
-          f"{worst:.3e} (bound 2*steps*lr = {bound:.1e})", flush=True)
-    check(cos > 0.9 and worst <= bound,
+          f"the whole update {cos:.6f} (> {min_cos}), largest element "
+          f"difference {worst:.3e} (bound 2*steps*lr = {bound:.1e})",
+          flush=True)
+    check(cos > min_cos and worst <= bound,
           f"{label}: the update differs from the single-process step's")
     return cos, worst
 
@@ -2464,6 +2466,263 @@ def phase_moe_modes(torch, ef, card: str):
     return total
 
 
+EP_BATCH = 128                       # ep_full_mix's global batch of 256, cut
+EP_LR = 5e-5                         # med-moe_pretraining's lr
+EP_OVERRIDES = [
+    "experiment=ep_full_mix", "data=synthetic",
+    f"data.num_samples={EP_BATCH}", f"data.batch_size={EP_BATCH}",
+    "trainer.max_epochs=1", "trainer.accumulate_grad_batches=1",
+    "trainer.limit_train_batches=1", "trainer.limit_val_batches=0",
+    "trainer.num_sanity_val_steps=0", "callbacks=none", "logger=csv",
+    "extras.print_config=false", "trainer.log_every_n_steps=1",
+    "model.model.vision.drop_path_rate=0.0",
+    "model.model.text.hidden_dropout_prob=0.0",
+    "model.model.text.attention_probs_dropout_prob=0.0"]
+#: (label, the rank processes' mode, the one process's mode)
+EP_RUNS = (("ep", "ep", "topk"), ("gather", "gather", "gather"))
+
+
+def ep_rank_main() -> int:
+    """One rank of phase_ep: joins a gloo group of two on cuda:0 from the
+    environment phase_ep sets, then runs the train CLI's ``main`` as one of
+    two nodes of one card on a data 1 × expert 2 grid (each rank 3 of the
+    6 experts, both the whole batch of EP_BATCH), once a mode of EP_RUNS;
+    after the ``ep`` run every rank calls save_checkpoint (rank 0 writes the
+    whole bank). Writes its launch counts, K3's shapes, metrics, step times,
+    peak memory and its trainable parameters under ``--ep-out``."""
+    out = sys.argv[sys.argv.index("--ep-out") + 1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+        rank=rank, world_size=2, timeout=datetime.timedelta(seconds=300))
+    from medmoe_torch.cli import train as cli
+    from medmoe_torch.ops import gloria_attention as ga
+    from medmoe_torch.utils.checkpoint import save_checkpoint
+
+    results = []
+    try:
+        for label, mode, _ in EP_RUNS:
+            captured, shapes, seconds = {}, [], []
+            real_train, real_fwd = cli.train, ga.gloria_similarity_forward
+
+            def train(cfg):
+                metrics, objs = real_train(cfg)
+                captured.update(objs)
+                return metrics, objs
+
+            def fwd(img, words, *a):
+                shapes.append([img.shape[0], words.shape[0]])
+                return real_fwd(img, words, *a)
+
+            cli.train, ga.gloria_similarity_forward = train, fwd
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            try:
+                with step_hooks(*step_timer(seconds)):
+                    cli.main(EP_OVERRIDES + [
+                        f"model.model.vision.moe_mode={mode}",
+                        "trainer.devices=1", "trainer.num_nodes=2",
+                        f"paths.root_dir={os.path.join(out, label, str(rank))}"])
+                torch.cuda.synchronize()
+            finally:
+                cli.train, ga.gloria_similarity_forward = real_train, real_fwd
+            counts = launch_counts()
+            trainer, module = captured["trainer"], captured["module"]
+            torch.save(trainable_state(module),
+                       os.path.join(out, f"{label}.rank{rank}.pt"))
+            if label == "ep":
+                save_checkpoint(os.path.join(out, "ep.ckpt"), trainer.state)
+            result = {"label": label, "rank": rank, "counts": counts,
+                      "k3_shapes": list(shapes),
+                      "metrics": trainer.metrics_history[-1],
+                      "step_s": list(seconds), "steps": trainer.state.step,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "grid": [trainer.grid.data, trainer.grid.expert],
+                      "mode": module.model.image_encoder.swin_moe.moe.config
+                      .mode,
+                      "local_experts": int(
+                          module.model.image_encoder.swin_moe.moe.experts
+                          .proj_w0.shape[0])}
+            batch = trainer.to_device(next(iter(
+                captured["datamodule"].train_dataloader(1))))
+            result["warm_ms"] = warm_step_ms(torch, trainer, module, batch)
+            result.update({"device": str(trainer.device),
+                           "backend": dist.get_backend(),
+                           "world": dist.get_world_size()})
+            results.append(result)
+            del captured, trainer, module, batch
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def phase_ep(torch, card: str):
+    """experiment=ep_full_mix at full width (6 experts, top-1, capacity
+    1.25, bf16, drop rates 0), one step of a global batch of EP_BATCH, as
+    two gloo ranks on cuda:0 laid out data 1 × expert 2 (each rank 3
+    experts, the whole batch): (a) moe_mode=ep against one process of topk,
+    (b) moe_mode=gather (K1/K2 on the all-gathered bank) against one
+    process of gather, each on the same seed and batch: loss and grad_norm
+    within 1e-3 relative, the update's cosine > 0.99 and 2·lr per element,
+    the replicated parameters bit-equal on both ranks, K3/K4a on each rank;
+    (c) the checkpoint the two ranks saved after (a), loaded by one
+    process: the whole bank of the ranks' slices, bit for bit, and the
+    one process's state after the same step by the same update check.
+    Returns the launch counts of the main path: the one-process steps and
+    both ranks' runs."""
+    from medmoe_torch.models.medmoe import init_weights
+    from medmoe_torch.parallel.sharding import is_expert_param
+    from medmoe_torch.utils.checkpoint import load_checkpoint
+
+    print(f"ep: ep_full_mix cut to one step (accumulation 10 -> 1) of a "
+          f"global batch of {EP_BATCH} (256 -> {EP_BATCH}), drop rates 0",
+          flush=True)
+    refs, total, init = {}, {}, None
+    for label, _, mode in EP_RUNS:
+        seconds = []
+        with step_hooks(*step_timer(seconds)):
+            cfg, metrics, objs, counts, _, _, peak_gb = drive_train(
+                torch, EP_OVERRIDES + [f"model.model.vision.moe_mode={mode}",
+                                       "trainer.mesh.expert=1"])
+        module, trainer = objs["module"], objs["trainer"]
+        check(trainer.state.step == 1, f"ep {label}: one process took "
+              f"{trainer.state.step} steps")
+        refs[label] = (metrics, trainable_state(module))
+        if init is None:
+            init = init_weights(type(module.model)(module.model.vision,
+                                                   module.model.text),
+                                seed=cfg.seed).state_dict()
+            init = {k: init[k].float() for k in refs[label][1]}
+        batch = trainer.to_device(next(iter(
+            objs["datamodule"].train_dataloader(1))))
+        warm = warm_step_ms(torch, trainer, module, batch)
+        print(f"ep {label}: one process of {mode} at {EP_BATCH}: loss "
+              f"{metrics['train/loss']:.6f} grad_norm "
+              f"{metrics['train/grad_norm']:.6f}, first step "
+              f"{seconds[0] * 1e3:.1f} ms, warm step {warm:.1f} ms, peak "
+              f"{peak_gb:.2f} GB; launches {counts} on {card}", flush=True)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del batch, trainer, module, objs
+        torch.cuda.empty_cache()
+
+    work = tempfile.mkdtemp(prefix="medmoe_ep_")
+    try:
+        env = dict(os.environ, WORLD_SIZE="2", LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ep-rank",
+             "--ep-out", work], env=dict(env, RANK=str(r)))
+            for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=480) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        check(rcs == [0, 0], f"ep: the rank processes exited with {rcs}")
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+                 for r in range(2)]
+        states = {label: [torch.load(os.path.join(work, f"{label}.rank{r}.pt"))
+                          for r in range(2)] for label, _, _ in EP_RUNS}
+        ckpt = load_checkpoint(os.path.join(work, "ep.ckpt"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    for i, (label, mode, ref_mode) in enumerate(EP_RUNS):
+        metrics, ref = refs[label]
+        for res in (ranks[0][i], ranks[1][i]):
+            c = res["counts"]
+            print(f"ep {label} rank {res['rank']} ({res['backend']}, world "
+                  f"{res['world']}, grid {res['grid']}, {res['device']}, "
+                  f"{res['local_experts']} of 6 experts, mode {res['mode']}): "
+                  f"{res['steps']} step, K3 shapes {res['k3_shapes']}, "
+                  f"launches {c}, step wall: first "
+                  f"{res['step_s'][0] * 1e3:.1f} ms, warm "
+                  f"{res['warm_ms']:.1f} ms; peak memory "
+                  f"{res['peak_gb']:.2f} GB on {card}", flush=True)
+            check(res["backend"] == "gloo" and res["world"] == 2
+                  and res["device"] == "cuda:0" and res["grid"] == [1, 2]
+                  and res["local_experts"] == 3 and res["mode"] == mode,
+                  f"ep {label} rank {res['rank']}: not expert-parallel: "
+                  f"{res}")
+            check(res["steps"] == 1, f"ep {label}: {res['steps']} steps")
+            check(res["k3_shapes"] == [[EP_BATCH, EP_BATCH]],
+                  f"ep {label}: K3 shapes {res['k3_shapes']}")
+            check(c["K3"] == c["prologue"] == c["K4a"] == 1
+                  and c["K4b"] == 0, f"ep {label}: GLoRIA launches {c}")
+            if mode == "gather":
+                check(c["K1"] >= 1 and c["K2"] == 1,
+                      f"ep {label}: K1/K2 launches {c}")
+            else:
+                check(c["K1"] == c["K2"] == 0,
+                      f"ep {label}: K1/K2 launched in {mode} mode: {c}")
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        m = ranks[0][i]["metrics"]
+        check(all(m[k] == ranks[1][i]["metrics"][k] for k in m
+                  if k.startswith("train/")),
+              f"ep {label}: the ranks' metrics differ")
+        for key in ("train/loss", "train/grad_norm"):
+            rel = abs(m[key] - metrics[key]) / abs(metrics[key])
+            print(f"ep {label}: {key} two expert ranks {m[key]:.6f} against "
+                  f"one process of {ref_mode} {metrics[key]:.6f}: rel "
+                  f"{rel:.2e} (rtol 1e-3)", flush=True)
+            check(rel <= 1e-3, f"ep {label}: {key} differs from one process")
+        r0, r1 = states[label]
+        whole = {}
+        for k, v in r0.items():
+            if is_expert_param(k):
+                whole[k] = torch.cat([v, r1[k]])
+            else:
+                check(torch.equal(v, r1[k]), f"ep {label}: replicated "
+                      f"parameter {k} differs between the ranks")
+                whole[k] = v
+        print(f"ep {label}: the replicated parameters are bit-equal on both "
+              f"ranks", flush=True)
+        hold_update(torch, whole, ref, init, 1, EP_LR, f"ep {label}",
+                    min_cos=0.99)
+        if label == "ep":
+            # (c): the file the two ranks saved holds the whole bank
+            saved = ckpt["model"]
+            for k, v in whole.items():
+                check(torch.equal(saved[k].float(), v),
+                      f"ep checkpoint: {k} is not the ranks' state")
+            opt = ckpt["optimizer"]["state"]
+            banks = [s for s in opt.values()
+                     if s["exp_avg"].dim() == 3 and s["exp_avg"].shape[0] == 6]
+            check(len(banks) >= 4, "ep checkpoint: the Adam moments of the "
+                  "whole bank are missing")
+            hold_update(torch, {k: saved[k].float() for k in ref}, ref, init,
+                        1, EP_LR, "ep checkpoint", min_cos=0.99)
+            print(f"ep checkpoint: {len(saved)} tensors, the whole bank of "
+                  f"both ranks' slices bit for bit, {len(banks)} bank Adam "
+                  f"moments with 6 experts", flush=True)
+    print(f"ep: two expert ranks, both modes, in {wall:.1f} s of wall time "
+          f"(both processes' start, init, two runs and their warm steps)",
+          flush=True)
+    del refs, states, ckpt, init
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "medmoe_torch")):
@@ -2505,7 +2764,8 @@ def main() -> int:
         for name in only:
             {"gloria_rect": lambda: phase_gloria_rect(torch, ga, card),
              "moe_modes": lambda: phase_moe_modes(torch, ef, card),
-             "ddp": lambda: phase_ddp(torch, card)}[name]()
+             "ddp": lambda: phase_ddp(torch, card),
+             "ep": lambda: phase_ep(torch, card)}[name]()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2528,6 +2788,7 @@ def main() -> int:
     rect = phase_gloria_rect(torch, ga, card)
     moe = phase_moe_modes(torch, ef, card)
     ddp = phase_ddp(torch, card)
+    ep = phase_ep(torch, card)
     print(f"main paths: serving {img_s:.1f} img/s with K1 launched "
           f"{serve_launches} times; pretraining_medmoe_ddp training "
           f"{pairs_s:.1f} pairs/s with K1 launched {k1_train} and K2 "
@@ -2535,13 +2796,15 @@ def main() -> int:
           f"launches {text}; disk train, resume and serve launches {disk}; "
           f"eval, classification and export launches {ev}; MoE-mode "
           f"training launches {moe}; data-parallel launches (one process, "
-          f"both ranks, the NCCL rank) {ddp}", flush=True)
+          f"both ranks, the NCCL rank) {ddp}; expert-parallel launches (one "
+          f"process of topk and of gather, both ranks of ep and of gather) "
+          f"{ep}", flush=True)
     # K1 and K2 run in every phase that drives the model
     k1_all = serve_launches + k1_train + g256["K1"] + text["K1"] \
-        + disk["K1"] + ev["K1"] + moe["K1"] + ddp["K1"]
+        + disk["K1"] + ev["K1"] + moe["K1"] + ddp["K1"] + ep["K1"]
     k2_all = k2_train + g256["K2"] + text["K2"] + disk["K2"] + ev["K2"] \
-        + moe["K2"] + ddp["K2"]
-    gl_all = {k: g256[k] + text[k] + moe[k] + ddp[k]
+        + moe["K2"] + ddp["K2"] + ep["K2"]
+    gl_all = {k: g256[k] + text[k] + moe[k] + ddp[k] + ep[k]
               for k in ("K3", "prologue", "K4a", "K4b")}
 
     def row(name, source, replaces, launches, r, **extra):
@@ -2580,4 +2843,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(ddp_rank_main() if "--ddp-rank" in sys.argv else main())
+    sys.exit(ddp_rank_main() if "--ddp-rank" in sys.argv
+             else ep_rank_main() if "--ep-rank" in sys.argv else main())

@@ -9,11 +9,16 @@ port's modules carry the flax names, so a key maps by rule:
   * Embed ``embedding`` → Embedding ``weight``
   * everything else (biases, the stacked expert bank, the relative-position
     bias table) keeps its name and layout.
+
+Under expert parallelism (``expert_shard=(index, size)``) a rank takes
+its slice of every bank parameter's leading K axis, as the JAX package's
+``param_shardings(..., expert_parallel=True)`` places it on device
+``index`` of the ``expert`` axis.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,15 +52,22 @@ def _convert(key: str, arr: np.ndarray):
 
 
 def from_jax_params(flat: Mapping[str, np.ndarray],
-                    model: Optional[nn.Module] = None
+                    model: Optional[nn.Module] = None,
+                    expert_shard: Optional[Tuple[int, int]] = None
                     ) -> Dict[str, torch.Tensor]:
-    """Flat flax params → ``state_dict``. With ``model``, also raises on
-    any key that names no parameter of it (unmapped), on any of its
-    parameters that no key sets (unset), and on a shape mismatch."""
+    """Flat flax params → ``state_dict``; with ``expert_shard`` = (index,
+    size), the expert banks cut to rank ``index``'s experts of an expert
+    axis of ``size``. With ``model``, also raises on any key that names no
+    parameter of it (unmapped), on any of its parameters that no key sets
+    (unset), and on a shape mismatch."""
     sd = {}
     for key, arr in flat.items():
         name, value = _convert(key, np.asarray(arr))
         sd[name] = torch.from_numpy(value)
+    if expert_shard is not None:
+        from medmoe_torch.parallel.sharding import shard_tensors
+
+        sd = shard_tensors(sd, *expert_shard)
     if model is not None:
         expected = model.state_dict()
         unmapped = sorted(set(sd) - set(expected))

@@ -26,6 +26,19 @@ set (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``) and becomes rank 0; it stops the others when one fails.
 Under torchrun or Slurm it only joins the group. ``data.batch_size`` is
 one node's batch, split over its ranks.
+
+Expert parallelism (the JAX package's ``trainer=ep``): ``trainer.mesh``
+lays the ``devices × num_nodes`` ranks out as a data × expert grid, each
+expert bank sharded over the expert axis (``parallel/mesh.py``):
+
+    python -m medmoe_torch.cli.train experiment=ep_full_mix data=synthetic \
+        trainer.devices=4                    # 2 data x 2 expert ranks
+    python -m medmoe_torch.cli.train experiment=gloria256 data=synthetic \
+        trainer=ep_sim trainer.accelerator=cpu   # 4 CPU ranks, gloo
+
+``trainer.devices`` counts ranks; a grid that does not divide them raises
+before any rank starts. ``data.batch_size`` is then split over a node's
+data ranks: the e ranks of an expert group read the same rows.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ import torch
 import torch.distributed as dist
 
 from medmoe_torch.config import compose, to_dict
+from medmoe_torch.parallel.mesh import MeshSpec, init_grid
 from medmoe_torch.parallel.multihost import cluster_env, maybe_initialize
 from medmoe_torch.train.loop import resolve_devices
 from medmoe_torch.utils.instantiate import instantiate
@@ -70,6 +84,23 @@ def _instantiate_group(node) -> List:
             if isinstance(v, dict) and "_target_" in v]
 
 
+def data_ranks_per_node(tcfg) -> int:
+    """The ranks of one node that read different rows: ``trainer.devices``
+    over the grid's expert axis. Raises ValueError when the grid
+    (``trainer.mesh``) does not divide the ``devices × num_nodes`` ranks,
+    or when an expert group neither fits in a node nor spans whole
+    nodes."""
+    devices = resolve_devices(tcfg.get("devices", 1),
+                              tcfg.get("accelerator", "gpu"))
+    nodes = int(tcfg.get("num_nodes", 1) or 1)
+    _, e = MeshSpec.from_config(tcfg.get("mesh")).resolve(devices * nodes)
+    if devices % e and e % devices:
+        raise ValueError(f"trainer.mesh.expert={e} neither divides nor is a "
+                         f"multiple of trainer.devices={devices}: an expert "
+                         f"group must fit in a node or span whole nodes")
+    return max(1, devices // e)
+
+
 @task_wrapper
 def train(cfg) -> Tuple[Dict[str, float], Dict]:
     """Instantiate everything from the config, fit (resuming from
@@ -78,13 +109,14 @@ def train(cfg) -> Tuple[Dict[str, float], Dict]:
     seed_everything(cfg.get("seed"))
     tcfg = cfg.get("trainer") or {}
     accelerator = tcfg.get("accelerator", "gpu")
-    # the group comes first: the data split reads the rank
+    # the group and the grid come first: the data split reads the rank's
+    # data coordinate
+    ranks_per_node = data_ranks_per_node(tcfg)
     maybe_initialize(tcfg.get("num_nodes", 1), accelerator)
+    init_grid(tcfg.get("mesh"))
 
     log.info(f"instantiating datamodule <{cfg.data._target_}>")
-    datamodule = instantiate(
-        cfg.data, ranks_per_node=resolve_devices(tcfg.get("devices", 1),
-                                                 accelerator))
+    datamodule = instantiate(cfg.data, ranks_per_node=ranks_per_node)
     # the embedding table must cover the tokenizer's vocabulary (a corpus-
     # built vocab can exceed the configured size); the model is built with
     # its final shape, so this is settled before the module exists
@@ -172,6 +204,7 @@ def _launch_node(cfg, overrides: List[str]) -> List[subprocess.Popen]:
     tcfg = cfg.get("trainer") or {}
     accelerator = tcfg.get("accelerator", "gpu")
     devices = resolve_devices(tcfg.get("devices", 1), accelerator)
+    data_ranks_per_node(tcfg)         # a grid that does not divide raises
     if devices <= 1 or cluster_env() is not None or dist.is_initialized():
         return []
     if int(tcfg.get("num_nodes", 1) or 1) > 1:

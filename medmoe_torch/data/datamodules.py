@@ -9,17 +9,19 @@ Every training module yields host batches of numpy arrays:
 and exposes ``steps_per_epoch`` when known. Every loader is the JAX
 package's, step for step: the same shard order, shuffle buffer, caption
 draws, row shuffles and PIL transforms give bit-equal batches on the same
-files. The process split comes from ``torch.distributed``'s rank and
-world size: rank r of n takes rows r, r + n, r + 2n, ... of the globally
-ordered list, trimmed so that every rank gets the same count and so the
-same number of steps an epoch.
+files. The process split comes from the rank's data coordinate in the
+data × expert grid (``parallel/mesh.py``; the ``torch.distributed`` rank
+and world size when e = 1): data rank r of d takes rows r, r + d,
+r + 2d, ... of the globally ordered list, trimmed so that every rank gets
+the same count and so the same number of steps an epoch. The e ranks of
+an expert group read the same rows.
 
 ``data.batch_size`` is the batch of one node, as in the JAX package, where
 one process drives a host's chips: each of a node's ``ranks_per_node``
-ranks (``trainer.devices``, which the train CLI passes) loads
-``batch_size // ranks_per_node`` rows — the reference's global batch //
-world size. Across nodes the global batch is ``batch_size × num_nodes``.
-A node batch that does not divide over its ranks raises. The constructors
+data ranks (``trainer.devices`` over the expert axis, which the train CLI
+passes) loads ``batch_size // ranks_per_node`` rows — the reference's
+global batch // world size. A node batch that does not divide over its
+data ranks raises. The constructors
 take the same config fields as
 ``medmoe_tpu``'s modules, so the copied ``configs/data/*.yaml``
 instantiate unchanged. ``use_native`` (the C++ decode helper) is refused
@@ -45,13 +47,11 @@ from medmoe_torch.data.transforms import ImageTransform, decode_image
 
 
 def _rank_and_world():
-    """(rank, world size) of the torch.distributed group, (0, 1) without
-    one."""
-    import torch.distributed as dist
+    """(data coordinate, data size) of this rank in the grid
+    (``parallel.mesh.data_coords``), (0, 1) without a process group."""
+    from medmoe_torch.parallel.mesh import data_coords
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return data_coords()
 
 
 def _ceil_div(n: int, d: int) -> int:
@@ -70,7 +70,7 @@ class BaseDataModule:
         if ranks_per_node < 1 or batch_size % ranks_per_node:
             raise ValueError(
                 f"data.batch_size={batch_size} is the batch of one node and "
-                f"must divide evenly over its {ranks_per_node} ranks "
+                f"must divide evenly over its {ranks_per_node} data ranks "
                 f"(trainer.devices)")
         #: the node's batch; ``batch_size`` is this rank's share of it
         self.node_batch_size = batch_size

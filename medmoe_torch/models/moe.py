@@ -17,8 +17,23 @@ medmoe_tpu/models/moe.py).
       - ``topk``: capacity dispatch (GShard): each (sample, slot) lands in
         a [K, C] slot table, the experts run grouped over it, assignments
         past an expert's capacity are dropped;
-      - ``ep`` (``topk`` with the bank sharded over ranks) is not ported
-        yet and raises.
+      - ``ep``: ``topk`` (the JAX package runs both through
+        ``apply_dispatched``; the bank's sharding is the trainer's).
+
+Under a process group the batch is the ranks' rows of a global batch, as
+JAX's batch is sharded over ``data``: top-k capacity and positions are
+the global batch's (``apply_dispatched``). With the expert axis of the
+grid above 1 (``parallel/mesh.py``) each bank holds K/e experts
+(``ExpertBank.shard``), and the e ranks of an expert group hold the same
+rows:
+
+  * ``topk``/``ep`` and ``dense`` compute the dispatch and combine for all
+    K, keep this rank's experts, run them, and sum the partial outputs
+    over the expert group (``leave_experts``); the pyramid and the combine
+    weights enter through ``enter_experts``, whose backward sums their
+    gradient over the group;
+  * ``gather`` all-gathers the bank (``gather_experts``) and runs K1/K2 on
+    it as in one process.
 
 The gather mode's expert branch is ``ops/expert_fusion.py``: in bfloat16
 the autograd Function ``FusedExpertGather`` (hand-written CUDA kernels for
@@ -41,6 +56,8 @@ from torch import nn
 
 from medmoe_torch.models.layers import Dense
 from medmoe_torch.ops import expert_fusion
+from medmoe_torch.parallel import collectives as C
+from medmoe_torch.parallel.mesh import Grid, get_grid
 
 
 @dataclass(frozen=True)
@@ -139,6 +156,53 @@ class ExpertBank(nn.Module):
         self.attn_b1 = nn.Parameter(torch.zeros(k, h))
         self.attn_w2 = nn.Parameter(torch.zeros(k, h, 1))
         self.attn_b2 = nn.Parameter(torch.zeros(k, 1))
+        #: the grid whose expert axis this bank is sharded over (None: all
+        #: K experts here)
+        self.grid: Optional[Grid] = None
+
+    def shard(self, grid: Grid) -> None:
+        """Keep only this rank's K/e experts of ``grid``'s expert axis (the
+        whole bank is initialized first, so every rank cuts the same
+        weights). Raises ValueError when e does not divide K."""
+        from medmoe_torch.parallel.sharding import expert_slice
+
+        if self.grid is not None:
+            raise RuntimeError("the expert bank is already sharded")
+        sl = expert_slice(self.config.num_experts, grid.expert_index,
+                          grid.expert)
+        for name, p in list(self.named_parameters(recurse=False)):
+            setattr(self, name, nn.Parameter(p.detach()[sl].clone(),
+                                             requires_grad=p.requires_grad))
+        self.grid = grid
+
+    @property
+    def local_experts(self) -> slice:
+        """The experts this bank holds, as a slice of all K."""
+        from medmoe_torch.parallel.sharding import expert_slice
+
+        grid = self.grid or Grid()
+        return expert_slice(self.config.num_experts, grid.expert_index,
+                            grid.expert)
+
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.grid is None else C.enter_experts(
+            x, self.grid.expert_group)
+
+    def _leave(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.grid is None else C.leave_experts(
+            x, self.grid.expert_group)
+
+    def _whole_bank(self):
+        """(proj_w, proj_b, w1, b1, w2, b2) over all K experts: the
+        parameters, or under a sharded bank their all-gather over the
+        expert group."""
+        n = len(self.config.hidden_dims)
+        params = (*self.proj_w, *self.proj_b, self.attn_w1, self.attn_b1,
+                  self.attn_w2, self.attn_b2)
+        if self.grid is not None:
+            params = tuple(C.gather_experts(p, self.grid.expert_group)
+                           for p in params)
+        return (params[:n], params[n:2 * n]) + params[2 * n:]
 
     @property
     def proj_w(self):
@@ -158,25 +222,27 @@ class ExpertBank(nn.Module):
         → the weighted sum of the slots' gathered-expert maps [B, P, E]
         float32. One slot (k = 1) has combine weight exactly 1.0 and is
         returned unscaled."""
+        bank = self._whole_bank()
         if expert_idx.ndim == 1:
-            return self._gather_one(pyramid, expert_idx)
+            return self._gather_one(pyramid, expert_idx, bank)
         k = expert_idx.shape[1]
         if k == 1:
-            return self._gather_one(pyramid, expert_idx[:, 0])
+            return self._gather_one(pyramid, expert_idx[:, 0], bank)
         if weights is None:
             raise ValueError(
                 f"apply_gathered: expert_idx has k={k} slots; pass the "
                 f"[B, k] combine weights from topk_routing")
         out = None
         for j in range(k):
-            slot = self._gather_one(pyramid, expert_idx[:, j])
+            slot = self._gather_one(pyramid, expert_idx[:, j], bank)
             slot = slot * weights[:, j, None, None].to(slot.dtype)
             out = slot if out is None else out + slot
         return out
 
     def _gather_one(self, pyramid: Sequence[torch.Tensor],
-                    expert_idx: torch.Tensor) -> torch.Tensor:
-        """pyramid[s]: [B, P_s, D_s]; expert_idx: [B] → [B, P, E] f32.
+                    expert_idx: torch.Tensor, bank) -> torch.Tensor:
+        """pyramid[s]: [B, P_s, D_s]; expert_idx: [B]; ``bank`` the whole
+        bank (``_whole_bank``) → [B, P, E] f32.
 
         bfloat16 runs ``FusedExpertGather`` (kernels K1/K2 on CUDA
         tensors, the plain version and autograd through it on CPU
@@ -185,9 +251,7 @@ class ExpertBank(nn.Module):
         sends float32 to its XLA path."""
         dt = self.config.dtype
         p_list = [f.shape[1] for f in pyramid]
-        args = (tuple(self.proj_w), tuple(self.proj_b), self.attn_w1,
-                self.attn_b1, self.attn_w2, self.attn_b2,
-                expert_idx.to(torch.int32).contiguous())
+        args = (*bank, expert_idx.to(torch.int32).contiguous())
         if expert_fusion.use_fused_expert(p_list, max(p_list), dt):
             xs = tuple(f.to(dt).contiguous() for f in pyramid)
             wp, bp, w1, b1, w2, b2, idx = args
@@ -240,6 +304,14 @@ class ExpertBank(nn.Module):
         scaled by its combine weight and summed back per sample.
         Assignments past an expert's capacity contribute zero.
 
+        Under a process group the B rows are this rank's of the global
+        batch, its d data ranks' rows in rank order (JAX's batch sharded
+        over ``data``): C comes from B·d, and each position is offset by
+        the earlier data ranks' assignments to the same expert (their
+        counts all-gathered over the data group), so the kept assignments
+        are the global batch's. A rank's slot grid stays [K, C]: it may
+        hold up to C of one expert's kept assignments.
+
         expert_idx [B] (top-1) or [B, k]; weights the matching combine
         weights (None: 1.0 a slot). → [B, P, E] float32."""
         dt = self.config.dtype
@@ -250,15 +322,26 @@ class ExpertBank(nn.Module):
         if weights is None:
             weights = torch.ones((b, k_slots), dtype=torch.float32,
                                  device=expert_idx.device)
-        capacity = max(1, int(np.ceil(b * k_slots * capacity_factor / k)))
-        dispatch, combine = make_dispatch_tensors(expert_idx, weights, k,
-                                                  capacity)
-        disp = dispatch.to(dt).float()
-        xs = [torch.einsum("kcb,bpd->kcpd", disp, f.to(dt).float()).to(dt)
+        grid = self.grid or get_grid()
+        capacity = max(1, int(np.ceil(b * grid.data * k_slots
+                                      * capacity_factor / k)))
+        offsets = None
+        if grid.data > 1:
+            counts = torch.bincount(expert_idx.reshape(-1).long(),
+                                    minlength=k)               # [K]
+            counts = C.all_gather_stack(counts, grid.data_group)  # [d, K]
+            offsets = counts[:grid.data_index].sum(dim=0)
+        dispatch, combine = make_dispatch_tensors(
+            expert_idx, self._enter(weights), k, capacity, offsets)
+        local = self.local_experts
+        disp = dispatch[local].to(dt).float()
+        xs = [torch.einsum("kcb,bpd->kcpd", disp,
+                           self._enter(f).to(dt).float()).to(dt)
               for f in pyramid]
         fused = self._grouped(xs, "kcpd,kde->kcpe", "kcpe,keh->kcph",
                               "kcph,kho->kcpo")              # [K, C, P, E]
-        return torch.einsum("kcb,kcpe->bpe", combine, fused)
+        return self._leave(torch.einsum("kcb,kcpe->bpe", combine[local],
+                                        fused))
 
     def apply_dense(self, pyramid: Sequence[torch.Tensor],
                     combine: torch.Tensor) -> torch.Tensor:
@@ -267,10 +350,11 @@ class ExpertBank(nn.Module):
         the reference's all-then-select; renormalized top-k probabilities
         otherwise). → [B, P, E] float32."""
         dt = self.config.dtype
-        xs = [f.to(dt) for f in pyramid]
+        xs = [self._enter(f).to(dt) for f in pyramid]
+        combine = self._enter(combine.float())[:, self.local_experts]
         fused = self._grouped(xs, "bpd,kde->kbpe", "kbpe,keh->kbph",
                               "kbph,kho->kbpo")              # [K, B, P, E]
-        return torch.einsum("bk,kbpe->bpe", combine.float(), fused)
+        return self._leave(torch.einsum("bk,kbpe->bpe", combine, fused))
 
 
 def topk_routing(router_probs: torch.Tensor, k: int
@@ -293,7 +377,8 @@ def topk_routing(router_probs: torch.Tensor, k: int
 
 
 def make_dispatch_tensors(expert_idx: torch.Tensor, weights: torch.Tensor,
-                          num_experts: int, capacity: int
+                          num_experts: int, capacity: int,
+                          offsets: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GShard-form dispatch and combine tensors.
 
@@ -303,12 +388,16 @@ def make_dispatch_tensors(expert_idx: torch.Tensor, weights: torch.Tensor,
 
     An assignment's position in its expert is the count of earlier
     assignments to the same expert, sample-major over the flattened [B·k]
-    list. Assignments at a position ≥ ``capacity`` are dropped from both."""
+    list, plus ``offsets[e]`` (int [K]: the assignments to e that come
+    before these rows, on earlier data ranks). Assignments at a position
+    ≥ ``capacity`` are dropped from both."""
     b, k_slots = expert_idx.shape
     flat = expert_idx.reshape(-1).long()                           # [B·k]
     onehot = (flat[:, None] == torch.arange(
         num_experts, device=flat.device)[None, :]).to(torch.int64)
     position = torch.cumsum(onehot, dim=0) - onehot
+    if offsets is not None:
+        position = position + offsets.to(position)[None, :]
     pos = torch.sum(position * onehot, dim=1)                      # [B·k]
     kept = (pos < capacity).float()
     oh_e = onehot.float() * kept[:, None]
@@ -330,16 +419,11 @@ class MoE(nn.Module):
                                  calls them 'router_logits'.
     """
 
-    MODES = ("gather", "dense", "topk")
+    MODES = ("gather", "dense", "topk", "ep")
 
     def __init__(self, config: MoEConfig):
         super().__init__()
         cfg = config
-        if cfg.mode == "ep":
-            raise NotImplementedError(
-                "moe mode 'ep' (the expert bank sharded over ranks) is not "
-                "ported yet (ROADMAP.md Queue 1); use 'topk', 'gather' or "
-                "'dense'")
         if cfg.mode not in self.MODES:
             raise ValueError(f"unknown moe mode {cfg.mode!r}")
         if not 1 <= int(cfg.top_k) <= cfg.num_experts:

@@ -11,7 +11,7 @@ detect_anomaly (``torch.autograd.set_detect_anomaly``, scoped to
 ``fit``), callbacks, resuming from a checkpoint (``fit(ckpt_path=...)``)
 and the preemption handlers (SIGTERM / SIGUSR1 → a blocking ``last``
 checkpoint at the next step boundary, then stop). Not ported yet, and
-refused when asked for: an expert-parallel mesh and the profiler.
+refused when asked for: the profiler.
 
 Data-parallel training: ``devices`` ranks a node on ``num_nodes`` nodes,
 one process a rank, joined in one ``torch.distributed`` group
@@ -26,6 +26,16 @@ averaged over the ranks before any callback or logger reads them (so
 every rank makes the same early-stopping and checkpoint decision), and
 only rank 0 writes checkpoints, sidecars and logs, the others waiting at a
 barrier.
+
+Expert parallelism (``mesh: {data: d, expert: e}``, ``trainer=ep``): the
+ranks form a d × e grid (``parallel/mesh.py``; a grid that does not
+divide the ranks raises). The model is initialized whole from the seed,
+then each expert bank is cut to the rank's K/e experts
+(``parallel/sharding.py``); DDP averages every gradient over the rank's
+data group only; the e ranks of an expert group hold the same rows. The
+metrics are averaged over every rank (the expert ranks' are equal) and
+``pairs_per_sec`` is summed over the data group; preemption agreement and
+barriers span every rank. Checkpoints hold the whole bank.
 
 Resume is exact at an epoch boundary: the data order, the caption draws
 and the dropout generators are all seeded from (seed, epoch), and the
@@ -44,7 +54,9 @@ import torch
 from medmoe_torch.data.prefetch import prefetch
 from medmoe_torch.models.layers import set_generator
 from medmoe_torch.parallel import collectives as C
+from medmoe_torch.parallel.mesh import init_grid
 from medmoe_torch.parallel.multihost import local_rank, maybe_initialize
+from medmoe_torch.parallel.sharding import shard_model
 from medmoe_torch.train.optim import get_learning_rate, set_learning_rate
 from medmoe_torch.train.state import TrainState, param_count
 from medmoe_torch.train.step import build_eval_step, build_train_step
@@ -172,10 +184,6 @@ class Trainer:
                  loggers: Optional[List] = None,
                  checkpoint_on_signal: bool = True,
                  seed: int = 0):
-        if int((mesh or {}).get("expert", 1) or 1) > 1:
-            raise NotImplementedError(
-                "an expert-parallel mesh is not ported yet (ROADMAP.md Queue "
-                "1); use trainer.mesh.expert=1")
         if profiler:
             raise NotImplementedError("the trainer's profiler is not ported "
                                       "yet; use trainer.profiler=null")
@@ -190,6 +198,8 @@ class Trainer:
                 f"a device; found {C.get_world_size()}. Launch through "
                 f"python -m medmoe_torch.cli.train (which starts a node's "
                 f"processes) or torchrun")
+        #: this rank's place in the data × expert grid
+        self.grid = init_grid(mesh)
         self.device = resolve_accelerator(accelerator, local_rank())
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -308,7 +318,9 @@ class Trainer:
             device=self.device)).cpu().tolist()
         out = dict(zip(keys, mean))
         if "pairs_per_sec" in out:
-            out["pairs_per_sec"] *= C.get_world_size()
+            # the data ranks' rates summed; an expert group's ranks train
+            # the same pairs
+            out["pairs_per_sec"] *= self.grid.data
         return out
 
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -357,11 +369,18 @@ class Trainer:
                  f"epoch {start_epoch}")
         return start_epoch
 
-    def _fit(self, module, datamodule, ckpt_path: Optional[str]) -> None:
+    def _place_model(self, module, datamodule) -> None:
+        """Initialize ``module``'s model from the seed, cut its expert banks
+        to this rank's experts (expert parallelism) and move it to the
+        device."""
         self.module = module
         module.init_params(self.seed)
+        shard_model(module.model, self.grid)
         module.model.to(self.device)
         self._check_kernel_limits(module, datamodule)
+
+    def _fit(self, module, datamodule, ckpt_path: Optional[str]) -> None:
+        self._place_model(module, datamodule)
         tx = module.make_optimizer(gradient_clip_val=self.gradient_clip_val)
         self.state = TrainState.create(module.model, tx)
         self.scheduler = module.make_scheduler()
@@ -381,7 +400,8 @@ class Trainer:
                 module.ddp = DistributedDataParallel(
                     module.model,
                     device_ids=[self.device] if self.device.type == "cuda"
-                    else None, broadcast_buffers=False)
+                    else None, broadcast_buffers=False,
+                    process_group=self.grid.data_group)
 
         step_cache: Dict[int, Any] = {}
 
@@ -550,10 +570,7 @@ class Trainer:
         ``ckpt_path`` when given, else the current ones (after ``fit``, or
         freshly initialized)."""
         if self.module is not module:
-            self.module = module
-            module.init_params(self.seed)
-            module.model.to(self.device)
-            self._check_kernel_limits(module, datamodule)
+            self._place_model(module, datamodule)
         if ckpt_path:
             load_model_weights(module.model, ckpt_path)
         out = self._across_ranks(self._evaluate(

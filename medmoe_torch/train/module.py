@@ -28,6 +28,12 @@ in rank order:
   must lie within one rank: a ``block_size`` that does not divide the
   per-rank batch raises.
 
+Under expert parallelism (a d × e grid, ``parallel/mesh.py``) the n above
+is d: the gathers and their GLOBAL backward run over the rank's data
+group, since the e ranks of an expert group hold the same rows (a gather
+over every rank would repeat each row e times and scale the gradients
+by e).
+
 The soft-label path (a frozen tool BERT scoring text similarity) is not
 ported yet: ``soft_label: true`` raises.
 """
@@ -44,6 +50,7 @@ from medmoe_torch.models.moe import ExpertBank
 from medmoe_torch.ops import expert_fusion, gloria_attention
 from medmoe_torch.ops import losses as L
 from medmoe_torch.parallel import collectives as C
+from medmoe_torch.parallel.mesh import get_grid
 from medmoe_torch.train.optim import Adam, adam
 from medmoe_torch.utils.instantiate import instantiate
 
@@ -128,7 +135,7 @@ class MedMoEPretrainingModule:
         batch = batch_size
         if batch is not None:
             if self._gathers(batch):
-                batch *= C.get_world_size()
+                batch *= get_grid().data
             elif self.block_size:
                 batch = min(batch, int(self.block_size))
         if self.local_loss.impl_for(self.agg, batch, True) == "pallas":
@@ -144,14 +151,13 @@ class MedMoEPretrainingModule:
 
     def _gathers(self, batch: int) -> bool:
         """True when, under a process group, the losses of a per-rank batch
-        of ``batch`` pairs span the global batch (gathered from every
-        rank); False outside a group and for per-rank blocks. Raises for a
-        block that would span two ranks."""
+        of ``batch`` pairs span the global batch (gathered from every rank
+        of the data group); False outside a group and for per-rank blocks.
+        Raises for a block that would span two data ranks."""
         if not C.in_group():
             return False
         bs = self.block_size
-        world = C.get_world_size()
-        if not bs or int(bs) >= batch * world:
+        if not bs or int(bs) >= batch * get_grid().data:
             return True
         if batch % int(bs):
             raise ValueError(
@@ -164,21 +170,25 @@ class MedMoEPretrainingModule:
                        global_fn):
         """(local, global) loss over the global batch under a process
         group: each rank's image rows of the local similarity against
-        every rank's captions, gathered into the [B, B] matrix."""
+        every data rank's captions, gathered into the [B, B] matrix."""
         G = C.BackpropType.GLOBAL
-        words = C.gather_tensor(txt_l, G)
-        caps = C.gather_tensor(cap_lens, C.BackpropType.NONE)
+        group = get_grid().data_group
+
+        def gather(x, kind=G):
+            return C.gather_tensor(x, kind, group)
+
+        words = gather(txt_l)
+        caps = gather(cap_lens, C.BackpropType.NONE)
         if hasattr(self.local_loss, "similarities"):
             rows = self.local_loss.similarities(
                 img_l, words, caps, temp1=self.temp1, temp2=self.temp2,
                 temp3=self.temp3, agg=self.agg, batch=words.shape[0])
-            sim = C.gather_tensor(rows, G)                   # [B, B]
+            sim = gather(rows)                               # [B, B]
             l_loss = L._cross_entropy_diag(sim) \
                 + L._cross_entropy_diag(sim.T)
         else:
-            l_loss = local_fn(C.gather_tensor(img_l, G), words, caps)
-        g_loss = global_fn(C.gather_tensor(img_g, G),
-                           C.gather_tensor(txt_g, G))
+            l_loss = local_fn(gather(img_l), words, caps)
+        g_loss = global_fn(gather(img_g), gather(txt_g))
         return l_loss, g_loss
 
     def _blocked(self, fn, *tensors):

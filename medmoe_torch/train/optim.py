@@ -43,9 +43,24 @@ def adam(lr: float = 5e-5, weight_decay: float = 0.0, b1: float = 0.9,
                 float(eps), gradient_clip_val)
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ g²) over every tensor, as a 0-d device tensor."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+def global_norm(grads: List[torch.Tensor],
+                sharded: Optional[List[bool]] = None,
+                group=None) -> torch.Tensor:
+    """sqrt(Σ g²) over every tensor, as a 0-d device tensor.
+
+    With ``sharded`` (one flag a tensor: a slice of the expert bank under
+    expert parallelism) the replicated tensors' Σg² is taken once and the
+    slices' Σg² is summed over the expert ``group``: the norm of the whole
+    gradient, the same on every rank."""
+    if not sharded or not any(sharded):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in grads))
+    from medmoe_torch.parallel import collectives as C
+
+    sq = [torch.sum(torch.square(g.float())) for g in grads]
+    rep = sum(q for q, s in zip(sq, sharded) if not s)
+    local = C.all_reduce_sum(sum(q for q, s in zip(sq, sharded) if s), group)
+    return torch.sqrt(rep + local)
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,

@@ -63,4 +63,11 @@ class TrainState:
 
 
 def param_count(model: nn.Module) -> int:
-    return sum(p.numel() for p in model.parameters())
+    """The whole model's parameters: an expert bank sharded over e ranks
+    counts its K experts, not this rank's K/e."""
+    from medmoe_torch.parallel.sharding import sharded_banks
+
+    extra = sum(p.numel() * (bank.grid.expert - 1)
+                for _, bank in sharded_banks(model)
+                for p in bank.parameters())
+    return sum(p.numel() for p in model.parameters()) + extra

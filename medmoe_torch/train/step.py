@@ -12,6 +12,11 @@ Under data-parallel training (``module.ddp``, a DistributedDataParallel
 wrapper) every micro-batch but the last runs under ``no_sync``, so the
 gradients are averaged over the ranks once a step, in the last backward;
 ``grad_norm`` and the clip then read that reduced, global gradient.
+
+Under expert parallelism each rank holds a slice of the expert bank, and
+its gradient: ``grad_norm`` adds the slices' Σg², summed over the expert
+group, to the replicated parameters' (``optim.global_norm``), so every
+rank clips by the same norm; Adam then updates each rank's slice.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from medmoe_torch.parallel.sharding import bank_grid, expert_flags
 from medmoe_torch.train.optim import global_norm
 from medmoe_torch.train.state import TrainState
 
@@ -58,7 +64,9 @@ def build_train_step(module, accum_steps: int = 1) -> Callable:
             for a in acc:
                 a.mul_(inv)
             metrics_acc = {k: v * inv for k, v in metrics_acc.items()}
-        norm = global_norm(acc)
+        grid = bank_grid(module.model)
+        norm = global_norm(acc, expert_flags(module.model, params),
+                           grid.expert_group if grid else None)
         state.apply_gradients(acc, norm)
         metrics_acc["grad_norm"] = norm
         return state, metrics_acc

@@ -17,7 +17,12 @@ one background thread; the next save and ``finalize_saves`` wait for it.
 A background write that fails leaves no file, no temporary and no
 sidecar, and its error is raised at that next barrier.
 
-Only rank 0 of a ``torch.distributed`` group writes. Orbax directories
+Only rank 0 of a ``torch.distributed`` group writes. Under expert
+parallelism every rank calls ``save_checkpoint``: the bank and its Adam
+moments are all-gathered over each expert group first, so the file holds
+the whole bank in the format of one process, and a load cuts it to the
+loading rank's experts (``parallel/sharding.py``) on any expert count.
+Orbax directories
 (the JAX package's checkpoints) are refused: their weights reach the port
 as the ``weights.npz`` that ``python -m medmoe_tpu.cli.export`` writes.
 """
@@ -35,6 +40,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from medmoe_torch.parallel import collectives as C
+from medmoe_torch.parallel import sharding
 from medmoe_torch.utils.logging import _process_index
 
 FORMAT = "medmoe_torch.checkpoint/1"
@@ -104,18 +111,65 @@ def finalize_saves() -> None:
         _write_meta(path, extra)
 
 
+def _whole_state(state) -> Dict[str, Any]:
+    """``state.state_dict()`` with every sharded bank parameter and its
+    Adam moments all-gathered over the expert group (collective)."""
+    sd = state.state_dict()
+    grid = sharding.bank_grid(state.model)
+    if grid is None:
+        return sd
+    group = grid.expert_group
+    sd["model"] = sharding.full_state(state.model, sd["model"], group)
+    opt = sd["optimizer"]
+    states = dict(opt["state"])
+    for i, banked in enumerate(sharding.expert_flags(state.model,
+                                                     state.params)):
+        if banked and i in states:
+            states[i] = {k: C.all_gather_stack(v, group).flatten(
+                0, 1) if k in ("exp_avg", "exp_avg_sq") else v
+                for k, v in states[i].items()}
+    sd["optimizer"] = dict(opt, state=states)
+    return sd
+
+
+def _rank_state(payload: Dict[str, Any], model: torch.nn.Module,
+                bank_flags: Optional[list] = None) -> Dict[str, Any]:
+    """A file's contents cut to this rank's experts when ``model``'s banks
+    are sharded: the model's bank parameters and, with ``bank_flags``
+    (``sharding.expert_flags``), their Adam moments."""
+    grid = sharding.bank_grid(model)
+    if grid is None:
+        return payload
+    index, size = grid.expert_index, grid.expert
+    out = dict(payload, model=sharding.shard_tensors(payload["model"], index,
+                                                     size))
+    if bank_flags is not None and "optimizer" in payload:
+        opt = payload["optimizer"]
+        states = dict(opt["state"])
+        for i, banked in enumerate(bank_flags):
+            if banked and i in states:
+                states[i] = {
+                    k: v[sharding.expert_slice(v.shape[0], index, size)]
+                    .clone() if k in ("exp_avg", "exp_avg_sq") else v
+                    for k, v in states[i].items()}
+        out["optimizer"] = dict(opt, state=states)
+    return out
+
+
 def save_checkpoint(path: str, state, extra: Optional[Dict[str, Any]] = None,
                     blocking: bool = True) -> None:
     """Save ``state`` (a ``TrainState``) to the file ``path``; ``extra``
     goes to the sidecar, and its ``scheduler`` and ``seed`` into the file
-    too."""
+    too. Every rank calls it (the expert bank is gathered first); rank 0
+    writes."""
     global _EXECUTOR, _PENDING
     path = os.path.abspath(path)
     finalize_saves()        # one save in flight; "last" may be its path
+    whole = _whole_state(state)
     if _process_index() != 0:
         return
     extra = dict(extra or {})
-    payload = {"format": FORMAT, **_to_host(state.state_dict()),
+    payload = {"format": FORMAT, **_to_host(whole),
                **{k: copy.deepcopy(extra.get(k)) for k in FILE_EXTRAS}}
     os.makedirs(os.path.dirname(path), exist_ok=True)
     if blocking:
@@ -194,8 +248,9 @@ def check_model_state(saved: Dict[str, torch.Tensor], model: torch.nn.Module,
 
 def load_model_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     """Fill ``model`` from the model ``state_dict`` of the checkpoint file
-    ``path`` after checking every parameter's shape."""
-    saved = load_checkpoint(path)["model"]
+    ``path`` after checking every parameter's shape (a sharded bank takes
+    its experts of the file's whole bank)."""
+    saved = _rank_state(load_checkpoint(path), model)["model"]
     check_model_state(saved, model, path)
     model.load_state_dict(saved, strict=True)
     return model
@@ -205,7 +260,8 @@ def restore_checkpoint(path: str, state) -> Dict[str, Any]:
     """Load the file ``path`` into ``state`` in place (model, Adam state,
     step) after checking every parameter's shape; returns the file's
     contents (its ``scheduler`` and ``seed`` among them)."""
-    payload = load_checkpoint(path)
+    payload = _rank_state(load_checkpoint(path), state.model,
+                          sharding.expert_flags(state.model, state.params))
     check_model_state(payload["model"], state.model, path)
     state.load_state_dict(payload)
     return payload

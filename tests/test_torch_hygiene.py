@@ -55,10 +55,33 @@ class TestImportHygiene:
         the same rule, so a rank starts without JAX."""
         files = {os.path.relpath(f, ROOT) for f in _port_files()}
         assert {"medmoe_torch/parallel/collectives.py",
-                "medmoe_torch/parallel/multihost.py"} <= files
+                "medmoe_torch/parallel/multihost.py",
+                "medmoe_torch/parallel/mesh.py",
+                "medmoe_torch/parallel/sharding.py"} <= files
         worker = os.path.join(ROOT, "tests", "torch_rank_worker.py")
         roots = {mod for mod, _ in _imported_roots(worker)}
         assert "medmoe_torch" in roots and not roots & FORBIDDEN
+
+    @pytest.mark.parametrize("mesh", [(-1, 1), (-1, 2), (2, 2), (4, 1),
+                                      (3, 2), (-1, 3), (0, 0)])
+    @pytest.mark.parametrize("n", [1, 2, 4, 8])
+    def test_mesh_spec_is_the_jax_packages(self, mesh, n):
+        """The port's copy of MeshSpec.resolve (parallel/mesh.py) lays out
+        or refuses a grid as medmoe_tpu/parallel/mesh.py does, and its
+        expert-parameter rule picks the same names as sharding.py's."""
+        from medmoe_torch.parallel import mesh as tmesh
+        from medmoe_torch.parallel import sharding as tsh
+        from medmoe_tpu.parallel import mesh as jmesh
+        from medmoe_tpu.parallel import sharding as jsh
+
+        def resolve(spec):
+            try:
+                return spec(*mesh).resolve(n)
+            except ValueError:
+                return "raises"
+
+        assert resolve(tmesh.MeshSpec) == resolve(jmesh.MeshSpec)
+        assert tsh._EXPERT_PARAM_KEYS == jsh._EXPERT_PARAM_KEYS
 
     def test_no_jax_or_jax_package_imports(self):
         bad = [(os.path.relpath(f, ROOT), line, mod)

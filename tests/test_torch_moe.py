@@ -66,10 +66,33 @@ class TestMoE:
         assert_close(tg, jg, dt)
         assert_close(tl, jl, dt)
 
-    def test_other_modes_not_ported(self):
-        """Of the JAX package's modes only ``ep`` is still to port; dense
-        and topk build."""
-        with pytest.raises(NotImplementedError, match="'ep'"):
-            tmoe.MoE(tmoe.MoEConfig(mode="ep"))
-        for mode in ("dense", "topk"):
-            assert tmoe.MoE(tmoe.MoEConfig(mode=mode)).config.mode == mode
+    def test_other_modes_not_ported(self, tmp_path):
+        """Every mode of the JAX package is ported (this test held the
+        refusal of ``ep`` before): ``ep`` with the expert axis of 1 is
+        ``topk``, bit for bit, and equals JAX's ``ep`` block on the same
+        weights (top-2, capacity factor 0.75, so assignments drop)."""
+        kw = dict(num_experts=3, hidden_dims=(8, 16, 32, 64), output_dim=32,
+                  router_input_dim=64, router_hidden_dim=16, top_k=2,
+                  capacity_factor=0.75)
+        rng = np.random.RandomState(9)
+        pyramid = [rng.randn(4, p, d).astype(np.float32)
+                   for p, d in zip((64, 16, 4, 1), kw["hidden_dims"])]
+        feat = rng.randn(4, 64).astype(np.float32)
+        jm = jmoe.MoE(jmoe.MoEConfig(dtype=jnp.float32, mode="ep", **kw))
+        jargs = ([jnp.asarray(x) for x in pyramid], jnp.asarray(feat))
+        p = jax.jit(jm.init)(jax.random.PRNGKey(2), *jargs)["params"]
+        jg, jl, jr = jax.jit(jm.apply)({"params": p}, *jargs)
+        outs = {}
+        for mode in ("ep", "topk", "dense"):
+            tm = carry(p, tmp_path, tmoe.MoE(tmoe.MoEConfig(
+                dtype=torch.float32, mode=mode, **kw)))
+            assert tm.config.mode == mode
+            with torch.no_grad():
+                outs[mode] = tm([torch.from_numpy(x) for x in pyramid],
+                                torch.from_numpy(feat))
+        for a, b in zip(outs["ep"], outs["topk"]):
+            assert torch.equal(a, b)
+        tg, tl, tr = outs["ep"]
+        assert_close(tr, jr, "float32")
+        assert_close(tg, jg, "float32")
+        assert_close(tl, jl, "float32")

@@ -214,16 +214,32 @@ class TestMoEModes:
         assert_close(tg, jg, dt)
         assert_close(tl, jl, dt)
 
-    def test_ep_raises_naming_a_live_queue(self):
-        import pathlib
-        import re
+    @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+    def test_ep_raises_naming_a_live_queue(self, banks, tmp_path, dt):
+        """``ep`` is ported (this test held its refusal, which named a
+        ROADMAP queue): on one rank it is JAX's ``ep`` block (top-2,
+        capacity factor 0.75, so assignments drop), forward and the
+        gradients of the pyramid; an unknown mode still raises."""
+        p, _ = banks[dt]
+        jdt, tdt = jnp.dtype(dt), getattr(torch, dt)
+        cfg = dict(KW, top_k=2, mode="ep", capacity_factor=0.75)
+        pyramid, feat, cot = _inputs(4)
+        jm = jmoe.MoE(jmoe.MoEConfig(dtype=jdt, **cfg))
 
-        with pytest.raises(NotImplementedError) as err:
-            tmoe.MoE(tmoe.MoEConfig(mode="ep"))
-        match = re.search(r"ROADMAP\.md (Queue \d+)", str(err.value))
-        assert match
-        roadmap = (pathlib.Path(__file__).resolve().parents[1]
-                   / "ROADMAP.md").read_text()
-        assert f"### {match.group(1)}" in roadmap
+        def jloss(pyr):
+            _, loc, _ = jm.apply({"params": p}, pyr, jnp.asarray(feat))
+            return jnp.sum(loc.reshape(B, KW["output_dim"], -1)
+                           * jnp.asarray(cot).transpose(0, 2, 1)), loc
+
+        (_, jl), jgrad = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+            [jnp.asarray(x, jdt) for x in pyramid])
+        tm = carry(p, tmp_path, tmoe.MoE(tmoe.MoEConfig(dtype=tdt, **cfg)))
+        tpyr = [torch.from_numpy(x).to(tdt).requires_grad_() for x in pyramid]
+        _, tl, _ = tm(tpyr, torch.from_numpy(feat))
+        (tl.reshape(B, KW["output_dim"], -1)
+         * torch.from_numpy(cot).transpose(1, 2)).sum().backward()
+        assert_close(tl.detach(), jl, dt)
+        for x, g in zip(tpyr, jgrad):
+            assert_close(x.grad.float(), g, dt)
         with pytest.raises(ValueError, match="unknown moe mode"):
             tmoe.MoE(tmoe.MoEConfig(mode="sparse"))

@@ -19,7 +19,8 @@ against the JAX package on ``make_mesh(data=2)`` and against one process.
   * SIGTERM to rank 1 only: both ranks stop after the same step, and one
     ``last`` checkpoint is written;
   * the refusals: a node batch that does not divide over its ranks, a
-    ``block_size`` across ranks, and the expert-parallel mesh.
+    ``block_size`` across ranks, and an expert-parallel mesh that does not
+    divide the ranks.
 
 Every rank runs in its own process (``tests/torch_rank_worker.py``, which
 imports no JAX); each group's join and collectives have a 60 s deadline
@@ -425,17 +426,22 @@ class TestRefusals:
         assert module._gathers(4)
 
     def test_expert_mesh_names_a_live_queue(self):
-        import pathlib
-        import re
-
+        """The expert-parallel mesh is ported (this test held its refusal,
+        which named a ROADMAP queue): a grid that does not divide the
+        ranks raises, here and in the CLI before any rank starts; one that
+        does lays the ranks out (tests/test_torch_ep.py trains on it)."""
+        from medmoe_torch.cli.train import data_ranks_per_node
         from medmoe_torch.train import loop
 
-        with pytest.raises(NotImplementedError) as err:
+        with pytest.raises(ValueError, match="not divisible by expert=2"):
             loop.Trainer(accelerator="cpu", mesh={"expert": 2})
-        match = re.search(r"ROADMAP\.md (Queue \d+)", str(err.value))
-        assert match
-        roadmap = (pathlib.Path(ROOT) / "ROADMAP.md").read_text()
-        assert f"### {match.group(1)}" in roadmap
+        with pytest.raises(ValueError, match="mesh 2x1 != 1 ranks"):
+            loop.Trainer(accelerator="cpu", mesh={"data": 2, "expert": 1})
+        with pytest.raises(ValueError, match="not divisible"):
+            data_ranks_per_node({"accelerator": "cpu", "devices": 2,
+                                 "mesh": {"expert": 4}})
+        trainer = loop.Trainer(accelerator="cpu", mesh={"expert": 1})
+        assert (trainer.grid.data, trainer.grid.expert) == (1, 1)
 
     def test_num_nodes_without_a_launch_raises(self):
         from medmoe_torch.parallel.multihost import maybe_initialize

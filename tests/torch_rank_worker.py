@@ -14,7 +14,13 @@ Tasks:
   backprop type, the values and the gradient of Σ y·(w + rank);
 - ``train``: the train CLI's ``main`` on ``overrides`` inside the group this
   worker opened, optionally sending itself SIGTERM after optimizer step
-  ``sigterm_after`` when it is rank ``sigterm_rank``.
+  ``sigterm_after`` when it is rank ``sigterm_rank``; with ``runs``
+  (a list of override lists) one ``main`` after another in the same
+  group, each rank saving its model's ``state_dict`` (its slice of an
+  expert-parallel bank) to ``<out>.<rank>.<run>.pt``;
+- ``regions``: the expert-region functions (``enter_experts``,
+  ``leave_experts``, ``gather_experts``) over a group of all ranks: the
+  values and the gradients of Σ y·(w + rank).
 """
 
 import datetime
@@ -47,6 +53,34 @@ def _gather(spec, rank):
     return out
 
 
+def _regions(spec, rank):
+    from medmoe_torch.parallel import collectives as C
+
+    x_all = np.asarray(spec["x"], np.float32)
+    n = x_all.shape[0] // spec["world"]
+    out = {}
+    for name, fn, rows in (
+            ("enter", C.enter_experts, x_all),
+            ("leave", C.leave_experts, x_all * (rank + 1)),
+            ("gather", C.gather_experts, x_all[rank * n:(rank + 1) * n])):
+        w = np.asarray(spec["w"], np.float32) \
+            + (rank if name != "gather" else 0)
+        x = torch.from_numpy(np.ascontiguousarray(rows)).requires_grad_()
+        y = fn(x, None)
+        (y * torch.from_numpy(w[:y.shape[0]])).sum().backward()
+        out[name] = {"y": y.detach().tolist(), "grad": x.grad.tolist()}
+    return out
+
+
+def _train_runs(spec, rank):
+    results = []
+    for i, overrides in enumerate(spec["runs"]):
+        res, module = _train(dict(spec, overrides=overrides), rank)
+        torch.save(module.model.state_dict(), f"{spec['out']}.{rank}.{i}.pt")
+        results.append(res)
+    return results
+
+
 def _train(spec, rank):
     from medmoe_torch.cli import train as cli
     from medmoe_torch.train import loop
@@ -74,11 +108,15 @@ def _train(spec, rank):
             return signalling
 
         loop.build_train_step = build
-    cli.main(spec["overrides"])
+    try:
+        cli.main(spec["overrides"])
+    finally:
+        cli.train = real_train
     trainer = captured["trainer"]
-    return {"rank": rank, "world": dist.get_world_size(),
-            "step": trainer.state.step, "interrupted": trainer.interrupted,
-            "history": trainer.metrics_history}
+    result = {"rank": rank, "world": dist.get_world_size(),
+              "step": trainer.state.step, "interrupted": trainer.interrupted,
+              "history": trainer.metrics_history}
+    return result, captured["module"]
 
 
 def main():
@@ -90,8 +128,10 @@ def main():
                             world_size=spec["world"],
                             timeout=datetime.timedelta(seconds=60))
     try:
-        result = {"gather": _gather, "train": _train}[spec["task"]](spec,
-                                                                      rank)
+        tasks = {"gather": _gather, "regions": _regions,
+                 "train": lambda sp, r: _train(sp, r)[0],
+                 "train_runs": _train_runs}
+        result = tasks[spec["task"]](spec, rank)
     finally:
         dist.destroy_process_group()
     with open(f"{spec['out']}.{rank}.json", "w") as f:
