@@ -101,16 +101,28 @@
      on each rank; then one step through a one-rank NCCL group that the
      port's maybe_initialize opens; each with its warm step and peak
      memory;
- 15. prints {"kernels": [...]}, with each kernel's launches counted over
+ 15. expert-parallel training: experiment=ep_full_mix as two gloo ranks
+     of one expert group (data 1 x expert 2) in moe_mode=ep and gather,
+     each against one process, and the checkpoint they saved;
+ 16. soft-label and hard-negative pretraining: 2 gloria256 steps of 256
+     with BERT training and the soft global and local losses (K1, K2, K3,
+     the prologue, K4a and K4b), the thresholds set between the first
+     batch's distinct tool scores and the partition printed; the same
+     first step through the einsum local loss, held against it; one
+     gloria256 step with hard negatives as the global loss; one
+     pretraining_medmoe_ddp step with soft labels (accumulation cut from 80
+     to 2, the einsum soft local at B=32);
+ 17. prints {"kernels": [...]}, with each kernel's launches counted over
      every phase that drives the model (serving, both trainings, text
      training, training from disk and its serving, eval and export, the
-     MoE-mode trainings and the data-parallel steps), and, last, the
-     device line.
+     MoE-mode trainings, the data- and expert-parallel steps and the
+     soft-label runs), and, last, the device line.
 
 Any failed check exits non-zero. Needs one CUDA card; fails without one.
 ``--profile`` adds torch.profiler breakdowns of one serving wave, one
-B=32 training step and one gloria256 step; ``--only gloria_rect,moe_modes,ddp``
-runs just those phases (no kernels line).
+B=32 training step and one gloria256 step; ``--only
+gloria_rect,moe_modes,ddp,ep,soft`` runs just those phases (no kernels
+line).
 """
 
 from __future__ import annotations
@@ -2723,6 +2735,258 @@ def phase_ep(torch, card: str):
     return total
 
 
+SOFT_LOSSES = [
+    "model.loss.soft_label=true",
+    "model.loss.global_loss._target_="
+    "medmoe_torch.ops.losses.SoftGLORIAGlobalContrastiveLoss",
+    "model.loss.local_loss._target_="
+    "medmoe_torch.ops.losses.SoftGLORIALocalContrastiveLoss"]
+SOFT_OVERRIDES = GLORIA_OVERRIDES + SOFT_LOSSES + [
+    "model.model.text.freeze_bert=false"]
+SOFT_SMALL_OVERRIDES = [
+    o for o in TRAIN_OVERRIDES if not o.startswith((
+        "trainer.limit_train_batches", "trainer.accumulate_grad_batches",
+        "trainer.limit_val_batches"))] + SOFT_LOSSES + [
+    "trainer.limit_train_batches=2", "trainer.accumulate_grad_batches=2",
+    "trainer.limit_val_batches=0"]
+SOFT_QUANTILES = (0.9, 0.5)          # threshold0, threshold1
+
+
+def csv_step_rows(cfg):
+    """The per-step rows (those with the lr) of a run's metrics.csv."""
+    import csv
+
+    path = os.path.join(cfg.paths.output_dir, "csv", "metrics.csv")
+    with open(path) as f:
+        return [{k: float(v) for k, v in row.items() if v != ""}
+                for row in csv.DictReader(f) if row.get("lr")]
+
+
+def soft_thresholds(torch, overrides, label: str):
+    """The seeded module on the card and the first train batch: its tool
+    scores, thresholds at their off-diagonal SOFT_QUANTILES, the partition
+    printed per anchor and checked not degenerate, the tool forward timed.
+    Returns (threshold overrides, the initial trainable parameters, the
+    tool BERT's initial state)."""
+    from medmoe_torch.cli.train import fit_vocab
+    from medmoe_torch.config import compose
+    from medmoe_torch.utils.instantiate import instantiate
+
+    # the module the train CLI builds: its vocabulary, its seed
+    cfg = compose("train", overrides + ["paths.root_dir=unused"])
+    dm = instantiate(cfg.data)
+    fit_vocab(cfg, dm)
+    module = instantiate(cfg.model)
+    module.init_params(cfg.seed)
+    module.model.to("cuda")
+    module.capture_tool_params("cuda")
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in next(iter(dm.train_dataloader(0))).items()}
+    scores, _ = module.soft_targets(batch)
+    tool_ms = cuda_ms(lambda: module.soft_targets(batch), iters=5)
+    b = scores.shape[0]
+    off = scores[~torch.eye(b, dtype=torch.bool, device="cuda")].double()
+    # synthetic captions repeat (one a class: such pairs score 1 up to
+    # rounding), so the scores form clusters (gaps above 1e-5 between
+    # them) and the thresholds sit in the gaps, at the clusters' quantiles
+    raw = torch.unique(off)
+    cut = torch.nonzero(raw[1:] - raw[:-1] > 1e-5).flatten()
+    gaps = (raw[cut] + raw[cut + 1]) / 2
+    n = len(gaps) + 1
+    check(n >= 3, f"{label}: {n} distinct tool scores")
+
+    def between(q):
+        return gaps[min(int(q * (n - 1)), n - 2)].item()
+
+    thr0, thr1 = between(SOFT_QUANTILES[0]), between(SOFT_QUANTILES[1])
+    pos, neg = (scores > thr0).sum(1), (scores <= thr1).sum(1)
+    neither = int(((scores > thr1) & (scores <= thr0)).sum())
+    print(f"{label}: tool scores of the first batch of {b}: off-diagonal "
+          f"{off.min().item():.6f} to {off.max().item():.6f}, {n} "
+          f"distinct; threshold0 {thr0!r} (q{SOFT_QUANTILES[0]} of the "
+          f"distinct), threshold1 {thr1!r} (q{SOFT_QUANTILES[1]}); "
+          f"positives per anchor min/median/max "
+          f"{pos.min().item()}/{pos.median().item()}/{pos.max().item()}, "
+          f"negatives {neg.min().item()}/{neg.median().item()}/"
+          f"{neg.max().item()}, {neither} pairs in neither; the tool forward "
+          f"(BERT at {b} x {batch['input_ids'].shape[1]}, "
+          f"{'snapshot' if module.tool_bert is not None else 'live, frozen'}"
+          f") {tool_ms:.3f} ms", flush=True)
+    check(bool(((pos >= 2) & (neg >= 1)).any()) and neither > 0,
+          f"{label}: the soft partition is degenerate")
+    init = {n: p.detach().float().cpu().clone()
+            for n, p in module.model.named_parameters() if p.requires_grad}
+    tool = None if module.tool_bert is None else {
+        k: v.detach().cpu().clone()
+        for k, v in module.tool_bert.state_dict().items()}
+    del module, batch, scores, dm
+    torch.cuda.empty_cache()
+    return ([f"model.loss.threshold0={thr0!r}",
+             f"model.loss.threshold1={thr1!r}"], init, tool, tool_ms)
+
+
+def phase_soft(torch, card: str):
+    """Soft-label and hard-negative pretraining at full width: (a) 2
+    gloria256 steps of 256 with BERT training, the soft global and local
+    losses (K1, K2, K3, the prologue, K4a and K4b), thresholds from the
+    first batch's tool scores; (b) its first step again with the local
+    loss's einsum path (model.loss.local_loss.impl=xla), held against it;
+    (c) one gloria256 step with HardNegativeContrastiveLoss as the global
+    loss; (d) pretraining_medmoe_ddp with soft labels (BERT frozen, as
+    shipped; accumulation cut from 80 to 2): the einsum soft local at B=32,
+    K1/K2. Returns the launch counts of the four runs."""
+    total = dict.fromkeys(launch_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # (a) soft gloria256, BERT training
+    thr, init, tool0, tool_ms = soft_thresholds(torch, SOFT_OVERRIDES,
+                                                "soft gloria256")
+    first = {}
+
+    def keep_first(state):
+        if not first:
+            first.update({n: p.detach().float().cpu().clone()
+                          for n, p in state.model.named_parameters()
+                          if p.requires_grad})
+
+    roots = [tempfile.mkdtemp(prefix="medmoe_soft_") for _ in range(2)]
+    try:
+        with step_hooks(after=keep_first):
+            cfg, metrics, objs, counts, _, _, peak_gb = drive_train(
+                torch, SOFT_OVERRIDES + thr, roots[0])
+        rows = csv_step_rows(cfg)
+        trainer, module = objs["trainer"], objs["module"]
+        add(counts)
+        print(f"soft gloria256: {trainer.state.step} optimizer steps of "
+              f"{GLORIA_BATCH} pairs; launches {counts}; per step "
+              + json.dumps([{k: round(r[f'train/{k}'], 6) for k in
+                             ("loss", "l_loss", "g_loss", "grad_norm")}
+                            for r in rows]), flush=True)
+        check(trainer.state.step == 2 and len(rows) == 2,
+              f"soft gloria256: {trainer.state.step} steps")
+        for r in rows:
+            check(r["train/l_loss"] != 0 and r["train/g_loss"] != 0,
+                  "soft gloria256: a soft loss is 0")
+            check(math.isfinite(r["train/grad_norm"])
+                  and r["train/grad_norm"] > 0,
+                  "soft gloria256: grad_norm not positive and finite")
+        check(math.isfinite(metrics.get("val/loss", float("nan"))),
+              "soft gloria256: val/loss not finite")
+        check(counts["K3"] == 3 and counts["prologue"] == counts["K4a"]
+              == counts["K4b"] == counts["K2"] == 2 and counts["K1"] >= 3,
+              f"soft gloria256: launches {counts}, expected K3 3 times (2 "
+              f"train, 1 val), the prologue, K4a, K4b and K2 twice")
+        tool = module.tool_bert.state_dict()
+        check(all(torch.equal(tool[k].cpu(), v) for k, v in tool0.items()),
+              "soft gloria256: the tool BERT changed")
+        bert = "text_encoder.bert."
+        check(any(not torch.equal(first[k], init[k]) for k in init
+                  if k.startswith(bert)), "soft gloria256: BERT did not move")
+        check(module.tool_bert is not None
+              and not set(map(id, module.tool_bert.parameters()))
+              & set(map(id, trainer.state.params)),
+              "soft gloria256: the tool BERT is in the optimizer")
+        batch = trainer.to_device(next(iter(
+            objs["datamodule"].train_dataloader(1))))
+        step_ms = warm_step_ms(torch, trainer, module, batch)
+        peak = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+        print(f"soft gloria256: BERT moved, the tool BERT did not; warm step "
+              f"{step_ms:.3f} ms = {GLORIA_BATCH / step_ms * 1e3:.1f} "
+              f"pairs/s; the tool forward {tool_ms:.3f} ms; peak memory "
+              f"{peak:.2f} GB on {card}", flush=True)
+        del objs, trainer, module, batch, tool
+        torch.cuda.empty_cache()
+
+        # (b) the same first step through the einsum path
+        plain, step_s = {}, []
+        start, stop = step_timer(step_s)
+
+        def keep_plain(state):
+            stop(state)
+            plain.update({n: p.detach().float().cpu().clone()
+                          for n, p in state.model.named_parameters()
+                          if p.requires_grad})
+
+        with step_hooks(start, keep_plain):
+            cfg_b, _, objs, counts, _, seconds, peak_b = drive_train(
+                torch, SOFT_OVERRIDES + thr + [
+                    "model.loss.local_loss.impl=xla",
+                    "trainer.limit_train_batches=1",
+                    "trainer.limit_val_batches=0"], roots[1])
+        add(counts)
+        check(counts["K3"] == counts["K4a"] == counts["K4b"] == 0,
+              f"soft einsum: GLoRIA kernels launched {counts}")
+        row = csv_step_rows(cfg_b)[0]
+        del objs
+        torch.cuda.empty_cache()
+    finally:
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    for key in ("loss", "l_loss", "grad_norm"):
+        got, want = rows[0][f"train/{key}"], row[f"train/{key}"]
+        rel = abs(got - want) / max(abs(want), 1e-12)
+        print(f"soft gloria256: step 1 {key} kernels {got:.6f} against the "
+              f"einsum path {want:.6f}: rel {rel:.2e} (rtol 2e-2)",
+              flush=True)
+        check(rel <= 2e-2, f"soft: {key} of the kernels' path differs from "
+              f"the einsum path's")
+    hold_update(torch, first, plain, init, 1, 5e-5, "soft kernels vs einsum",
+                min_cos=0.99)
+    print(f"soft einsum path: its step of {GLORIA_BATCH} {step_s[0]:.3f} s "
+          f"(the first, cold; the run {seconds:.1f} s with init), peak "
+          f"{peak_b:.2f} GB", flush=True)
+    del first, plain, init
+
+    # (c) hard negatives as the global loss
+    cfg, metrics, objs, counts, _, seconds, peak_c = drive_train(
+        torch, GLORIA_OVERRIDES + [
+            "model.loss.global_loss._target_="
+            "medmoe_torch.ops.losses.HardNegativeContrastiveLoss",
+            "trainer.limit_train_batches=1", "trainer.limit_val_batches=0"])
+    add(counts)
+    print(f"hard negatives: 1 step of {GLORIA_BATCH}: train/loss "
+          f"{metrics['train/loss']:.6f} g_loss {metrics['train/g_loss']:.6f} "
+          f"grad_norm {metrics['train/grad_norm']:.6f}; launches {counts}; "
+          f"{seconds:.1f} s, peak {peak_c:.2f} GB", flush=True)
+    check(math.isfinite(metrics["train/loss"])
+          and metrics["train/grad_norm"] > 0, "hard negatives: loss or "
+          "grad_norm")
+    check(counts["K3"] == counts["K4a"] == counts["K2"] == 1,
+          f"hard negatives: launches {counts}")
+    del objs
+    torch.cuda.empty_cache()
+
+    # (d) the small batch: soft labels at B=32, BERT frozen
+    print("soft pretraining_medmoe_ddp: accumulate_grad_batches cut from 80 "
+          "to 2 (1 optimizer step of 2 x 32 pairs)", flush=True)
+    thr, _, _, tool_ms = soft_thresholds(torch, SOFT_SMALL_OVERRIDES,
+                                         "soft pretraining_medmoe_ddp")
+    cfg, metrics, objs, counts, _, seconds, peak_d = drive_train(
+        torch, SOFT_SMALL_OVERRIDES + thr)
+    add(counts)
+    print(f"soft pretraining_medmoe_ddp: {objs['trainer'].state.step} step: "
+          f"train/loss {metrics['train/loss']:.6f} l_loss "
+          f"{metrics['train/l_loss']:.6f} g_loss {metrics['train/g_loss']:.6f}"
+          f" grad_norm {metrics['train/grad_norm']:.6f}; launches {counts}; "
+          f"{seconds:.1f} s, peak {peak_d:.2f} GB on {card}", flush=True)
+    check(objs["trainer"].state.step == 1, "soft pretraining_medmoe_ddp: "
+          "steps")
+    check(metrics["train/l_loss"] != 0 and metrics["train/g_loss"] != 0
+          and math.isfinite(metrics["train/grad_norm"])
+          and metrics["train/grad_norm"] > 0,
+          "soft pretraining_medmoe_ddp: a soft loss is 0 or grad_norm bad")
+    check(objs["module"].tool_bert is None, "soft pretraining_medmoe_ddp: "
+          "a snapshot with BERT frozen")
+    check(counts["K2"] == 2 and counts["K1"] >= 2 and counts["K3"] == 0,
+          f"soft pretraining_medmoe_ddp: launches {counts}")
+    del objs
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "medmoe_torch")):
@@ -2765,7 +3029,8 @@ def main() -> int:
             {"gloria_rect": lambda: phase_gloria_rect(torch, ga, card),
              "moe_modes": lambda: phase_moe_modes(torch, ef, card),
              "ddp": lambda: phase_ddp(torch, card),
-             "ep": lambda: phase_ep(torch, card)}[name]()
+             "ep": lambda: phase_ep(torch, card),
+             "soft": lambda: phase_soft(torch, card)}[name]()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2789,6 +3054,7 @@ def main() -> int:
     moe = phase_moe_modes(torch, ef, card)
     ddp = phase_ddp(torch, card)
     ep = phase_ep(torch, card)
+    soft = phase_soft(torch, card)
     print(f"main paths: serving {img_s:.1f} img/s with K1 launched "
           f"{serve_launches} times; pretraining_medmoe_ddp training "
           f"{pairs_s:.1f} pairs/s with K1 launched {k1_train} and K2 "
@@ -2798,13 +3064,14 @@ def main() -> int:
           f"training launches {moe}; data-parallel launches (one process, "
           f"both ranks, the NCCL rank) {ddp}; expert-parallel launches (one "
           f"process of topk and of gather, both ranks of ep and of gather) "
-          f"{ep}", flush=True)
+          f"{ep}; soft-label and hard-negative launches {soft}", flush=True)
     # K1 and K2 run in every phase that drives the model
     k1_all = serve_launches + k1_train + g256["K1"] + text["K1"] \
-        + disk["K1"] + ev["K1"] + moe["K1"] + ddp["K1"] + ep["K1"]
+        + disk["K1"] + ev["K1"] + moe["K1"] + ddp["K1"] + ep["K1"] \
+        + soft["K1"]
     k2_all = k2_train + g256["K2"] + text["K2"] + disk["K2"] + ev["K2"] \
-        + moe["K2"] + ddp["K2"] + ep["K2"]
-    gl_all = {k: g256[k] + text[k] + moe[k] + ddp[k] + ep[k]
+        + moe["K2"] + ddp["K2"] + ep["K2"] + soft["K2"]
+    gl_all = {k: g256[k] + text[k] + moe[k] + ddp[k] + ep[k] + soft[k]
               for k in ("K3", "prologue", "K4a", "K4b")}
 
     def row(name, source, replaces, launches, r, **extra):
@@ -2835,7 +3102,8 @@ def main() -> int:
         row("gloria_similarity_backward d_words", f"{gsrc}_bwd.cu",
             f"{gtpu}:274", gl_all["K4b"], gl["K4b"],
             functions=["dwords_gemm_kernel", "dwords_wei_kernel"],
-            prologue_launches=text["prologue"], **rect["K4b"])]}))
+            prologue_launches=text["prologue"] + soft["K4b"],
+            **rect["K4b"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -101,6 +101,18 @@ def data_ranks_per_node(tcfg) -> int:
     return max(1, devices // e)
 
 
+def fit_vocab(cfg, datamodule) -> None:
+    """Widen ``model.model.text.vocab_size`` to the datamodule tokenizer's
+    vocabulary (a corpus-built vocab can exceed the configured size, and a
+    config without one takes the tokenizer's). The model is built with its
+    final shape, so this is settled before the module exists."""
+    tokenizer = getattr(datamodule, "tokenizer", None)
+    if tokenizer is not None:
+        text = cfg.model.model.text
+        text["vocab_size"] = max(int(text.get("vocab_size", 0)),
+                                 tokenizer.vocab_size)
+
+
 @task_wrapper
 def train(cfg) -> Tuple[Dict[str, float], Dict]:
     """Instantiate everything from the config, fit (resuming from
@@ -117,14 +129,7 @@ def train(cfg) -> Tuple[Dict[str, float], Dict]:
 
     log.info(f"instantiating datamodule <{cfg.data._target_}>")
     datamodule = instantiate(cfg.data, ranks_per_node=ranks_per_node)
-    # the embedding table must cover the tokenizer's vocabulary (a corpus-
-    # built vocab can exceed the configured size); the model is built with
-    # its final shape, so this is settled before the module exists
-    tokenizer = getattr(datamodule, "tokenizer", None)
-    if tokenizer is not None:
-        text = cfg.model.model.text
-        text["vocab_size"] = max(int(text.get("vocab_size", 0)),
-                                 tokenizer.vocab_size)
+    fit_vocab(cfg, datamodule)
 
     log.info(f"instantiating module <{cfg.model._target_}>")
     module = instantiate(cfg.model)

@@ -68,7 +68,8 @@ class ImageEncoder(nn.Module):
         name = cfg.get("model_name", "swin")
         if "swin" not in name:
             raise NotImplementedError(
-                f"vision backbone {name!r} is not ported yet; use 'swin'")
+                f"vision backbone {name!r} is not ported yet; use 'swin' "
+                f"(ROADMAP.md Queue 1)")
         self.swin_moe = SwinMoEVisionTower(cfg)
 
     def forward(self, pixels: torch.Tensor):

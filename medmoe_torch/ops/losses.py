@@ -12,11 +12,18 @@ does.
 their plain versions on CPU tensors), with the JAX package's dispatch:
 ``impl="auto"`` takes it for CUDA tensors, ``agg="sum"`` and a batch above
 64, and the einsum path otherwise.
+
+The soft-label losses (``SoftGLORIAGlobalContrastiveLoss``,
+``SoftGLORIALocalContrastiveLoss``) score the same similarity matrices
+with ``soft_partition_xent``: a tool BERT's text-similarity ``scores``
+split each anchor's candidates into positives and negatives by
+``thresholds``. The soft local loss's similarity is the hard loss's
+dispatch with ``agg="sum"``, so it takes K3/K4 on the card above 64.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -169,16 +176,100 @@ def gloria_local_loss(img_features: torch.Tensor, words_emb: torch.Tensor,
     return GloriaLocalOutput(loss0=loss0, loss1=loss1, att_maps=att_maps)
 
 
-def gloria_global_loss(cnn_code: torch.Tensor, rnn_code: torch.Tensor,
-                       temp3: float = 10.0, eps: float = 1e-8) -> torch.Tensor:
-    """Batch cosine-similarity InfoNCE (reference
-    GLORIAGlobalContrastiveLoss.forward, losses.py:766-794)."""
+def global_similarities(cnn_code: torch.Tensor, rnn_code: torch.Tensor,
+                        temp3: float = 10.0,
+                        eps: float = 1e-8) -> torch.Tensor:
+    """[B_img, B_txt] float32 cosines of the global codes, times temp3."""
     cnn = cnn_code.float()
     rnn = rnn_code.float()
     scores = cnn @ rnn.T
     norms = safe_norm(cnn) @ safe_norm(rnn).T
-    scores = scores / torch.clamp(norms, min=eps) * temp3
+    return scores / torch.clamp(norms, min=eps) * temp3
+
+
+def gloria_global_loss(cnn_code: torch.Tensor, rnn_code: torch.Tensor,
+                       temp3: float = 10.0, eps: float = 1e-8) -> torch.Tensor:
+    """Batch cosine-similarity InfoNCE (reference
+    GLORIAGlobalContrastiveLoss.forward, losses.py:766-794)."""
+    scores = global_similarities(cnn_code, rnn_code, temp3, eps)
     return _cross_entropy_diag(scores) + _cross_entropy_diag(scores.T)
+
+
+def soft_xent(target: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """reference softXEnt (losses.py:796-803)."""
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.sum(target * logprobs) / logits.shape[0]
+
+
+def soft_xent_penalty(target: torch.Tensor, logits: torch.Tensor,
+                      penalty: torch.Tensor) -> torch.Tensor:
+    """reference softXEntPenalty (losses.py:805-812): a per-element
+    penalty weight inside the soft cross entropy."""
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.sum(target * logprobs * penalty) / logits.shape[0]
+
+
+def _relu(x: torch.Tensor) -> torch.Tensor:
+    # max(x, 0) with jnp.maximum's gradient: half to each side of a tie
+    return torch.maximum(x, torch.zeros_like(x))
+
+
+def hard_negative_loss(imgs: torch.Tensor, caps: torch.Tensor, nmax: int = 1,
+                       margin: float = 0.2) -> torch.Tensor:
+    """Margin loss over the ``nmax`` hardest negatives of each image and
+    each caption (reference HardNegativeContrastiveLoss,
+    losses.py:885-927); the diagonal is negated so that it is never
+    picked. Each side is normalized in its own dtype and the product
+    taken in the promoted one, as jnp's ``@`` promotes (the towers hand
+    a float32 image code and a bf16 caption code)."""
+    dt = torch.promote_types(imgs.dtype, caps.dtype)
+    imgs = (imgs / safe_norm(imgs)).to(dt)
+    caps = (caps / safe_norm(caps)).to(dt)
+    scores = (imgs @ caps.T).float()
+    eye = torch.eye(scores.shape[0], dtype=scores.dtype, device=scores.device)
+    diag = torch.sum(scores * eye, dim=1)
+    scores = scores - 2.0 * scores * eye
+    top_c = torch.topk(scores.T, nmax, dim=1).values.T       # [nmax, B]
+    top_i = torch.topk(scores, nmax, dim=1).values           # [B, nmax]
+    neg_cap = torch.sum(_relu(top_c + (margin - diag)[None, :]))
+    neg_img = torch.sum(_relu(top_i + (margin - diag)[:, None]))
+    return neg_cap + neg_img
+
+
+def soft_partition_xent(sim: torch.Tensor, scores: torch.Tensor,
+                        thresholds) -> torch.Tensor:
+    """The soft-label cross entropy of a similarity matrix ``sim`` [B, B]
+    (rows the anchors), the JAX package's ``one_direction``
+    (medmoe_tpu/ops/losses.py:371-416; reference losses.py:814-883).
+
+    ``scores`` [B, B] (the tool BERT's text similarity) and ``thresholds``
+    (thr_pos, thr_neg) mark anchor a's positives, scores > thr_pos, and
+    its negatives, scores <= thr_neg. Each positive j is scored against
+    the anchor's negatives N: log Σ exp over [sim[a, j]; sim[a, N]] minus
+    sim[a, j], divided by 1 + |N| (softXEnt over the concatenation);
+    averaged over the anchor's positives (at least 1), summed over the
+    anchors / B. The log-sum-exp is one [B, B, B] tensor."""
+    thr_pos, thr_neg = thresholds
+    pos = scores > thr_pos
+    neg = scores <= thr_neg
+    negv = torch.where(neg, sim, NEG_INF)
+    m = torch.maximum(sim, torch.amax(negv, dim=1)[:, None])
+    terms = torch.where(neg[:, None, :],
+                        torch.exp(negv[:, None, :] - m[..., None]), 0.0)
+    lse = torch.log(torch.exp(sim - m) + torch.sum(terms, dim=-1)) + m
+    cat_len = torch.clamp(1 + torch.sum(neg, dim=1), min=1)[:, None]
+    per_pos = (lse - sim) / cat_len                  # [B(anchor), B(pos)]
+    n_pos = torch.clamp(torch.sum(pos, dim=1), min=1)
+    per_anchor = torch.sum(torch.where(pos, per_pos, 0.0), dim=1) / n_pos
+    return torch.sum(per_anchor) / sim.shape[0]
+
+
+def _require_scores(loss, scores, thresholds) -> None:
+    if scores is None or thresholds is None:
+        raise ValueError(
+            f"{type(loss).__name__} scores against the tool BERT's text "
+            f"similarity: it needs scores and thresholds (set "
+            f"model.loss.soft_label: true)")
 
 
 def router_classification_loss(router_probs: torch.Tensor,
@@ -229,7 +320,10 @@ class GLORIALocalContrastiveLoss:
     - ``impl="auto"`` (default): the JAX package's ``_resolve_impl`` with
       "on the TPU" read as "the tensors are on CUDA": the fused path for
       CUDA tensors, ``agg="sum"`` and a batch above 64, the einsum path
-      otherwise."""
+      otherwise.
+
+    ``pair_losses`` turns the similarity matrix into (loss0, loss1): here
+    the cross entropy with the diagonal as the labels, both ways."""
 
     def __init__(self, text_chunk: Any = "auto", impl: str = "auto"):
         if impl not in ("auto", "xla", "pallas"):
@@ -266,19 +360,18 @@ class GLORIALocalContrastiveLoss:
                                          temp1, temp2, temp3, agg,
                                          text_chunk=self.text_chunk)
 
+    def pair_losses(self, sim: torch.Tensor, scores=None, thresholds=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss0, loss1) of the [B_img, B_txt] similarity matrix ``sim``."""
+        return _cross_entropy_diag(sim), _cross_entropy_diag(sim.T)
+
     def __call__(self, img_features, words_emb, cap_lens, temp1=4.0,
                  temp2=5.0, temp3=10.0, agg="sum", scores=None,
                  thresholds=None):
-        if self.resolve_impl(agg, img_features) == "pallas":
-            similarities = self.similarities(img_features, words_emb,
-                                             cap_lens, temp1, temp2, temp3,
-                                             agg)
-            return GloriaLocalOutput(
-                loss0=_cross_entropy_diag(similarities),
-                loss1=_cross_entropy_diag(similarities.T))
-        return gloria_local_loss(img_features, words_emb, cap_lens, temp1,
-                                 temp2, temp3, agg,
-                                 text_chunk=self.text_chunk)
+        sim = self.similarities(img_features, words_emb, cap_lens, temp1,
+                                temp2, temp3, agg)
+        loss0, loss1 = self.pair_losses(sim, scores, thresholds)
+        return GloriaLocalOutput(loss0=loss0, loss1=loss1)
 
 
 class ZEROLocalContrastiveLoss:
@@ -287,3 +380,54 @@ class ZEROLocalContrastiveLoss:
                  thresholds=None):
         zero = torch.zeros((), device=img_features.device)
         return GloriaLocalOutput(loss0=zero, loss1=zero)
+
+
+class HardNegativeContrastiveLoss:
+    """``hard_negative_loss`` on the global codes (reference
+    losses.py:885-927)."""
+
+    def __init__(self, nmax: int = 1, margin: float = 0.2):
+        self.nmax = nmax
+        self.margin = margin
+
+    def __call__(self, imgs, caps, temp3=10.0, scores=None, thresholds=None):
+        return hard_negative_loss(imgs, caps, self.nmax, self.margin)
+
+
+class SoftGLORIAGlobalContrastiveLoss:
+    """Soft-label global loss (reference losses.py:814-883): the global
+    codes' cosines times temp3, scored by ``soft_partition_xent`` both
+    ways."""
+
+    reads_scores = True
+
+    def __call__(self, cnn_code, rnn_code, temp3=10.0, scores=None,
+                 thresholds=None):
+        _require_scores(self, scores, thresholds)
+        sim = global_similarities(cnn_code, rnn_code, temp3)
+        return soft_partition_xent(sim, scores, thresholds) \
+            + soft_partition_xent(sim.T, scores, thresholds)
+
+
+class SoftGLORIALocalContrastiveLoss(GLORIALocalContrastiveLoss):
+    """Soft-label local loss (reference losses.py:1111-1214): the hard
+    loss's similarity matrix with ``agg="sum"`` whatever ``agg`` says (so
+    the same dispatch: K3/K4 for CUDA tensors above 64), scored by
+    ``soft_partition_xent`` both ways."""
+
+    reads_scores = True
+
+    def impl_for(self, agg: str, batch: Optional[int], on_cuda: bool) -> str:
+        return super().impl_for("sum", batch, on_cuda)
+
+    def similarities(self, img_features, words_emb, cap_lens, temp1=4.0,
+                     temp2=5.0, temp3=10.0, agg="sum",
+                     batch: Optional[int] = None) -> torch.Tensor:
+        return super().similarities(img_features, words_emb, cap_lens, temp1,
+                                    temp2, temp3, "sum", batch)
+
+    def pair_losses(self, sim: torch.Tensor, scores=None, thresholds=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        _require_scores(self, scores, thresholds)
+        return (soft_partition_xent(sim, scores, thresholds),
+                soft_partition_xent(sim.T, scores, thresholds))

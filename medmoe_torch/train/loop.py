@@ -40,7 +40,9 @@ barriers span every rank. Checkpoints hold the whole bank.
 Resume is exact at an epoch boundary: the data order, the caption draws
 and the dropout generators are all seeded from (seed, epoch), and the
 checkpoint holds the parameters, the Adam state, the step and the
-scheduler.
+scheduler. The soft-label tool BERT is not in it: its snapshot is taken
+from the seed's init before the restore, so a resumed run scores with the
+seed's initial BERT, as the JAX loop does.
 """
 
 from __future__ import annotations
@@ -370,13 +372,19 @@ class Trainer:
         return start_epoch
 
     def _place_model(self, module, datamodule) -> None:
-        """Initialize ``module``'s model from the seed, cut its expert banks
-        to this rank's experts (expert parallelism) and move it to the
-        device."""
+        """Initialize ``module``'s model from the seed, snapshot the
+        soft-label tool BERT (the seed's, before any restore), cut the
+        expert banks to this rank's experts (expert parallelism) and move
+        the model to the device; then the checks that must pass before
+        the first step."""
         self.module = module
         module.init_params(self.seed)
+        if hasattr(module, "capture_tool_params"):
+            module.capture_tool_params(self.device)
         shard_model(module.model, self.grid)
         module.model.to(self.device)
+        if hasattr(module, "check_blocks"):
+            module.check_blocks(getattr(datamodule, "batch_size", None))
         self._check_kernel_limits(module, datamodule)
 
     def _fit(self, module, datamodule, ckpt_path: Optional[str]) -> None:
@@ -394,6 +402,12 @@ class Trainer:
 
             from torch.nn.parallel import DistributedDataParallel
 
+            # a training BERT's pooler feeds no loss: DDP must then expect
+            # parameters that get no gradient (JAX gives them zeros)
+            bert = getattr(getattr(module.model, "text_encoder", None),
+                           "bert", None)
+            unused = bert is not None and any(
+                p.requires_grad for p in bert.pooler.parameters())
             with warnings.catch_warnings():
                 # the buffers are constants (index tables): never synced
                 warnings.simplefilter("ignore", FutureWarning)
@@ -401,7 +415,8 @@ class Trainer:
                     module.model,
                     device_ids=[self.device] if self.device.type == "cuda"
                     else None, broadcast_buffers=False,
-                    process_group=self.grid.data_group)
+                    process_group=self.grid.data_group,
+                    find_unused_parameters=unused)
 
         step_cache: Dict[int, Any] = {}
 

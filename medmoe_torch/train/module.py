@@ -34,17 +34,32 @@ group, since the e ranks of an expert group hold the same rows (a gather
 over every rank would repeat each row e times and scale the gradients
 by e).
 
-The soft-label path (a frozen tool BERT scoring text similarity) is not
-ported yet: ``soft_label: true`` raises.
+Soft labels (``soft_label: true``, reference medmoe_module.py:207-282): a
+tool BERT scores the batch's captions against each other — the CLS row of
+its last hidden state, float32, L2-normalized, f·fᵀ — and the losses that
+read these scores (``reads_scores``: the soft global and local losses)
+split each anchor's candidates by ``threshold0``/``threshold1``. The tool
+runs with dropout off, even inside a training step, and without
+gradients. With ``freeze_bert: false`` it is a snapshot of the initial
+BERT (``capture_tool_params``, taken by the trainer right after the seeded
+init and before a checkpoint restore), kept outside ``model``: in no
+``state_dict``, checkpoint, optimizer or DDP wrapper. With
+``freeze_bert: true`` it is the live, frozen BERT. Under a process group
+each rank's CLS features are gathered over the data group, so every rank
+scores the global batch. The scores span the whole batch the loss sees,
+so blocks smaller than it raise (JAX fails there with a shape error).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from medmoe_torch.config import DotDict
+from medmoe_torch.models.bert import BertModel
+from medmoe_torch.models.layers import safe_norm
 from medmoe_torch.models.medmoe import MedMoE, init_weights
 from medmoe_torch.models.moe import ExpertBank
 from medmoe_torch.ops import expert_fusion, gloria_attention
@@ -87,10 +102,18 @@ class MedMoEPretrainingModule:
         self.temp2 = float(self.loss_cfg.get("temp2", 5.0))
         self.temp3 = float(self.loss_cfg.get("temp3", 10.0))
         self.agg = self.loss_cfg.get("agg", "sum")
-        if bool(self.loss_cfg.get("soft_label", False)):
-            raise NotImplementedError(
-                "soft_label losses (the frozen tool-BERT targets) are not "
-                "ported yet (ROADMAP.md Queue 1)")
+        self.soft_label = bool(self.loss_cfg.get("soft_label", False))
+        self.thresholds = (float(self.loss_cfg.get("threshold0", 0.98)),
+                           float(self.loss_cfg.get("threshold1", 0.97)))
+        #: the tool BERT's scores are computed only for a loss that reads
+        #: them (JAX's XLA drops them as dead code otherwise)
+        self.reads_scores = self.soft_label and any(
+            getattr(fn, "reads_scores", False)
+            for fn in (self.global_loss, self.local_loss))
+        #: when BERT trains, a snapshot of its initial weights scores
+        self.uses_tool_bert = self.soft_label and not bool(
+            self.text_cfg.get("freeze_bert", False))
+        self.tool_bert: Optional[BertModel] = None
         self.block_size = self.loss_cfg.get("block_size", None)
         if bool(self.loss_cfg.get("global_negatives", False)):
             self.block_size = None
@@ -117,6 +140,53 @@ class MedMoEPretrainingModule:
             self.model.text_encoder.bert.requires_grad_(False)
         if self.vision_cfg.get("freeze_cnn", False):
             self.model.image_encoder.requires_grad_(False)
+
+    def capture_tool_params(self, device=None) -> None:
+        """Snapshot the BERT weights as the soft-label tool (when BERT
+        trains; once): a copy outside ``model``, without gradients, in
+        eval mode, moved to ``device``. The trainer calls it right after
+        the seeded init, before a checkpoint restore."""
+        if not self.uses_tool_bert or self.tool_bert is not None:
+            return
+        live = self.model.text_encoder.bert
+        tool = BertModel(live.config)
+        tool.load_state_dict(live.state_dict())
+        tool.requires_grad_(False).eval()
+        self.tool_bert = tool if device is None else tool.to(device)
+
+    def soft_targets(self, batch: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Tuple[float, float]]:
+        """(scores [B, B] float32, (threshold0, threshold1)): the tool
+        BERT's CLS cosines over the batch the losses see (under a process
+        group the data group's global batch), with dropout off and no
+        gradient (medmoe_tpu/train/module.py:136-160). The tool is the
+        snapshot, or the live BERT when there is none."""
+        bert = self.tool_bert if self.tool_bert is not None \
+            else self.model.text_encoder.bert
+        with torch.no_grad(), _eval_mode(bert):
+            last, _, _ = bert(batch["input_ids"], batch["attention_mask"],
+                              batch["token_type_ids"])
+            f = last[:, 0].float()
+            f = f / safe_norm(f)
+            if self._gathers(f.shape[0]):
+                f = C.gather_tensor(f, C.BackpropType.NONE,
+                                    get_grid().data_group)
+            return f @ f.T, self.thresholds
+
+    def check_blocks(self, batch_size: Optional[int]) -> None:
+        """Raise ValueError when a loss that reads the soft-label scores
+        would run on blocks smaller than the batch it sees (per-rank or
+        per-micro blocks): the scores span that whole batch."""
+        if not self.reads_scores or batch_size is None:
+            return
+        bs = self.block_size
+        seen = batch_size * get_grid().data
+        if bs and not self._gathers(batch_size) and int(bs) < seen:
+            raise ValueError(
+                f"loss.block_size={bs} cuts the batch of {seen} pairs the "
+                f"losses see into blocks, but a soft-label loss scores the "
+                f"whole batch (its [B, B] tool-BERT targets): set "
+                f"block_size >= {seen} or global_negatives: true")
 
     def check_kernel_limits(self, batch_size: Optional[int] = None) -> None:
         """Raise ValueError before the first step on a card when a kernel
@@ -167,10 +237,11 @@ class MedMoEPretrainingModule:
         return False
 
     def _global_losses(self, img_g, img_l, txt_g, txt_l, cap_lens, local_fn,
-                       global_fn):
+                       global_fn, scores=None, thresholds=None):
         """(local, global) loss over the global batch under a process
         group: each rank's image rows of the local similarity against
-        every data rank's captions, gathered into the [B, B] matrix."""
+        every data rank's captions, gathered into the [B, B] matrix and
+        scored by the local loss's ``pair_losses``."""
         G = C.BackpropType.GLOBAL
         group = get_grid().data_group
 
@@ -184,8 +255,9 @@ class MedMoEPretrainingModule:
                 img_l, words, caps, temp1=self.temp1, temp2=self.temp2,
                 temp3=self.temp3, agg=self.agg, batch=words.shape[0])
             sim = gather(rows)                               # [B, B]
-            l_loss = L._cross_entropy_diag(sim) \
-                + L._cross_entropy_diag(sim.T)
+            loss0, loss1 = self.local_loss.pair_losses(sim, scores,
+                                                       thresholds)
+            l_loss = loss0 + loss1
         else:
             l_loss = local_fn(gather(img_l), words, caps)
         g_loss = global_fn(gather(img_g), gather(txt_g))
@@ -214,15 +286,21 @@ class MedMoEPretrainingModule:
             else self.model
         img_g, img_l, txt_g, txt_l, router_probs = run(batch)
         cap_lens = batch["cap_lens"]
+        scores = thresholds = None
+        if self.reads_scores:
+            self.check_blocks(img_l.shape[0])
+            scores, thresholds = self.soft_targets(batch)
 
         def local_fn(il, tl, cl):
             out = self.local_loss(il, tl, cl, temp1=self.temp1,
                                   temp2=self.temp2, temp3=self.temp3,
-                                  agg=self.agg)
+                                  agg=self.agg, scores=scores,
+                                  thresholds=thresholds)
             return out.loss0 + out.loss1
 
         def global_fn(ig, tg):
-            return self.global_loss(ig, tg, temp3=self.temp3)
+            return self.global_loss(ig, tg, temp3=self.temp3, scores=scores,
+                                    thresholds=thresholds)
 
         if self.loss_dtype is not None:
             img_l = img_l.to(self.loss_dtype)
@@ -230,7 +308,8 @@ class MedMoEPretrainingModule:
         if self._gathers(img_l.shape[0]):
             l_loss, g_loss = self._global_losses(img_g, img_l, txt_g, txt_l,
                                                  cap_lens, local_fn,
-                                                 global_fn)
+                                                 global_fn, scores,
+                                                 thresholds)
         else:
             l_loss = self._blocked(local_fn, img_l, txt_l, cap_lens)
             g_loss = self._blocked(global_fn, img_g, txt_g)
@@ -258,3 +337,15 @@ class MedMoEPretrainingModule:
 
     def make_scheduler(self):
         return self.scheduler_factory() if self.scheduler_factory else None
+
+
+@contextlib.contextmanager
+def _eval_mode(module: torch.nn.Module):
+    """``module`` in eval mode (dropout off) inside the block, its own mode
+    restored after."""
+    was = module.training
+    module.eval()
+    try:
+        yield
+    finally:
+        module.train(was)

@@ -6,7 +6,10 @@ forward and backward, its gradients summed into the float32 parameters'
 ``.grad``. The sum is scaled by 1/accum (the metrics are averaged the same
 way), the global norm of that mean gradient is recorded as ``grad_norm``
 before clipping, then the clip and Adam run on it. Metrics stay device
-tensors: nothing here waits for the device.
+tensors: nothing here waits for the device. The soft-label targets are
+computed per micro-batch inside ``module.loss_fn``, as JAX's
+``loss_for_micro`` does; the tool BERT is not among ``state.params``, so
+the accumulation, the clip and Adam never touch it.
 
 Under data-parallel training (``module.ddp``, a DistributedDataParallel
 wrapper) every micro-batch but the last runs under ``no_sync``, so the
