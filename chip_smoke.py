@@ -112,7 +112,19 @@
      gloria256 step with hard negatives as the global loss; one
      pretraining_medmoe_ddp step with soft labels (accumulation cut from 80
      to 2, the einsum soft local at B=32);
- 17. prints {"kernels": [...]}, with each kernel's launches counted over
+ 17. the CNN towers and FLAVA (no hand-written kernel: K1–K4b's counters
+     stay at 0): 2 steps of model=classification with resnet_50 + LoRA
+     (norm=group, f32, uint8 224² images resized to 299² by the tower,
+     batch 32; every lora_b left zero, the base kernels and the head
+     moved), a resnet_50 forward on the card against the CPU on the
+     trained weights (TF32 off), 1 linear-probe step (the encoder
+     bit-unchanged), 1 step each of densenet_121 and resnext_50, and
+     FLAVAPretrainingLoss at FLAVA's widths (hidden 768, vocabularies 30522
+     and 8192, batch 32, 128 text tokens 15% masked, 196 patches masked by
+     ImageMaskingGenerator((14, 14), 75)) behind a 6 × 768 multimodal
+     encoder, forward and backward on the card against the CPU; each with
+     its warm step, rate and peak memory;
+ 18. prints {"kernels": [...]}, with each kernel's launches counted over
      every phase that drives the model (serving, both trainings, text
      training, training from disk and its serving, eval and export, the
      MoE-mode trainings, the data- and expert-parallel steps and the
@@ -121,7 +133,7 @@
 Any failed check exits non-zero. Needs one CUDA card; fails without one.
 ``--profile`` adds torch.profiler breakdowns of one serving wave, one
 B=32 training step and one gloria256 step; ``--only
-gloria_rect,moe_modes,ddp,ep,soft`` runs just those phases (no kernels
+gloria_rect,moe_modes,ddp,ep,soft,cnn`` runs just those phases (no kernels
 line).
 """
 
@@ -1262,18 +1274,20 @@ def phase_gloria_train(torch, card: str):
     return counts
 
 
-def warm_step_ms(torch, trainer, module, batch) -> float:
-    """One optimizer step of one batch, after one untimed step, on the host
-    clock around work that ends in a device sync."""
+def warm_step_ms(torch, trainer, module, batch, steps: int = 1) -> float:
+    """The mean of ``steps`` optimizer steps of one batch, after one
+    untimed step, on the host clock around work that ends in a device
+    sync."""
     from medmoe_torch.train.step import build_train_step
 
     step = build_train_step(module, 1)
     step(trainer.state, [batch])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    step(trainer.state, [batch])
+    for _ in range(steps):
+        step(trainer.state, [batch])
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+    return (time.perf_counter() - t0) * 1e3 / steps
 
 
 def phase_text_train(torch, card: str):
@@ -2987,6 +3001,361 @@ def phase_soft(torch, card: str):
     return total
 
 
+CNN_BATCH = 32
+CNN_TIMED = 3           # warm steps timed per cell and precision
+CNN_OVERRIDES = [
+    "model=classification", "model.vision.model_name=resnet_50",
+    "model.vision.lora=true", "model.vision.norm=group",
+    "model.freeze_encoder=false", "model.num_classes=6",
+    "model.multilabel=false", "data=synthetic", "data.emit_uint8=true",
+    f"data.batch_size={CNN_BATCH}", f"data.num_samples={2 * CNN_BATCH}",
+    "data.image_size=224", "trainer.max_epochs=1",
+    "trainer.limit_train_batches=2", "trainer.accumulate_grad_batches=1",
+    "trainer.limit_val_batches=0", "trainer.num_sanity_val_steps=0",
+    "callbacks=none", "logger=csv", "extras.print_config=false",
+    "trainer.log_every_n_steps=1"]
+
+
+@contextlib.contextmanager
+def tf32_convolutions(torch):
+    """cuDNN's TF32 convolutions, PyTorch's default (and what cli.train
+    runs, which leaves the flag alone), for the block; the script's own
+    setting (off) after it."""
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
+def cnn_init(torch, cfg):
+    """The classifier that ``cfg``'s run started from: the same vision
+    config and seed, on the CPU."""
+    from medmoe_torch.config import DotDict
+    from medmoe_torch.train.classification import ClassificationModule
+
+    mod = ClassificationModule(vision=DotDict(cfg.model.vision),
+                               num_classes=int(cfg.model.num_classes),
+                               freeze_encoder=bool(cfg.model.freeze_encoder))
+    mod.init_params(cfg.seed)
+    return {k: v.clone() for k, v in mod.model.state_dict().items()}
+
+
+def cnn_train(torch, card: str, label: str, overrides, steps: int):
+    """``steps`` optimizer steps of model=classification on uint8 224²
+    images through the train CLI's ``train``; checks the loss, grad_norm
+    and that no hand-written kernel ran; returns (module, init state,
+    trained state, warm step ms, peak GB)."""
+    cfg, metrics, objs, counts, _, seconds, peak = drive_train(
+        torch, overrides + [f"trainer.limit_train_batches={steps}"])
+    trainer, module = objs["trainer"], objs["module"]
+    batch = trainer.to_device(next(iter(
+        objs["datamodule"].train_dataloader(1))))
+    check(batch["image"].dtype == torch.uint8, f"{label}: not uint8 images")
+    check(trainer.state.step == steps, f"{label}: {trainer.state.step} "
+          f"steps")
+    check(math.isfinite(metrics["train/loss"])
+          and math.isfinite(metrics["train/grad_norm"])
+          and metrics["train/grad_norm"] > 0,
+          f"{label}: loss or grad_norm: {metrics}")
+    check(not any(counts.values()), f"{label}: kernels launched {counts}")
+    now = {k: v.detach().cpu() for k, v in module.model.state_dict().items()}
+    init = cnn_init(torch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = warm_step_ms(torch, trainer, module, batch, CNN_TIMED)
+    peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+    with tf32_convolutions(torch):
+        tf32_ms = warm_step_ms(torch, trainer, module, batch, CNN_TIMED)
+    print(f"{label}: {steps} steps of {CNN_BATCH} uint8 224² images "
+          f"(resized to 299²) in {seconds:.1f} s (init included); train/loss "
+          f"{metrics['train/loss']:.6f}, grad_norm "
+          f"{metrics['train/grad_norm']:.6f}; warm step (mean of "
+          f"{CNN_TIMED}) {step_ms:.3f} ms = "
+          f"{CNN_BATCH / step_ms * 1e3:.1f} img/s f32, {tf32_ms:.3f} ms = "
+          f"{CNN_BATCH / tf32_ms * 1e3:.1f} img/s with TF32 convolutions "
+          f"(cuDNN's default, what cli.train runs); peak {peak:.2f} GB; "
+          f"launches {counts} on {card}", flush=True)
+    del objs, trainer, batch
+    return module, init, now, step_ms, peak
+
+
+def cnn_card_vs_cpu(torch, module, label: str):
+    """One forward and backward of the classifier on 4 uint8 224² images
+    (resized to 299²) on the card against the same weights on the CPU, in
+    f32 (TF32 off). The tower's global and local features within 1e-3 of
+    their largest value (f32 sums in another order give ~1e-5). The
+    gradients of the cross entropy against a float64 run on the CPU: a
+    299² ResNet's f32 gradient is itself that far from float64 (ReLU
+    inputs within rounding of 0 fall on either side, and on some tensors
+    the CPU's own f32 lies hundredths of the tensor's largest element off
+    its float64), so the card's f32 must be no further from float64 than 4
+    times the CPU's f32 is, by the worst tensor's max |Δ| / max |g| and by
+    1 − cosine over all gradients. Then the features again with cuDNN's
+    TF32 convolutions, PyTorch's default: within 2e-2 of their largest
+    (inputs rounded to 10 mantissa bits, 2⁻¹¹ a product, over 50–120
+    convolutions, each renormalised)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from medmoe_torch.models.resnet import resize_pixels
+    from medmoe_torch.train.classification import ClassificationModule
+
+    cpu = ClassificationModule(vision=module.vision_cfg,
+                               num_classes=module.num_classes,
+                               freeze_encoder=module.freeze_encoder)
+    cpu.model.load_state_dict({k: v.cpu()
+                               for k, v in module.model.state_dict().items()})
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randint(0, 256, (4, 224, 224, 3),
+                                     dtype=np.uint8))
+    y = torch.from_numpy(rng.randint(0, module.num_classes, 4))
+
+    def grads(model):
+        return {n: p.grad.cpu().double() for n, p in model.named_parameters()
+                if p.grad is not None}
+
+    def run(model, dev):
+        model.zero_grad(set_to_none=True)
+        g, loc, _ = model.encoder(x.to(dev))
+        F.cross_entropy(model.head(g), y.to(dev)).backward()
+        return g.detach().cpu(), loc.detach().cpu(), grads(model)
+
+    want, got = run(cpu.model, "cpu"), run(module.model, "cuda")
+    # the float64 reference: the tower's backbone on the resized pixels
+    # (the tower and the head cast to f32 themselves)
+    ref = cpu.model.double()
+    ref.zero_grad(set_to_none=True)
+    g64, _ = ref.encoder.tower.model(resize_pixels(x).double())
+    F.cross_entropy(ref.head.classifier(g64), y).backward()
+    exact = grads(ref)
+    for i, name in enumerate(("global", "local")):
+        err = (got[i] - want[i]).abs().max().item()
+        scale = want[i].abs().max().item()
+        print(f"{label} card vs CPU, {name} {tuple(want[i].shape)}: max |Δ| "
+              f"{err:.3e}, max |CPU| {scale:.3e} (bound 1e-3 of it)",
+              flush=True)
+        check(err <= 1e-3 * scale, f"{label}: card and CPU {name} features "
+              f"differ by {err}")
+    check(set(want[2]) == set(got[2]) == set(exact) and len(exact) > 50,
+          f"{label}: {len(want[2])} gradients on the CPU, {len(got[2])} on "
+          f"the card, {len(exact)} in float64")
+
+    def off(g):
+        """(worst max |Δ| / max |g| and its tensor, 1 − cosine) of ``g``
+        against the float64 gradients."""
+        worst = max(((g[k] - exact[k]).abs().max().item()
+                     / max(exact[k].abs().max().item(), 1e-300), k)
+                    for k in exact)
+        a = torch.cat([g[k].flatten() for k in sorted(exact)])
+        b = torch.cat([exact[k].flatten() for k in sorted(exact)])
+        return worst, 1 - (a @ b / (a.norm() * b.norm())).item()
+
+    (card_w, card_k), card_c = off(got[2])
+    (cpu_w, cpu_k), cpu_c = off(want[2])
+    print(f"{label}, {len(exact)} gradients against float64: the card's "
+          f"f32 worst max |Δ| / max |g| {card_w:.3e} ({card_k}), 1 − cosine "
+          f"{card_c:.3e}; the CPU's f32 {cpu_w:.3e} ({cpu_k}), {cpu_c:.3e} "
+          f"(bound 4 times the CPU's)", flush=True)
+    check(card_w <= 4 * max(cpu_w, 1e-6), f"{label}: the card's gradients "
+          f"{card_w} off float64 against the CPU's {cpu_w}")
+    check(card_c <= 4 * max(cpu_c, 1e-12), f"{label}: the card's gradient "
+          f"cosine off float64 by {card_c} against the CPU's {cpu_c}")
+    with torch.no_grad(), tf32_convolutions(torch):
+        tf32 = module.model.encoder(x.cuda())
+    for i, name in enumerate(("global", "local")):
+        err = (tf32[i].cpu() - want[i]).abs().max().item()
+        scale = want[i].abs().max().item()
+        print(f"{label} card with TF32 convolutions vs CPU, {name}: max |Δ| "
+              f"{err:.3e} = {err / scale:.3e} of max |CPU| (bound 2e-2)",
+              flush=True)
+        check(err <= 2e-2 * scale, f"{label}: TF32 {name} features differ "
+              f"by {err}")
+    module.model.zero_grad(set_to_none=True)
+
+
+def flava_inputs(np, seed: int = 5, b: int = 32, t: int = 128,
+                 grid: int = 14, d: int = 768, vocab: int = 30522,
+                 image_vocab: int = 8192):
+    """FLAVA's published shapes (torchmultimodal ``flava_model``): batch
+    32, text 128 tokens with 15% masked for MLM, 196 image patches masked
+    by ImageMaskingGenerator((14, 14), 75) for MIM (labels in the 8192
+    visual codebook), ITM labels; the unimodal encoders' hidden states
+    drawn from a numpy seed (the losses and the multimodal encoder are
+    what runs)."""
+    from medmoe_torch.data.masking import ImageMaskingGenerator
+
+    rng = np.random.RandomState(seed)
+    p = grid * grid
+    img_h = rng.randn(b, p + 1, d).astype(np.float32)      # CLS + patches
+    txt_h = rng.randn(b, t, d).astype(np.float32)
+    mlm = rng.randint(0, vocab, (b, t)).astype(np.int64)
+    mlm[rng.rand(b, t) >= 0.15] = -1
+    masks = ImageMaskingGenerator((grid, grid), 75 * p // 196, seed=seed)
+    mim = rng.randint(0, image_vocab, (b, p)).astype(np.int64)
+    for i in range(b):
+        mim[i][masks().reshape(-1) == 0] = -1
+    return {"img_h": img_h, "txt_h": txt_h, "mlm": mlm, "mim": mim,
+            "itm": rng.randint(0, 2, b).astype(np.int64),
+            "img_g": rng.randn(b, d).astype(np.float32),
+            "txt_g": rng.randn(b, d).astype(np.float32)}
+
+
+def flava_step(torch, loss_fn, encoder, x):
+    """FLAVAPretrainingLoss at its published widths, the multimodal
+    encoder's output feeding ITM: the loss dict."""
+    mm = encoder(torch.cat([x["img_h"], x["txt_h"]], dim=1))
+    return loss_fn(image_sequence=x["img_g"], text_sequence=x["txt_g"],
+                   image_masked_sequence=x["img_h"][:, 1:],
+                   text_masked_sequence=x["txt_h"],
+                   multimodal_masked_sequence=mm.last_hidden_state,
+                   itm_labels=x["itm"], mlm_labels=x["mlm"],
+                   mim_labels=x["mim"])
+
+
+def phase_cnn(torch, card: str):
+    """The CNN towers with LoRA through classification fine-tuning, and the
+    FLAVA losses, on the card at full width (f32, norm=group, uint8 224²
+    images resized to 299² by the tower, batch 32): (1) 2 fine-tuning
+    steps of resnet_50 + LoRA (every lora_b left zero, the base kernels
+    and the head moved); (2) 1 linear-probe step (the encoder
+    bit-unchanged, the head moved); (3) 1 step each of densenet_121 and
+    resnext_50; (4) for resnet_50 + LoRA, densenet_121 and resnext_50, a
+    forward and backward on the card against the same weights on the CPU
+    (``cnn_card_vs_cpu``), and each step's time also with TF32
+    convolutions; (5) FLAVAPretrainingLoss at hidden 768 with a
+    6 × 768 multimodal encoder, forward and backward on the card against
+    the CPU. No hand-written kernel runs: K1–K4b's counters stay at 0."""
+    import numpy as np
+
+    from medmoe_torch.models.medmoe import init_weights
+    from medmoe_torch.models.transformer import \
+        FLAVATransformerWithoutEmbeddings
+    from medmoe_torch.ops.flava import FLAVAPretrainingLoss
+    from medmoe_torch.train.optim import adam
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "cnn: TF32 is on")
+    reset_launch_counts()
+    # (1) resnet_50 + LoRA fine-tuning
+    module, init, now, _, _ = cnn_train(torch, card, "cnn resnet_50+LoRA",
+                                        CNN_OVERRIDES, 2)
+    lora_b = [k for k in now if k.endswith("lora_b")]
+    check(lora_b and all(now[k].abs().sum() > 0 for k in lora_b),
+          "cnn resnet_50: a lora_b is still zero")
+    check(all(not init[k].any() for k in lora_b), "cnn resnet_50: lora_b "
+          "did not start at zero")
+    tower = "encoder.resnet.model."
+    for k in (tower + "conv1.weight", tower + "layer3_block5.conv2.weight",
+              tower + "layer4_block2.conv3.weight", "head.classifier.weight"):
+        check(not torch.equal(now[k], init[k]), f"cnn resnet_50: {k} did "
+              f"not move")
+    print(f"cnn resnet_50+LoRA: {len(lora_b)} lora_b left zero; the base "
+          f"kernels and the head moved", flush=True)
+    # (4) the card against the CPU on the trained weights (lora_b live)
+    cnn_card_vs_cpu(torch, module, "cnn resnet_50+LoRA")
+    del module, init, now
+    torch.cuda.empty_cache()
+
+    # (2) the linear probe
+    module, init, now, _, _ = cnn_train(
+        torch, card, "cnn resnet_50 linear probe",
+        CNN_OVERRIDES + ["model.freeze_encoder=true"], 1)
+    enc = [k for k in now if k.startswith("encoder.")]
+    check(enc and all(torch.equal(now[k], init[k]) for k in enc),
+          "cnn linear probe: the encoder changed")
+    check(not torch.equal(now["head.classifier.weight"],
+                          init["head.classifier.weight"]),
+          "cnn linear probe: the head did not move")
+    del module, init, now
+    torch.cuda.empty_cache()
+
+    # (3) densenet_121 and resnext_50
+    for name in ("densenet_121", "resnext_50"):
+        module, _, _, _, _ = cnn_train(
+            torch, card, f"cnn {name}",
+            CNN_OVERRIDES + [f"model.vision.model_name={name}"], 1)
+        cnn_card_vs_cpu(torch, module, f"cnn {name}")
+        del module
+        torch.cuda.empty_cache()
+
+    # (5) FLAVA at its published widths, card against CPU
+    host = flava_inputs(np)
+    nets = []
+    for dev in ("cpu", "cuda"):
+        loss_fn = FLAVAPretrainingLoss(hidden_size=768,
+                                       text_vocab_size=30522,
+                                       image_vocab_size=8192)
+        enc6 = FLAVATransformerWithoutEmbeddings(num_layers=6, dim=768,
+                                                 num_heads=12)
+        init_weights(loss_fn, 7)
+        init_weights(enc6, 8)
+        nets.append((loss_fn.to(dev), enc6.to(dev)))
+    outs = []
+    for (loss_fn, enc6), dev in zip(nets, ("cpu", "cuda")):
+        x = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        losses = flava_step(torch, loss_fn, enc6, x)
+        losses["loss"].backward()
+        # the encoder's pooler feeds no loss (ITM pools on its own)
+        grads = {n: p.grad.detach().cpu() for m in (loss_fn, enc6)
+                 for n, p in m.named_parameters(prefix=type(m).__name__)
+                 if p.grad is not None}
+        outs.append(({k: v.item() for k, v in losses.items()}, grads))
+    (closs, cgrad), (gloss, ggrad) = outs
+    check(set(cgrad) == set(ggrad) and len(cgrad) >= 100,
+          f"flava: {len(cgrad)} gradients on the CPU, {len(ggrad)} on the "
+          f"card")
+    # a key bias shifts a query's logits alike: its gradient is 0 in exact
+    # arithmetic and rounding noise on either side (tests/test_torch_train.py
+    # ZERO_GRAD), held below 1e-4 of the largest gradient instead
+    zero = [k for k in cgrad if k.endswith("attention.k_proj.bias")]
+    top = max(g.abs().max().item() for g in cgrad.values())
+    noise = max(max(cgrad[k].abs().max().item(), ggrad[k].abs().max().item())
+                for k in zero)
+    check(noise <= 1e-4 * top, f"flava: key-bias gradients {noise} against "
+          f"the largest {top}")
+    worst = max(((ggrad[k] - cgrad[k]).abs().max().item()
+                 / max(cgrad[k].abs().max().item(), 1e-30), k)
+                for k in cgrad if k not in zero)
+    print("flava: losses on the card " + json.dumps(
+        {k: round(v, 6) for k, v in gloss.items()}) + ", on the CPU "
+        + json.dumps({k: round(v, 6) for k, v in closs.items()})
+        + f"; gradients: largest max |Δ| / max |g| {worst[0]:.3e} "
+        f"({worst[1]}; bound 1e-3); the key biases' (0 in exact "
+        f"arithmetic) at most {noise:.3e} of the largest gradient {top:.3e}",
+        flush=True)
+    check(set(gloss) == {"mlm_loss", "mim_loss", "itm_loss",
+                         "global_contrastive_loss", "loss"},
+          f"flava: terms {sorted(gloss)}")
+    for k, v in closs.items():
+        check(math.isfinite(gloss[k]) and abs(gloss[k] - v) <= 1e-4 * abs(v),
+              f"flava: {k} card {gloss[k]} against CPU {v}")
+    check(worst[0] <= 1e-3, f"flava: gradient {worst[1]} off by {worst[0]}")
+    loss_fn, enc6 = nets[1]
+    opt = adam(lr=1e-4).init(list(loss_fn.parameters())
+                             + list(enc6.parameters()))
+    x = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        flava_step(torch, loss_fn, enc6, x)["loss"].backward()
+        opt.step()
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"flava: warm step (forward, backward, Adam) of 32 pairs {ms:.3f} "
+          f"ms = {32 / ms * 1e3:.1f} pairs/s; peak {peak:.2f} GB on {card}",
+          flush=True)
+    del nets, loss_fn, enc6, opt, x
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    check(not any(counts.values()), f"cnn: K1–K4b launched {counts}")
+    return counts
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "medmoe_torch")):
@@ -3030,7 +3399,8 @@ def main() -> int:
              "moe_modes": lambda: phase_moe_modes(torch, ef, card),
              "ddp": lambda: phase_ddp(torch, card),
              "ep": lambda: phase_ep(torch, card),
-             "soft": lambda: phase_soft(torch, card)}[name]()
+             "soft": lambda: phase_soft(torch, card),
+             "cnn": lambda: phase_cnn(torch, card)}[name]()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3055,6 +3425,7 @@ def main() -> int:
     ddp = phase_ddp(torch, card)
     ep = phase_ep(torch, card)
     soft = phase_soft(torch, card)
+    cnn = phase_cnn(torch, card)
     print(f"main paths: serving {img_s:.1f} img/s with K1 launched "
           f"{serve_launches} times; pretraining_medmoe_ddp training "
           f"{pairs_s:.1f} pairs/s with K1 launched {k1_train} and K2 "
@@ -3064,7 +3435,8 @@ def main() -> int:
           f"training launches {moe}; data-parallel launches (one process, "
           f"both ranks, the NCCL rank) {ddp}; expert-parallel launches (one "
           f"process of topk and of gather, both ranks of ep and of gather) "
-          f"{ep}; soft-label and hard-negative launches {soft}", flush=True)
+          f"{ep}; soft-label and hard-negative launches {soft}; CNN "
+          f"fine-tuning and FLAVA launches {cnn} (none)", flush=True)
     # K1 and K2 run in every phase that drives the model
     k1_all = serve_launches + k1_train + g256["K1"] + text["K1"] \
         + disk["K1"] + ev["K1"] + moe["K1"] + ddp["K1"] + ep["K1"] \

@@ -5,10 +5,14 @@ medmoe_tpu/eval/export.py ``_save_weights`` writes to ``weights.npz``. The
 port's modules carry the flax names, so a key maps by rule:
   * ``.../LayerNorm_0/{scale,bias}`` → ``....{weight,bias}``
   * Dense ``kernel`` [in, out] → Linear ``weight`` [out, in]
-  * Conv ``kernel`` HWIO → Conv2d ``weight`` OIHW
+  * Conv ``kernel`` HWIO → Conv2d ``weight`` OIHW (a grouped conv's
+    [kh, kw, in/groups, out] → [out, in/groups, kh, kw])
   * Embed ``embedding`` → Embedding ``weight``
-  * everything else (biases, the stacked expert bank, the relative-position
-    bias table) keeps its name and layout.
+  * GroupNorm/BatchNorm ``scale`` → ``weight``; a BatchNorm's
+    ``batch_stats`` ``mean``/``var`` (merged into the same flat mapping,
+    without the collection's name) → ``running_mean``/``running_var``
+  * everything else (biases, LoRA factors, the stacked expert bank, the
+    relative-position bias table) keeps its name and layout.
 
 Under expert parallelism (``expert_shard=(index, size)``) a rank takes
 its slice of every bank parameter's leading K axis, as the JAX package's
@@ -38,9 +42,14 @@ def torch_key(key: str, ndim: int) -> str:
         if ndim not in (2, 4):
             raise KeyError(f"unmapped {ndim}-d kernel {key!r}")
         return ".".join(parts[:-1] + ["weight"])
-    if leaf == "embedding":
-        return ".".join(parts[:-1] + ["weight"])
+    if leaf in _RENAMED:
+        return ".".join(parts[:-1] + [_RENAMED[leaf]])
     return ".".join(parts)
+
+
+#: flax leaf → torch leaf of the norm layers and embeddings
+_RENAMED = {"embedding": "weight", "scale": "weight",
+            "mean": "running_mean", "var": "running_var"}
 
 
 def _convert(key: str, arr: np.ndarray):

@@ -126,6 +126,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                              encode_class_prompts,
                                              load_for_eval,
                                              make_image_embedder)
+    from medmoe_torch.models.medmoe import check_tower_widths
 
     # the JSONL stream owns stdout: point stdout log handlers at stderr
     for h in logging.getLogger().handlers:
@@ -148,6 +149,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                          f"got {mode!r}")
 
     model, datamodule, tokenizer = load_for_eval(cfg)
+    if mode == "classify":
+        check_tower_widths(model, "serve.mode=classify", local=False)
     image_size = int(cfg.model.model.vision.image_size)
     transform = ImageTransform(image_size, train=False)
 

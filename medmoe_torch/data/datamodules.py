@@ -174,7 +174,9 @@ class BaseDataModule:
 class SyntheticDataModule(BaseDataModule):
     """In-memory random pairs — hermetic smoke/bench data (no disk). Sample
     i draws from ``RandomState((seed·100003 + i) mod 2³²)``, so it is
-    bit-equal to the JAX package's sample i, whatever the process split."""
+    bit-equal to the JAX package's sample i, whatever the process split.
+    With ``emit_uint8`` the image is uint8 0..255 from the same seed (the
+    JAX package's module ignores the option and yields floats)."""
 
     CAPTIONS = [
         "chest xray shows bilateral infiltrates",
@@ -200,8 +202,9 @@ class SyntheticDataModule(BaseDataModule):
     def _iter(self, seed: int) -> Iterator:
         for i in self._process_split(list(range(self.num_samples))):
             rng = np.random.RandomState((seed * 100_003 + i) % 2**32)
-            img = rng.randn(self.image_size, self.image_size, 3).astype(
-                np.float32)
+            shape = (self.image_size, self.image_size, 3)
+            img = rng.randint(0, 256, shape, dtype=np.uint8) \
+                if self.emit_uint8 else rng.randn(*shape).astype(np.float32)
             cls = i % self._num_classes
             yield img, self.CAPTIONS[cls % len(self.CAPTIONS)], cls
 

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from medmoe_torch.bridge import load_jax_params, load_npz
-from medmoe_torch.models.medmoe import init_weights
+from medmoe_torch.models.medmoe import check_tower_widths, init_weights
 from medmoe_torch.utils.checkpoint import (checkpoint_kind,
                                            load_model_weights)
 from medmoe_torch.utils.instantiate import instantiate
@@ -249,6 +249,8 @@ def run_eval_zs(cfg) -> Dict[str, float]:
     if protocol not in ("zero_shot", "retrieval", "linear_probe"):
         raise ValueError(f"unknown eval protocol {protocol!r}")
     model, datamodule, tokenizer = load_for_eval(cfg)
+    if protocol != "linear_probe":      # the probe reads image features only
+        check_tower_widths(model, f"eval.protocol={protocol}", local=False)
     if protocol == "zero_shot":
         return zero_shot_classification(
             model, tokenizer, datamodule.test_dataloader(),

@@ -18,7 +18,10 @@ import torch
 from torch import nn
 
 from medmoe_torch.models.layers import Fp32LayerNorm, l2_normalize
+from medmoe_torch.models.lora import (LoRAConv, LoRAEmbedding, LoRALinear,
+                                      LoRAMergedLinear)
 from medmoe_torch.models.moe import ExpertBank
+from medmoe_torch.models.resnet import BatchNorm
 from medmoe_torch.models.swin import WindowAttention
 from medmoe_torch.models.text_encoder import BertTextEncoder
 from medmoe_torch.models.vision_encoder import ImageEncoder
@@ -75,6 +78,31 @@ class MedMoE(nn.Module):
         return img_emb_g, img_emb_l, text_emb_g, text_emb_l, router_probs
 
 
+def check_tower_widths(model: MedMoE, what: str, local: bool) -> None:
+    """Raise ValueError before anything runs when ``what`` would compare a
+    CNN tower's features with text features of another width: its global
+    width (and, with ``local``, its local map's) against the text tower's.
+    The JAX package fails there with a shape error inside the first product
+    (2048- or 512-wide features against the 768-wide BERT: the local loss's
+    einsum, the zero-shot and retrieval products). The Swin tower's width
+    is the config's ``embed_dim`` and is not checked here."""
+    if model.image_encoder.tower_name == "swin_moe":
+        return
+    g, l_dim = model.image_encoder.feature_dims
+    text = model.text_encoder           # its words' and sentences' width
+    t = int(text.cfg.get("embed_dim", 768)) \
+        if text.cfg.get("projection", False) else text.bert.config.hidden_size
+    if g == t and (l_dim == t or not local):
+        return
+    name = model.vision.get("model_name", "swin")
+    local_part = f" and {l_dim}-wide local maps" if local else ""
+    raise ValueError(
+        f"{what} compares image and text features, but the {name!r} image "
+        f"tower gives {g}-wide global features{local_part} against the text "
+        f"tower's {t}: no projection joins them (a CNN backbone runs through "
+        f"model=classification)")
+
+
 # ---------------------------------------------------------------------------
 # random initialization with the JAX package's (flax default) distributions
 # ---------------------------------------------------------------------------
@@ -93,14 +121,30 @@ def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
                              gen)
 
 
+def _he_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+    # flax he_normal: truncated normal rescaled to variance 2/fan_in
+    return _truncated_normal(shape, math.sqrt(2.0 / fan_in)
+                             / .87962566103423978, gen)
+
+
+def _he_uniform(shape, gen: torch.Generator) -> torch.Tensor:
+    # flax he_uniform of a 2-d factor: fan_in = shape[0]
+    limit = math.sqrt(6.0 / shape[0])
+    return (torch.rand(shape, generator=gen, dtype=torch.float64) * 2 - 1
+            ).float() * limit
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter from one seeded ``torch.Generator``, module by
     module in ``named_modules`` order, with the distributions of the JAX
     package's initializers: lecun-normal Dense/Conv kernels and expert
     bank (fan-in over all non-output axes, as flax computes it), zero
-    biases, unit LayerNorm scales, normal(1/sqrt(features)) embeddings, a
-    truncated-normal(0.02) relative-position-bias table."""
+    biases, unit LayerNorm/GroupNorm/BatchNorm scales (and a BatchNorm's
+    running statistics 0 and 1), normal(1/sqrt(features)) embeddings, a
+    truncated-normal(0.02) relative-position-bias table; a ``LoRAConv``
+    kernel he-normal, LoRA ``lora_a`` he-uniform (an embedding's zero) and
+    ``lora_b`` zero (an embedding's normal(1))."""
     gen = torch.Generator().manual_seed(int(seed))
     for _, mod in model.named_modules():
         if isinstance(mod, nn.Linear):
@@ -111,7 +155,30 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
         elif isinstance(mod, nn.Conv2d):
             fan_in = mod.weight[0].numel()
             mod.weight.copy_(_lecun_normal(mod.weight.shape, fan_in, gen))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, LoRAConv):
+            mod.weight.copy_(_he_normal(mod.weight.shape,
+                                        mod.weight[0].numel(), gen))
+            if mod.r > 0:
+                mod.lora_a.copy_(_he_uniform(mod.lora_a.shape, gen))
+                mod.lora_b.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (LoRALinear, LoRAMergedLinear)):
+            if getattr(mod, "lora_a", None) is not None:
+                mod.lora_a.copy_(_he_uniform(mod.lora_a.shape, gen))
+                mod.lora_b.zero_()
+        elif isinstance(mod, LoRAEmbedding):
+            if mod.r > 0:
+                mod.lora_a.zero_()
+                mod.lora_b.copy_(torch.randn(mod.lora_b.shape, generator=gen))
+        elif isinstance(mod, (nn.GroupNorm, BatchNorm)):
+            mod.weight.fill_(1.0)
             mod.bias.zero_()
+            if isinstance(mod, BatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
         elif isinstance(mod, nn.Embedding):
             std = 1.0 / math.sqrt(mod.embedding_dim)
             mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen)

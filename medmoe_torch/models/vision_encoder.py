@@ -1,7 +1,9 @@
 """Vision tower facade (counterpart of medmoe_tpu/models/vision_encoder.py):
 Swin-T + MoE, the MedMoE pretraining tower (reference
-src/models/components/vision_encoder.py:59-61). The CNN backbones are not
-ported yet."""
+src/models/components/vision_encoder.py:59-61), and the CNN backbones
+(ResNet, ResNeXt, DenseNet; reference vision_encoder.py:85-104). Every
+tower returns (global [B, D], local [B, D_l, H, W], router probabilities
+or None)."""
 
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ class SwinMoEVisionTower(nn.Module):
             dtype=dtype)
         self.swin = SwinBackbone(swin_cfg)
         self.moe = None
+        width = swin_cfg.stage_dims[-1]
         if cfg.get("use_moe", True):
             self.moe = MoE(MoEConfig(
                 num_experts=int(cfg.get("num_experts", 6)),
@@ -47,6 +50,9 @@ class SwinMoEVisionTower(nn.Module):
                 top_k=int(cfg.get("router_top_k", 1)),
                 capacity_factor=float(cfg.get("capacity_factor", 1.25)),
                 dtype=dtype))
+            width = self.moe.config.output_dim
+        #: (global width, local width)
+        self.feature_dims = (width, width)
 
     def forward(self, pixels: torch.Tensor):
         pyramid, final = self.swin(pixels)
@@ -61,16 +67,37 @@ class SwinMoEVisionTower(nn.Module):
 
 class ImageEncoder(nn.Module):
     """Backbone dispatch by ``cfg.model_name`` (reference
-    vision_encoder.py:20-28)."""
+    vision_encoder.py:20-28, cnn_backbones.py): a name holding "swin"
+    builds ``swin_moe``; "resnet" or "resnext" ``resnet``; "densenet"
+    ``densenet`` (the JAX package's module names)."""
 
     def __init__(self, cfg: Any):
         super().__init__()
         name = cfg.get("model_name", "swin")
-        if "swin" not in name:
-            raise NotImplementedError(
-                f"vision backbone {name!r} is not ported yet; use 'swin' "
-                f"(ROADMAP.md Queue 1)")
-        self.swin_moe = SwinMoEVisionTower(cfg)
+        if "swin" in name:
+            self.swin_moe = SwinMoEVisionTower(cfg)
+            self.tower_name = "swin_moe"
+        elif "resnet" in name or "resnext" in name:
+            from medmoe_torch.models.resnet import ResNetVisionTower
+
+            self.resnet = ResNetVisionTower(cfg)
+            self.tower_name = "resnet"
+        elif "densenet" in name:
+            from medmoe_torch.models.densenet import DenseNetVisionTower
+
+            self.densenet = DenseNetVisionTower(cfg)
+            self.tower_name = "densenet"
+        else:
+            raise ValueError(f"unknown vision backbone {name!r}")
+
+    @property
+    def tower(self) -> nn.Module:
+        return getattr(self, self.tower_name)
+
+    @property
+    def feature_dims(self):
+        """(global width, local width) of the tower's features."""
+        return self.tower.feature_dims
 
     def forward(self, pixels: torch.Tensor):
-        return self.swin_moe(pixels)
+        return self.tower(pixels)

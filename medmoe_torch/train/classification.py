@@ -6,9 +6,13 @@ fine-tuning / linear probing with accuracy metrics, Adam + plateau LR).
 Drives ``PretrainedImageClassifier`` / ``ImageClassifier``
 (medmoe_torch/models/heads.py) through the same Trainer as pretraining:
 multiclass CE on integer labels, multilabel BCE on vector labels (e.g.
-CheXpert's 5 competition tasks). With ``freeze_encoder=false`` a step
-fine-tunes the whole vision tower, so it launches the expert branch's K1
-and K2.
+CheXpert's 5 competition tasks). The tower is any ``ImageEncoder``
+backbone: Swin + MoE, or a CNN (``model.vision.model_name`` a
+``BACKBONES`` name), with LoRA adapters when ``lora`` is true. Only
+``freeze_encoder`` freezes anything, as in JAX's ``trainable_mask``: with
+LoRA the base kernels train too. With ``freeze_encoder=false`` a Swin step
+fine-tunes the whole tower, so it launches the expert branch's K1 and K2;
+a CNN tower runs no hand-written kernel.
 """
 
 from __future__ import annotations
@@ -52,9 +56,18 @@ class ClassificationModule:
         self.text_cfg = DotDict({})         # no text tower in this task
         if encoder is None:
             encoder = ImageEncoder(self.vision_cfg)
-        tower = encoder.swin_moe
-        width = tower.moe.config.output_dim if tower.moe is not None \
-            else tower.swin.config.stage_dims[-1]
+        if encoder.tower_name != "swin_moe" \
+                and self.vision_cfg.get("norm", "group") == "batch":
+            # JAX's module keeps no batch_stats collection: its first step
+            # fails (flax ScopeCollectionNotFound), train or eval
+            raise ValueError(
+                f"model.vision.norm=batch: a {encoder.tower_name} tower's "
+                f"BatchNorm needs running statistics that the classification "
+                f"task does not keep (neither does the JAX package's, whose "
+                f"first step fails); use norm=group")
+        # the head reads the tower's global features: 768 for Swin + MoE,
+        # the backbone's feature_dim for a CNN (2048 for resnet_50)
+        width = encoder.feature_dims[0]
         if self.freeze_encoder:
             self.model = PretrainedImageClassifier(encoder, width,
                                                    self.num_classes)

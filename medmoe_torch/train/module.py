@@ -60,7 +60,8 @@ import torch
 from medmoe_torch.config import DotDict
 from medmoe_torch.models.bert import BertModel
 from medmoe_torch.models.layers import safe_norm
-from medmoe_torch.models.medmoe import MedMoE, init_weights
+from medmoe_torch.models.medmoe import (MedMoE, check_tower_widths,
+                                        init_weights)
 from medmoe_torch.models.moe import ExpertBank
 from medmoe_torch.ops import expert_fusion, gloria_attention
 from medmoe_torch.ops import losses as L
@@ -89,6 +90,7 @@ class MedMoEPretrainingModule:
                                 text=cfg.text)
         self.vision_cfg = self.model.vision
         self.text_cfg = self.model.text
+        check_tower_widths(self.model, "pretraining", local=True)
 
         self.global_loss = instantiate(self.loss_cfg.get("global_loss")) \
             or L.GLORIAGlobalContrastiveLoss()
@@ -209,9 +211,7 @@ class MedMoEPretrainingModule:
             elif self.block_size:
                 batch = min(batch, int(self.block_size))
         if self.local_loss.impl_for(self.agg, batch, True) == "pallas":
-            tower = self.model.image_encoder.swin_moe
-            d = tower.moe.config.output_dim if tower.moe is not None \
-                else tower.swin.config.stage_dims[-1]
+            d = self.model.image_encoder.feature_dims[1]
             gloria_attention.check_kernel_limits(
                 d, int(self.text_cfg.get("max_length", 25)), self.temp1)
 

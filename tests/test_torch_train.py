@@ -214,6 +214,27 @@ class TestData:
                 for k in a:
                     np.testing.assert_array_equal(a[k], b[k])
 
+    def test_synthetic_uint8_images(self):
+        """``emit_uint8``: uint8 images, 0..255, drawn from each sample's
+        own seed; every other key as the float module's (and JAX's)."""
+        from medmoe_torch.data.datamodules import SyntheticDataModule as T
+
+        kw = dict(batch_size=3, num_samples=6, image_size=8, num_classes=3,
+                  seed=5, max_length=10)
+        floats, ints = T(**kw), T(emit_uint8=True, **kw)
+        for bf, bu in zip(floats.train_dataloader(1),
+                          ints.train_dataloader(1)):
+            assert bu["image"].dtype == np.uint8
+            assert bu["image"].min() >= 0 and bu["image"].max() > 200
+            for k in bf:
+                if k != "image":
+                    np.testing.assert_array_equal(bf[k], bu[k])
+        # sample 4 of epoch 1 (seed 5 + 1): batch 1, row 1
+        rng = np.random.RandomState(((kw["seed"] + 1) * 100_003 + 4) % 2**32)
+        want = rng.randint(0, 256, (8, 8, 3), dtype=np.uint8)
+        np.testing.assert_array_equal(
+            list(ints.train_dataloader(1))[1]["image"][1], want)
+
 
 def _tiny_module(drop: float):
     vision = dict(VISION, dtype="float32", drop_path_rate=drop)
@@ -324,14 +345,15 @@ class TestEntryPoints:
     def test_unported_messages_name_a_live_roadmap_queue(self):
         """A "not ported yet" message names its ROADMAP.md queue without an
         item number: items are renumbered as they land (the soft-label one
-        named an item 14 that no longer existed). The CNN backbones are
-        still to port."""
+        named an item 14 that no longer existed). The native decode helper
+        is still to port."""
         import pathlib
         import re
 
+        from medmoe_torch.data.datamodules import UnimedDataModule
+
         with pytest.raises(NotImplementedError) as err:
-            MedMoE(DotDict(dict(VISION, dtype="float32",
-                                model_name="resnet_50")), DotDict(TEXT))
+            UnimedDataModule(use_native=True)
         assert "(ROADMAP.md Queue 1)" in str(err.value)
         port = pathlib.Path(__file__).resolve().parents[1] / "medmoe_torch"
         stale = [str(f) for f in port.rglob("*.py")

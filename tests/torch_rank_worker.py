@@ -18,6 +18,10 @@ Tasks:
   (a list of override lists) one ``main`` after another in the same
   group, each rank saving its model's ``state_dict`` (its slice of an
   expert-parallel bank) to ``<out>.<rank>.<run>.pt``;
+- ``flava``: ``FLAVAGlobalContrastiveLoss(axis_name="data")`` on this
+  rank's rows of ``img`` and ``txt`` (global negatives over the group):
+  the loss, this rank's logit rows, and the gradients of the loss to the
+  rank's rows and to ``logit_scale``;
 - ``regions``: the expert-region functions (``enter_experts``,
   ``leave_experts``, ``gather_experts``) over a group of all ranks: the
   values and the gradients of Σ y·(w + rank).
@@ -51,6 +55,24 @@ def _gather(spec, rank):
         grad = x.grad if x.grad is not None else torch.zeros_like(x)
         out[kind] = {"y": y.detach().tolist(), "grad": grad.tolist()}
     return out
+
+
+def _flava(spec, rank):
+    from medmoe_torch.ops.flava import FLAVAGlobalContrastiveLoss
+
+    img_all = np.asarray(spec["img"], np.float32)
+    txt_all = np.asarray(spec["txt"], np.float32)
+    n = img_all.shape[0] // spec["world"]
+    img = torch.from_numpy(img_all[rank * n:(rank + 1) * n]).requires_grad_()
+    txt = torch.from_numpy(txt_all[rank * n:(rank + 1) * n]).requires_grad_()
+    loss_fn = FLAVAGlobalContrastiveLoss(axis_name="data")
+    out = loss_fn(img, txt)
+    out.loss.backward()
+    return {"loss": out.loss.item(),
+            "image_logits": out.image_logits.detach().tolist(),
+            "text_logits": out.text_logits.detach().tolist(),
+            "d_img": img.grad.tolist(), "d_txt": txt.grad.tolist(),
+            "d_scale": loss_fn.logit_scale.grad.item()}
 
 
 def _regions(spec, rank):
@@ -128,7 +150,7 @@ def main():
                             world_size=spec["world"],
                             timeout=datetime.timedelta(seconds=60))
     try:
-        tasks = {"gather": _gather, "regions": _regions,
+        tasks = {"gather": _gather, "regions": _regions, "flava": _flava,
                  "train": lambda sp, r: _train(sp, r)[0],
                  "train_runs": _train_runs}
         result = tasks[spec["task"]](spec, rank)
