@@ -124,17 +124,34 @@
      ImageMaskingGenerator((14, 14), 75)) behind a 6 × 768 multimodal
      encoder, forward and backward on the card against the CPU; each with
      its warm step, rate and peak memory;
- 18. prints {"kernels": [...]}, with each kernel's launches counted over
+ 18. the CLI and host surface at full width: --help of the five CLIs
+     through their console-script adapters; hparams_search=medmoe_tpe over
+     experiment=pretraining_medmoe (its own composition: batches of the
+     drawn size with global negatives), 2 trials of the shipped search
+     space in this process (seed 1234's draws printed; each cut to
+     accumulation 2, 2 train batches, 1 val batch) and 1 trial in a
+     subprocess whose metrics come back through MEDMOE_METRICS_OUT;
+     --multirun model.loss.temp3=5,10 (2 jobs of 1 step); debug=profiler
+     (3 train batches of 256) with logger=many_loggers plus wandb
+     (log_model) and mlflow: the Chrome trace names K1's and K2's
+     kernels, the checkpoint saves ran blocking, metrics.csv and the JSONL
+     files exist, and a warm step is timed with and without the profiler;
+     then the C++ decode helper: the Unimed loader alone, PIL against
+     native on the same shards, and 2 steps of pretraining_medmoe_ddp with
+     data.use_native=true (or, without libjpeg's headers, that
+     use_native=true raises);
+ 19. prints {"kernels": [...]}, with each kernel's launches counted over
      every phase that drives the model (serving, both trainings, text
      training, training from disk and its serving, eval and export, the
-     MoE-mode trainings, the data- and expert-parallel steps and the
-     soft-label runs), and, last, the device line.
+     MoE-mode trainings, the data- and expert-parallel steps, the
+     soft-label runs and the CLI runs of this process), and, last, the
+     device line.
 
 Any failed check exits non-zero. Needs one CUDA card; fails without one.
 ``--profile`` adds torch.profiler breakdowns of one serving wave, one
 B=32 training step and one gloria256 step; ``--only
-gloria_rect,moe_modes,ddp,ep,soft,cnn`` runs just those phases (no kernels
-line).
+gloria_rect,moe_modes,ddp,ep,soft,cnn,cli`` runs just those phases (no
+kernels line).
 """
 
 from __future__ import annotations
@@ -3004,6 +3021,7 @@ def phase_soft(torch, card: str):
 CNN_BATCH = 32
 CNN_TIMED = 3           # warm steps timed per cell and precision
 CNN_OVERRIDES = [
+    "experiment=pretraining_medmoe_ddp",
     "model=classification", "model.vision.model_name=resnet_50",
     "model.vision.lora=true", "model.vision.norm=group",
     "model.freeze_encoder=false", "model.num_classes=6",
@@ -3356,6 +3374,364 @@ def phase_cnn(torch, card: str):
     return counts
 
 
+CLI_OVERRIDES = [
+    "experiment=pretraining_medmoe", "data=synthetic", "trainer.max_epochs=1",
+    "trainer.num_sanity_val_steps=0", "extras.print_config=false",
+    "trainer.log_every_n_steps=1"]
+# hparams_search=medmoe_tpe as shipped (its search space and seed 1234),
+# 2 trials, each cut to accumulation 2, 2 train batches and 1 val batch
+CLI_SWEEP = CLI_OVERRIDES + [
+    "hparams_search=medmoe_tpe", "hparams_search.n_trials=2",
+    "hparams_search.n_startup_trials=2", "trainer.accumulate_grad_batches=2",
+    "trainer.limit_train_batches=2", "trainer.limit_val_batches=1",
+    "data.num_samples=512", "callbacks=none", "logger=csv"]
+CLI_SCRIPTS = ("train", "evaluate", "eval_zs", "serve", "export")
+
+
+def cli_help():
+    """``--help`` of the five CLIs through their console-script adapters:
+    each prints the config groups and returns status 0."""
+    from medmoe_torch.cli import _script
+
+    argv = sys.argv
+    for name in CLI_SCRIPTS:
+        out = io.StringIO()
+        sys.argv = [f"medmoe-torch-{name}", "--help"]
+        try:
+            with contextlib.redirect_stdout(out):
+                status = getattr(_script, name)()
+        finally:
+            sys.argv = argv
+        text = out.getvalue()
+        check(status == 0 and "config groups:" in text
+              and "hparams_search=medmoe_random, medmoe_tpe" in text,
+              f"medmoe-torch-{name} --help: status {status}, {text[:300]!r}")
+    print(f"cli: --help of {len(CLI_SCRIPTS)} CLIs "
+          f"(medmoe_torch.cli._script.{', '.join(CLI_SCRIPTS)}) printed the "
+          f"config groups, status 0", flush=True)
+
+
+def native_probe() -> str:
+    """'' when g++ and libjpeg's headers are there, else what is missing."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return "g++ not found"
+    probe = subprocess.run([gxx, "-E", "-x", "c++", "-"],
+                           input="#include <jpeglib.h>\n",
+                           capture_output=True, text=True, timeout=60)
+    return "" if probe.returncode == 0 else "jpeglib.h not found"
+
+
+def loader_pairs_s(cfg, epoch: int, batches: int) -> float:
+    """The Unimed loader alone on the host: ``batches`` batches of
+    ``epoch``, pairs/s."""
+    import itertools
+
+    from medmoe_torch.utils.instantiate import instantiate
+
+    dm = instantiate(cfg.data, ranks_per_node=1)
+    t0 = time.perf_counter()
+    with contextlib.closing(dm.train_dataloader(epoch)) as loader:
+        n = sum(len(b["cap_lens"]) for b in itertools.islice(loader,
+                                                             batches))
+    seconds = time.perf_counter() - t0
+    check(n == batches * dm.batch_size, f"loader drew {n} pairs")
+    return n / seconds
+
+
+def phase_cli(torch, card: str):
+    """The CLI and host surface at full width (bf16, weights from the
+    seed): --help, a TPE sweep of experiment=pretraining_medmoe in this
+    process and one trial in a subprocess, --multirun of 2 jobs, debug=
+    profiler with every logger, and the C++ decode helper against PIL.
+    Returns the launch counts summed over the runs of this process."""
+    import gc
+    import random
+
+    from medmoe_torch.cli import train as tcli
+    from medmoe_torch.config import compose, to_dict
+    from medmoe_torch.data import native
+    from medmoe_torch.train import callbacks as tcb
+    from medmoe_torch.train import sweep
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    cli_help()
+    print("cli: cuts: sweep trials at accumulation 2 (of 10), 2 train "
+          "batches, 1 val batch, 1 epoch, no sanity validation; the "
+          "multirun's jobs 1 step and no validation; debug=profiler 3 train "
+          "batches (of 30) and 1 val batch; the native-decode training 2 "
+          "steps of pretraining_medmoe_ddp (accumulation 2 of 80)",
+          flush=True)
+    work = tempfile.mkdtemp(prefix="medmoe_cli_")
+    try:
+        # 1. a TPE sweep in this process: pretraining_medmoe's own
+        # composition (global negatives), 2 trials of the shipped space
+        argv = CLI_SWEEP + [f"paths.root_dir={os.path.join(work, 'sweep')}"]
+        hs = compose("train", argv).hparams_search
+        rng = random.Random(int(hs.seed))     # the sampler's startup draws
+        draws = [sweep._sample(hs.params, rng) for _ in range(2)]
+        print(f"cli: sweep space {json.dumps(to_dict(hs.params))}; seed "
+              f"{hs.seed} draws data.batch_size "
+              f"{[d['data.batch_size'] for d in draws]}, lr "
+              f"{[d['model.optimizer.lr'] for d in draws]}, "
+              f"classifier_loss_weight "
+              f"{[d['model.loss.classifier_loss_weight'] for d in draws]}",
+              flush=True)
+        trials = []
+        real_job = tcli.run_job
+
+        def recorded(overrides):
+            if "hparams_search=null" not in overrides:
+                return real_job(overrides)        # the sweep itself
+            torch.cuda.synchronize()
+            before, t0 = launch_counts(), time.perf_counter()
+            try:
+                metrics = real_job(overrides)
+            except Exception as e:
+                trials.append((overrides, repr(e), None, None))
+                raise
+            torch.cuda.synchronize()
+            after = launch_counts()
+            trials.append((overrides, metrics, time.perf_counter() - t0,
+                           {k: after[k] - before[k] for k in after}))
+            gc.collect()                  # the trial's model and Adam state
+            torch.cuda.empty_cache()
+            return metrics
+
+        tcli.run_job = recorded
+        reset_launch_counts()
+        try:
+            metrics = tcli.main(argv)
+        finally:
+            tcli.run_job = real_job
+        add(launch_counts())
+        check(len(trials) == 2, f"sweep ran {len(trials)} trials")
+        for i, (overrides, m, seconds, counts) in enumerate(trials):
+            check(seconds is not None, f"sweep trial {i} failed: {m}")
+            b = int(next(o for o in overrides
+                         if o.startswith("data.batch_size=")).split("=")[1])
+            check(b == draws[i]["data.batch_size"], f"trial {i}: batch {b}")
+            check(math.isfinite(m["val/loss"]) and math.isfinite(
+                m["train/loss"]), f"trial {i} metrics {m}")
+            check(counts["K2"] == 2 and counts["K1"] >= 3,
+                  f"trial {i} (2 micro-batches, 1 val batch): {counts}")
+            if b > 64:         # the fused local loss: K3/prologue/K4a
+                check(counts["K3"] >= 3 and counts["prologue"] == 2
+                      and counts["K4a"] == 2 and counts["K4b"] == 0,
+                      f"trial {i} at B={b}: {counts}")
+            print(f"cli: sweep trial {i} (data.batch_size={b}): {seconds:.1f} "
+                  f"s (model init and the first steps included), "
+                  f"epoch_time_s {m['epoch_time_s']:.3f}, pairs_per_sec "
+                  f"{m['pairs_per_sec']:.1f}, train/loss "
+                  f"{m['train/loss']:.6f}, val/loss {m['val/loss']:.6f}; "
+                  f"launches {counts} on {card}", flush=True)
+        best = {k: v for k, v in metrics.items() if k.startswith("best/")}
+        check(math.isfinite(metrics["val/loss"]) and sorted(best) == sorted(
+            f"best/{k}" for k in hs.params), f"sweep result {metrics}")
+        print(f"cli: sweep best val/loss {metrics['val/loss']:.6f} with "
+              f"{json.dumps(best)}", flush=True)
+
+        # 2. one trial as its own process, its metrics back through
+        # MEDMOE_METRICS_OUT (its launches are that process's)
+        here = os.path.dirname(os.path.abspath(__file__))
+        saved = os.environ.get("PYTHONPATH")
+        os.environ["PYTHONPATH"] = here + (os.pathsep + saved if saved
+                                           else "")
+        t0 = time.perf_counter()
+        try:
+            sub = tcli.main(CLI_SWEEP + [
+                f"paths.root_dir={os.path.join(work, 'sub')}",
+                "hparams_search.launcher=subprocess",
+                "hparams_search.n_trials=1"])
+        finally:
+            if saved is None:
+                os.environ.pop("PYTHONPATH")
+            else:
+                os.environ["PYTHONPATH"] = saved
+        check(math.isfinite(sub["val/loss"]) and len(
+            [k for k in sub if k.startswith("best/")]) == 3,
+            f"subprocess sweep {sub}")
+        print(f"cli: a subprocess trial (python -m medmoe_torch.cli.train): "
+              f"{time.perf_counter() - t0:.1f} s, val/loss "
+              f"{sub['val/loss']:.6f} through MEDMOE_METRICS_OUT", flush=True)
+
+        # 3. --multirun of 2 jobs, each one step
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        multi = tcli.main(["-m"] + CLI_OVERRIDES + [
+            "model.loss.temp3=5,10", "trainer.limit_train_batches=1",
+            "trainer.accumulate_grad_batches=1", "trainer.limit_val_batches=0",
+            "data.num_samples=256", "callbacks=none", "logger=csv",
+            f"paths.root_dir={os.path.join(work, 'multi')}"])
+        counts = launch_counts()
+        add(counts)
+        check(multi["multirun/n_jobs"] == 2 and multi["multirun/n_failed"] == 0
+              and all(math.isfinite(multi[f"job{i}/train/loss"])
+                      for i in (0, 1)), f"multirun {multi}")
+        check(counts["K1"] == counts["K2"] == counts["K3"] == 2,
+              f"multirun launches {counts}")
+        print(f"cli: --multirun model.loss.temp3=5,10: 2 jobs, 0 failed, "
+              f"train/loss {multi['job0/train/loss']:.6f} / "
+              f"{multi['job1/train/loss']:.6f}; "
+              f"{time.perf_counter() - t0:.1f} s; launches {counts}",
+              flush=True)
+
+        # 4. debug=profiler with every logger, wandb with log_model
+        saves = []
+        real_save = tcb.save_checkpoint
+
+        def recording_save(path, state, extra=None, blocking=True):
+            saves.append((os.path.basename(path), blocking))
+            return real_save(path, state, extra=extra, blocking=blocking)
+
+        tcb.save_checkpoint = recording_save
+        try:
+            cfg, metrics, objs, counts, _, seconds, _ = drive_train(
+                torch, CLI_OVERRIDES + [
+                    "debug=profiler", "trainer.limit_train_batches=3",
+                    "trainer.limit_val_batches=1", "data.num_samples=768",
+                    "logger=many_loggers",
+                    "+logger.wandb._target_="
+                    "medmoe_torch.utils.loggers.WandbLogger",
+                    "+logger.wandb.save_dir=${paths.output_dir}",
+                    "+logger.wandb.log_model=true",
+                    "+logger.mlflow._target_="
+                    "medmoe_torch.utils.loggers.MLFlowLogger",
+                    "+logger.mlflow.save_dir=${paths.output_dir}"],
+                os.path.join(work, "profiler"))
+        finally:
+            tcb.save_checkpoint = real_save
+        add(counts)
+        trainer, module = objs["trainer"], objs["module"]
+        out = cfg.paths.output_dir
+        check(cfg.trainer.profiler == "torch" and trainer.state.step == 1
+              and math.isfinite(metrics["train/loss"]),
+              f"debug=profiler: step {trainer.state.step}, {metrics}")
+        check(counts["K1"] == 4 and counts["K2"] == 3 and counts["K3"] == 4
+              and counts["prologue"] == counts["K4a"] == 3,
+              f"debug=profiler launches {counts} (3 micro-batches, 1 val)")
+        trace = os.path.join(cfg.trainer.default_root_dir, "profile",
+                             "trace_rank0.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        found = {k: sum(n.startswith(k) for n in kernels)
+                 for k in K1_KERNELS + K2_KERNELS}
+        check(found["fwd_logit_kernel"] >= 3 and found["bwd_row_kernel"] >= 3,
+              f"the trace's K1/K2 kernels: {found}")
+        check(saves == [("epoch_000", True), ("last", True)],
+              f"checkpoint saves (path, blocking): {saves}")
+        check(os.path.isfile(os.path.join(out, "csv", "metrics.csv")),
+              "no metrics.csv")
+        jsonl = {}
+        for sdk, name in (("wandb", "wandb_fallback.jsonl"),
+                          ("mlflow", "mlflow_fallback.jsonl")):
+            present = importlib.util.find_spec(sdk) is not None
+            path = os.path.join(out, name)
+            check(present or os.path.isfile(path), f"no {name}")
+            jsonl[sdk] = "SDK present" if present else [
+                json.loads(line).get("event", "metrics")
+                for line in open(path)]
+        check("SDK present" == jsonl["wandb"]
+              or jsonl["wandb"].count("checkpoint") == 2,
+              f"wandb fallback records {jsonl['wandb']}")
+        events_tb = [n for _, _, names in os.walk(os.path.join(
+            out, "tensorboard")) for n in names
+            if n.startswith("events.out.tfevents")]
+        print(f"cli: debug=profiler (detect_anomaly on, as debug/default "
+              f"sets): 1 optimizer step of 3 x 256 in {seconds:.1f} s (init "
+              f"included); trace {os.path.getsize(trace) / 1e6:.1f} MB, "
+              f"{len(kernels)} kernel events, K1/K2 kernels {found}; "
+              f"checkpoint saves {saves} (blocking: wandb log_model reads "
+              f"them); JSONL {jsonl}; TensorBoard event files "
+              f"{len(events_tb)} (tensorboard "
+              f"{'present' if importlib.util.find_spec('tensorboard') else 'absent'}); "
+              f"launches {counts}", flush=True)
+        from torch.profiler import ProfilerActivity, profile
+
+        batch = trainer.to_device(next(iter(
+            objs["datamodule"].train_dataloader(1))))
+        plain = warm_step_ms(torch, trainer, module, batch, 2)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            profiled = warm_step_ms(torch, trainer, module, batch, 2)
+        plain2 = warm_step_ms(torch, trainer, module, batch, 2)
+        print(f"cli: warm pretraining_medmoe step of 256 (mean of 2): "
+              f"{plain:.3f} ms, {profiled:.3f} ms under torch.profiler "
+              f"(CPU + CUDA), {plain2:.3f} ms again without "
+              f"({profiled / min(plain, plain2) - 1:+.1%}) on {card}",
+              flush=True)
+        del objs, trainer, module, batch
+        torch.cuda.empty_cache()
+
+        # 5. the C++ decode helper against PIL, on shards written here
+        t0 = time.perf_counter()
+        train_urls, val_url, _ = write_disk_data(os.path.join(work, "disk"))
+        print(f"cli: wrote 6 + 1 shards of {DISK_SHARD} JPEG pairs in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        missing = native_probe()
+        over = disk_overrides(train_urls, val_url, 1)
+        workers = compose("train", over).data.num_workers
+        loader = os.path.join(work, "loader")
+        if missing:
+            from medmoe_torch.data.datamodules import UnimedDataModule
+
+            raised = ""
+            try:
+                UnimedDataModule(train_data_paths=train_urls, use_native=True)
+            except RuntimeError as e:
+                raised = str(e)
+            check("g++" in raised, f"use_native=true without the helper "
+                  f"({missing}) raised {raised!r}")
+            pil = [loader_pairs_s(compose("train", over + [
+                f"paths.root_dir={loader}"]), epoch, 12) for epoch in (0, 1)]
+            print(f"cli: native decode NOT run on this machine ({missing}); "
+                  f"data.use_native=true raises: {raised.splitlines()[0]}; "
+                  f"the Unimed loader alone with PIL, 12 batches of 32 (256 "
+                  f"x 320 JPEGs to 224², {workers} decode threads): {pil} "
+                  f"pairs/s", flush=True)
+            return total
+        t0 = time.perf_counter()
+        native.build()
+        print(f"cli: built {os.path.basename(native.library_path())} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rates = {"pil": [], "native": []}
+        for epoch, kind in enumerate(("pil", "native", "native", "pil")):
+            cfg = compose("train", over + [
+                f"data.use_native={kind == 'native'}",
+                f"paths.root_dir={loader}"])
+            rates[kind].append(loader_pairs_s(cfg, epoch, 12))
+        print(f"cli: the Unimed loader alone, 12 batches of 32 (256 x 320 "
+              f"JPEGs to 224², {workers} decode threads), pairs/s: PIL "
+              f"{rates['pil']}, native {rates['native']} (order PIL, native, "
+              f"native, PIL); native / PIL "
+              f"{sum(rates['native']) / sum(rates['pil']):.2f}x", flush=True)
+        cfg, metrics, objs, counts, _, seconds, _ = drive_train(
+            torch, over + ["data.use_native=true"],
+            os.path.join(work, "native_train"))
+        add(counts)
+        check(objs["datamodule"].use_native and objs["trainer"].state.step == 2
+              and math.isfinite(metrics["train/loss"])
+              and counts["K2"] == 4, f"native training: "
+              f"{objs['trainer'].state.step} steps, {metrics}, {counts}")
+        print(f"cli: pretraining_medmoe_ddp with data.use_native=true: 2 "
+              f"steps (4 x 32) in {seconds:.1f} s (init included), "
+              f"{metrics['pairs_per_sec']:.1f} pairs/s, loader wait "
+              f"{100 * metrics['loader_wait_share']:.1f}%, train/loss "
+              f"{metrics['train/loss']:.6f}; launches {counts} on {card}",
+              flush=True)
+        del objs
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "medmoe_torch")):
@@ -3400,7 +3776,8 @@ def main() -> int:
              "ddp": lambda: phase_ddp(torch, card),
              "ep": lambda: phase_ep(torch, card),
              "soft": lambda: phase_soft(torch, card),
-             "cnn": lambda: phase_cnn(torch, card)}[name]()
+             "cnn": lambda: phase_cnn(torch, card),
+             "cli": lambda: phase_cli(torch, card)}[name]()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3426,6 +3803,7 @@ def main() -> int:
     ep = phase_ep(torch, card)
     soft = phase_soft(torch, card)
     cnn = phase_cnn(torch, card)
+    cli = phase_cli(torch, card)
     print(f"main paths: serving {img_s:.1f} img/s with K1 launched "
           f"{serve_launches} times; pretraining_medmoe_ddp training "
           f"{pairs_s:.1f} pairs/s with K1 launched {k1_train} and K2 "
@@ -3436,15 +3814,17 @@ def main() -> int:
           f"both ranks, the NCCL rank) {ddp}; expert-parallel launches (one "
           f"process of topk and of gather, both ranks of ep and of gather) "
           f"{ep}; soft-label and hard-negative launches {soft}; CNN "
-          f"fine-tuning and FLAVA launches {cnn} (none)", flush=True)
+          f"fine-tuning and FLAVA launches {cnn} (none); CLI launches (the "
+          f"sweep, the multirun, debug=profiler, native-decode training) "
+          f"{cli}", flush=True)
     # K1 and K2 run in every phase that drives the model
     k1_all = serve_launches + k1_train + g256["K1"] + text["K1"] \
         + disk["K1"] + ev["K1"] + moe["K1"] + ddp["K1"] + ep["K1"] \
-        + soft["K1"]
+        + soft["K1"] + cli["K1"]
     k2_all = k2_train + g256["K2"] + text["K2"] + disk["K2"] + ev["K2"] \
-        + moe["K2"] + ddp["K2"] + ep["K2"] + soft["K2"]
+        + moe["K2"] + ddp["K2"] + ep["K2"] + soft["K2"] + cli["K2"]
     gl_all = {k: g256[k] + text[k] + moe[k] + ddp[k] + ep[k] + soft[k]
-              for k in ("K3", "prologue", "K4a", "K4b")}
+              + cli[k] for k in ("K3", "prologue", "K4a", "K4b")}
 
     def row(name, source, replaces, launches, r, **extra):
         extra.update({k: r[k] for k in ("k4a_only_ms", "both_ms", "prologue_ms",

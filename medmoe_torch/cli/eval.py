@@ -43,8 +43,13 @@ def evaluate(cfg) -> Dict[str, float]:
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     overrides = list(argv if argv is not None else sys.argv[1:])
-    if any(a in ("-h", "--help") for a in overrides):
-        print(__doc__)
+    from medmoe_torch.cli._help import maybe_print_help
+
+    if maybe_print_help(
+            overrides, "python -m medmoe_torch.cli.eval",
+            "Run the test loop from a checkpoint (reference configs/eval.yaml).",
+            ["python -m medmoe_torch.cli.eval ckpt_path=<checkpoint> "
+             "data=unimed"]):
         return {}
     cfg = compose("eval", overrides)
     extras(cfg)

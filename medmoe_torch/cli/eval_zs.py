@@ -32,8 +32,14 @@ log = get_logger(__name__)
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     overrides = list(argv if argv is not None else sys.argv[1:])
-    if any(a in ("-h", "--help") for a in overrides):
-        print(__doc__)
+    from medmoe_torch.cli._help import maybe_print_help
+
+    if maybe_print_help(
+            overrides, "python -m medmoe_torch.cli.eval_zs",
+            "Zero-shot classification / retrieval / linear probing.",
+            ["python -m medmoe_torch.cli.eval_zs data=chexpert ckpt_path=...",
+             "python -m medmoe_torch.cli.eval_zs data=unimed "
+             "eval.protocol=retrieval ckpt_path=..."]):
         return {}
     cfg = compose("eval_zs", overrides)
     extras(cfg)

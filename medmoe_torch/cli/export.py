@@ -29,8 +29,15 @@ log = get_logger(__name__)
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     overrides = list(argv if argv is not None else sys.argv[1:])
-    if any(a in ("-h", "--help") for a in overrides):
-        print(__doc__)
+    from medmoe_torch.cli._help import maybe_print_help
+
+    if maybe_print_help(
+            overrides, "python -m medmoe_torch.cli.export",
+            "Export the image/text encoders as torch.export programs.",
+            ["python -m medmoe_torch.cli.export ckpt_path=<checkpoint> "
+             "export.dir=out/",
+             "python -m medmoe_torch.cli.export ckpt_path=... "
+             "'export.platforms=[cuda]' export.batch=32"]):
         return {}
     cfg = compose("eval_zs", overrides)
     extras(cfg)

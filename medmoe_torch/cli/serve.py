@@ -134,8 +134,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             h.stream = sys.stderr
 
     overrides = list(argv if argv is not None else sys.argv[1:])
-    if any(a in ("-h", "--help") for a in overrides):
-        print(__doc__)
+    from medmoe_torch.cli._help import maybe_print_help
+
+    if maybe_print_help(
+            overrides, "python -m medmoe_torch.cli.serve",
+            "Online zero-shot serving: stream image paths -> JSONL.",
+            ["find scans/ -name '*.jpg' | python -m medmoe_torch.cli.serve "
+             "ckpt_path=... serve.input=-",
+             "python -m medmoe_torch.cli.serve ckpt_path=... "
+             "serve.input=scans/ serve.mode=embed"]):
         return 0
     cfg = compose("eval_zs", overrides)
 

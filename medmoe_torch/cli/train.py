@@ -2,7 +2,7 @@
 reference ``python src/train.py experiment=...``). Overrides are
 hydra-style ``key=value`` arguments.
 
-    python -m medmoe_torch.cli.train experiment=pretraining_medmoe_ddp \\
+    python -m medmoe_torch.cli.train experiment=pretraining_medmoe \\
         data=synthetic
     python -m medmoe_torch.cli.train experiment=pretraining_medmoe_ddp \\
         data=synthetic debug=fdr trainer.accelerator=cpu
@@ -10,7 +10,18 @@ hydra-style ``key=value`` arguments.
         ckpt_path=logs/train/runs/checkpoints/last      # resume
 
 Training runs on the CUDA card; ``trainer.accelerator=cpu`` asks for the
-CPU. ``--multirun`` and ``hparams_search`` are not ported yet.
+CPU. With no ``experiment=`` the run is ``pretraining_medmoe``, as in the
+JAX package.
+
+Sweeps: ``hparams_search=medmoe_tpe`` (or ``medmoe_random``) runs
+``hparams_search.n_trials`` trials drawn by ``train/sweep.py``, in this
+process or one process a trial (``hparams_search.launcher=subprocess``),
+and returns the best ``optimized_metric`` with its ``best/<key>`` draws.
+``--multirun`` (``-m``) runs the cartesian product of comma-separated
+values (``model.loss.temp3=5,10``) one job after another, each as one run;
+a failed job is counted in ``multirun/n_failed`` and the rest go on. When
+``MEDMOE_METRICS_OUT`` names a file, the final metrics are written there
+as JSON (the subprocess launcher reads them back).
 
 Data-parallel training (the reference's ``trainer=ddp trainer.devices=8``):
 
@@ -156,13 +167,15 @@ def train(cfg) -> Tuple[Dict[str, float], Dict]:
                      "datamodule": datamodule}
 
 
-def _run_one(cfg) -> Dict[str, float]:
-    if cfg.get("hparams_search"):
-        raise NotImplementedError("hparams_search sweeps are not ported yet")
+def _run_one(cfg, overrides: List[str]) -> Dict[str, float]:
     tcfg = cfg.get("trainer") or {}
     # the group before extras: only rank 0 writes the config tree
     maybe_initialize(tcfg.get("num_nodes", 1), tcfg.get("accelerator", "gpu"))
     extras(cfg)
+    if cfg.get("hparams_search"):
+        from medmoe_torch.train.sweep import run_sweep
+
+        return run_sweep(cfg, overrides)
     metrics, _ = train(cfg)
     metric_name = cfg.get("optimized_metric")
     if metric_name:
@@ -243,19 +256,17 @@ def _launch_node(cfg, overrides: List[str]) -> List[subprocess.Popen]:
     return children
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
-    overrides = list(argv if argv is not None else sys.argv[1:])
-    if any(a in ("-h", "--help") for a in overrides):
-        print(__doc__)
-        return {}
-    if any(a in ("-m", "--multirun") for a in overrides):
-        raise NotImplementedError("--multirun is not ported yet")
+def run_job(overrides: List[str]) -> Dict[str, float]:
+    """One run of ``overrides``: compose, start the node's other ranks
+    (``_launch_node``; a sweep's parent starts none: its trials do), run,
+    close the process group this run opened and wait for the ranks."""
     cfg = compose("train", overrides)
     saved = {k: os.environ.get(k) for k in _GROUP_ENV}
     owns_group = not (dist.is_available() and dist.is_initialized())
-    children = _launch_node(cfg, overrides)
+    children = [] if cfg.get("hparams_search") \
+        else _launch_node(cfg, overrides)
     try:
-        metrics = _run_one(cfg)
+        metrics = _run_one(cfg, overrides)
     except BaseException:
         for child in children:
             child.terminate()
@@ -273,6 +284,84 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
             raise RuntimeError(f"rank {rank} exited with code "
                                f"{child.returncode}")
     return metrics
+
+
+def _expand_multirun(overrides: List[str]) -> List[List[str]]:
+    """Hydra ``--multirun`` comma-sweep syntax: ``key=a,b,c`` values fan out
+    into the cartesian product of jobs. Bracketed list values
+    (``depths=[1,1]``) are single values, not sweeps."""
+    import itertools
+
+    fixed: List[str] = []
+    swept: List[List[Tuple[str, str]]] = []
+    for o in overrides:
+        key, sep, val = o.partition("=")
+        if sep and "," in val and not val.lstrip("+~").startswith("["):
+            swept.append([(key, v) for v in val.split(",")])
+        else:
+            fixed.append(o)
+    if not swept:
+        return [fixed]
+    return [fixed + [f"{k}={v}" for k, v in combo]
+            for combo in itertools.product(*swept)]
+
+
+def _write_metrics_out(metrics: Dict[str, float]) -> Dict[str, float]:
+    """The final-metrics contract with a parent process: when
+    ``MEDMOE_METRICS_OUT`` names a path, write the run's numeric metrics
+    there as JSON (the sweep's subprocess launcher and external schedulers
+    read it). Rank 0 writes: the ranks this CLI or torchrun started have
+    ``RANK`` set, and their group is closed by now."""
+    import json
+
+    out_path = os.environ.get("MEDMOE_METRICS_OUT")
+    if out_path and int(os.environ.get("RANK", "0")) == 0:
+        with open(out_path, "w") as f:
+            json.dump({k: float(v) for k, v in metrics.items()
+                       if isinstance(v, (int, float))}, f)
+    return metrics
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
+    overrides = list(argv if argv is not None else sys.argv[1:])
+    from medmoe_torch.cli._help import maybe_print_help
+
+    if maybe_print_help(
+            overrides, "python -m medmoe_torch.cli.train",
+            "Train MedMoE (pretraining or classification).",
+            ["python -m medmoe_torch.cli.train experiment=pretraining_medmoe",
+             "python -m medmoe_torch.cli.train experiment=pretraining_medmoe "
+             "data=synthetic debug=fdr trainer.accelerator=cpu",
+             "python -m medmoe_torch.cli.train --multirun "
+             "experiment=pretraining_medmoe model.loss.temp3=5,10"]):
+        return {}
+    multirun = False
+    for flag in ("-m", "--multirun"):
+        while flag in overrides:
+            overrides.remove(flag)
+            multirun = True
+    if not multirun:
+        return _write_metrics_out(run_job(overrides))
+
+    # one process runs the jobs in turn; a failed job is logged and
+    # counted, and the others run (the reference gets this from
+    # @task_wrapper + submitit, utils.py:147-175)
+    jobs = _expand_multirun(overrides)
+    log.info(f"multirun: {len(jobs)} jobs")
+    out: Dict[str, float] = {"multirun/n_jobs": float(len(jobs)),
+                             "multirun/n_failed": 0.0}
+    for i, job in enumerate(jobs):
+        log.info(f"multirun job {i}: {job}")
+        try:
+            metrics = run_job(job)
+        except Exception as e:
+            log.warning(f"multirun job {i} FAILED: {e!r}")
+            out["multirun/n_failed"] += 1.0
+            continue
+        for k, v in metrics.items():
+            if isinstance(v, (int, float)):
+                out[f"job{i}/{k}"] = float(v)
+    return _write_metrics_out(out)
 
 
 if __name__ == "__main__":

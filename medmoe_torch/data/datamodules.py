@@ -24,8 +24,9 @@ global batch // world size. A node batch that does not divide over its
 data ranks raises. The constructors
 take the same config fields as
 ``medmoe_tpu``'s modules, so the copied ``configs/data/*.yaml``
-instantiate unchanged. ``use_native`` (the C++ decode helper) is refused
-until that helper is ported.
+instantiate unchanged. ``use_native`` (Unimed, f32 images) decodes
+through the C++ helper (``data/native.py``), built at first use; a build
+that fails raises.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from medmoe_torch.data import native
 from medmoe_torch.data.prefetch import prefetch
 from medmoe_torch.data.shards import WebDatasetReader, discover_num_samples
 from medmoe_torch.data.templates import sample_caption
@@ -237,11 +239,6 @@ class UnimedDataModule(BaseDataModule):
                  use_native: bool = False,
                  train_num_samples: Optional[int] = None,
                  val_num_samples: Optional[int] = None, **kw):
-        if use_native:
-            raise NotImplementedError(
-                "data.use_native=true: the C++ decode helper "
-                "(native/medmoe_native.cpp) is not ported yet (ROADMAP.md "
-                "Queue 1); use data.use_native=false for the PIL decode")
         super().__init__(**kw)
         self.train_data_paths = train_data_paths
         self.val_data_paths = val_data_paths
@@ -257,6 +254,14 @@ class UnimedDataModule(BaseDataModule):
                                                    val_num_samples)
         self.test_steps_per_epoch = self._steps_for(self.test_data_paths,
                                                     val_num_samples)
+        # the C++ fused decode → resize → normalize (csrc/medmoe_native.cpp,
+        # data/native.py): a throughput option for f32 images. PIL stays
+        # the default (its downscale antialiases; the helper's bilinear
+        # does not). uint8 images take the PIL resize and the on-device
+        # normalize. The library builds here, and a failed build raises.
+        self.use_native = bool(use_native) and not self.emit_uint8
+        if self.use_native:
+            native.load_library()
 
     def _corpus_fallback(self):
         return SyntheticDataModule.CAPTIONS
@@ -298,9 +303,11 @@ class UnimedDataModule(BaseDataModule):
 
     def _decode_stream(self, reader: WebDatasetReader, epoch: int,
                        train: bool) -> Iterator:
-        """Decode: serial when num_workers=0, otherwise a thread pool of
-        ``num_workers`` around the PIL transform (the reference's analogue
-        is the 5-worker torch DataLoader, configs/data/unimed.yaml)."""
+        """Decode: serial when num_workers=0, otherwise chunked parallel
+        decode — the C++ helper's thread pool (``mn_decode_batch``) with
+        ``use_native``, else a thread pool of ``num_workers`` around the
+        PIL transform (the reference's analogue is the 5-worker torch
+        DataLoader, configs/data/unimed.yaml)."""
         transform = ImageTransform(self.image_size, train=train,
                                    seed=self.seed + epoch,
                                    normalize_output=not self.emit_uint8)
@@ -310,7 +317,11 @@ class UnimedDataModule(BaseDataModule):
             return
         for img_bytes, caption, label in raw:
             try:
-                img = transform(decode_image(img_bytes))
+                if self.use_native:
+                    img = native.decode_resize_normalize(img_bytes,
+                                                         self.image_size)
+                else:
+                    img = transform(decode_image(img_bytes))
             except Exception:
                 continue          # nothrow (reference log_and_continue)
             yield img, caption, label
@@ -331,12 +342,21 @@ class UnimedDataModule(BaseDataModule):
                 return None
 
         def decoded(chunk):
+            if self.use_native:
+                imgs, ok = native.decode_batch(
+                    [c[0] for c in chunk], self.image_size,
+                    num_threads=self.num_workers)
+                for i, (_, caption, label) in enumerate(chunk):
+                    if ok[i]:
+                        yield imgs[i], caption, label
+                return
             for img, (_, caption, label) in zip(pool.map(decode, chunk),
                                                 chunk):
                 if img is not None:
                     yield img, caption, label
 
-        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        pool = None if self.use_native \
+            else ThreadPoolExecutor(max_workers=self.num_workers)
         try:
             chunk: List = []
             for item in raw:
@@ -347,7 +367,8 @@ class UnimedDataModule(BaseDataModule):
             if chunk:
                 yield from decoded(chunk)
         finally:
-            pool.shutdown(wait=False)
+            if pool is not None:
+                pool.shutdown(wait=False)
 
     def train_dataloader(self, epoch: int = 0) -> Iterator:
         reader = self._reader(self.train_data_paths, train=True)

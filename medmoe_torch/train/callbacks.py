@@ -9,8 +9,11 @@ ModelCheckpoint rebuilds its kept top-k set (and its best value) from the
 resumed run keeps ``save_top_k`` files and does not save a checkpoint
 worse than the best one before the resume. A fresh run keeps a fresh set,
 as JAX does, whatever an earlier run left in the directory.
-The only logger ported (CSV) reads no checkpoint file, so ModelCheckpoint
-announces none to the loggers, and ``async_save`` alone decides blocking.
+
+Each saved file is handed to the loggers (``log_checkpoint``, alias
+``best`` or ``last``), and a run whose loggers read those files (wandb with
+``log_model``) saves blocking, so no logger reads a file still being
+written.
 """
 
 from __future__ import annotations
@@ -18,10 +21,11 @@ from __future__ import annotations
 import glob
 import math
 import os
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 from medmoe_torch.utils.checkpoint import (finalize_saves, read_meta,
                                            save_checkpoint)
+from medmoe_torch.utils.loggers import BaseLogger
 from medmoe_torch.utils.logging import _process_index, get_logger
 
 
@@ -34,6 +38,19 @@ class Callback:
     @property
     def should_stop(self) -> bool:
         return False
+
+
+def _reads_checkpoint_files(logger) -> bool:
+    """True only for loggers that read the checkpoint files when a save is
+    announced (WandbLogger with ``log_model``). Every logger inherits a
+    no-op ``log_checkpoint`` from BaseLogger, so having the attribute is
+    not the test: that would make every ``logger=csv`` run save blocking.
+    The hook must be an override, and ``log_model`` (where the logger has
+    the knob) must be on."""
+    hook = getattr(type(logger), "log_checkpoint", None)
+    if hook is None or hook is BaseLogger.log_checkpoint:
+        return False
+    return bool(getattr(logger, "log_model", True))
 
 
 class ModelCheckpoint(Callback):
@@ -113,7 +130,11 @@ class ModelCheckpoint(Callback):
             self._rebuilt = True
             if getattr(trainer, "resumed_from", None):
                 self._rebuild_kept(dirpath)
-        blocking = not self.async_save
+        # a logger that reads the files at announce time must not find a
+        # write still in flight
+        blocking = (not self.async_save) or any(
+            _reads_checkpoint_files(lg)
+            for lg in getattr(trainer, "loggers", []) or [])
         value = metrics.get(self.monitor)
         if self.save_top_k != 0 and value is not None \
                 and self._is_better(float(value)):
@@ -125,16 +146,30 @@ class ModelCheckpoint(Callback):
                                    **loop_extra}, blocking=blocking)
             self._kept.append((self._score(float(value)), self.best_path))
             self._prune_kept()
+            self._announce(trainer, self.best_path, "best",
+                           {"epoch": epoch, self.monitor: float(value)})
         if self.save_last:
-            save_checkpoint(os.path.join(dirpath, "last"), trainer.state,
+            last_path = os.path.join(dirpath, "last")
+            save_checkpoint(last_path, trainer.state,
                             extra={"epoch": epoch, **loop_extra},
                             blocking=blocking)
+            self._announce(trainer, last_path, "last", {"epoch": epoch})
 
     def on_train_end(self, trainer) -> None:
         """Commit the in-flight save before fit() returns: callers (test
         with the best checkpoint, serving, process exit) may read it at
         once."""
         finalize_saves()
+
+    @staticmethod
+    def _announce(trainer, path: str, alias: str,
+                  metadata: Dict[str, Any]) -> None:
+        """Offer the saved checkpoint to the loggers (reference wandb.yaml
+        ``log_model: True`` uploads Lightning checkpoints)."""
+        for logger in getattr(trainer, "loggers", []) or []:
+            hook = getattr(logger, "log_checkpoint", None)
+            if hook is not None:
+                hook(path, alias=alias, metadata=metadata)
 
 
 class EarlyStopping(Callback):

@@ -9,9 +9,12 @@ does), limit_{train,val,test}_batches, overfit_batches,
 num_sanity_val_steps, check_val_every_n_epoch, log_every_n_steps,
 detect_anomaly (``torch.autograd.set_detect_anomaly``, scoped to
 ``fit``), callbacks, resuming from a checkpoint (``fit(ckpt_path=...)``)
-and the preemption handlers (SIGTERM / SIGUSR1 → a blocking ``last``
-checkpoint at the next step boundary, then stop). Not ported yet, and
-refused when asked for: the profiler.
+the preemption handlers (SIGTERM / SIGUSR1 → a blocking ``last``
+checkpoint at the next step boundary, then stop; ``checkpoint_on_signal``)
+and the profiler: a truthy ``profiler`` runs ``torch.profiler`` (CPU, and
+CUDA on a card) over the epoch loop and writes one Chrome trace a rank to
+``default_root_dir/profile/trace_rank{r}.json`` (JAX writes an xplane
+there). ``deterministic`` is accepted and ignored, as in JAX.
 
 Data-parallel training: ``devices`` ranks a node on ``num_nodes`` nodes,
 one process a rank, joined in one ``torch.distributed`` group
@@ -176,6 +179,7 @@ class Trainer:
                  limit_test_batches: Optional[float] = None,
                  num_sanity_val_steps: int = 2,
                  log_every_n_steps: int = 10,
+                 deterministic: bool = False,
                  detect_anomaly: bool = False,
                  overfit_batches: int = 0,
                  steps_per_epoch: Optional[int] = None,
@@ -186,9 +190,6 @@ class Trainer:
                  loggers: Optional[List] = None,
                  checkpoint_on_signal: bool = True,
                  seed: int = 0):
-        if profiler:
-            raise NotImplementedError("the trainer's profiler is not ported "
-                                      "yet; use trainer.profiler=null")
         self.devices = resolve_devices(devices, accelerator)
         self.num_nodes = int(num_nodes or 1)
         world = self.devices * self.num_nodes
@@ -219,6 +220,8 @@ class Trainer:
         self.overfit_batches = int(overfit_batches or 0)
         self.steps_per_epoch = steps_per_epoch
         self.prefetch_batches = int(prefetch_batches)
+        self.profiler = profiler
+        self._prof = None
         self.default_root_dir = default_root_dir
         self.callbacks = callbacks or []
         self.loggers = loggers or []
@@ -355,7 +358,33 @@ class Trainer:
                     return self._fit(module, datamodule, ckpt_path)
             return self._fit(module, datamodule, ckpt_path)
         finally:
+            self._stop_profiler()      # a fit that raised still writes it
             self._restore_signal_handlers(previous)
+
+    def _start_profiler(self) -> None:
+        if not self.profiler:
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.start()
+
+    def _stop_profiler(self) -> Optional[str]:
+        """Stop the profiler that ``_start_profiler`` started and write its
+        Chrome trace; returns the trace's path (None when none ran)."""
+        prof, self._prof = self._prof, None
+        if prof is None:
+            return None
+        prof.stop()
+        profile_dir = os.path.join(self.default_root_dir, "profile")
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"trace_rank{C.get_rank()}.json")
+        prof.export_chrome_trace(path)
+        log.info(f"profile written to {path}")
+        return path
 
     def _resume(self, ckpt_path: str) -> int:
         """Restore the train state and the scheduler from ``ckpt_path``;
@@ -442,6 +471,7 @@ class Trainer:
         global_step = self.state.step
         overfit_cache: List = []
         accum = self.accumulate_grad_batches
+        self._start_profiler()
 
         for epoch in range(start_epoch, self.max_epochs):
             set_generator(module.model, self.epoch_generator(epoch))
@@ -554,6 +584,7 @@ class Trainer:
                 log.info("early stopping triggered")
                 break
 
+        self._stop_profiler()
         for cb in self.callbacks:
             cb.on_train_end(self)
             if getattr(cb, "best_path", None):

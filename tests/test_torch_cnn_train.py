@@ -153,6 +153,7 @@ def test_cli_classification_on_resnet_18(tmp_path):
     from medmoe_torch.cli.train import main
 
     metrics = main([
+        "experiment=pretraining_medmoe_ddp",
         "model=classification", "model.vision.model_name=resnet_18",
         "model.vision.lora=true", "model.vision.lora_r=2",
         "model.freeze_encoder=false", "model.num_classes=3",

@@ -235,9 +235,26 @@ class TestUnimed:
         # 24 decodable captioned pairs (the broken and the bare one drop)
         assert len(ours) == 6
 
-    def test_use_native_raises(self, unimed_dir):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    def test_use_native_raises(self, unimed_dir, tmp_path, monkeypatch):
+        """A decode helper that does not build raises with the compiler's
+        message (JAX falls back to PIL there); with uint8 images the
+        helper is not used, so nothing is built."""
+        from medmoe_torch.data import native
+
+        src = tmp_path / "medmoe_native.cpp"
+        src.write_text("#include <no_such_header_medmoe.h>\n")
+        monkeypatch.setattr(native, "SOURCE", str(src))
+        monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+        monkeypatch.setattr(native, "_lib", None)
+        with pytest.raises(RuntimeError, match=r"g\+\+") as err:
             tdm.UnimedDataModule(**_unimed_kw(unimed_dir), use_native=True)
+        if "not found" not in str(err.value):
+            assert "no_such_header_medmoe.h" in str(err.value)
+        dm = tdm.UnimedDataModule(**_unimed_kw(unimed_dir, emit_uint8=True),
+                                  use_native=True)
+        assert not dm.use_native
+        assert not [n for n in os.listdir(tmp_path / "build")
+                    if n.endswith(".so")]
 
 
 def _write_chexpert(root, rng):

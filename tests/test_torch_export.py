@@ -152,6 +152,37 @@ class TestRoundTrip:
             image(torch.from_numpy(_images(2, 0)))
 
 
+class TestCnnTower:
+    def test_against_jax(self, tmp_path):
+        """A CNN image tower (resnet_18 at tests/test_torch_cnn_train.py's
+        TINY widths, f32) exports too: the port's image program against
+        the program JAX's ``export_encoders`` writes, on the same weights
+        (atol 1e-5)."""
+        from medmoe_tpu.eval import export as jex
+        from tests.test_torch_cnn_train import TINY as CNN_TINY
+
+        over = CNN_TINY + ["extras.print_config=false",
+                           f"paths.root_dir={tmp_path}"]
+        module, _, _, params = jzs.load_for_eval(jcompose("eval_zs", over),
+                                                 synthetic_init=True)
+        npz = str(tmp_path / "weights.npz")
+        _save_weights(npz, params)
+        jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
+        jex.export_encoders(module, params, jout, platforms=("cpu",),
+                            check=False)
+        model = tzs.load_for_eval(tcompose("eval_zs", over + [
+            "device=cpu", f"ckpt_path={npz}"]))[0]
+        manifest = tex.export_encoders(model, tout, platforms=["cpu"])
+        assert manifest["image"]["input"] == "float32[b,32,32,3]"
+        images = np.random.RandomState(4).rand(3, 32, 32, 3).astype(
+            np.float32)
+        got = tex.call_exported(tout, "image")(torch.from_numpy(images))
+        want = np.asarray(jex.call_exported(jout, "image")(images))
+        assert got.shape == want.shape == (3, 512)
+        np.testing.assert_allclose(got.numpy(), want, atol=JAX_ATOL, rtol=0)
+        assert (got[0] - got[1]).abs().max() > 1e-3
+
+
 class TestUnbaked:
     def test_weights_beside_the_program(self, tmp_path, bf16):
         model, baked = bf16
