@@ -6,7 +6,9 @@
   1. prints the card's name and power limit (nvidia-smi) and whether
      PyYAML and PIL are installed (this script needs neither);
   2. builds every CUDA kernel from medmoe_torch/csrc, one nvcc each, all
-     started together, and prints the build time and ptxas resources;
+     started together, and prints the build time and each kernel's ptxas
+     registers and spills; checks in cuobjdump's SASS that K4a's two
+     passes run wgmma (HGMMA) fed by TMA (UTMALDG) and no mma.sync (HMMA);
   3. K1, the fused expert branch: holds the kernel against its plain
      PyTorch version on the card at B=32 flagship shapes (bf16, every
      expert used) and on small odd shapes, times both with CUDA events,
@@ -38,7 +40,8 @@
      [3, 25], a seeded cotangent; both cotangents from one call, the text
      training's path) and on small odd shapes (captions of 40 words; M =
      132 with 5 captions of 9 words, ragged tiles), time both (the
-     backward's prologue alone, K4a alone, the prologue + K4a, and the
+     backward's prologue alone, K4a alone with each of its two passes'
+     device time and TFLOP/s on padded captions, the prologue + K4a, and the
      prologue + K4a + K4b, whose difference from the prologue + K4a is K4b
      alone), print the bounds, the backward's scratch and the image chunk,
      and time the fused local loss against the einsum path at B=32; then
@@ -467,8 +470,9 @@ K2_KERNELS = ("bwd_u_kernel", "bwd_act_kernel", "bwd_row_kernel",
               "bwd_wgrad_kernel", "bwd_reduce_kernel")
 K3_KERNELS = ("void sim_e_kernel", "void sim_wei_kernel",
               "void sim_finish_kernel")
-GLORIA_KERNELS = K3_KERNELS + ("void dctx_z_kernel", "dctx_gemm_kernel",
-                               "dwords_gemm_kernel", "dwords_wei_kernel")
+K4A_KERNELS = ("void dctx_z_kernel", "dctx_gemm_kernel")
+GLORIA_KERNELS = K3_KERNELS + K4A_KERNELS + ("dwords_gemm_kernel",
+                                             "dwords_wei_kernel")
 
 
 def dev_us(e) -> float:
@@ -720,10 +724,11 @@ def phase_k2(torch, ef):
     return result
 
 
-def profile_passes(torch, fn, label: str, kernels) -> None:
+def profile_passes(torch, fn, label: str, kernels, flops=None) -> dict:
     """Device time of each of ``kernels`` (name prefixes) over one call of
-    ``fn`` (torch.profiler): K1's passes, or K2's and K1's projection pass
-    that K2 reruns."""
+    ``fn`` (torch.profiler): K1's passes, K2's and K1's projection pass
+    that K2 reruns, or K4a's two; with ``flops`` ({prefix: operations of
+    one call}) each pass's TFLOP/s too. Returns {prefix: ms}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -741,6 +746,11 @@ def profile_passes(torch, fn, label: str, kernels) -> None:
     print(f"{label} passes (device ms of one call): "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
           + f"; total {sum(ms.values()):.3f}", flush=True)
+    for k, ops in (flops or {}).items():
+        print(f"{label} pass {k.split()[-1]}: {ms[k]:.3f} ms, "
+              f"{ops / max(ms[k], 1e-9) / 1e9:.1f} TFLOP/s on "
+              f"{ops / 1e12:.2f} TFLOP", flush=True)
+    return ms
 
 
 def time_k2(torch, ef, b: int):
@@ -1128,6 +1138,12 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
         ms_pro = cuda_ms(bwd(False, False), iters=2, warmup=1)
         pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
         ms_k4a = cuda_ms(lambda: ga.cotangents_of(pairs), iters=3, warmup=1)
+        # each of K4a's passes is a product of 2·B_img·M·D·B_txt·2·TPAD
+        # operations on padded captions
+        padded = 2 * b_img * h * w * d * b_txt * 2 * ga._tpad(t)
+        passes = profile_passes(torch, lambda: ga.cotangents_of(pairs),
+                                f"K4a {name}", K4A_KERNELS,
+                                flops=dict.fromkeys(K4A_KERNELS, padded))
         del pairs
         ms4a = cuda_ms(bwd(True, False), iters=2, warmup=1)
         plain4a = cuda_ms(bwd(True, False, True), iters=1, warmup=0)
@@ -1147,7 +1163,8 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
                   f"{gflop:.1f} GFLOP, {mb:.1f} MB) on {card}", flush=True)
         pro_bound, _, _, _ = gloria_bound(img, words,
                                           prologue_out_bytes(ga, shape), 2)
-        results["K4a"].update(k4a_only_ms=ms_k4a)
+        results["K4a"].update(k4a_only_ms=ms_k4a, **{
+            f"{k.split()[-1]}_ms": v for k, v in passes.items()})
         results["K4b"].update(both_ms=ms_both)
         for key in ("K4a", "K4b"):
             results[key].update(prologue_ms=ms_pro, prologue_bound_ms=pro_bound)
@@ -3732,6 +3749,73 @@ def phase_cli(torch, card: str):
 
 
 
+def kernel_name(mangled: str) -> str:
+    """``_Z13dctx_z_kernelILi1EEv...`` → ``dctx_z_kernel<1>``."""
+    import re
+
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    n = int(m.group(1))
+    name = mangled[m.end():m.end() + n]
+    tmpl = re.match(r"ILi(\d+)EE", mangled[m.end() + n:])
+    return f"{name}<{tmpl.group(1)}>" if tmpl else name
+
+
+def ptxas_summary(log: str) -> list:
+    """One line a kernel from nvcc's ``-Xptxas -v`` log: registers, spill
+    stores and loads, and any error."""
+    import re
+
+    rows, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)'?", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            rows.setdefault(fn, {})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill and fn:
+            rows[fn]["spills"] = f"{spill.group(1)}/{spill.group(2)} bytes " \
+                                 "spill stores/loads"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and fn:
+            rows[fn]["regs"] = f"{used.group(1)} registers"
+    out = [f"{fn}: " + ", ".join(v[k] for k in ("regs", "spills") if k in v)
+           for fn, v in rows.items() if v]
+    return out + [line.strip() for line in log.splitlines()
+                  if "error" in line or "warning" in line]
+
+
+def check_k4a_sass(_build) -> None:
+    """K4a's two passes in the built library's SASS (cuobjdump): each must
+    hold wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        print(f"sass: {tool} not found: K4a's instructions not checked",
+              flush=True)
+        return
+    sass = subprocess.run([tool, "-sass",
+                           _build.library_path("gloria_attention_bwd")],
+                          capture_output=True, text=True, timeout=300).stdout
+    seen = set()
+    for part in sass.split("Function : ")[1:]:
+        name = kernel_name(part.split()[0])
+        if not name.startswith(("dctx_z_kernel", "dctx_gemm_kernel")):
+            continue
+        ops = {op: len([ln for ln in part.splitlines()
+                        if f" {op}" in ln and "/*" in ln])
+               for op in ("HGMMA", "UTMALDG", "HMMA", "STL", "LDL")}
+        print(f"sass {name}: " + ", ".join(f"{k} {v}" for k, v in ops.items()),
+              flush=True)
+        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
+              f"{name} is not a wgmma + TMA kernel: {ops}")
+        seen.add(name.split("<")[0])
+    check(seen == {"dctx_z_kernel", "dctx_gemm_kernel"},
+          f"K4a's passes not found in the SASS: {sorted(seen)}")
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "medmoe_torch")):
@@ -3764,9 +3848,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)}",
           flush=True)
     for name, (sec, log) in logs.items():
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line or "error" in line:
-                print(f"build {name}: {line.strip()}", flush=True)
+        for line in ptxas_summary(log):
+            print(f"build {name}: {line}", flush=True)
+    check_k4a_sass(_build)
 
     if "--only" in sys.argv:         # a quick look at some of the phases
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
@@ -3827,9 +3911,10 @@ def main() -> int:
               + cli[k] for k in ("K3", "prologue", "K4a", "K4b")}
 
     def row(name, source, replaces, launches, r, **extra):
-        extra.update({k: r[k] for k in ("k4a_only_ms", "both_ms", "prologue_ms",
-                                        "prologue_bound_ms", "ms_b256",
-                                        "bound_ms_b256") if k in r})
+        extra.update({k: r[k] for k in ("k4a_only_ms", "dctx_z_kernel_ms",
+                                        "dctx_gemm_kernel_ms", "both_ms",
+                                        "prologue_ms", "prologue_bound_ms",
+                                        "ms_b256", "bound_ms_b256") if k in r})
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

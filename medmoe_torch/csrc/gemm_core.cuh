@@ -1,8 +1,10 @@
 // A tiled bf16 × bf16 → f32 matrix product for one block of 256 threads,
 // for sm_90a: the core of the GLoRIA kernels' dense passes, two for K3 and
-// the backward's prologue (gloria_attention.cu), two for the d_ctx kernel
-// K4a (gloria_attention_bwd.cu), and of the expert branch's backward K2
-// (expert_fusion_bwd.cu: five products); K4b is to move onto it.
+// the backward's prologue (gloria_attention.cu) and the d_words product of
+// K4b (gloria_attention_bwd.cu), of K1's logit product (expert_fusion.cu)
+// and of the expert branch's backward K2 (expert_fusion_bwd.cu: five
+// products). The d_ctx kernel K4a runs on the wgmma core of
+// wgmma_core.cuh instead; these kernels are to follow it, one a change.
 //
 //   C[BM, BN] = A[BM, K] · B[K, BN], K in slices of BK = 32
 //
@@ -25,8 +27,8 @@
 // the tensor cores do not wait on shared memory.
 //
 // The main loop is mma.sync, which Hopper runs at a fraction of its
-// tensor-core peak. The next step is wgmma (and TMA for the ring) under
-// every kernel that uses this core; the loaders and epilogues stay.
+// tensor-core peak; wgmma_core.cuh is its successor (wgmma, a TMA ring,
+// warp specialisation).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -19,16 +19,18 @@
 // K4a is three products of 7.89 TFLOP (d_a2 and the two d_ctx products,
 // 23.9 ms of bf16 tensor-core time) and K4b one (d_words, 8.0 ms), beside
 // the d_a2 product it shares with K4a; the recompute of scores (one more
-// product) is not counted.
+// product) is not counted. On padded captions (TPAD words) each of K4a's
+// two passes is 20.2 TFLOP at flagship.
 //
 // One host loop runs both, per chunk of images (the wrapper sizes the chunk,
-// Z ≈1.6 GB at flagship), on one tiled GEMM core (csrc/gemm_core.cuh). For
-// an image b, with the pair loop moved into the products' K and N:
+// Z ≈1.6 GB at flagship). For an image b, with the pair loop moved into the
+// products' K and N:
 //   pass 1 (dctx_z_kernel): [scores | d_a2] = ctx_b [M, D] · [w_i | d_wei_bi]
-//     [D, B_txt·2·TPAD], the row step in the epilogue, which writes
-//     Z_b[m, i, :] = [bf16(a2) | bf16(d_scores)] (the rounding points of
-//     the TPU kernel); a 128-wide tile holds whole captions, so the
-//     epilogue sees every word of a row;
+//     [D, B_txt·2·TPAD], the row step on the accumulators in registers,
+//     which writes Z_b[m, i, :] = [bf16(a2) | bf16(d_scores)] (the rounding
+//     points of the TPU kernel); a tile's N holds whole captions (four at
+//     TPAD 32, two at 64, one at 96 or 128), so the row step sees every
+//     word of a row;
 //   pass 2, K4a (dctx_gemm_kernel): d_ctx[b] = Z_b [M, B_txt·2·TPAD] ·
 //     [bf16(d_wei)ᵀ ; wᵀ] [B_txt·2·TPAD, D], B read K-contiguous straight
 //     from the scratch, the K loop over the captions in order;
@@ -38,11 +40,17 @@
 //     the tile into the f32 accumulator that the prologue started with
 //     Σ_b dnum·wei (f32 wei, as the TPU kernel), in chunk order, and the
 //     last chunk's adds (Σ_b c2)·w and writes d_words [B_txt, D, T].
+// K4a's two passes run on the wgmma core of csrc/wgmma_core.cuh: TMA loads
+// through tensor maps built per call, a ring of 64-deep stages, one
+// producer warp and two consumer warpgroups on 128 × N tiles (N = 256, or
+// 192 at TPAD 96), one persistent block an SM. Pass 1's row step reads the
+// accumulators where wgmma left them: a row's columns lie in the four
+// threads of a quad, so a caption's softmax is two quad shuffles. K4b stays
+// on the mma.sync core of csrc/gemm_core.cuh.
 // No atomics: every sum runs in a fixed order, the same on every run. Pass
 // 1 runs once a chunk for both cotangents; K4a or K4b is skipped when its
 // cotangent is not asked for. Every T <= 128 takes one pass of K4b: a word
-// column of the product needs no other word. All are mma.sync; wgmma
-// comes next.
+// column of the product needs no other word.
 //
 // The per-pair scratch is B_img·B_txt·D·TPAD bf16 (3.2 GB at B=256, D=768,
 // TPAD=32) plus B_img·B_txt·4·TPAD f32, allocated by the wrapper, and, for
@@ -53,189 +61,273 @@
 
 #include "gemm_core.cuh"
 #include "gloria_common.cuh"
+#include "wgmma_core.cuh"
 
-// ---------------------------------------------------------------------------
-// K4a pass 1: Z = [bf16(a2) | bf16(d_scores)]; grid (M tiles, caption
-// tiles, images of the chunk)
-// ---------------------------------------------------------------------------
-// NT <= 2: 128 × 128 tiles (two captions, or one of 64 padded words);
-// NT 3-4: 64 × 256 tiles (one caption of up to 128 padded words)
-template <int NT>
-using ZTile = gemm::Tile<(NT <= 2 ? 128 : 64), (NT <= 2 ? 128 : 256), (NT <= 2 ? 64 : 32),
-                         (NT <= 2 ? 32 : 64), 3, gemm::kKN>;
-
-template <int NT>
-static int z_smem_bytes() {
-  constexpr int CPT = ZTile<NT>::BN / (2 * TP * NT);
-  return ZTile<NT>::SMEM + CPT * 2 * TP * NT * 4;
+// v where bit k of bits is set, else +0 (a NaN or infinity too): a select
+// without a predicate
+__device__ __forceinline__ float keep(float v, uint32_t bits, int k) {
+  return __int_as_float(__float_as_int(v) & -(int)(bits >> k & 1u));
 }
 
+// ---------------------------------------------------------------------------
+// K4a pass 1: Z = [bf16(a2) | bf16(d_scores)]; persistent over the tiles
+// (images of the chunk, caption tiles, M tiles)
+// ---------------------------------------------------------------------------
 template <int NT>
-__global__ void __launch_bounds__(gemm::kThreads, ZTile<NT>::MIN_BLOCKS)
-dctx_z_kernel(GloriaArgs a, const bf16* __restrict__ dwei, const float* __restrict__ vecs,
-              bf16* __restrict__ z, int b0) {
-  using Cfg = ZTile<NT>;
-  constexpr int TPAD = TP * NT, CW = 2 * TPAD, CPT = Cfg::BN / CW, WPT = TPAD / 8;
-  static_assert(CPT * 2 * TPAD <= gemm::kThreads, "one per-word value a thread");
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* vs = reinterpret_cast<float*>(smem + Cfg::SMEM);  // [CPT][Σ_m e | s][TPAD]
-  const int D = a.D, M = a.M, Bt = a.Bt, T = a.T;
-  const int m0 = blockIdx.x * Cfg::BM, i0 = blockIdx.y * CPT, bl = blockIdx.z, b = b0 + bl;
-  const int tid = threadIdx.x;
-  const bf16* ctx = a.ctx + (size_t)b * M * D;
+struct ZTile {
+  static constexpr int TPAD = TP * NT, CW = 2 * TPAD;
+  static constexpr int BN = NT == 3 ? 192 : 256;  // whole captions
+  static constexpr int CPT = BN / CW;              // captions of a tile
+  static constexpr int JT = TPAD / 8;              // 8-column blocks of a half caption
+  static constexpr int TX = wg::kABytes + BN * wg::kBK * 2;  // bytes of a stage
+  static_assert(CPT * CW == BN && BN * wg::kBK * 2 <= wg::kBBytes, "whole captions a tile");
+  static_assert(BN <= wg::kVecFloats, "one per-word value a consumer thread");
+};
 
-  // this thread's value of the tile's per-word vectors, loaded while the
-  // products run and stored to vs after them
-  float vreg = 1.0f;
-  {
-    const int c = tid / (2 * TPAD), r = tid % (2 * TPAD), i = i0 + c;
-    if (tid < CPT * 2 * TPAD && i < Bt)
-      vreg = vecs[((size_t)b * Bt + i) * N_VECS * TPAD + (r < TPAD ? V_COLSUM : V_S) * TPAD +
-                  r % TPAD];
-  }
+template <int NT>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+dctx_z_kernel(const __grid_constant__ CUtensorMap ctx_map,
+              const __grid_constant__ CUtensorMap words_map,
+              const __grid_constant__ CUtensorMap dwei_map, GloriaArgs a,
+              const float* __restrict__ vecs, bf16* __restrict__ z, int b0, int nb) {
+  using Z = ZTile<NT>;
+  constexpr int TPAD = Z::TPAD, CW = Z::CW, CPT = Z::CPT, JT = Z::JT;
+  extern __shared__ unsigned char smem_raw[];
+  const wg::Smem s = wg::carve(smem_raw);
+  const int M = a.M, Bt = a.Bt, T = a.T;
+  const int n_mt = (M + wg::kBM - 1) / wg::kBM, n_ct = (Bt + CPT - 1) / CPT;
+  const int tiles = nb * n_ct * n_mt, nk = (a.D + wg::kBK - 1) / wg::kBK;
+  wg::init_barriers(s);
 
-  // A = ctx_b rows m0.., D contiguous
-  auto load_a = [&](bf16* as, int k0) {
-    for (int v = tid; v < Cfg::BM * (gemm::BK / 8); v += gemm::kThreads) {
-      const int r = v >> 2, c = (v & 3) * 8, m = m0 + r, k = k0 + c;
-      const bool ok = m < M && k < D;
-      gemm::cp16(as + r * gemm::LDK + c, ok ? ctx + (size_t)m * D + k : ctx, ok);
+  if (threadIdx.x < 128) {
+    // producer: one thread loads A = ctx_b rows m0.. (the 3-D map reads
+    // zeros past M and past D) and B = [w_i | d_wei_bi] for the tile's
+    // captions, boxes of [64 d][32 words] side by side in the tile's column
+    // order
+    wg::reg_dealloc<wg::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      wg::prefetch_map(&ctx_map);
+      wg::prefetch_map(&words_map);
+      wg::prefetch_map(&dwei_map);
+      wg::Ring ring;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int mt = tile % n_mt, ct = (tile / n_mt) % n_ct, b = b0 + tile / (n_mt * n_ct);
+        for (int kb = 0; kb < nk; ++kb) {
+          uint64_t* full = &s.full[ring.stage];
+          wg::mbar_wait(&s.empty[ring.stage], ring.phase ^ 1u);
+          wg::mbar_expect_tx(full, Z::TX);
+          const int d0 = kb * wg::kBK;
+          wg::tma_load(wg::stage_a(s, ring.stage), &ctx_map, full, d0, mt * wg::kBM, b);
+          const uint32_t bs = wg::stage_b(s, ring.stage);
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) {
+            const int i = ct * CPT + c;
+#pragma unroll
+            for (int h = 0; h < NT; ++h) {
+              constexpr int box = wg::kBK * wg::kBox * 2;
+              wg::tma_load(bs + (c * 2 * NT + h) * box, &words_map, full, h * wg::kBox, d0, i);
+              wg::tma_load(bs + (c * 2 * NT + NT + h) * box, &dwei_map, full, h * wg::kBox, d0,
+                           b * Bt + i);
+            }
+          }
+          ring.advance();
+        }
+      }
     }
-  };
-  // B = [w_i | d_wei_bi] for the tile's captions, rows d = k0.., N contiguous
-  auto load_b = [&](bf16* bs, int k0) {
-    constexpr int CH = Cfg::BN / 8;  // 16-byte chunks of a row
-    for (int v = tid; v < gemm::BK * CH; v += gemm::kThreads) {
-      const int kr = v / CH, n = (v % CH) * 8, d = k0 + kr;
-      const int ci = n / CW, c = n % CW, i = i0 + ci;
-      const bool ok = d < D && ci < CPT && i < Bt;
-      const bf16* src = a.words;
-      if (ok)
-        src = c < TPAD ? a.words + ((size_t)i * D + d) * TPAD + c
-                       : dwei + (((size_t)b * Bt + i) * D + d) * TPAD + (c - TPAD);
-      gemm::cp16(bs + kr * Cfg::LDN + n, src, ok);
-    }
-  };
+  } else {
+    wg::reg_alloc<wg::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1, ci = threadIdx.x - 128;  // warpgroup, consumer thread
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31, q = lane & 3;
+    const size_t zld = (size_t)Bt * CW;
+    wg::Ring ring;
+    float acc[Z::BN / 2];
+    int parity = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, parity ^= 1) {
+      const int mt = tile % n_mt, ct = (tile / n_mt) % n_ct, bl = tile / (n_mt * n_ct);
+      const int b = b0 + bl, i0 = ct * CPT;
+      // this thread's value of the tile's per-word vectors [caption][Σ_m e
+      // | s][TPAD] and the captions' lengths, loaded while the products run
+      float vreg = 1.0f;
+      {
+        const int c = ci / CW, r = ci % CW, i = i0 + c;
+        if (ci < CPT * CW && i < Bt) vreg = vecs[((size_t)b * Bt + i) * N_VECS * TPAD + r];
+      }
+      int caps[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) caps[c] = i0 + c < Bt ? a.cap[i0 + c] : 1;
 
-  float acc[Cfg::MI][Cfg::NI][4];
-  gemm::mainloop<Cfg>(smem, D, load_a, load_b, acc);
-  if (tid < CPT * 2 * TPAD) vs[tid] = vreg;
-  float* cs = reinterpret_cast<float*>(smem);
-  gemm::store_tile<Cfg>(cs, acc);  // its barrier covers vs too
+      wg::consume<Z::BN, 1>(
+          acc, s, ring, nk,
+          [&](int st, int ks) { return wg::desc_k128(wg::stage_a(s, st) + cw * 8192, ks); },
+          [&](int st, int ks) { return wg::desc_mn64(wg::stage_b(s, st), ks); });
 
-  // the row step: 8 threads a (row, caption), words q·WPT.. in this thread.
-  // Its exponentials and quotients are the fast intrinsics, a few f32 ulp
-  // off (the divisors, Σ_t of a row >= 1 and Σ_m e >= M·exp(-80), stay
-  // inside their range): with expf and IEEE division the row step took a
-  // third of the pass.
-  const int q = tid & 7;
-  const size_t zld = (size_t)Bt * CW;
-  bf16* zb = z + (size_t)bl * M * zld;
-  for (int u0 = 0; u0 < Cfg::BM * CPT; u0 += gemm::kThreads / 8) {
-    const int u = u0 + (tid >> 3);
-    const int ci = u / Cfg::BM, r = u % Cfg::BM, i = i0 + ci, m = m0 + r;
-    const int cap = i < Bt ? a.cap[i] : 1;
-    const float* crow = cs + r * Cfg::LDC + ci * CW + q * WPT;
-    const float* cv = vs + ci * 2 * TPAD + q * WPT;
-    float x[WPT], dd[WPT];
+      // the tile's per-word vectors in shared memory, Σ_m e as its
+      // reciprocal: a2 = e·(1/Σ_m e), as __fdividef computes e/Σ_m e
+      float* vs = s.vecs + parity * wg::kVecFloats;
+      if (ci < CPT * CW) vs[ci] = ci % CW < TPAD ? __fdividef(1.0f, vreg) : vreg;
+      wg::consumer_sync();
+
+      // the row step, a caption and a row (h) at a time: this thread holds
+      // words t = 8jj + 2q + e (bit 2jj + e of the word masks) of rows
+      // 16·warp + lane/4 + 8h. Its exponentials and quotients are the fast
+      // intrinsics, a few f32 ulp off (the divisors, Σ_t of a row >= 1 and
+      // Σ_m e >= M·exp(-80), stay inside their range). The masks select
+      // without predicates (keep): a thread holds up to 32 words of a row.
+      uint32_t words_t = 0;  // t < T
 #pragma unroll
-    for (int j = 0; j < WPT; j += 4) {
-      const float4 s4 = *reinterpret_cast<const float4*>(crow + j);
-      const float4 d4 = *reinterpret_cast<const float4*>(crow + TPAD + j);
-      x[j] = s4.x, x[j + 1] = s4.y, x[j + 2] = s4.z, x[j + 3] = s4.w;
-      dd[j] = d4.x, dd[j + 1] = d4.y, dd[j + 2] = d4.z, dd[j + 3] = d4.w;
-    }
-    // a1: softmax over the words t < cap (masked at NEG_INF, as the JAX
-    // package), the padded words t >= T left out
-    float mx = -INFINITY;
+      for (int k = 0; k < 2 * JT; ++k)
+        words_t |= (uint32_t)(8 * (k >> 1) + 2 * q + (k & 1) < T) << k;
+      bf16* zb = z + (size_t)bl * a.M * zld;
 #pragma unroll
-    for (int j = 0; j < WPT; ++j) {
-      const int t = q * WPT + j;
-      x[j] = t >= T ? -INFINITY : (t < cap ? x[j] : NEG_INF_F);
-      mx = fmaxf(mx, x[j]);
-    }
+      for (int c = 0; c < CPT; ++c) {
+        const int i = i0 + c;
+        uint32_t words_c = 0;  // t < cap
 #pragma unroll
-    for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float zs = 0.0f;
+        for (int k = 0; k < 2 * JT; ++k)
+          words_c |= (uint32_t)(8 * (k >> 1) + 2 * q + (k & 1) < caps[c]) << k;
+        const float* cv = vs + c * CW;  // 1/Σ_m e at [t], s at [TPAD + t]
 #pragma unroll
-    for (int j = 0; j < WPT; ++j) {
-      x[j] = __expf(x[j] - mx);
-      zs += x[j];
-    }
-    zs = row_sum8(zs);
-    // a2, d_a1 = temp1·a2·(d_a2 - s), d_scores = a1·(d_a1 - Σ_t a1·d_a1)
-    float a2[WPT], da1[WPT], tsum = 0.0f;
+        for (int h = 0; h < 2; ++h) {
+          const int m = mt * wg::kBM + cw * 64 + warp * 16 + (lane >> 2) + 8 * h;
+          const bool store = m < M && i < Bt;
+          const uint32_t live = m < M ? words_t : 0u;  // rows past M: a2 = 0
+          bf16* zr = zb + (size_t)m * zld + (size_t)i * CW + 2 * q;
+          // a1: softmax over the words t < cap (masked at NEG_INF, as the
+          // JAX package), the padded words t >= T left out
+          float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < WPT; ++j) {
-      const bool live = m < M && q * WPT + j < T;
-      x[j] = __fdividef(x[j], zs);  // a1
-      a2[j] = live ? __fdividef(__expf(a.temp1 * x[j] - a.e_off), cv[j]) : 0.0f;
-      da1[j] = a.temp1 * (a2[j] * (dd[j] - cv[TPAD + j]));
-      tsum += x[j] * da1[j];
-    }
-    tsum = row_sum8(tsum);
-    if (m < M && i < Bt) {
-      bf16* zr = zb + (size_t)m * zld + (size_t)i * CW + q * WPT;
+          for (int k = 0; k < 2 * JT; ++k) {
+            float& x = acc[4 * (c * CW / 8 + (k >> 1)) + 2 * h + (k & 1)];
+            x = (words_t >> k & 1) ? ((words_c >> k & 1) ? x : NEG_INF_F) : -INFINITY;
+            mx = fmaxf(mx, x);
+          }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          float zs = 0.0f;
 #pragma unroll
-      for (int j = 0; j < WPT; j += 2) {
-        const bool l0 = q * WPT + j < T, l1 = q * WPT + j + 1 < T;
-        *reinterpret_cast<__nv_bfloat162*>(zr + j) = __floats2bfloat162_rn(a2[j], a2[j + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(zr + TPAD + j) =
-            __floats2bfloat162_rn(l0 ? x[j] * (da1[j] - tsum) : 0.0f,
-                                  l1 ? x[j + 1] * (da1[j + 1] - tsum) : 0.0f);
+          for (int k = 0; k < 2 * JT; ++k) {
+            float& x = acc[4 * (c * CW / 8 + (k >> 1)) + 2 * h + (k & 1)];
+            x = __expf(x - mx);
+            zs += x;
+          }
+          zs += __shfl_xor_sync(0xffffffffu, zs, 1);
+          zs += __shfl_xor_sync(0xffffffffu, zs, 2);
+          const float rz = __fdividef(1.0f, zs);
+          // a2 (stored), d_a1 = temp1·a2·(d_a2 - s) over d_a2's registers,
+          // then d_scores = a1·(d_a1 - Σ_t a1·d_a1)
+          float tsum = 0.0f;
+#pragma unroll
+          for (int jj = 0; jj < JT; ++jj) {
+            const float2 rc = *reinterpret_cast<const float2*>(cv + 8 * jj + 2 * q);
+            const float2 sv = *reinterpret_cast<const float2*>(cv + TPAD + 8 * jj + 2 * q);
+            float a2[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = acc[4 * (c * CW / 8 + jj) + 2 * h + e];
+              float& dd = acc[4 * (c * CW / 8 + JT + jj) + 2 * h + e];
+              x *= rz;  // a1
+              a2[e] = keep(__expf(a.temp1 * x - a.e_off) * (e ? rc.y : rc.x), live, 2 * jj + e);
+              dd = a.temp1 * (a2[e] * (dd - (e ? sv.y : sv.x)));
+              tsum += x * dd;
+            }
+            if (store)
+              *reinterpret_cast<__nv_bfloat162*>(zr + 8 * jj) =
+                  __floats2bfloat162_rn(a2[0], a2[1]);
+          }
+          tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
+          tsum += __shfl_xor_sync(0xffffffffu, tsum, 2);
+          if (store) {
+#pragma unroll
+            for (int jj = 0; jj < JT; ++jj) {
+              const int xa = 4 * (c * CW / 8 + jj) + 2 * h;
+              const int da = 4 * (c * CW / 8 + JT + jj) + 2 * h;
+              *reinterpret_cast<__nv_bfloat162*>(zr + TPAD + 8 * jj) = __floats2bfloat162_rn(
+                  keep(acc[xa] * (acc[da] - tsum), words_t, 2 * jj),
+                  keep(acc[xa + 1] * (acc[da + 1] - tsum), words_t, 2 * jj + 1));
+            }
+          }
+        }
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K4a pass 2: d_ctx[b] = Z_b · [bf16(d_wei)ᵀ ; wᵀ]; grid (D tiles, M tiles,
-// images of the chunk)
+// K4a pass 2: d_ctx[b] = Z_b · [bf16(d_wei)ᵀ ; wᵀ]; persistent over the
+// tiles (images of the chunk, M tiles, 256-wide D tiles)
 // ---------------------------------------------------------------------------
-using GTile = gemm::Tile<128, 128, 64, 32, 4, gemm::kNK>;
+constexpr int G_BN = 256;
+constexpr int G_BOX = G_BN * wg::kBox * 2;  // a [256 d][32 k] box of B
 
-__global__ void __launch_bounds__(gemm::kThreads, GTile::MIN_BLOCKS)
-dctx_gemm_kernel(GloriaArgs a, const bf16* __restrict__ dwei, const bf16* __restrict__ z,
-                 float* __restrict__ dctx, int b0) {
-  using Cfg = GTile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int D = a.D, M = a.M, Bt = a.Bt, tpad = a.TPAD, cw = 2 * a.TPAD;
-  const int n0 = blockIdx.x * Cfg::BN, m0 = blockIdx.y * Cfg::BM, bl = blockIdx.z, b = b0 + bl;
-  const int K = Bt * cw;  // a multiple of 64
-  const int tid = threadIdx.x;
-  const bf16* zb = z + (size_t)bl * M * K;
+__global__ void __launch_bounds__(wg::kThreads, 1)
+dctx_gemm_kernel(const __grid_constant__ CUtensorMap z_map,
+                 const __grid_constant__ CUtensorMap words_map,
+                 const __grid_constant__ CUtensorMap dwei_map, GloriaArgs a,
+                 float* __restrict__ dctx, int b0, int nb) {
+  extern __shared__ unsigned char smem_raw[];
+  const wg::Smem s = wg::carve(smem_raw);
+  const int M = a.M, D = a.D, Bt = a.Bt, tpad = a.TPAD, cw2 = 2 * a.TPAD;
+  const int n_nt = (D + G_BN - 1) / G_BN, n_mt = (M + wg::kBM - 1) / wg::kBM;
+  const int tiles = nb * n_mt * n_nt, nk = Bt * cw2 / wg::kBK;  // K a multiple of 64
+  wg::init_barriers(s);
 
-  // A = Z_b rows m0.., K contiguous
-  auto load_a = [&](bf16* as, int k0) {
-    for (int v = tid; v < Cfg::BM * (gemm::BK / 8); v += gemm::kThreads) {
-      const int r = v >> 2, c = (v & 3) * 8, m = m0 + r;
-      const bool ok = m < M;
-      gemm::cp16(as + r * gemm::LDK + c, ok ? zb + (size_t)m * K + k0 + c : zb, ok);
+  if (threadIdx.x < 128) {
+    // producer: A = Z_b rows m0.. (zeros past M); B's 64-deep slice is two
+    // [256 d][32 k] boxes, each in one half of one caption's block:
+    // bf16(d_wei_bi) or w_i, K-contiguous (zeros past D)
+    wg::reg_dealloc<wg::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      wg::prefetch_map(&z_map);
+      wg::prefetch_map(&words_map);
+      wg::prefetch_map(&dwei_map);
+      wg::Ring ring;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int nt = tile % n_nt, mt = (tile / n_nt) % n_mt, bl = tile / (n_nt * n_mt);
+        for (int kb = 0; kb < nk; ++kb) {
+          uint64_t* full = &s.full[ring.stage];
+          wg::mbar_wait(&s.empty[ring.stage], ring.phase ^ 1u);
+          wg::mbar_expect_tx(full, wg::kABytes + 2 * G_BOX);
+          wg::tma_load(wg::stage_a(s, ring.stage), &z_map, full, kb * wg::kBK, mt * wg::kBM, bl);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = kb * wg::kBK + h * wg::kBox, i = k / cw2, c = k % cw2;
+            const uint32_t dst = wg::stage_b(s, ring.stage) + h * G_BOX;
+            if (c < tpad)
+              wg::tma_load(dst, &dwei_map, full, c, nt * G_BN, (b0 + bl) * Bt + i);
+            else
+              wg::tma_load(dst, &words_map, full, c - tpad, nt * G_BN, i);
+          }
+          ring.advance();
+        }
+      }
     }
-  };
-  // B rows k0..k0+31 lie in one half of one caption's block: bf16(d_wei_bi)
-  // [D, TPAD] or w_i [D, TPAD], each K-contiguous
-  auto load_b = [&](bf16* bs, int k0) {
-    const int i = k0 / cw, c0 = k0 % cw;
-    const bf16* base = c0 < tpad ? dwei + ((size_t)b * Bt + i) * D * tpad + c0
-                                 : a.words + (size_t)i * D * tpad + (c0 - tpad);
-    for (int v = tid; v < Cfg::BN * (gemm::BK / 8); v += gemm::kThreads) {
-      const int n = v >> 2, c = (v & 3) * 8, d = n0 + n;
-      const bool ok = d < D;
-      gemm::cp16(bs + n * gemm::LDK + c, ok ? base + (size_t)d * tpad + c : base, ok);
+  } else {
+    wg::reg_alloc<wg::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31, q = lane & 3;
+    wg::Ring ring;
+    float acc[G_BN / 2];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int nt = tile % n_nt, mt = (tile / n_nt) % n_mt, b = b0 + tile / (n_nt * n_mt);
+      wg::consume<G_BN, 0>(
+          acc, s, ring, nk,
+          [&](int st, int ks) { return wg::desc_k128(wg::stage_a(s, st) + cw * 8192, ks); },
+          [&](int st, int ks) { return wg::desc_k64(wg::stage_b(s, st), ks, G_BOX); });
+      // f32 d_ctx straight from the registers: a quad writes 32 bytes of a row
+      float* out = dctx + (size_t)b * M * D;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = mt * wg::kBM + cw * 64 + warp * 16 + (lane >> 2) + 8 * h;
+        if (m >= M) continue;
+#pragma unroll
+        for (int j = 0; j < G_BN / 8; ++j) {
+          const int d = nt * G_BN + 8 * j + 2 * q;
+          if (d < D)
+            *reinterpret_cast<float2*>(out + (size_t)m * D + d) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
     }
-  };
-
-  float acc[Cfg::MI][Cfg::NI][4];
-  gemm::mainloop<Cfg>(smem, K, load_a, load_b, acc);
-  float* cs = reinterpret_cast<float*>(smem);
-  gemm::store_tile<Cfg>(cs, acc);
-  float* out = dctx + (size_t)b * M * D;
-  for (int v = tid; v < Cfg::BM * (Cfg::BN / 4); v += gemm::kThreads) {
-    const int r = v / (Cfg::BN / 4), c = (v % (Cfg::BN / 4)) * 4, m = m0 + r, d = n0 + c;
-    if (m < M && d < D)
-      *reinterpret_cast<float4*>(out + (size_t)m * D + d) =
-          *reinterpret_cast<const float4*>(cs + r * Cfg::LDC + c);
   }
 }
 
@@ -314,27 +406,46 @@ static int launch_cotangents(const GloriaArgs& a, const bf16* dwei, const float*
                              int chunk, float* dctx, float* wsum, const float* c2sum, float* dw,
                              cudaStream_t st) {
   using Z = ZTile<NT>;
-  constexpr int CPT = Z::BN / (2 * TP * NT);
-  const int zsmem = z_smem_bytes<NT>();
+  // tensor maps (they hold the pointers, so they are built per call):
+  // ctx [B_img][M][D]; words [B_txt][D][TPAD] and bf16(d_wei) [pairs][D][TPAD]
+  // as pass 1's [64 d][32 words] boxes and pass 2's [256 d][32 words]; Z
+  // [chunk][M][B_txt·2·TPAD]
+  const uint64_t D = a.D, M = a.M, tp = a.TPAD, K = (uint64_t)a.Bt * 2 * a.TPAD;
+  const uint64_t pairs = (uint64_t)a.Bi * a.Bt;
+  CUtensorMap ctx_map, wz_map, dz_map, z_map, wg_map, dg_map;
+  const auto sw128 = CU_TENSOR_MAP_SWIZZLE_128B, sw64 = CU_TENSOR_MAP_SWIZZLE_64B;
+  const bool ok =
+      tensor_map(&ctx_map, a.ctx, D, M, a.Bi, D * 2, M * D * 2, wg::kBK, wg::kBM, sw128) &&
+      tensor_map(&wz_map, a.words, tp, D, a.Bt, tp * 2, D * tp * 2, wg::kBox, wg::kBK, sw64) &&
+      tensor_map(&dz_map, dwei, tp, D, pairs, tp * 2, D * tp * 2, wg::kBox, wg::kBK, sw64) &&
+      tensor_map(&wg_map, a.words, tp, D, a.Bt, tp * 2, D * tp * 2, wg::kBox, G_BN, sw64) &&
+      tensor_map(&dg_map, dwei, tp, D, pairs, tp * 2, D * tp * 2, wg::kBox, G_BN, sw64) &&
+      tensor_map(&z_map, z, K, M, chunk, K * 2, M * K * 2, wg::kBK, wg::kBM, sw128);
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(dctx_z_kernel<NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, zsmem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         wg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(dctx_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             GTile::SMEM);
+                             wg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(dwords_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              WTile::SMEM);
   if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  const int z_tiles = (a.M + wg::kBM - 1) / wg::kBM * ((a.Bt + Z::CPT - 1) / Z::CPT);
+  const int g_tiles = (a.M + wg::kBM - 1) / wg::kBM * ((a.D + G_BN - 1) / G_BN);
   for (int b0 = 0; b0 < a.Bi; b0 += chunk) {
     const int nb = a.Bi - b0 < chunk ? a.Bi - b0 : chunk;
-    dctx_z_kernel<NT><<<dim3((a.M + Z::BM - 1) / Z::BM, (a.Bt + CPT - 1) / CPT, nb),
-                        gemm::kThreads, zsmem, st>>>(a, dwei, vecs, z, b0);
+    const int zg = z_tiles * nb < sms ? z_tiles * nb : sms;
+    dctx_z_kernel<NT><<<zg, wg::kThreads, wg::kSmemBytes, st>>>(ctx_map, wz_map, dz_map, a, vecs,
+                                                                z, b0, nb);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if (dctx != nullptr) {
-      dctx_gemm_kernel<<<dim3((a.D + GTile::BN - 1) / GTile::BN,
-                              (a.M + GTile::BM - 1) / GTile::BM, nb),
-                         gemm::kThreads, GTile::SMEM, st>>>(a, dwei, z, dctx, b0);
+      const int gg = g_tiles * nb < sms ? g_tiles * nb : sms;
+      dctx_gemm_kernel<<<gg, wg::kThreads, wg::kSmemBytes, st>>>(z_map, wg_map, dg_map, a, dctx,
+                                                                 b0, nb);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

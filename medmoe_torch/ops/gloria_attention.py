@@ -30,8 +30,10 @@ finishing kernel (F3); for d_words the prologue also sums K4b's f32 terms
 Σ_b dnum·wei and Σ_b c2 from F2's wei. ``csrc/gloria_attention_bwd.cu``
 replaces ``_dctx_kernel`` (K4a) and ``_dwords_kernel`` (K4b): one C entry
 runs, per chunk of images, the pass that writes Z = [bf16(a2) |
-bf16(d_scores)] once, then K4a's product over Z and K4b's product
-ctxᵀ·Zds on the same core. Their design notes are in the sources. F1/F2's
+bf16(d_scores)] once, then K4a's product over Z, both on the wgmma core
+of ``csrc/wgmma_core.cuh`` (TMA loads through tensor maps the C entry
+builds per call), and K4b's product ctxᵀ·Zds on the GEMM core. Their
+design notes are in the sources. F1/F2's
 bf16 hi and lo of e and Z live in chunks of images (``image_chunk``: 16
 images, 1.6 GB at flagship); between the prologue and K4a/K4b the
 per-pair cotangents live in device memory (``backward_scratch_bytes``:

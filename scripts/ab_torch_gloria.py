@@ -13,10 +13,14 @@ kernels:
   prologue alone timed at B=256 flagship with captions of 40 words, then
   the backward of the image's cotangent alone (the prologue + K4a) and of
   both cotangents (the prologue + K4a + K4b; the difference is K4b alone)
-  timed at captions of 25 and 40 words, then a digest of the bits of K3,
-  the prologue and K4a on fixed inputs (made with numpy), which must be
-  the same in every checkout: the check that a change to the shared GEMM
-  core left those kernels' results alone;
+  timed at captions of 25 and 40 words, then K4a alone (both passes from
+  one prologue's scratch) at 256² and at 128 × 256 with captions of 25 and
+  40 words, with each pass's device time and TFLOP/s on padded captions,
+  then, on fixed inputs (made with numpy), a digest of the bits of K3 and
+  the prologue, which must be the same in every checkout (a change to K4a
+  or to a core that K3 and the prologue do not use leaves them alone), and
+  one of K4a's bits, printed without a check (a change to K4a may change
+  them), with K4a held against its plain version there;
 - with ``--k1``, the expert-branch forward leg: ``chip_smoke.phase_k1``
   (K1 against its plain version at B=32 flagship and on odd shapes), then
   K1 timed at B=32 and B=256 flagship with the peak device memory of each
@@ -37,7 +41,7 @@ kernels:
   trainer path, pairs/s).
 
 Prints the card's name and power limit first; exits non-zero when a
-checkout's run fails or the GLoRIA digests differ.
+checkout's run fails or the digests of K3 and the prologue differ.
 """
 
 from __future__ import annotations
@@ -88,6 +92,47 @@ for t in (25, 40):
     torch.cuda.empty_cache()
 # K4a alone: cotangents_of, or dctx_of in checkouts that predate it
 k4a = getattr(ga, "cotangents_of", None) or (lambda p: (ga.dctx_of(p),))
+
+
+def pass_ms(fn):
+    """Device ms of each of K4a's passes over one call (torch.profiler);
+    its own, since a parent's chip_smoke.profile_passes may return
+    nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(("dctx_z_kernel", "dctx_gemm_kernel"), 0.0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for k in ms:
+                if e.key.startswith((f"void {k}", k)):
+                    ms[k] += c.dev_us(e) / 1e3
+    return ms
+
+
+# K4a alone (both passes, from one prologue's scratch) at 256² and at a
+# rank's 128 × 256, captions of 25 and 40 words; each pass's TFLOP/s on
+# padded captions (2·B_img·M·D·B_txt·2·TPAD operations a pass)
+for b_img, t in ((256, 25), (256, 40), (128, 25), (128, 40)):
+    img, words, cap, cot = c.gloria_inputs(torch, b_img, 256, 768, 56, 56, t,
+                                           seed=25)
+    pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
+    ms = c.cuda_ms(lambda: k4a(pairs), iters=3, warmup=1)
+    padded = 2 * b_img * 3136 * 768 * 256 * 2 * (-(-t // 32) * 32)
+    passes = pass_ms(lambda: k4a(pairs))
+    print(f"ab {b_img}x256 T={t}: K4a alone {ms:.4f} ms; " + ", ".join(
+        f"{k} {v:.3f} ms ({padded / max(v, 1e-9) / 1e9:.1f} TFLOP/s)"
+        for k, v in passes.items()) + f" on {card}", flush=True)
+    del img, words, cap, cot, pairs
+    torch.cuda.empty_cache()
+# the bits of K3 and the prologue on numpy inputs (must agree across the
+# checkouts), and of K4a (printed: a change to K4a changes them on purpose),
+# with K4a's d_img held against its plain version
 for shape in ((3, 5, 48, 12, 11, 40), (2, 3, 768, 56, 56, 25)):
     b_img, b_txt, d, h, w, t = shape
     rng = np.random.RandomState(0)
@@ -101,9 +146,17 @@ for shape in ((3, 5, 48, 12, 11, 40), (2, 3, 768, 56, 56, 25)):
     pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
     dctx = k4a(pairs)[0]
     digest = hashlib.sha256()
-    for out in (sim, pairs.dwei, pairs.vecs, dctx):
+    for out in (sim, pairs.dwei, pairs.vecs):
         digest.update(out.float().cpu().numpy().tobytes())
-    print(f"ab digest {shape}: {digest.hexdigest()}", flush=True)
+    print(f"ab digest K3 + prologue {shape}: {digest.hexdigest()}", flush=True)
+    print(f"ab K4a bits {shape}: "
+          f"{hashlib.sha256(dctx.float().cpu().numpy().tobytes()).hexdigest()}",
+          flush=True)
+    d_img = ga.gloria_similarity_backward(img, words, cap, cot, *temps,
+                                          need_words=False)[0]
+    ref = ga.gloria_similarity_bwd_reference(img, words, cap, cot, *temps,
+                                             need_words=False)[0]
+    c.gloria_err(torch, d_img, ref, f"ab K4a {shape} d_img", "bwd")
 '''
 
 K2 = PRELUDE + r'''
@@ -187,12 +240,12 @@ def main() -> int:
             if line.startswith("ab digest"):
                 digests.setdefault(line.split(":")[0], set()).add(line)
     if any(len(v) > 1 for v in digests.values()):
-        print("ab: the GLoRIA kernels' bits differ between checkouts",
-              flush=True)
+        print("ab: the bits of K3 and the prologue differ between "
+              "checkouts", flush=True)
         return 1
     if digests:
-        print("ab: the GLoRIA kernels' bits are the same in every checkout",
-              flush=True)
+        print("ab: the bits of K3 and the prologue are the same in every "
+              "checkout", flush=True)
     return 0
 
 

@@ -163,8 +163,9 @@ def _last(root):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Starts every multi-process run at once, computes the references
-    while they run, and returns both."""
+    """Starts the multi-process runs in two waves of at most six ranks
+    (so that a loaded machine starves no rank past its deadline), computes
+    the references while they run, and returns both."""
     tmp = tmp_path_factory.mktemp("ep")
     # one set of weights from JAX, the router biased to expert 0 so that
     # top-2 capacity dispatch overflows
@@ -194,15 +195,16 @@ def runs(tmp_path_factory):
     def root(name):
         return tmp / name
 
-    # the fix (two data ranks of topk) and the chain's first leg (e = 2)
+    # wave 1: the fix (two data ranks of topk) and the chain's first leg (e
+    # = 2), the 1 × 2 grid and the regions, six ranks
     first = root("first")
     fix, fix_out = _workers(tmp, "fix", {"task": "train_runs", "runs": [
         BASE + TOPK + common + [
             "trainer=ddp_sim", f"paths.root_dir={root('fix')}"],
         CHAIN + _grid_trainer(2) + ["trainer.max_epochs=1",
                                     f"paths.root_dir={first}"]]}, 2)
-    grids = {}
-    for world in GRIDS:
+
+    def grid(world):
         run_list = [BASE + MODES[m] + common + _grid_trainer(world)
                     + [f"paths.root_dir={root(f'{m}{world}')}"]
                     for m in MODES]
@@ -214,8 +216,10 @@ def runs(tmp_path_factory):
                 "trainer.limit_val_batches=1", "callbacks=none",
                 "trainer.devices=2", f"paths.root_dir={root('full_mix')}"]
                 + [o for o in TINY if "num_experts" not in o])
-        grids[world] = _workers(tmp, f"grid{world}", {
+        return _workers(tmp, f"grid{world}", {
             "task": "train_runs", "runs": run_list}, world)
+
+    grids = {2: grid(2)}
     rng = np.random.RandomState(0)
     x, w = rng.randn(4, 3), rng.randn(4, 3)
     regions, regions_out = _workers(tmp, "regions", {
@@ -225,18 +229,27 @@ def runs(tmp_path_factory):
     jax_ref, one_ref = {}, {}
     jax_ref["fix"] = _jax_trajectory(params, BASE + TOPK, 2, 1, STEPS)
     one_ref["fix"] = _one_process(npz, BASE + TOPK, 2, STEPS)
-    for world, (d, e) in GRIDS.items():
+
+    def references(world):
+        d, e = GRIDS[world]
         for m in MODES:
             jax_ref[m, world] = _jax_trajectory(params, BASE + MODES[m], d, e,
                                                 STEPS)
             one_ref[m, world] = _one_process(npz, BASE + MODES[m], d, STEPS)
+
+    references(2)
+    # wave 2, once wave 1 has ended: the 2 × 2 grid, then the chain's last
+    # leg, six ranks
+    for launch in (fix, grids[2][0], regions):
+        launch.wait()
+    grids[4] = grid(4)
+    references(4)
     straight = root("straight")
     train(compose("train", CHAIN + ["trainer.max_epochs=3",
                                     f"paths.root_dir={straight}"]))
 
     # the chain: one process resumes the two expert ranks' checkpoint, and
     # two expert ranks resume its
-    fix.wait()
     train(compose("train", CHAIN + ["trainer.max_epochs=2",
                                     f"ckpt_path={_last(first)}",
                                     f"paths.root_dir={first}"]))
@@ -244,9 +257,7 @@ def runs(tmp_path_factory):
         "task": "train_runs", "runs": [CHAIN + _grid_trainer(2) + [
             "trainer.max_epochs=3", f"ckpt_path={_last(first)}",
             f"paths.root_dir={first}"]]}, 2)
-    for launch, _ in grids.values():
-        launch.wait()
-    regions.wait()
+    grids[4][0].wait()
     third.wait()
     return dict(tmp=tmp, root=root, init=init, trainable=trainable,
                 jax=jax_ref, one=one_ref, npz=npz, x=x, w=w,

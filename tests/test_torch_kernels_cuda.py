@@ -24,16 +24,17 @@ and K4b every element within 1e-2·max|ref| and at most 1% of the elements
 beyond 2e-3·max|ref| — bf16(a2), bf16(d_wei) and bf16(d_scores) feed the
 cotangent products, and a value that lands on the other side of a bf16
 rounding boundary moves its term by one bf16 step. Worst measured on the
-H100 at B=256 flagship and on the odd shapes with the single-pass K4a:
+H100 at B=256 flagship and on the odd shapes, with K4a on the wgmma core as
+before it:
 K3 2.4e-7·max|ref|; d_img 3.2e-3·max|ref| and d_words 3.6e-3·max|ref|,
 with at most 4.6e-4 of the elements beyond 2e-3·max|ref|. Expert-branch
 widths the kernels do not take (``check_kernel_limits``: E % 32, H % 8,
 H <= 2048) raise before K1 launches.
 
-The kernels sum without atomics, so two calls agree bit for bit; K1 and
-K2 run over chunks of images agree bit for bit with one chunk (a sample's
-outputs are its own). K4b sums over images chunk by chunk, so its chunks
-reorder that sum: d_words over other chunk sizes agrees within the
+The kernels sum without atomics, so two calls agree bit for bit; K1, K2
+and K4a run over chunks of images agree bit for bit with one chunk (a
+sample's outputs are its own). K4b sums over images chunk by chunk, so its
+chunks reorder that sum: d_words over other chunk sizes agrees within the
 tolerance above, not bit for bit.
 """
 
@@ -49,9 +50,16 @@ from medmoe_torch.ops import gloria_attention as ga
 from medmoe_torch.ops import _scratch
 
 LOOSE = dict(rtol=2e-2, atol=2e-3)
-# (nvcc release, card) that test_gemm_core_a_layout_leaves_gloria_bits's
-# digests were recorded with
+# (nvcc release, card) that the GLoRIA digests were recorded with
 DIGESTS_RECORDED_WITH = ("12.9", "NVIDIA H100 80GB HBM3")
+# sha256 of K3's and the prologue's bits on the digest tests' two shapes
+# (test_gemm_core_a_layout_leaves_gloria_bits), and of K4a's (test_k4a_bits)
+K3_PROLOGUE_DIGESTS = (
+    "e46e86a57fd3564edb653aa0af74889c4eec5b45e99bf5fb33f4f04b594b4f82",
+    "74f5788dc649ecdaa5b48b2aa810ca2303f671c9c9d1f463bbb7ccb6524a361e")
+K4A_DIGESTS = (
+    "f44a7dfc2a097c0abac0ea941e517a8d6ba3e3084d5d83887dbbb3a6c460517d",
+    "d148c4cc7f5b45819483005ce70f91b77c60ecc9c306df93597f537a7a1c7e0d")
 
 
 def _nvcc_release() -> str:
@@ -409,6 +417,8 @@ GLORIA_SHAPES = [
     (2, 3, 64, 9, 9, 128),      # T at its limit: four word tiles
     (3, 5, 48, 12, 11, 9),      # M = 132: two M tiles, the last ragged;
                                 # B_txt·TPAD = 160: a ragged word tile
+    (2, 6, 768, 56, 56, 25),    # flagship widths, B_txt = 6: K4a's pass 1
+                                # takes 4 captions a tile, the last tile 2
 ]
 
 
@@ -499,6 +509,27 @@ class TestGloriaKernels:
             _gloria_close(a, w)
             _gloria_close(a, r)
 
+    @pytest.mark.parametrize("images", [1, 2])
+    def test_dctx_over_chunks_of_images(self, dev, monkeypatch, images):
+        # five images over chunks of 1 or 2: an image's d_ctx comes from its
+        # own Z and its own tiles, so the same bits as the whole-batch run
+        img, words, cap, cot = _gloria_inputs(dev, 5, 3, 48, 12, 11, 40,
+                                              seed=9)
+        whole = ga.gloria_similarity_backward(img, words, cap, cot,
+                                              need_words=False)[0]
+        per_image = ga.image_chunk(5, 3, 132, 40)[1] // 5
+        monkeypatch.setattr(_scratch, "CHUNK_BYTES", images * per_image + 1)
+        assert ga.image_chunk(5, 3, 132, 40)[0] == images
+        before = ga.DCTX_LAUNCHES
+        chunked = ga.gloria_similarity_backward(img, words, cap, cot,
+                                                need_words=False)[0]
+        torch.cuda.synchronize()
+        assert ga.DCTX_LAUNCHES == before + 1
+        assert torch.equal(chunked, whole)
+        ref, _ = ga.gloria_similarity_bwd_reference(img, words, cap, cot,
+                                                    need_words=False)
+        _gloria_close(chunked, ref)
+
     def test_dctx_is_the_same_on_every_run(self, dev):
         # K4a sums over captions in a fixed order, without atomics
         img, words, cap, cot = _gloria_inputs(dev, 3, 5, 48, 5, 7, 40, seed=3)
@@ -524,20 +555,9 @@ class TestGloriaKernels:
         assert torch.equal(runs[0].dwei, runs[1].dwei)
         assert torch.equal(runs[0].vecs, runs[1].vecs)
 
-    @pytest.mark.parametrize("shape,digest", [
-        ((3, 5, 48, 12, 11, 40),
-         "089f2196ef513c0b02618c8bfe33cb9b49580ddc23be1b5a73b1db14597a4eab"),
-        ((2, 3, 768, 56, 56, 25),
-         "0fca8689b6c931ab11c85ebd0fd8406a0a0ca1d99d31b620be129ece0b60d530"),
-    ])
-    def test_gemm_core_a_layout_leaves_gloria_bits(self, dev, shape, digest):
-        """The bits of K3, the prologue and K4a on numpy inputs, as the
-        kernels gave them before the GEMM core took an M-contiguous A
-        (scripts/ab_torch_gloria.py prints the same digest for two trees on
-        one card). Bits depend on the compiler and the card, so the digests
-        hold only for the toolkit and card they were recorded with
-        (``DIGESTS_RECORDED_WITH``) and the test skips on any other; record
-        them anew whenever the GLoRIA kernels change on purpose."""
+    @staticmethod
+    def _digest_run(dev, shape):
+        """K3, the prologue and K4a on numpy inputs: (sim, pairs, d_ctx)."""
         found = (_nvcc_release(), torch.cuda.get_device_name(0))
         if found != DIGESTS_RECORDED_WITH:
             pytest.skip(f"digests recorded with nvcc and card "
@@ -554,9 +574,38 @@ class TestGloriaKernels:
         sim = ga.gloria_similarity_forward(img, words, cap, *temps)
         pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
         dctx, _ = ga.cotangents_of(pairs)
+        return sim, pairs, dctx
+
+    @pytest.mark.parametrize("shape,digest", [
+        ((3, 5, 48, 12, 11, 40), K3_PROLOGUE_DIGESTS[0]),
+        ((2, 3, 768, 56, 56, 25), K3_PROLOGUE_DIGESTS[1]),
+    ])
+    def test_gemm_core_a_layout_leaves_gloria_bits(self, dev, shape, digest):
+        """The bits of K3 and the prologue (sim, bf16(d_wei), the per-word
+        vectors) on numpy inputs, as the kernels gave them before the GEMM
+        core took an M-contiguous A and before K4a moved to the wgmma core
+        (scripts/ab_torch_gloria.py prints the same digest for two trees on
+        one card). Bits depend on the compiler and the card, so the digests
+        hold only for the toolkit and card they were recorded with
+        (``DIGESTS_RECORDED_WITH``) and the test skips on any other; record
+        them anew whenever K3 or the prologue change on purpose."""
+        sim, pairs, _ = self._digest_run(dev, shape)
         got = hashlib.sha256()
-        for out in (sim, pairs.dwei, pairs.vecs, dctx):
+        for out in (sim, pairs.dwei, pairs.vecs):
             got.update(out.float().cpu().numpy().tobytes())
+        assert got.hexdigest() == digest
+
+    @pytest.mark.parametrize("shape,digest", [
+        ((3, 5, 48, 12, 11, 40), K4A_DIGESTS[0]),
+        ((2, 3, 768, 56, 56, 25), K4A_DIGESTS[1]),
+    ])
+    def test_k4a_bits(self, dev, shape, digest):
+        """The bits of K4a's d_ctx on the same inputs, as the wgmma K4a
+        gives them (scripts/ab_torch_gloria.py prints them as "ab K4a
+        bits"); recorded with ``DIGESTS_RECORDED_WITH``, and anew whenever
+        K4a changes on purpose."""
+        _, _, dctx = self._digest_run(dev, shape)
+        got = hashlib.sha256(dctx.float().cpu().numpy().tobytes())
         assert got.hexdigest() == digest
 
     def test_wrapper_raises_on_mixed_devices_and_dtypes(self, dev):

@@ -104,7 +104,9 @@ def _env():
 
 class Launch:
     """Processes started together and waited for with one deadline; the
-    whole process group is killed past it."""
+    whole process group is killed past it. The deadline is the rank
+    worker's group deadline (10 minutes): under a loaded test run a rank
+    can be starved for minutes without being stuck."""
 
     def __init__(self, cmds, cwd):
         self.procs = [subprocess.Popen(c, cwd=cwd, env=_env(),
@@ -113,7 +115,7 @@ class Launch:
                                        stderr=subprocess.STDOUT, text=True)
                       for c in cmds]
 
-    def wait(self, timeout=180):
+    def wait(self, timeout=600):
         for p in self.procs:
             try:
                 out, _ = p.communicate(timeout=timeout)
@@ -209,8 +211,9 @@ def _load_state(path):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Starts every two-process run at once, computes the references
-    while they run, and returns both."""
+    """Starts the two-process runs in two waves of at most six processes
+    (so that a loaded machine starves no rank past its deadline), computes
+    the references while they run, and returns both."""
     tmp = tmp_path_factory.mktemp("parallel")
     # one set of weights from JAX for both JAX comparisons
     jm = _jax_module(GLOBAL)
@@ -250,6 +253,12 @@ def runs(tmp_path_factory):
     x, w = rng.randn(4, 3), rng.randn(4, 3)
     gather, gather_out = _workers(tmp, "gather", {
         "task": "gather", "x": x.tolist(), "w": w.tolist()})
+
+    # the references, while the ranks run; the second wave once the first
+    # has ended
+    jax_global = _jax_trajectory(jm, params, GLOBAL, 1, 3)
+    for launch in (gather, cli, blocks):
+        launch.wait()
     resumed, resumed_out = _workers(tmp, "resumed", {
         "task": "train", "overrides": CHAIN + [
             "trainer=ddp_sim", "trainer.max_epochs=2", f"ckpt_path={last(first)}",
@@ -258,9 +267,6 @@ def runs(tmp_path_factory):
         "task": "train", "sigterm_rank": 1, "sigterm_after": 1,
         "overrides": GLOBAL + ["trainer=ddp_sim", "callbacks=default",
                                f"paths.root_dir={tmp / 'preempt_root'}"]})
-
-    # the references, while the ranks run
-    jax_global = _jax_trajectory(jm, params, GLOBAL, 1, 3)
     jm_blocks = _jax_module(BLOCKS)
     jax_blocks = _jax_trajectory(jm_blocks, params, BLOCKS, 2, 2)
 
@@ -283,7 +289,7 @@ def runs(tmp_path_factory):
 
     jax_gather = {k: jax_gathered(k) for k in ("global", "local", "none")}
 
-    for launch in (gather, cli, blocks, resumed, preempt):
+    for launch in (resumed, preempt):
         launch.wait()
     # the chain's last leg: one process resumes the two ranks' checkpoint
     back = tmp / "back"

@@ -5,8 +5,10 @@ imports no JAX, so a rank starts in a few seconds.
 
 SPEC holds ``init`` (a ``file://`` store), ``world``, ``task`` and the
 task's inputs; the rank writes its result to ``<out>.<rank>.json``. The
-group's join and every collective have a 60 s deadline, so a rank that
-hangs fails instead of waiting on the others.
+group's join and every collective have a deadline (``DEADLINE``, the train
+CLI's own group deadline), so a rank that hangs fails instead of waiting on
+the others; it is long because a test run with several workers can starve
+a rank for minutes while its peer waits in a collective.
 
 Tasks:
 
@@ -36,6 +38,8 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+
+DEADLINE = datetime.timedelta(minutes=10)
 
 
 def _gather(spec, rank):
@@ -148,7 +152,7 @@ def main():
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=spec["init"], rank=rank,
                             world_size=spec["world"],
-                            timeout=datetime.timedelta(seconds=60))
+                            timeout=DEADLINE)
     try:
         tasks = {"gather": _gather, "regions": _regions, "flava": _flava,
                  "train": lambda sp, r: _train(sp, r)[0],
