@@ -727,8 +727,9 @@ def phase_k2(torch, ef):
 def profile_passes(torch, fn, label: str, kernels, flops=None) -> dict:
     """Device time of each of ``kernels`` (name prefixes) over one call of
     ``fn`` (torch.profiler): K1's passes, K2's and K1's projection pass
-    that K2 reruns, or K4a's two; with ``flops`` ({prefix: operations of
-    one call}) each pass's TFLOP/s too. Returns {prefix: ms}."""
+    that K2 reruns, K3's or the prologue's three, or K4a's two; with
+    ``flops`` ({prefix: operations of one call}) each pass's TFLOP/s too.
+    Returns {prefix: ms}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1077,8 +1078,9 @@ def gloria_err(torch, got, want, name, gate):
 def phase_gloria(torch, ga, card: str, words: int = 25):
     """K3, K4a and K4b against their plain versions at B=256 flagship
     shapes (captions of ``words`` words) and on small odd shapes; times of
-    each and of the plain versions; K3+K4a against the einsum path at
-    B=32."""
+    each and of the plain versions, with the device time and TFLOP/s of
+    each pass of K3, the prologue and K4a; K3+K4a against the einsum path
+    at B=32."""
     temps = (4.0, 5.0, 10.0)
     results = {}
     cases = [
@@ -1088,6 +1090,7 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
         ("odd 4x3 D=80 9x9 T=32", (4, 3, 80, 9, 9, 32)),
         ("odd 3x5 D=48 7x5 T=40", (3, 5, 48, 7, 5, 40)),
         ("odd 3x5 D=48 12x11 T=9", (3, 5, 48, 12, 11, 9)),
+        ("odd 2x3 D=80 7x7 T=96", (2, 3, 80, 7, 7, 96)),
     ]
     for name, shape in cases:
         img, words, cap, cot = gloria_inputs(torch, *shape, seed=21)
@@ -1130,6 +1133,16 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
         ms3 = cuda_ms(fwd, iters=3, warmup=1)
         plain3 = cuda_ms(lambda: ga.gloria_similarity_reference(
             img, words, cap, *temps), iters=1, warmup=0)
+        # F1 is a product of 2·B_img·M·D·B_txt·TPAD operations on padded
+        # captions, F2 twice that (e's bf16 hi and lo); K3's passes, then
+        # the prologue's (which adds f32 wei and the d_wei loop of F3)
+        f1 = 2 * b_img * h * w * d * b_txt * ga._tpad(t)
+        k3_flops = {K3_KERNELS[0]: f1, K3_KERNELS[1]: 2 * f1}
+        k3_passes = profile_passes(torch, fwd, f"K3 {name}", K3_KERNELS,
+                                   flops=k3_flops)
+        pro_passes = profile_passes(
+            torch, lambda: ga.pair_cotangents(img, words, cap, cot, *temps),
+            f"prologue {name}", K3_KERNELS, flops=k3_flops)
         # the prologue alone, K4a alone (both passes, from one prologue's
         # scratch), the two together (K4a's kernel_ms, which has always
         # included the prologue), and both cotangents (the prologue with
@@ -1163,6 +1176,10 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
                   f"{gflop:.1f} GFLOP, {mb:.1f} MB) on {card}", flush=True)
         pro_bound, _, _, _ = gloria_bound(img, words,
                                           prologue_out_bytes(ga, shape), 2)
+        results["K3"].update(**{f"{k.split()[-1]}_ms": v
+                                for k, v in k3_passes.items()})
+        results["K3"].update(**{f"prologue_{k.split()[-1]}_ms": v
+                                for k, v in pro_passes.items()})
         results["K4a"].update(k4a_only_ms=ms_k4a, **{
             f"{k.split()[-1]}_ms": v for k, v in passes.items()})
         results["K4b"].update(both_ms=ms_both)
@@ -1215,10 +1232,10 @@ def prologue_out_bytes(ga, shape) -> int:
 
 
 def phase_gloria_wide(torch, ga, card: str, words: int = 40):
-    """K3 against its plain version at B=256 flagship shapes with captions
-    of ``words`` words, and the times of K3, its plain version, the
-    backward's prologue, the prologue + K4a and the backward of both
-    cotangents there."""
+    """K3, K4a and K4b against their plain versions at B=256 flagship
+    shapes with captions of ``words`` words, and the times of K3, its
+    plain version, the backward's prologue, the prologue + K4a and the
+    backward of both cotangents there."""
     temps = (4.0, 5.0, 10.0)
     shape = (GLORIA_BATCH, GLORIA_BATCH, 768, 56, 56, words)
     name = f"flagship B=256 T={words}"
@@ -1228,6 +1245,13 @@ def phase_gloria_wide(torch, ga, card: str, words: int = 40):
     ref = ga.gloria_similarity_reference(img, words_, cap, *temps)
     gloria_err(torch, out, ref, f"K3 {name}", "fwd")
     del out, ref
+    got = ga.gloria_similarity_backward(img, words_, cap, cot, *temps)
+    torch.cuda.synchronize()
+    want = ga.gloria_similarity_bwd_reference(img, words_, cap, cot, *temps)
+    gloria_err(torch, got[0], want[0], f"K4a {name} d_img", "bwd")
+    gloria_err(torch, got[1], want[1], f"K4b {name} d_words", "bwd")
+    del got, want
+    torch.cuda.empty_cache()
     ms3 = cuda_ms(lambda: ga.gloria_similarity_forward(img, words_, cap, *temps),
                   iters=3, warmup=1)
     plain3 = cuda_ms(lambda: ga.gloria_similarity_reference(
@@ -3750,7 +3774,8 @@ def phase_cli(torch, card: str):
 
 
 def kernel_name(mangled: str) -> str:
-    """``_Z13dctx_z_kernelILi1EEv...`` → ``dctx_z_kernel<1>``."""
+    """``_Z13dctx_z_kernelILi1EEv...`` → ``dctx_z_kernel<1>``, and
+    ``_Z14sim_wei_kernelILb0EEv...`` → ``sim_wei_kernel<0>``."""
     import re
 
     m = re.match(r"_Z(\d+)", mangled)
@@ -3758,7 +3783,7 @@ def kernel_name(mangled: str) -> str:
         return mangled
     n = int(m.group(1))
     name = mangled[m.end():m.end() + n]
-    tmpl = re.match(r"ILi(\d+)EE", mangled[m.end() + n:])
+    tmpl = re.match(r"IL[ib](\d+)EE", mangled[m.end() + n:])
     return f"{name}<{tmpl.group(1)}>" if tmpl else name
 
 
@@ -3788,32 +3813,48 @@ def ptxas_summary(log: str) -> list:
                   if "error" in line or "warning" in line]
 
 
-def check_k4a_sass(_build) -> None:
-    """K4a's two passes in the built library's SASS (cuobjdump): each must
-    hold wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)."""
+# the kernels on the wgmma core, by library: every instantiation must be
+# found in the SASS
+WGMMA_KERNELS = {
+    "gloria_attention": {"sim_e_kernel<1>", "sim_e_kernel<2>",
+                         "sim_e_kernel<3>", "sim_e_kernel<4>",
+                         "sim_wei_kernel<0>", "sim_wei_kernel<1>"},
+    "gloria_attention_bwd": {"dctx_z_kernel<1>", "dctx_z_kernel<2>",
+                             "dctx_z_kernel<3>", "dctx_z_kernel<4>",
+                             "dctx_gemm_kernel"},
+}
+
+
+def check_wgmma_sass(_build) -> None:
+    """The wgmma-core kernels in the built libraries' SASS (cuobjdump): K3's
+    and the prologue's F1 and F2 (``sim_e_kernel<1..4>``,
+    ``sim_wei_kernel<0,1>``) and K4a's two passes; each must hold wgmma
+    (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA). Prints each
+    one's counts with its local-memory stores and loads (STL/LDL)."""
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
-        print(f"sass: {tool} not found: K4a's instructions not checked",
-              flush=True)
+        print(f"sass: {tool} not found: the wgmma kernels' instructions not "
+              "checked", flush=True)
         return
-    sass = subprocess.run([tool, "-sass",
-                           _build.library_path("gloria_attention_bwd")],
-                          capture_output=True, text=True, timeout=300).stdout
-    seen = set()
-    for part in sass.split("Function : ")[1:]:
-        name = kernel_name(part.split()[0])
-        if not name.startswith(("dctx_z_kernel", "dctx_gemm_kernel")):
-            continue
-        ops = {op: len([ln for ln in part.splitlines()
-                        if f" {op}" in ln and "/*" in ln])
-               for op in ("HGMMA", "UTMALDG", "HMMA", "STL", "LDL")}
-        print(f"sass {name}: " + ", ".join(f"{k} {v}" for k, v in ops.items()),
-              flush=True)
-        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
-              f"{name} is not a wgmma + TMA kernel: {ops}")
-        seen.add(name.split("<")[0])
-    check(seen == {"dctx_z_kernel", "dctx_gemm_kernel"},
-          f"K4a's passes not found in the SASS: {sorted(seen)}")
+    for lib, names in WGMMA_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", _build.library_path(lib)],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        seen = set()
+        for part in sass.split("Function : ")[1:]:
+            name = kernel_name(part.split()[0])
+            if name not in names:
+                continue
+            ops = {op: len([ln for ln in part.splitlines()
+                            if f" {op}" in ln and "/*" in ln])
+                   for op in ("HGMMA", "UTMALDG", "HMMA", "STL", "LDL")}
+            print(f"sass {name}: "
+                  + ", ".join(f"{k} {v}" for k, v in ops.items()), flush=True)
+            check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
+                  f"{name} is not a wgmma + TMA kernel: {ops}")
+            seen.add(name)
+        check(seen == names, f"{lib}: wgmma kernels not found in the SASS: "
+              f"{sorted(names - seen)}")
 
 
 def main() -> int:
@@ -3850,7 +3891,7 @@ def main() -> int:
     for name, (sec, log) in logs.items():
         for line in ptxas_summary(log):
             print(f"build {name}: {line}", flush=True)
-    check_k4a_sass(_build)
+    check_wgmma_sass(_build)
 
     if "--only" in sys.argv:         # a quick look at some of the phases
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
@@ -3911,10 +3952,13 @@ def main() -> int:
               + cli[k] for k in ("K3", "prologue", "K4a", "K4b")}
 
     def row(name, source, replaces, launches, r, **extra):
-        extra.update({k: r[k] for k in ("k4a_only_ms", "dctx_z_kernel_ms",
-                                        "dctx_gemm_kernel_ms", "both_ms",
-                                        "prologue_ms", "prologue_bound_ms",
-                                        "ms_b256", "bound_ms_b256") if k in r})
+        extra.update({k: r[k] for k in (
+            "sim_e_kernel_ms", "sim_wei_kernel_ms", "sim_finish_kernel_ms",
+            "prologue_sim_e_kernel_ms", "prologue_sim_wei_kernel_ms",
+            "prologue_sim_finish_kernel_ms", "k4a_only_ms",
+            "dctx_z_kernel_ms", "dctx_gemm_kernel_ms", "both_ms",
+            "prologue_ms", "prologue_bound_ms", "ms_b256", "bound_ms_b256")
+            if k in r})
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -1,10 +1,9 @@
 // A tiled bf16 × bf16 → f32 matrix product for one block of 256 threads,
-// for sm_90a: the core of the GLoRIA kernels' dense passes, two for K3 and
-// the backward's prologue (gloria_attention.cu) and the d_words product of
-// K4b (gloria_attention_bwd.cu), of K1's logit product (expert_fusion.cu)
-// and of the expert branch's backward K2 (expert_fusion_bwd.cu: five
-// products). The d_ctx kernel K4a runs on the wgmma core of
-// wgmma_core.cuh instead; these kernels are to follow it, one a change.
+// for sm_90a: the core of the d_words product of K4b
+// (gloria_attention_bwd.cu), of K1's logit product (expert_fusion.cu) and
+// of the expert branch's backward K2 (expert_fusion_bwd.cu: five
+// products). K3, the backward's prologue and K4a run on the wgmma core of
+// wgmma_core.cuh instead; these kernels are to follow them, one a change.
 //
 //   C[BM, BN] = A[BM, K] · B[K, BN], K in slices of BK = 32
 //

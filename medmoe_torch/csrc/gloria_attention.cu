@@ -19,21 +19,49 @@
 // tensor-core time), against 1.2 GB of ctx (0.37 ms of memory). The passes
 // below run padded products: F1 2·M·D·TPAD per pair (10.1 TFLOP at TPAD = 32
 // and B = 256) and F2 twice that (20.2 TFLOP), since f32 a2 enters the
-// tensor cores as two bf16 parts.
+// tensor cores as two bf16 parts. E, the bf16 hi and lo of e, is written
+// once and read once a D tile of F2 (26.3 GB each way at B=256, ≈8 ms of
+// memory against ≈31 ms of products), so the passes stay bound by the
+// tensor cores, and the design is about feeding them.
 //
 // Design: three kernels for each chunk of images, the pair loop moved into
-// the products' N and K, the products on the tiled GEMM core of
-// csrc/gemm_core.cuh (mma.sync, 128 × 128 block tiles, a cp.async ring):
-//   F1 (sim_e_kernel): S_b = ctx_b [M, D] · W [D, B_txt·TPAD]. A 128-wide
-//     tile holds whole captions (four of 32 padded words, or one of up to
-//     128), so its epilogue sees every word of a row: the masked word
-//     softmax, e = exp(temp1·a1 - e_off), written transposed as Eᵀ_b =
-//     [bf16 hi ; bf16 lo] of e, [2, B_txt·TPAD, MP] (MP = M rounded up to 8),
-//     and Σ_m e of each word over the tile's 128 rows.
-//   F2 (sim_wei_kernel): weiᵀ_b [B_txt·TPAD, D] = [E_hiᵀ | E_loᵀ] ·
-//     [ctx_b ; ctx_b], K = 2·MP in order. Its epilogue sums Σ_m e over the M
-//     tiles in order, divides, and writes per-(D tile, word) partial sums of
-//     w·wei, wei² and w² (the prologue also wei itself, f32).
+// the products' N and K. F1 and F2 run on the wgmma core of
+// csrc/wgmma_core.cuh: TMA loads through tensor maps built per call, a
+// 4-stage ring of 64-deep slices, one producer warp and two consumer
+// warpgroups (setmaxnreg), one persistent block an SM, the accumulators in
+// registers from the products through the epilogue.
+//   F1 (sim_e_kernel): S_b = ctx_b [M, D] · W [D, B_txt·TPAD] on 128 × 256
+//     tiles (128 × 192 at TPAD 96) that hold whole captions: 8 at TPAD 32,
+//     4 at 64, 2 at 96 or 128. A is ctx, K-contiguous (128-byte swizzle);
+//     B the words, N-contiguous, in [64 d][32 word] boxes (64-byte swizzle,
+//     wgmma's transposed B). A row's words lie in the four threads of a
+//     quad, so the row step runs on the accumulators: the masked word
+//     softmax (two quad shuffles for the maximum and for Σ_t), then e =
+//     exp(temp1·a1 - e_off) (0 past T and past M), written from the
+//     registers as E_b = [bf16 hi ; bf16 lo] of e, [2, M, B_txt·TPAD]: a
+//     quad transposes its bf16 pairs (four shuffles for 4 × 4), so a lane
+//     stores 16 bytes and a quad 64 contiguous bytes of a row, a quarter of
+//     the store instructions of pair stores; the stores stream past L2
+//     (evict-first: E, 1.6 GB a chunk at B=256, is read again only by F2,
+//     and would push ctx and the words out of L2). Σ_m e of each word over
+//     the tile's 128 rows goes to esum: the thread's two rows, a butterfly
+//     over the eight row-lanes of a warp (each lane keeps an eighth of the
+//     columns), then the eight warps in order through shared memory.
+//   F2 (sim_wei_kernel): weiᵀ_b [B_txt·TPAD, D] = [E_hi | E_lo]ᵀ ·
+//     [ctx_b ; ctx_b], K = 2·M in order (hi, then lo), on 128-word × 256-d
+//     tiles. A is E, M-contiguous ([64 m][64 word] boxes, wgmma's
+//     transposed A); B is ctx, N-contiguous ([64 m][64 d] boxes); both
+//     128-byte swizzled, six boxes a stage (with twelve 32-wide boxes,
+//     64-byte swizzled, the pass took 43.4 ms at B=256 against 31.5 on an
+//     NVIDIA H100 80GB HBM3 at 700 W). Its epilogue sums Σ_m
+//     e over F1's M tiles in order, scales each row by its reciprocal (0 for
+//     the padded words t >= T), and writes per-(256-wide D tile, word)
+//     partial sums of w·wei, wei² and w² (a thread's 64 columns, then the
+//     quad; w read two columns a load from the words transposed, [B_txt,
+//     TPAD, D], which the wrapper makes), and in the prologue wei itself,
+//     f32. Words as the rows keep each word's Σ_m e and its partial sums in
+//     one thread's registers; the other orientation (ctxᵀ·E) would spread
+//     them over the columns.
 //   F3 (sim_finish_kernel): a warp a pair. The D tiles' partials in order,
 //     cos, Σ_t row, then sim (K3), or the tail of `_cell_cotangents` (the
 //     prologue): dnum, c2, d_wei = bf16(dnum·w + dnwei/max(‖wei‖, 1e-20)·wei),
@@ -46,19 +74,10 @@
 // wrapper takes |temp1| <= 80); a2 = e/Σe. ctx is exactly bf16, so the hi
 // and lo products give f32 wei to about 2^-16 relative.
 //
-// What this answers in the single kernel it replaces (one block a pair, a
-// template shared by both entry points):
-//   - each block streamed its image's whole ctx (4.8 MB) for one caption,
-//     ≈315 GB from L2 a call at B=256; here ctx_b is an operand of dense
-//     products over all captions at once, read once a 128-word tile;
-//   - its products were WMMA 16×16×16 on [32, 32] tiles, a warp an eighth of
-//     D, with no load behind a product; here 128 × 128 tiles of mma.sync on
-//     a cp.async ring;
-//   - its [D, 32] f32 wei accumulator (96 registers a thread) left room for
-//     one caption a block and one block an SM; here wei is a product's
-//     output tile, two blocks an SM;
-//   - above T = 32 it recomputed the scores of every word tile at each M
-//     tile; here a tile holds whole captions, so no score is recomputed.
+// The 3-D tensor maps read zeros past M, past D and past the last caption,
+// so no tile needs a masked load (D = 48: one 64-deep slice of F1, the
+// columns of F2's D tile past 48 zero). The masks of the row step select
+// without predicates (`keep`), so the accumulators stay in registers.
 // No atomics: every sum over M, D or words runs in a fixed order, and two
 // runs give the same bits. The wrapper allocates the scratch (E, the
 // partial sums, and the prologue's wei [chunk, B_txt, D, TPAD] f32) for a
@@ -70,247 +89,386 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (medmoe_torch/ops/_build.py).
 
-#include "gemm_core.cuh"
 #include "gloria_common.cuh"
+#include "wgmma_core.cuh"
 
-#define TILE 128  // the passes' block tiles: 128 rows, 128 columns
-
-using F1Tile = gemm::Tile<TILE, TILE, 64, 32, 3, gemm::kKN>;
-using F2Tile = gemm::Tile<TILE, TILE, 64, 32, 4, gemm::kKN>;
+constexpr int MTILE = 128;  // F1's rows of a tile: the M tiles of Σ_m e
+constexpr int DTILE = 256;  // F2's columns of a tile: the D tiles of the partials
+constexpr int BOX = wg::kBK * wg::kBox * 2;        // a [64][32] bf16 box, 4 KB
+constexpr int BOX128 = wg::kBK * wg::kBox128 * 2;  // a [64][64] bf16 box, 8 KB
 
 // The passes' scratch for one chunk of images (N = B_txt·TPAD words)
 struct PassArgs {
-  bf16* e;       // [chunk, 2, N, MP]: bf16 hi, then lo, of e, transposed
+  bf16* e;       // [chunk, 2, M, N]: bf16 hi, then lo, of e
   float* esum;   // [chunk, n_mt, N]: Σ_m e over each 128-row M tile
   float* part;   // [chunk, n_dt, 3, N]: Σ_d w·wei, wei², w² over each D tile
   float* wei;    // [chunk, B_txt, D, TPAD] f32 (the prologue only)
-  int N, MP, n_mt, n_dt;
+  const bf16* wt;  // the words transposed, [B_txt, TPAD, D]: F2's rows
+  int N, n_mt, n_dt;
 };
 
-// ---------------------------------------------------------------------------
-// F1: e and Σ_m e; grid (M tiles, caption tiles, images of the chunk)
-// ---------------------------------------------------------------------------
-// A caption's pitch in the tile: TPAD, or the whole tile for TPAD = 96
-// (its last 32 columns zero)
-template <int NT>
-struct F1Geom {
-  static constexpr int TPAD = TP * NT, CW = NT == 3 ? TILE : TPAD, CPT = TILE / CW, WPT = CW / 8;
-};
+// One step of a butterfly sum over lanes `mask` apart: lanes whose `mask`
+// bit is set keep (and add their partner's) v[H..2H), the others v[0..H);
+// the kept sums move to v[0..H)
+template <int H, int V>
+__device__ __forceinline__ void fold(float (&v)[V], int lane, int mask) {
+  const bool upper = lane & mask;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float kept = upper ? v[i + H] : v[i];
+    v[i] = kept + __shfl_xor_sync(0xffffffffu, send, mask);
+  }
+}
 
-__device__ __forceinline__ unsigned bf162_bits(__nv_bfloat162 v) {
-  unsigned u;
+// A 4 × 4 transpose over the lanes of a quad (q = lane % 4): lane q's r_j
+// becomes lane j's r_q, in two exchanges (lanes 1 apart, then 2 apart)
+__device__ __forceinline__ void quad_transpose(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                               uint32_t& r3, int q) {
+  const bool q1 = q & 1, q2 = q & 2;
+  uint32_t got = __shfl_xor_sync(0xffffffffu, q1 ? r0 : r1, 1);
+  r0 = q1 ? got : r0;
+  r1 = q1 ? r1 : got;
+  got = __shfl_xor_sync(0xffffffffu, q1 ? r2 : r3, 1);
+  r2 = q1 ? got : r2;
+  r3 = q1 ? r3 : got;
+  got = __shfl_xor_sync(0xffffffffu, q2 ? r0 : r2, 2);
+  r0 = q2 ? got : r0;
+  r2 = q2 ? r2 : got;
+  got = __shfl_xor_sync(0xffffffffu, q2 ? r1 : r3, 2);
+  r1 = q2 ? got : r1;
+  r3 = q2 ? r3 : got;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x: ex2.approx, the instruction behind __expf
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 16 bytes to global memory, streamed past L2 (st.global.cs, evict-first);
+// no memory clobber: nothing in the kernel reads what it stores
+__device__ __forceinline__ void store_cs(bf16* p, const uint32_t (&v)[4]) {
+  asm volatile("st.global.cs.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(v[0]), "r"(v[1]),
+               "r"(v[2]), "r"(v[3]));
+}
+
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
+  uint32_t u;
   memcpy(&u, &v, sizeof(u));
   return u;
 }
 
-constexpr int F1_SMEM = F1Tile::SMEM + 2 * TILE * 4;
-constexpr int F2_SMEM = F2Tile::SMEM + 7 * TILE * 4;
+// ---------------------------------------------------------------------------
+// F1: E and Σ_m e; persistent over the tiles (images of the chunk, caption
+// tiles, M tiles)
+// ---------------------------------------------------------------------------
+template <int NT>
+struct ETile {
+  static constexpr int TPAD = TP * NT;
+  static constexpr int BN = NT == 3 ? 192 : 256;  // whole captions
+  static constexpr int CPT = BN / TPAD;            // captions of a tile
+  static constexpr int JT = TPAD / 8;              // 8-column blocks of a caption
+  static constexpr int V = BN / 4;                 // a thread's column sums
+  static constexpr int TX = wg::kABytes + BN * wg::kBK * 2;  // bytes of a stage
+  static_assert(CPT * TPAD == BN && BN * wg::kBK * 2 <= wg::kBBytes, "whole captions a tile");
+};
+// F1's shared memory: the core's, and [2][8 warps][256] f32 of Σ_m e
+constexpr int F1_SMEM = wg::kSmemBytes + 2 * 8 * 256 * 4;
 
 template <int NT>
-__global__ void __launch_bounds__(gemm::kThreads, F1Tile::MIN_BLOCKS)
-sim_e_kernel(GloriaArgs a, PassArgs p, int b0) {
-  using Cfg = F1Tile;
-  using G = F1Geom<NT>;
-  constexpr int TPAD = G::TPAD, CW = G::CW, CPT = G::CPT, WPT = G::WPT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem + Cfg::SMEM);  // [2][TILE] Σ e of half the rows
-  const int D = a.D, M = a.M, Bt = a.Bt, T = a.T, MP = p.MP, N = p.N;
-  const int m0 = blockIdx.x * Cfg::BM, i0 = blockIdx.y * CPT, bl = blockIdx.z;
-  const int tid = threadIdx.x;
-  const bf16* ctx = a.ctx + (size_t)(b0 + bl) * M * D;
+__global__ void __launch_bounds__(wg::kThreads, 1)
+sim_e_kernel(const __grid_constant__ CUtensorMap ctx_map,
+             const __grid_constant__ CUtensorMap words_map, GloriaArgs a, PassArgs p, int b0,
+             int nb) {
+  using G = ETile<NT>;
+  constexpr int TPAD = G::TPAD, BN = G::BN, CPT = G::CPT, JT = G::JT, V = G::V;
+  extern __shared__ unsigned char smem_raw[];
+  const wg::Smem s = wg::carve(smem_raw);
+  const int M = a.M, Bt = a.Bt, T = a.T, N = p.N;
+  const int n_mt = p.n_mt, n_ct = (Bt + CPT - 1) / CPT;
+  const int tiles = nb * n_ct * n_mt, nk = (a.D + wg::kBK - 1) / wg::kBK;
+  wg::init_barriers(s);
 
-  // A = ctx_b rows m0.., D contiguous
-  auto load_a = [&](bf16* as, int k0) {
-    for (int v = tid; v < Cfg::BM * (gemm::BK / 8); v += gemm::kThreads) {
-      const int r = v >> 2, c = (v & 3) * 8, m = m0 + r, k = k0 + c;
-      const bool ok = m < M && k < D;
-      gemm::cp16(as + r * gemm::LDK + c, ok ? ctx + (size_t)m * D + k : ctx, ok);
-    }
-  };
-  // B = the tile's captions' words, rows d = k0.., N contiguous
-  auto load_b = [&](bf16* bs, int k0) {
-    constexpr int CH = Cfg::BN / 8;  // 16-byte chunks of a row
-    for (int v = tid; v < gemm::BK * CH; v += gemm::kThreads) {
-      const int kr = v / CH, n = (v % CH) * 8, d = k0 + kr;
-      const int i = i0 + n / CW, c = n % CW;
-      const bool ok = d < D && i < Bt && c < TPAD;
-      gemm::cp16(bs + kr * Cfg::LDN + n, ok ? a.words + ((size_t)i * D + d) * TPAD + c : a.words,
-                 ok);
-    }
-  };
-
-  float acc[Cfg::MI][Cfg::NI][4];
-  gemm::mainloop<Cfg>(smem, D, load_a, load_b, acc);
-  float* cs = reinterpret_cast<float*>(smem);
-  gemm::store_tile<Cfg>(cs, acc);
-
-  // the row step: 8 threads a (row, caption), words q·WPT.. in this thread;
-  // e replaces the scores in place. Fast intrinsics, as in K4a's pass 1 (the
-  // divisor, Σ_t of a row, is >= 1).
-  const int q = tid & 7;
-  for (int u0 = 0; u0 < Cfg::BM * CPT; u0 += gemm::kThreads / 8) {
-    const int u = u0 + (tid >> 3);
-    const int ci = u / Cfg::BM, r = u % Cfg::BM, i = i0 + ci, m = m0 + r;
-    const int cap = i < Bt ? a.cap[i] : 1;
-    float* crow = cs + r * Cfg::LDC + ci * CW + q * WPT;
-    float x[WPT];
+  if (threadIdx.x < 128) {
+    // producer: one thread loads A = ctx_b rows m0.. (zeros past M and D)
+    // and B = the tile's captions' words, [64 d][32 word] boxes side by
+    // side in the tile's column order (zeros past the last caption)
+    wg::reg_dealloc<wg::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      wg::prefetch_map(&ctx_map);
+      wg::prefetch_map(&words_map);
+      wg::Ring ring;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int mt = tile % n_mt, ct = (tile / n_mt) % n_ct, b = b0 + tile / (n_mt * n_ct);
+        for (int kb = 0; kb < nk; ++kb) {
+          uint64_t* full = &s.full[ring.stage];
+          wg::mbar_wait(&s.empty[ring.stage], ring.phase ^ 1u);
+          wg::mbar_expect_tx(full, G::TX);
+          const int d0 = kb * wg::kBK;
+          wg::tma_load(wg::stage_a(s, ring.stage), &ctx_map, full, d0, mt * MTILE, b);
+          const uint32_t bs = wg::stage_b(s, ring.stage);
 #pragma unroll
-    for (int j = 0; j < WPT; j += 4) {
-      const float4 s4 = *reinterpret_cast<const float4*>(crow + j);
-      x[j] = s4.x, x[j + 1] = s4.y, x[j + 2] = s4.z, x[j + 3] = s4.w;
-    }
-    // a1: softmax over the words t < cap (masked at NEG_INF, as the JAX
-    // package), the padded words t >= T left out
-    float mx = -INFINITY;
+          for (int c = 0; c < CPT; ++c)
 #pragma unroll
-    for (int j = 0; j < WPT; ++j) {
-      const int t = q * WPT + j;
-      x[j] = t >= T ? -INFINITY : (t < cap ? x[j] : NEG_INF_F);
-      mx = fmaxf(mx, x[j]);
-    }
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float z = 0.0f;
-#pragma unroll
-    for (int j = 0; j < WPT; ++j) {
-      x[j] = __expf(x[j] - mx);
-      z += x[j];
-    }
-    z = row_sum8(z);
-#pragma unroll
-    for (int j = 0; j < WPT; ++j)
-      x[j] = m < M && q * WPT + j < T ? __expf(a.temp1 * __fdividef(x[j], z) - a.e_off) : 0.0f;
-#pragma unroll
-    for (int j = 0; j < WPT; j += 4)
-      *reinterpret_cast<float4*>(crow + j) = make_float4(x[j], x[j + 1], x[j + 2], x[j + 3]);
-  }
-  __syncthreads();
-
-  // Eᵀ: a thread a (column, half of the rows), 8 rows at a time, 16 bytes
-  // of hi and of lo each; Σ_m e of its 64 rows in order
-  {
-    const int n = tid & (TILE - 1), h = tid >> 7;
-    const int i = i0 + n / CW, c = n % CW;
-    const bool col = i < Bt && c < TPAD;
-    bf16* hi = p.e + ((size_t)bl * 2 * N + (size_t)i * TPAD + c) * MP;
-    bf16* lo = hi + (size_t)N * MP;
-    float s = 0.0f;
-#pragma unroll 2
-    for (int g = 0; g < 8; ++g) {
-      const int r0 = h * 64 + g * 8, m = m0 + r0;
-      unsigned hv[4], lv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float v0 = cs[(r0 + 2 * j) * Cfg::LDC + n], v1 = cs[(r0 + 2 * j + 1) * Cfg::LDC + n];
-        s += v0;
-        s += v1;
-        const __nv_bfloat162 h2 = __floats2bfloat162_rn(v0, v1);
-        const float2 back = __bfloat1622float2(h2);
-        hv[j] = bf162_bits(h2);
-        lv[j] = bf162_bits(__floats2bfloat162_rn(v0 - back.x, v1 - back.y));
-      }
-      if (col && m < MP) {
-        *reinterpret_cast<uint4*>(hi + m) = make_uint4(hv[0], hv[1], hv[2], hv[3]);
-        *reinterpret_cast<uint4*>(lo + m) = make_uint4(lv[0], lv[1], lv[2], lv[3]);
+            for (int h = 0; h < NT; ++h)
+              wg::tma_load(bs + (c * NT + h) * BOX, &words_map, full, h * wg::kBox, d0,
+                           ct * CPT + c);
+          ring.advance();
+        }
       }
     }
-    red[h * TILE + n] = s;
-  }
-  __syncthreads();
-  if (tid < TILE) {
-    const int i = i0 + tid / CW, c = tid % CW;
-    if (i < Bt && c < TPAD)
-      p.esum[((size_t)bl * p.n_mt + blockIdx.x) * N + (size_t)i * TPAD + c] =
-          red[tid] + red[TILE + tid];
+  } else {
+    wg::reg_alloc<wg::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1, ci = threadIdx.x - 128;  // warpgroup, consumer thread
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31, q = lane & 3;
+    float* red = s.vecs + 2 * wg::kVecFloats;  // [2][8 warps][BN]
+    // this thread's words t = 8jj + 2q + e of a caption (bit 2jj + e): t < T
+    uint32_t words_t = 0;
+#pragma unroll
+    for (int k = 0; k < 2 * JT; ++k) words_t |= (uint32_t)(8 * (k >> 1) + 2 * q + (k & 1) < T) << k;
+    wg::Ring ring;
+    float acc[BN / 2];
+    int parity = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, parity ^= 1) {
+      const int mt = tile % n_mt, ct = (tile / n_mt) % n_ct, bl = tile / (n_mt * n_ct);
+      const int i0 = ct * CPT;
+      int caps[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) caps[c] = i0 + c < Bt ? a.cap[i0 + c] : 1;
+
+      wg::consume<BN, 0, 1>(
+          acc, s, ring, nk,
+          [&](int st, int ks) { return wg::desc_k128(wg::stage_a(s, st) + cw * 8192, ks); },
+          [&](int st, int ks) { return wg::desc_mn64(wg::stage_b(s, st), ks); });
+
+      // the row step, a caption and a row (h) at a time: this thread holds
+      // words t = 8jj + 2q + e of rows 16·warp + lane/4 + 8h. Its
+      // exponentials are ex2.approx of an FFMA with log2(e) folded into the
+      // constants, a few f32 ulp off, as __expf (Σ_t of a row is >= 1).
+      bf16* ehi = p.e + (size_t)bl * 2 * M * N;
+      bf16* elo = ehi + (size_t)M * N;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int i = i0 + c;
+        uint32_t words_c = 0;  // t < cap
+#pragma unroll
+        for (int k = 0; k < 2 * JT; ++k)
+          words_c |= (uint32_t)(8 * (k >> 1) + 2 * q + (k & 1) < caps[c]) << k;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = mt * MTILE + cw * 64 + warp * 16 + (lane >> 2) + 8 * h;
+          const bool store = m < M && i < Bt;
+          const uint32_t live = m < M ? words_t : 0u;  // rows past M: e = 0
+          // a1: softmax over the words t < cap (masked at NEG_INF, as the
+          // JAX package), the padded words t >= T left out
+          float mx = -INFINITY;
+#pragma unroll
+          for (int k = 0; k < 2 * JT; ++k) {
+            float& x = acc[4 * (c * JT + (k >> 1)) + 2 * h + (k & 1)];
+            x = (words_t >> k & 1) ? ((words_c >> k & 1) ? x : NEG_INF_F) : -INFINITY;
+            mx = fmaxf(mx, x);
+          }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float mxl = mx * kLog2e;
+          float zs = 0.0f;
+#pragma unroll
+          for (int k = 0; k < 2 * JT; ++k) {
+            float& x = acc[4 * (c * JT + (k >> 1)) + 2 * h + (k & 1)];
+            x = ex2(fmaf(x, kLog2e, -mxl));
+            zs += x;
+          }
+          zs += __shfl_xor_sync(0xffffffffu, zs, 1);
+          zs += __shfl_xor_sync(0xffffffffu, zs, 2);
+          // e = exp(temp1·a1 - e_off) = 2^(x·temp1·log2(e)/Σ_t - e_off·log2(e)),
+          // kept in the accumulators for Σ_m e; its bf16 hi and lo to E in
+          // 16-byte stores, streamed past L2 (E is read again only by F2,
+          // after the whole chunk): a quad transposes each four 8-column
+          // blocks, so lane q writes block 4·kb + q, and a quad 64
+          // contiguous bytes of the row
+          const float c1 = a.temp1 * kLog2e * __fdividef(1.0f, zs), c0 = a.e_off * kLog2e;
+          const size_t row = (size_t)m * N + (size_t)i * TPAD;
+#pragma unroll
+          for (int kb = 0; kb < JT / 4; ++kb) {
+            uint32_t hi[4], lo[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int jj = 4 * kb + u;
+              float& x0 = acc[4 * (c * JT + jj) + 2 * h];
+              float& x1 = acc[4 * (c * JT + jj) + 2 * h + 1];
+              x0 = keep(ex2(fmaf(x0, c1, -c0)), live, 2 * jj);
+              x1 = keep(ex2(fmaf(x1, c1, -c0)), live, 2 * jj + 1);
+              const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+              const float2 back = __bfloat1622float2(h2);
+              hi[u] = bf162_bits(h2);
+              lo[u] = bf162_bits(__floats2bfloat162_rn(x0 - back.x, x1 - back.y));
+            }
+            quad_transpose(hi[0], hi[1], hi[2], hi[3], q);
+            quad_transpose(lo[0], lo[1], lo[2], lo[3], q);
+            if (store) {
+              const size_t at = row + 8 * (4 * kb + q);
+              store_cs(ehi + at, hi);
+              store_cs(elo + at, lo);
+            }
+          }
+        }
+      }
+
+      // Σ_m e: the thread's two rows, then a butterfly over the warp's
+      // eight row-lanes (lane bits 4, 3, 2), which leaves lane a V/8 of the
+      // columns: v = V/2·b4 + V/4·b3 + V/8·b2 + i, column 4v' + 2q + e for
+      // v = v' + e, v' even
+      float v[V];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        v[2 * j] = acc[4 * j] + acc[4 * j + 2];
+        v[2 * j + 1] = acc[4 * j + 1] + acc[4 * j + 3];
+      }
+      fold<V / 2>(v, lane, 16);
+      fold<V / 4>(v, lane, 8);
+      fold<V / 8>(v, lane, 4);
+      const int base = (lane & 16 ? V / 2 : 0) + (lane & 8 ? V / 4 : 0) + (lane & 4 ? V / 8 : 0);
+      float* rw = red + (parity * 8 + cw * 4 + warp) * BN;
+#pragma unroll
+      for (int k = 0; k < V / 8; k += 2)
+        *reinterpret_cast<float2*>(rw + 4 * (base + k) + 2 * q) = make_float2(v[k], v[k + 1]);
+      wg::consumer_sync();
+      // the eight warps' sums in order: a thread a column
+      if (ci < BN && i0 + ci / TPAD < Bt) {
+        const float* rc = red + parity * 8 * BN + ci;
+        float sum = 0.0f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) sum += rc[w * BN];
+        p.esum[((size_t)bl * n_mt + mt) * N + (size_t)i0 * TPAD + ci] = sum;
+      }
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// F2: weiᵀ_b = [E_hiᵀ | E_loᵀ] · [ctx_b ; ctx_b]; grid (D tiles, word tiles,
-// images of the chunk)
+// F2: weiᵀ_b = [E_hi | E_lo]ᵀ · [ctx_b ; ctx_b]; persistent over the tiles
+// (images of the chunk, 128-word tiles, 256-wide D tiles)
 // ---------------------------------------------------------------------------
+constexpr int F2_TX = wg::kABytes + DTILE * wg::kBK * 2;  // 2 boxes of E, 4 of ctx
+
 template <bool kBwd>
-__global__ void __launch_bounds__(gemm::kThreads, F2Tile::MIN_BLOCKS)
-sim_wei_kernel(GloriaArgs a, PassArgs p, int b0) {
-  using Cfg = F2Tile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* csum = reinterpret_cast<float*>(smem + Cfg::SMEM);  // [TILE] Σ_m e
-  float* red = csum + TILE;                                   // [2][3][TILE]
-  const int D = a.D, M = a.M, T = a.T, TPAD = a.TPAD, MP = p.MP, N = p.N, K = 2 * MP;
-  const int d0 = blockIdx.x * Cfg::BN, n0 = blockIdx.y * Cfg::BM, bl = blockIdx.z;
-  const int tid = threadIdx.x;
-  const bf16* ctx = a.ctx + (size_t)(b0 + bl) * M * D;
-  const bf16* eh = p.e + (size_t)bl * 2 * N * MP;
+__global__ void __launch_bounds__(wg::kThreads, 1)
+sim_wei_kernel(const __grid_constant__ CUtensorMap e_map,
+               const __grid_constant__ CUtensorMap ctx_map, GloriaArgs a, PassArgs p, int b0,
+               int nb) {
+  extern __shared__ unsigned char smem_raw[];
+  const wg::Smem s = wg::carve(smem_raw);
+  const int M = a.M, D = a.D, Bt = a.Bt, T = a.T, TPAD = a.TPAD, N = p.N;
+  const int n_dt = p.n_dt, n_wt = (N + wg::kBM - 1) / wg::kBM;
+  const int tiles = nb * n_wt * n_dt, nkh = (M + wg::kBK - 1) / wg::kBK;
+  wg::init_barriers(s);
 
-  // Σ_m e of the tile's words, the M tiles in order (the ring's barriers
-  // order it before the epilogue)
-  if (tid < TILE) {
-    const int n = n0 + tid;
-    float s = 0.0f;
-    if (n < N)
-      for (int t = 0; t < p.n_mt; ++t) s += p.esum[((size_t)bl * p.n_mt + t) * N + n];
-    csum[tid] = s;
-  }
-
-  // A = E rows n0.., K contiguous: hi for k < MP, then lo
-  auto load_a = [&](bf16* as, int k0) {
-    for (int v = tid; v < Cfg::BM * (gemm::BK / 8); v += gemm::kThreads) {
-      const int r = v >> 2, c = (v & 3) * 8, n = n0 + r, k = k0 + c;
-      const bool ok = n < N && k < K;
-      const bf16* src = eh + (k < MP ? (size_t)n * MP + k : (size_t)(N + n) * MP + (k - MP));
-      gemm::cp16(as + r * gemm::LDK + c, ok ? src : eh, ok);
-    }
-  };
-  // B = ctx_b rows k mod MP, columns d0.., D contiguous
-  auto load_b = [&](bf16* bs, int k0) {
-    constexpr int CH = Cfg::BN / 8;
-    for (int v = tid; v < gemm::BK * CH; v += gemm::kThreads) {
-      const int kr = v / CH, c = (v % CH) * 8, k = k0 + kr, d = d0 + c;
-      const int m = k < MP ? k : k - MP;
-      const bool ok = k < K && m < M && d < D;
-      gemm::cp16(bs + kr * Cfg::LDN + c, ok ? ctx + (size_t)m * D + d : ctx, ok);
-    }
-  };
-
-  float acc[Cfg::MI][Cfg::NI][4];
-  gemm::mainloop<Cfg>(smem, K, load_a, load_b, acc);
-  float* cs = reinterpret_cast<float*>(smem);
-  gemm::store_tile<Cfg>(cs, acc);
-
-  // a thread a (word, half of the D tile): wei = Σ ctx·e / Σ e (0 for the
-  // padded words t >= T), and its sums of w·wei, wei², w² in order of d
-  const int r = tid & (TILE - 1), h = tid >> 7, n = n0 + r;
-  const int i = n / TPAD, t = n % TPAD;
-  const bool word = n < N && t < T;
-  float num = 0.0f, wei2 = 0.0f, w2 = 0.0f;
-  if (n < N) {
-    const bf16* w = a.words + (size_t)i * D * TPAD + t;
-    float* out = kBwd ? p.wei + (size_t)bl * N * D + (size_t)i * D * TPAD + t : nullptr;
-    const float div = word ? csum[r] : 1.0f;
-    for (int c = h * (Cfg::BN / 2); c < (h + 1) * (Cfg::BN / 2); c += 4) {
-      const int d = d0 + c;
-      if (d >= D) break;  // D % 16 == 0: four columns are all in or all out
-      const float4 x4 = *reinterpret_cast<const float4*>(cs + r * Cfg::LDC + c);
-      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+  if (threadIdx.x < 128) {
+    // producer: A = E rows m0.. of the hi half (the first nkh slices), then
+    // of the lo half, words n0.. in [64 m][64 word] boxes; B = ctx_b rows
+    // m0.., columns d0.. in [64 m][64 d] boxes (zeros past M and D)
+    wg::reg_dealloc<wg::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      wg::prefetch_map(&e_map);
+      wg::prefetch_map(&ctx_map);
+      wg::Ring ring;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int dt = tile % n_dt, wt = (tile / n_dt) % n_wt, bl = tile / (n_dt * n_wt);
+        for (int kb = 0; kb < 2 * nkh; ++kb) {
+          uint64_t* full = &s.full[ring.stage];
+          wg::mbar_wait(&s.empty[ring.stage], ring.phase ^ 1u);
+          wg::mbar_expect_tx(full, F2_TX);
+          const int half = kb >= nkh, m0 = (kb - half * nkh) * wg::kBK;
+          const uint32_t as = wg::stage_a(s, ring.stage), bs = wg::stage_b(s, ring.stage);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float v = word ? x[j] / div : 0.0f;
-        const float wv = __bfloat162float(w[(size_t)(d + j) * TPAD]);
-        num += wv * v;
-        wei2 += v * v;
-        w2 += wv * wv;
-        if constexpr (kBwd) out[(size_t)(d + j) * TPAD] = v;
+          for (int c = 0; c < wg::kBM / wg::kBox128; ++c)
+            wg::tma_load(as + c * BOX128, &e_map, full, wt * wg::kBM + c * wg::kBox128, m0,
+                         2 * bl + half);
+#pragma unroll
+          for (int c = 0; c < DTILE / wg::kBox128; ++c)
+            wg::tma_load(bs + c * BOX128, &ctx_map, full, dt * DTILE + c * wg::kBox128, m0,
+                         b0 + bl);
+          ring.advance();
+        }
       }
     }
-  }
-  red[(h * 3 + 0) * TILE + r] = num;
-  red[(h * 3 + 1) * TILE + r] = wei2;
-  red[(h * 3 + 2) * TILE + r] = w2;
-  __syncthreads();
-  if (tid < TILE && n < N) {
-    float* o = p.part + ((size_t)bl * p.n_dt + blockIdx.x) * 3 * N + n;
+  } else {
+    wg::reg_alloc<wg::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31, q = lane & 3;
+    wg::Ring ring;
+    float acc[DTILE / 2];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int dt = tile % n_dt, wt = (tile / n_dt) % n_wt, bl = tile / (n_dt * n_wt);
+      // this thread's two words (rows h = 0, 1) and their Σ_m e, the M
+      // tiles in order, loaded while the ring fills
+      int n[2];
+      float rdiv[2];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) o[(size_t)k * N] = red[k * TILE + tid] + red[(3 + k) * TILE + tid];
+      for (int h = 0; h < 2; ++h) {
+        n[h] = wt * wg::kBM + cw * 64 + warp * 16 + (lane >> 2) + 8 * h;
+        float sum = 0.0f;
+        if (n[h] < N) {
+          const float* es = p.esum + (size_t)bl * p.n_mt * N + n[h];
+#pragma unroll 5
+          for (int mt = 0; mt < p.n_mt; ++mt) sum += es[(size_t)mt * N];
+        }
+        // wei = Σ_m e·ctx / Σ_m e, 0 for the padded words t >= T
+        rdiv[h] = n[h] < N && n[h] % TPAD < T ? 1.0f / sum : 0.0f;
+      }
+
+      wg::consume<DTILE, 1, 1>(
+          acc, s, ring, 2 * nkh,
+          [&](int st, int ks) { return wg::desc_mn128(wg::stage_a(s, st) + cw * BOX128, ks); },
+          [&](int st, int ks) { return wg::desc_mn128(wg::stage_b(s, st), ks); });
+
+      // per word: Σ_d w·wei, wei², w² over the tile's columns (this
+      // thread's 64 in order, then the quad), and f32 wei for the prologue;
+      // the word's w from the transposed words, two columns a load
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool row = n[h] < N;
+        const int i = n[h] / TPAD, t = n[h] % TPAD;
+        const bf16* w = p.wt + (size_t)n[h] * D + dt * DTILE + 2 * q;
+        float* out = kBwd ? p.wei + ((size_t)bl * Bt + i) * D * TPAD + t : nullptr;
+        float num = 0.0f, wei2 = 0.0f, w2 = 0.0f;
+#pragma unroll
+        for (int j = 0; j < DTILE / 8; ++j) {
+          const int d = dt * DTILE + 8 * j + 2 * q;
+          const bool in = row && d < D;  // D % 16 == 0: both columns or neither
+          const float2 wv = in ? __bfloat1622float2(
+                                     *reinterpret_cast<const __nv_bfloat162*>(w + 8 * j))
+                               : make_float2(0.0f, 0.0f);
+          const float x0 = acc[4 * j + 2 * h] * rdiv[h], x1 = acc[4 * j + 2 * h + 1] * rdiv[h];
+          num += wv.x * x0;
+          wei2 += x0 * x0;
+          w2 += wv.x * wv.x;
+          num += wv.y * x1;
+          wei2 += x1 * x1;
+          w2 += wv.y * wv.y;
+          if (kBwd && in) {
+            out[(size_t)d * TPAD] = x0;
+            out[(size_t)(d + 1) * TPAD] = x1;
+          }
+        }
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          num += __shfl_xor_sync(0xffffffffu, num, o);
+          wei2 += __shfl_xor_sync(0xffffffffu, wei2, o);
+          w2 += __shfl_xor_sync(0xffffffffu, w2, o);
+        }
+        if (row && q == 0) {
+          float* o = p.part + ((size_t)bl * n_dt + dt) * 3 * N + n[h];
+          o[0] = num;
+          o[N] = wei2;
+          o[2 * (size_t)N] = w2;
+        }
+      }
+    }
   }
 }
 
@@ -426,27 +584,31 @@ dwords_wei_kernel(GloriaArgs a, PassArgs p, int b0, int nb, const float* __restr
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-static PassArgs pass_args(const GloriaArgs& a, void* e, void* esum, void* part, void* wei) {
+static PassArgs pass_args(const GloriaArgs& a, const void* wt, void* e, void* esum, void* part,
+                          void* wei) {
   PassArgs p;
+  p.wt = static_cast<const bf16*>(wt);
   p.e = static_cast<bf16*>(e);
   p.esum = static_cast<float*>(esum);
   p.part = static_cast<float*>(part);
   p.wei = static_cast<float*>(wei);
   p.N = a.Bt * a.TPAD;
-  p.MP = round_up(a.M, 8);
-  p.n_mt = (a.M + TILE - 1) / TILE;
-  p.n_dt = (a.D + TILE - 1) / TILE;
+  p.n_mt = (a.M + MTILE - 1) / MTILE;
+  p.n_dt = (a.D + DTILE - 1) / DTILE;
   return p;
 }
 
 template <int NT>
-static cudaError_t launch_e(const GloriaArgs& a, const PassArgs& p, int b0, int nb,
+static cudaError_t launch_e(const CUtensorMap& ctx_map, const CUtensorMap& words_map,
+                            const GloriaArgs& a, const PassArgs& p, int b0, int nb, int sms,
                             cudaStream_t st) {
+  using G = ETile<NT>;
   cudaError_t err =
       cudaFuncSetAttribute(sim_e_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, F1_SMEM);
   if (err != cudaSuccess) return err;
-  sim_e_kernel<NT><<<dim3(p.n_mt, (a.Bt + F1Geom<NT>::CPT - 1) / F1Geom<NT>::CPT, nb),
-                     gemm::kThreads, F1_SMEM, st>>>(a, p, b0);
+  const int tiles = nb * ((a.Bt + G::CPT - 1) / G::CPT) * p.n_mt;
+  sim_e_kernel<NT><<<tiles < sms ? tiles : sms, wg::kThreads, F1_SMEM, st>>>(ctx_map, words_map,
+                                                                            a, p, b0, nb);
   return cudaGetLastError();
 }
 
@@ -457,20 +619,39 @@ static int run_passes(const GloriaArgs& a, const PassArgs& p, int chunk, float* 
                       const float* g, bf16* dwei, float* vecs, float* wsum, float* c2sum,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // tensor maps (they hold the pointers, so they are built per call): ctx
+  // [B_img][M][D] as F1's A ([128 m][64 d], 128-byte swizzle) and as F2's B
+  // ([64 m][64 d], 128-byte swizzle); words [B_txt][D][TPAD] as F1's B
+  // ([64 d][32 words], 64-byte swizzle); E [chunk·2][M][N] as F2's A ([64
+  // m][64 words], 128-byte swizzle)
+  const uint64_t D = a.D, M = a.M, tp = a.TPAD, N = p.N;
+  CUtensorMap ctx_map, words_map, e_map, ctx_b_map;
+  const auto sw128 = CU_TENSOR_MAP_SWIZZLE_128B, sw64 = CU_TENSOR_MAP_SWIZZLE_64B;
+  const bool ok =
+      tensor_map(&ctx_map, a.ctx, D, M, a.Bi, D * 2, M * D * 2, wg::kBK, MTILE, sw128) &&
+      tensor_map(&words_map, a.words, tp, D, a.Bt, tp * 2, D * tp * 2, wg::kBox, wg::kBK, sw64) &&
+      tensor_map(&e_map, p.e, N, M, 2 * (uint64_t)chunk, N * 2, M * N * 2, wg::kBox128,
+                 wg::kBK, sw128) &&
+      tensor_map(&ctx_b_map, a.ctx, D, M, a.Bi, D * 2, M * D * 2, wg::kBox128, wg::kBK, sw128);
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(sim_wei_kernel<kBwd>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, F2_SMEM);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         wg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  const int w_tiles = (p.N + wg::kBM - 1) / wg::kBM * p.n_dt;
   for (int b0 = 0; b0 < a.Bi; b0 += chunk) {
     const int nb = a.Bi - b0 < chunk ? a.Bi - b0 : chunk;
     switch (a.NT) {
-      case 1: err = launch_e<1>(a, p, b0, nb, st); break;
-      case 2: err = launch_e<2>(a, p, b0, nb, st); break;
-      case 3: err = launch_e<3>(a, p, b0, nb, st); break;
-      default: err = launch_e<4>(a, p, b0, nb, st); break;
+      case 1: err = launch_e<1>(ctx_map, words_map, a, p, b0, nb, sms, st); break;
+      case 2: err = launch_e<2>(ctx_map, words_map, a, p, b0, nb, sms, st); break;
+      case 3: err = launch_e<3>(ctx_map, words_map, a, p, b0, nb, sms, st); break;
+      default: err = launch_e<4>(ctx_map, words_map, a, p, b0, nb, sms, st); break;
     }
     if (err != cudaSuccess) return (int)err;
-    sim_wei_kernel<kBwd><<<dim3(p.n_dt, (p.N + TILE - 1) / TILE, nb), gemm::kThreads, F2_SMEM,
-                           st>>>(a, p, b0);
+    const int wg_grid = w_tiles * nb < sms ? w_tiles * nb : sms;
+    sim_wei_kernel<kBwd><<<wg_grid, wg::kThreads, wg::kSmemBytes, st>>>(e_map, ctx_b_map, a, p,
+                                                                         b0, nb);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int pairs = nb * a.Bt;
@@ -491,36 +672,38 @@ static int run_passes(const GloriaArgs& a, const PassArgs& p, int chunk, float* 
 
 extern "C" {
 
-// K3: out [Bi, Bt] f32, through the scratch of one chunk of images: e
-// [chunk, 2, Bt·TPAD, MP] bf16, esum [chunk, ⌈M/128⌉, Bt·TPAD] f32 and part
-// [chunk, ⌈D/128⌉, 3, Bt·TPAD] f32 (MP = M rounded up to 8). Returns a
-// cudaError_t: 0 when the launches were accepted.
+// K3: out [Bi, Bt] f32, from the words and the words transposed (wt [Bt,
+// TPAD, D] bf16), through the scratch of one chunk of images: e [chunk, 2,
+// M, Bt·TPAD] bf16, esum [chunk, ⌈M/128⌉, Bt·TPAD] f32 and part [chunk,
+// ⌈D/256⌉, 3, Bt·TPAD] f32. Returns a cudaError_t: 0 when the launches
+// were accepted.
 int medmoe_gloria_sim(const void* ctx, const void* words, const void* cap, int Bi, int Bt, int M,
-                      int D, int T, float temp1, float temp2, float temp3, void* e, void* esum,
-                      void* part, int chunk, void* out, void* stream) {
+                      int D, int T, float temp1, float temp2, float temp3, const void* wt,
+                      void* e, void* esum, void* part, int chunk, void* out, void* stream) {
   if (!shapes_ok(Bi, Bt, M, D, T) || chunk < 1 || chunk > 65535)
     return (int)cudaErrorInvalidValue;
   const GloriaArgs a = make_args(ctx, words, cap, Bi, Bt, M, D, T, temp1, temp2, temp3);
-  return run_passes<false>(a, pass_args(a, e, esum, part, nullptr), chunk,
+  return run_passes<false>(a, pass_args(a, wt, e, esum, part, nullptr), chunk,
                            static_cast<float*>(out), nullptr, nullptr, nullptr, nullptr, nullptr,
                            stream);
 }
 
 // The backward's prologue: the forward chain again, then the cotangents
 // down to bf16(d_wei) [Bi·Bt, D, TPAD] and the per-word vectors
-// [Bi·Bt, 4, TPAD] for the upstream cotangent g [Bi, Bt] f32; the scratch
-// of K3 and wei [chunk, Bt, D, TPAD] f32. With wsum [Bt, D, TPAD] and c2sum
+// [Bi·Bt, 4, TPAD] for the upstream cotangent g [Bi, Bt] f32; the words
+// transposed and the scratch of K3, and wei [chunk, Bt, D, TPAD] f32. With
+// wsum [Bt, D, TPAD] and c2sum
 // [Bt, TPAD] (both or neither) also K4b's terms Σ_b dnum·wei and Σ_b c2.
 int medmoe_gloria_pair_cotangents(const void* ctx, const void* words, const void* cap, int Bi,
                                   int Bt, int M, int D, int T, float temp1, float temp2,
-                                  float temp3, const void* g, void* e, void* esum, void* part,
-                                  void* wei, int chunk, void* dwei, void* vecs, void* wsum,
-                                  void* c2sum, void* stream) {
+                                  float temp3, const void* g, const void* wt, void* e, void* esum,
+                                  void* part, void* wei, int chunk, void* dwei, void* vecs,
+                                  void* wsum, void* c2sum, void* stream) {
   if (!shapes_ok(Bi, Bt, M, D, T) || chunk < 1 || chunk > 65535 ||
       (wsum == nullptr) != (c2sum == nullptr))
     return (int)cudaErrorInvalidValue;
   const GloriaArgs a = make_args(ctx, words, cap, Bi, Bt, M, D, T, temp1, temp2, temp3);
-  return run_passes<true>(a, pass_args(a, e, esum, part, wei), chunk, nullptr,
+  return run_passes<true>(a, pass_args(a, wt, e, esum, part, wei), chunk, nullptr,
                           static_cast<const float*>(g), static_cast<bf16*>(dwei),
                           static_cast<float*>(vecs), static_cast<float*>(wsum),
                           static_cast<float*>(c2sum), stream);

@@ -63,12 +63,6 @@
 #include "gloria_common.cuh"
 #include "wgmma_core.cuh"
 
-// v where bit k of bits is set, else +0 (a NaN or infinity too): a select
-// without a predicate
-__device__ __forceinline__ float keep(float v, uint32_t bits, int k) {
-  return __int_as_float(__float_as_int(v) & -(int)(bits >> k & 1u));
-}
-
 // ---------------------------------------------------------------------------
 // K4a pass 1: Z = [bf16(a2) | bf16(d_scores)]; persistent over the tiles
 // (images of the chunk, caption tiles, M tiles)
@@ -156,7 +150,7 @@ dctx_z_kernel(const __grid_constant__ CUtensorMap ctx_map,
 #pragma unroll
       for (int c = 0; c < CPT; ++c) caps[c] = i0 + c < Bt ? a.cap[i0 + c] : 1;
 
-      wg::consume<Z::BN, 1>(
+      wg::consume<Z::BN, 0, 1>(
           acc, s, ring, nk,
           [&](int st, int ks) { return wg::desc_k128(wg::stage_a(s, st) + cw * 8192, ks); },
           [&](int st, int ks) { return wg::desc_mn64(wg::stage_b(s, st), ks); });
@@ -309,7 +303,7 @@ dctx_gemm_kernel(const __grid_constant__ CUtensorMap z_map,
     float acc[G_BN / 2];
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int nt = tile % n_nt, mt = (tile / n_nt) % n_mt, b = b0 + tile / (n_nt * n_mt);
-      wg::consume<G_BN, 0>(
+      wg::consume<G_BN, 0, 0>(
           acc, s, ring, nk,
           [&](int st, int ks) { return wg::desc_k128(wg::stage_a(s, st) + cw * 8192, ks); },
           [&](int st, int ks) { return wg::desc_k64(wg::stage_b(s, st), ks, G_BOX); });

@@ -1,7 +1,8 @@
 // Shared pieces of the GLoRIA similarity kernels (gloria_attention.cu, K3
 // and the backward's per-pair prologue; gloria_attention_bwd.cu, K4a and
-// K4b), whose products run on the GEMM core of gemm_core.cuh. See
-// medmoe_torch/ops/gloria_attention.py for what they compute.
+// K4b), whose products run on the wgmma core of wgmma_core.cuh (K4b's on
+// the GEMM core of gemm_core.cuh). See medmoe_torch/ops/gloria_attention.py
+// for what they compute.
 //
 // Layouts the kernels take (the wrapper makes them), with the words of a
 // caption padded to TPAD = 32·NT, NT = ⌈T/32⌉ word tiles of TP = 32:
@@ -13,7 +14,7 @@
 //   vecs  [B_img·B_txt, 4, TPAD] f32    Σ_m e, Σ_d bf16(d_wei)·wei, dnum, c2
 //
 // T <= 128 because K4a's first pass holds a caption's 2·TPAD columns in one
-// 256-wide tile (and K3's first pass a caption's TPAD in one 128-wide tile).
+// 256-wide tile (and F1 of K3 and the prologue whole captions in one).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,11 +51,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// sum over the 8 lanes that share a row (lanes 8k..8k+7 of a warp)
-__device__ __forceinline__ float row_sum8(float v) {
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// v where bit k of bits is set, else +0 (a NaN or infinity too): a select
+// without a predicate
+__device__ __forceinline__ float keep(float v, uint32_t bits, int k) {
+  return __int_as_float(__float_as_int(v) & -(int)(bits >> k & 1u));
 }
 
 // host side: the kernels' arguments, and the shapes every launch takes

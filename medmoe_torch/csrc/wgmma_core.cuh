@@ -1,8 +1,9 @@
 // A Hopper matrix-product core for sm_90a: a TMA-fed ring of shared-memory
 // stages, one producer warp, and two consumer warpgroups that multiply on
-// wgmma with their accumulators in registers. The d_ctx kernel K4a
-// (gloria_attention_bwd.cu: dctx_z_kernel, dctx_gemm_kernel) runs on it;
-// K3, the backward's prologue, K4b, K1 and K2 still run on the mma.sync
+// wgmma with their accumulators in registers. The GLoRIA kernels K3 and
+// the backward's prologue (gloria_attention.cu: sim_e_kernel,
+// sim_wei_kernel) and K4a (gloria_attention_bwd.cu: dctx_z_kernel,
+// dctx_gemm_kernel) run on it; K4b, K1 and K2 still run on the mma.sync
 // core of gemm_core.cuh.
 //
 // A block is 384 threads: warpgroup 0 is the producer, warpgroups 1 and 2
@@ -14,7 +15,8 @@
 //
 //   the ring     kStages stages of a kBK = 64 slice: A [128 rows][64 k]
 //                (K-contiguous, 128-byte swizzle: one 128-byte row a row of
-//                A) and B, up to 32 KB, in boxes of 32 bf16 (64-byte
+//                A), or A M-contiguous (read transposed), and B, up to 32
+//                KB, in boxes of 32 or 64 bf16 rows (64- or 128-byte
 //                swizzle); each stage has a full and an empty mbarrier;
 //   producer     one thread waits on a stage's empty barrier, arms its full
 //                barrier with the stage's bytes and starts the TMA loads
@@ -50,6 +52,7 @@ constexpr int kABytes = kBM * kBK * 2;          // 16 KB, 128-byte rows
 constexpr int kBBytes = 32768;                  // the widest B slice of a stage
 constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int kBox = 32;                        // bf16 of a 64-byte-swizzled box row
+constexpr int kBox128 = 64;                     // bf16 of a 128-byte-swizzled box row
 constexpr int kVecFloats = 256;                 // a tile's per-word vectors
 // dynamic shared memory of a kernel on this core: the ring, the barriers,
 // two buffers of per-word vectors, and slack to align the ring to 1 KB
@@ -166,12 +169,19 @@ __device__ __forceinline__ uint64_t desc_k128(uint32_t tile, int ks) {
 __device__ __forceinline__ uint64_t desc_k64(uint32_t tile, int ks, uint32_t box_bytes) {
   return desc(tile + (ks >> 1) * box_bytes + (ks & 1) * 32, 16, 512, kSw64);
 }
-// B N-contiguous in boxes of [64 k][32 n] (64-byte swizzle, 4 KB each, the
-// boxes of a stage side by side along N): a 32-wide N atom to the next is
-// 4 KB (leading offset), 8 k-rows 512 bytes (stride offset); step ks of 16
-// rows is 1 KB
+// A M-contiguous or B N-contiguous in boxes of [64 k][32 m or n] (64-byte
+// swizzle, 4 KB each, the boxes of a stage side by side along M or N): a
+// 32-wide atom to the next is 4 KB (leading offset), 8 k-rows 512 bytes
+// (stride offset); step ks of 16 rows is 1 KB
 __device__ __forceinline__ uint64_t desc_mn64(uint32_t tile, int ks) {
   return desc(tile + ks * 1024, kBK * kBox * 2, 512, kSw64);
+}
+// A M-contiguous or B N-contiguous in boxes of [64 k][64 m or n] (128-byte
+// swizzle, 8 KB each, side by side along M or N): a 64-wide atom to the
+// next is 8 KB (leading offset), 8 k-rows 1 KB (stride offset); step ks of
+// 16 rows is 2 KB
+__device__ __forceinline__ uint64_t desc_mn128(uint32_t tile, int ks) {
+  return desc(tile + ks * 2048, kBK * kBox128 * 2, 1024, kSw128);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -207,14 +217,15 @@ __device__ __forceinline__ void consumer_sync() {
 
 // d[64 × N] += A[64 × 16] · B[16 × N], bf16 operands from shared memory
 // (descriptors), f32 accumulators: register 4j + 2h + e of a thread is row
-// 16·warp + lane/4 + 8h, column 8j + 2·(lane % 4) + e. TRANS_B: 0 for a
-// K-contiguous B, 1 for an N-contiguous one.
+// 16·warp + lane/4 + 8h, column 8j + 2·(lane % 4) + e. TRANS_A: 0 for a
+// K-contiguous A, 1 for an M-contiguous one; TRANS_B: 0 for a K-contiguous
+// B, 1 for an N-contiguous one.
 template <int N>
 struct Mma;
 
 template <>
 struct Mma<256> {
-  template <int TRANS_B>
+  template <int TRANS_A, int TRANS_B>
   static __device__ __forceinline__ void run(float (&d)[128], uint64_t da, uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -227,7 +238,7 @@ struct Mma<256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -244,13 +255,13 @@ struct Mma<256> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+        : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
   }
 };
 
 template <>
 struct Mma<192> {
-  template <int TRANS_B>
+  template <int TRANS_A, int TRANS_B>
   static __device__ __forceinline__ void run(float (&d)[96], uint64_t da, uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
@@ -261,7 +272,7 @@ struct Mma<192> {
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
         "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-        "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
+        "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -274,7 +285,7 @@ struct Mma<192> {
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
           "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
           "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+        : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
   }
 };
 
@@ -282,7 +293,7 @@ struct Mma<192> {
 // The consumers' K loop over one tile: acc = Σ over the tile's nk stages,
 // in order, of the four 16-deep products desc_a(stage, ks) · desc_b(stage,
 // ks); each stage is released to the producer once its products are done.
-template <int N, int TRANS_B, class DescA, class DescB>
+template <int N, int TRANS_A, int TRANS_B, class DescA, class DescB>
 __device__ __forceinline__ void consume(float (&acc)[N / 2], const Smem& s, Ring& ring, int nk,
                                         DescA desc_a, DescB desc_b) {
 #pragma unroll
@@ -294,7 +305,8 @@ __device__ __forceinline__ void consume(float (&acc)[N / 2], const Smem& s, Ring
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < kBK / 16; ++ks)
-      Mma<N>::template run<TRANS_B>(acc, desc_a(ring.stage, ks), desc_b(ring.stage, ks));
+      Mma<N>::template run<TRANS_A, TRANS_B>(acc, desc_a(ring.stage, ks),
+                                             desc_b(ring.stage, ks));
     wgmma_commit();
     wgmma_wait<1>();
     if (prev >= 0 && signal) mbar_arrive(&s.empty[prev]);

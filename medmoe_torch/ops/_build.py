@@ -110,10 +110,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "gloria_attention":
         f = ctypes.c_float
         shape = [vp, vp, vp, i, i, i, i, i, f, f, f]
-        lib.medmoe_gloria_sim.argtypes = shape + [vp, vp, vp, i, vp, vp]
+        lib.medmoe_gloria_sim.argtypes = shape + [vp, vp, vp, vp, i, vp, vp]
         lib.medmoe_gloria_sim.restype = i
         lib.medmoe_gloria_pair_cotangents.argtypes = (
-            shape + [vp, vp, vp, vp, vp, i, vp, vp, vp, vp, vp])
+            shape + [vp, vp, vp, vp, vp, vp, i, vp, vp, vp, vp, vp])
         lib.medmoe_gloria_pair_cotangents.restype = i
     elif name == "gloria_attention_bwd":
         shape = [vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp, vp]

@@ -25,15 +25,15 @@ it is not autograd through the forward.
 Kernels. ``csrc/gloria_attention.cu`` replaces ``_sim_kernel`` (K3) and
 holds the backward's prologue, the forward chain again with the
 cotangents down to bf16(d_wei) per pair: both run two products on the
-GEMM core of ``csrc/gemm_core.cuh`` (F1: scores and e; F2: wei) and a
-finishing kernel (F3); for d_words the prologue also sums K4b's f32 terms
-Σ_b dnum·wei and Σ_b c2 from F2's wei. ``csrc/gloria_attention_bwd.cu``
+wgmma core of ``csrc/wgmma_core.cuh`` (F1: scores and e; F2: wei; TMA
+loads through tensor maps the C entries build per call) and a finishing
+kernel (F3); for d_words the prologue also sums K4b's f32 terms Σ_b
+dnum·wei and Σ_b c2 from F2's wei. ``csrc/gloria_attention_bwd.cu``
 replaces ``_dctx_kernel`` (K4a) and ``_dwords_kernel`` (K4b): one C entry
 runs, per chunk of images, the pass that writes Z = [bf16(a2) |
-bf16(d_scores)] once, then K4a's product over Z, both on the wgmma core
-of ``csrc/wgmma_core.cuh`` (TMA loads through tensor maps the C entry
-builds per call), and K4b's product ctxᵀ·Zds on the GEMM core. Their
-design notes are in the sources. F1/F2's
+bf16(d_scores)] once, then K4a's product over Z, both on the wgmma core,
+and K4b's product ctxᵀ·Zds on the GEMM core of ``csrc/gemm_core.cuh``.
+Their design notes are in the sources. F1/F2's
 bf16 hi and lo of e and Z live in chunks of images (``image_chunk``: 16
 images, 1.6 GB at flagship); between the prologue and K4a/K4b the
 per-pair cotangents live in device memory (``backward_scratch_bytes``:
@@ -44,7 +44,7 @@ environment switches.
 
 Limits. The plain versions take any T, D and temp1, as the JAX functions
 do. The kernels take D % 16 == 0, D <= 768, T <= 128 (captions padded to
-32·⌈T/32⌉ words, whole captions in a 128-wide tile) and |temp1| <= 80
+32·⌈T/32⌉ words, whole captions in a 256-wide tile) and |temp1| <= 80
 (``check_kernel_limits``); a CUDA tensor outside them raises before any
 launch, and the local loss and the trainer call the same check before
 anything runs on the card.
@@ -79,7 +79,8 @@ WORD_TILE = 32      # csrc/gloria_common.cuh TP: captions pad to whole tiles
 MAX_WORDS = 128     # csrc/gloria_common.cuh MAX_NT·TP (K4a's 256-wide tile)
 MAX_DIM = 768       # csrc/gloria_common.cuh MAX_D
 MAX_TEMP1 = 80.0    # exp(temp1·a1 - max(temp1, 0)) stays a normal f32
-TILE = 128          # csrc/gloria_attention.cu TILE: F1/F2's 128-row tiles
+M_TILE = 128        # csrc/gloria_attention.cu MTILE: F1's rows of a tile
+D_TILE = 256        # csrc/gloria_attention.cu DTILE: F2's columns of a tile
 _PLAIN_BYTES = 512 << 20   # one [c, B_img, M, T] f32 block of the plain versions
 
 
@@ -168,16 +169,16 @@ def _pass_scratch(b_img: int, b_txt: int, m: int, d: int, t: int,
                   wei: bool) -> Tuple[int, list]:
     """(images, [(shape, dtype)]) of the scratch of K3's and the prologue's
     passes for one chunk of images (csrc/gloria_attention.cu): E [images,
-    2, B_txt·TPAD, MP] bf16 (MP = M rounded up to 8), Σ_m e of each
-    128-row M tile [images, ⌈M/128⌉, B_txt·TPAD] f32, Σ_d w·wei, wei², w²
-    of each 128-wide D tile [images, ⌈D/128⌉, 3, B_txt·TPAD] f32 and, for
-    the prologue, wei [images, B_txt, D, TPAD] f32."""
+    2, M, B_txt·TPAD] bf16 (bf16 hi, then lo, of e), Σ_m e of each 128-row
+    M tile [images, ⌈M/128⌉, B_txt·TPAD] f32, Σ_d w·wei, wei², w² of each
+    256-wide D tile [images, ⌈D/256⌉, 3, B_txt·TPAD] f32 and, for the
+    prologue, wei [images, B_txt, D, TPAD] f32."""
     images, _ = image_chunk(b_img, b_txt, m, t)
     tp = _tpad(t)
     n = b_txt * tp
-    shapes = [((images, 2, n, -(-m // 8) * 8), torch.bfloat16),
-              ((images, -(-m // TILE), n), torch.float32),
-              ((images, -(-d // TILE), 3, n), torch.float32)]
+    shapes = [((images, 2, m, n), torch.bfloat16),
+              ((images, -(-m // M_TILE), n), torch.float32),
+              ((images, -(-d // D_TILE), 3, n), torch.float32)]
     if wei:
         shapes.append(((images, b_txt, d, tp), torch.float32))
     return images, shapes
@@ -228,13 +229,14 @@ def gloria_similarity_forward(img: torch.Tensor, words: torch.Tensor,
 
     lib = _build.load("gloria_attention")
     ctx, words_p, caps = _kernel_inputs(img, words, cap_lens)
+    words_t = words_p.transpose(1, 2).contiguous()
     out = torch.empty((bi, bt), dtype=torch.float32, device=img.device)
     chunk, shapes = _pass_scratch(bi, bt, m, d, t, wei=False)
     scratch = [torch.empty(s, dtype=dt, device=img.device) for s, dt in shapes]
     with torch.cuda.device(img.device):
         rc = lib.medmoe_gloria_sim(
             ctx.data_ptr(), words_p.data_ptr(), caps.data_ptr(), bi, bt, m, d, t,
-            float(temp1), float(temp2), float(temp3),
+            float(temp1), float(temp2), float(temp3), words_t.data_ptr(),
             *(s.data_ptr() for s in scratch), chunk, out.data_ptr(), _stream())
     del scratch
     _raise(lib, rc, "gloria_attention (K3)")
@@ -380,12 +382,14 @@ def pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3,
                     torch.empty((bi * bt, 4, tp), **f32),
                     torch.empty((bt, d, tp), **f32) if need_words else None,
                     torch.empty((bt, tp), **f32) if need_words else None)
+    words_t = words_p.transpose(1, 2).contiguous()
     chunk, shapes = _pass_scratch(bi, bt, m, d, t, wei=True)
     scratch = [torch.empty(s, dtype=dt, device=img.device) for s, dt in shapes]
     with torch.cuda.device(img.device):
         rc = lib.medmoe_gloria_pair_cotangents(
             *p.args(), float(temp2), float(temp3), g.data_ptr(),
-            *(s.data_ptr() for s in scratch), chunk, p.dwei.data_ptr(),
+            words_t.data_ptr(), *(s.data_ptr() for s in scratch), chunk,
+            p.dwei.data_ptr(),
             p.vecs.data_ptr(), _ptr(p.wsum), _ptr(p.c2sum), _stream())
     del scratch
     _raise(lib, rc, "gloria_attention backward prologue")

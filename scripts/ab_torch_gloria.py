@@ -13,14 +13,19 @@ kernels:
   prologue alone timed at B=256 flagship with captions of 40 words, then
   the backward of the image's cotangent alone (the prologue + K4a) and of
   both cotangents (the prologue + K4a + K4b; the difference is K4b alone)
-  timed at captions of 25 and 40 words, then K4a alone (both passes from
-  one prologue's scratch) at 256² and at 128 × 256 with captions of 25 and
-  40 words, with each pass's device time and TFLOP/s on padded captions,
+  timed at captions of 25 and 40 words, then K3, the prologue alone and
+  K4a alone (both passes from one prologue's scratch) at 256² and at
+  128 × 256 with captions of 25 and 40 words, with each K4a pass's device
+  time and TFLOP/s on padded captions,
   then, on fixed inputs (made with numpy), a digest of the bits of K3 and
-  the prologue, which must be the same in every checkout (a change to K4a
-  or to a core that K3 and the prologue do not use leaves them alone), and
-  one of K4a's bits, printed without a check (a change to K4a may change
-  them), with K4a held against its plain version there;
+  the prologue and one of K4a's bits, with K4a held against its plain
+  version there. ``phase_gloria`` holds each checkout's K3 and prologue
+  (through K4a and K4b) against the plain versions, so the digests are a
+  record, not the check of correctness: each checkout's runs must give the
+  same digest (two runs of one tree, the same bits), and the script says
+  whether the checkouts' digests agree, which they do when a change leaves
+  K3 and the prologue alone (a change to K4a or to a core they do not use)
+  and need not when it changes them;
 - with ``--k1``, the expert-branch forward leg: ``chip_smoke.phase_k1``
   (K1 against its plain version at B=32 flagship and on odd shapes), then
   K1 timed at B=32 and B=256 flagship with the peak device memory of each
@@ -41,7 +46,7 @@ kernels:
   trainer path, pairs/s).
 
 Prints the card's name and power limit first; exits non-zero when a
-checkout's run fails or the digests of K3 and the prologue differ.
+checkout's run fails or two runs of one checkout give different digests.
 """
 
 from __future__ import annotations
@@ -115,12 +120,20 @@ def pass_ms(fn):
     return ms
 
 
-# K4a alone (both passes, from one prologue's scratch) at 256² and at a
-# rank's 128 × 256, captions of 25 and 40 words; each pass's TFLOP/s on
-# padded captions (2·B_img·M·D·B_txt·2·TPAD operations a pass)
+# K3, the prologue alone and K4a alone (both passes, from one prologue's
+# scratch) at 256² and at a rank's 128 × 256, captions of 25 and 40 words;
+# each K4a pass's TFLOP/s on padded captions (2·B_img·M·D·B_txt·2·TPAD
+# operations a pass)
 for b_img, t in ((256, 25), (256, 40), (128, 25), (128, 40)):
     img, words, cap, cot = c.gloria_inputs(torch, b_img, 256, 768, 56, 56, t,
                                            seed=25)
+    k3 = c.cuda_ms(lambda: ga.gloria_similarity_forward(img, words, cap,
+                                                        *temps),
+                   iters=3, warmup=1)
+    pro = c.cuda_ms(lambda: ga.pair_cotangents(img, words, cap, cot, *temps),
+                    iters=3, warmup=1)
+    print(f"ab {b_img}x256 T={t}: K3 {k3:.4f} ms, the backward's prologue "
+          f"alone {pro:.4f} ms on {card}", flush=True)
     pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
     ms = c.cuda_ms(lambda: k4a(pairs), iters=3, warmup=1)
     padded = 2 * b_img * 3136 * 768 * 256 * 2 * (-(-t // 32) * 32)
@@ -226,7 +239,7 @@ def main() -> int:
     child = GLORIA
     if trees[:1] and trees[0] in LEGS:
         trees, child = trees[1:], LEGS[trees[0]]
-    digests = {}
+    digests = {}      # {tree: {digest line}}
     for tree in trees:
         print(f"== {tree}", flush=True)
         proc = subprocess.run([sys.executable, "-c", child], cwd=tree,
@@ -237,15 +250,19 @@ def main() -> int:
                   flush=True)
             return proc.returncode
         for line in proc.stdout.splitlines():
-            if line.startswith("ab digest"):
-                digests.setdefault(line.split(":")[0], set()).add(line)
-    if any(len(v) > 1 for v in digests.values()):
-        print("ab: the bits of K3 and the prologue differ between "
-              "checkouts", flush=True)
-        return 1
-    if digests:
-        print("ab: the bits of K3 and the prologue are the same in every "
-              "checkout", flush=True)
+            if line.startswith(("ab digest", "ab K4a bits")):
+                digests.setdefault(tree, set()).add(line)
+    kinds = sorted({line.split(":")[0] for v in digests.values() for line in v})
+    for kind in kinds:
+        seen = {line for v in digests.values() for line in v
+                if line.split(":")[0] == kind}
+        print(f"ab: {kind[3:]}: "
+              + ("the same in every checkout" if len(seen) == 1
+                 else "differs between checkouts"), flush=True)
+    for tree, lines in digests.items():
+        if len(lines) != len({line.split(":")[0] for line in lines}):
+            print(f"ab: two runs of {tree} gave different bits", flush=True)
+            return 1
     return 0
 
 

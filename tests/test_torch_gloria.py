@@ -13,6 +13,7 @@ both sides, and an f32 difference of one ulp can put a value on the other
 side of a bf16 rounding boundary, a change of 2^-8 relative in one term.
 """
 
+import functools
 import types
 
 import jax
@@ -227,17 +228,18 @@ class TestFunction:
     def test_scratch_bytes_at_b256(self):
         # captions of 40 words pad to two tiles of 32: bf16(d_wei) and 4
         # per-word vectors per pair, K4b's f32 accumulators (Σ dnum·wei and
-        # Σ c2 per caption), and the prologue's passes over 8 images: E,
-        # Σ_m e of 25 M tiles, 3 sums of 6 D tiles, and wei
+        # Σ c2 per caption), and the prologue's passes over 8 images: E
+        # [2, M, B_txt·TPAD], Σ_m e of 25 M tiles, 3 sums of 3 D tiles of
+        # 256, and wei
         n = 256 * 64
         assert ga.backward_scratch_bytes(256, 256, 3136, 768, 40) == \
             256 * 256 * (768 * 64 * 2 + 4 * 64 * 4) + 256 * 769 * 64 * 4 \
-            + 8 * (2 * n * 3136 * 2 + 25 * n * 4 + 6 * 3 * n * 4
+            + 8 * (2 * n * 3136 * 2 + 25 * n * 4 + 3 * 3 * n * 4
                    + 256 * 768 * 64 * 4)
-        # M rounds up to 8 in E; its M tiles and D tiles to 128
+        # E takes M rows as they are; M tiles round up to 128, D tiles to 256
         assert ga.backward_scratch_bytes(3, 5, 35, 48, 9) == \
             15 * (48 * 32 * 2 + 4 * 32 * 4) + 5 * 49 * 32 * 4 \
-            + 3 * (2 * 160 * 40 * 2 + 160 * 4 + 3 * 160 * 4
+            + 3 * (2 * 160 * 35 * 2 + 160 * 4 + 3 * 160 * 4
                    + 5 * 48 * 32 * 4)
 
     def test_dctx_chunk_at_b256(self):
@@ -256,7 +258,7 @@ class TestFunction:
         n = 256 * tp
         assert ga.backward_scratch_bytes(256, 256, 3136, 768, t) == \
             256 * 256 * (768 * tp * 2 + 4 * tp * 4) + 256 * 769 * tp * 4 \
-            + images * (per_image + 25 * n * 4 + 6 * 3 * n * 4
+            + images * (per_image + 25 * n * 4 + 3 * 3 * n * 4
                         + 256 * 768 * tp * 4)
 
 
@@ -284,56 +286,85 @@ class TestDispatch:
             agg, fake) == want
 
 
-def _staged_similarity(img, words, cap, temps, tile=128):
+def _staged_similarity(img, words, cap, temps, d_tile, m_tile=128):
     """The staging of csrc/gloria_attention.cu in torch ops, f32: per image
-    the scores of all captions as one product (F1), the masked word softmax
-    and e = exp(temp1·a1 - max(temp1, 0)), e split into bf16 hi + lo, Σ_m e
-    summed over 128-row M tiles in order, wei from the hi and the lo
-    products over Σ_m e (F2), then cos and sim (F3)."""
+    the scores of all captions as one product S [M, B_txt·TPAD] (F1), the
+    masked word softmax and e = exp(temp1·a1 - max(temp1, 0)) (0 past T),
+    E = [bf16 hi ; bf16 lo] of e in F1's [2, M, B_txt·TPAD] layout, Σ_m e
+    over ``m_tile``-row M tiles, each tile's sum taken, then the tiles in
+    order; weiᵀ [B_txt·TPAD, D] = E_hiᵀ·ctx + E_loᵀ·ctx times 1/Σ_m e (F2),
+    and per ``d_tile``-wide D tile the partial sums of w·wei, wei² and w²;
+    then (F3) the D tiles' partials in order, cos and sim."""
     temp1, temp2, temp3 = temps
     bf = torch.bfloat16
     b_img, d, h, w = img.shape
     m = h * w
     ctx = torch.from_numpy(img).reshape(b_img, d, m).to(bf).float()
-    wt = torch.from_numpy(words).to(bf).float()               # [B_txt, D, T]
-    t = wt.shape[2]
-    valid = torch.arange(t)[None, :] < torch.from_numpy(cap).long()[:, None]
+    b_txt, _, t = words.shape
+    tp = ga._tpad(t)
+    wt = torch.zeros((b_txt, d, tp))
+    wt[..., :t] = torch.from_numpy(words).to(bf).float()     # [B_txt, D, TPAD]
+    w_cols = wt.permute(1, 0, 2).reshape(d, b_txt * tp)       # [D, N]
+    word = torch.arange(tp) < t
+    valid = torch.arange(tp)[None, :] < torch.from_numpy(cap).long()[:, None]
     sims = []
     for b in range(b_img):
-        scores = torch.einsum("dm,cdt->mct", ctx[b], wt)     # [M, B_txt, T]
-        a1 = torch.softmax(torch.where(valid, scores, ga.NEG_INF), dim=-1)
-        e = torch.exp(temp1 * a1 - max(temp1, 0.0))
+        s_b = (ctx[b].T @ w_cols).reshape(m, b_txt, tp)        # F1's product
+        masked = torch.where(valid, s_b, ga.NEG_INF)
+        a1 = torch.softmax(torch.where(word, masked, -torch.inf), dim=-1)
+        e = torch.where(word, torch.exp(temp1 * a1 - max(temp1, 0.0)), 0.0)
+        e = e.reshape(m, b_txt * tp)                          # E's rows
         hi = e.to(bf).float()
         lo = (e - hi).to(bf).float()
-        e_sum = torch.zeros(e.shape[1:])
-        for m0 in range(0, m, tile):
-            e_sum = e_sum + e[m0:m0 + tile].sum(0)
-        wei = (torch.einsum("dm,mct->cdt", ctx[b], hi)
-               + torch.einsum("dm,mct->cdt", ctx[b], lo)) / e_sum[:, None, :]
-        num = (wt * wei).sum(1)
-        den = torch.clamp(wt.pow(2).sum(1).sqrt() * wei.pow(2).sum(1).sqrt(),
-                          min=1e-8)
-        row = torch.where(valid, torch.exp(temp2 * num / den), 0.0)
+        tiles = [e[m0:m0 + m_tile].sum(0) for m0 in range(0, m, m_tile)]
+        e_sum = torch.zeros(b_txt * tp)
+        for part in tiles:
+            e_sum = e_sum + part
+        rdiv = torch.where(word.repeat(b_txt), 1.0 / e_sum, 0.0)
+        wei_t = (hi.T @ ctx[b].T + lo.T @ ctx[b].T) * rdiv[:, None]  # [N, D]
+        w_t = w_cols.T                                        # [N, D]
+        num = torch.zeros(b_txt * tp)
+        wei2 = torch.zeros(b_txt * tp)
+        w2 = torch.zeros(b_txt * tp)
+        for d0 in range(0, d, d_tile):
+            cols = slice(d0, d0 + d_tile)
+            num = num + (w_t[:, cols] * wei_t[:, cols]).sum(1)
+            wei2 = wei2 + wei_t[:, cols].pow(2).sum(1)
+            w2 = w2 + w_t[:, cols].pow(2).sum(1)
+        den = torch.clamp(w2.sqrt() * wei2.sqrt(), min=1e-8)
+        cos = (num / den).reshape(b_txt, tp)
+        row = torch.where(valid & word, torch.exp(temp2 * cos), 0.0)
         sims.append(temp3 * torch.log(row.sum(-1)))
     return torch.stack(sims)
 
 
-@pytest.mark.parametrize("t", [9, 32, 40, 128])
-def test_staged_form_matches_reference_and_jax(t):
-    """The kernels' decomposition (bf16 hi + lo of e, Σ_m e over 128-row
-    tiles) against the plain version and the JAX kernel in interpret mode,
-    at M = 132 (two M tiles) and B_txt = 5: rtol 1e-4, as TestAgainstJax's
-    forward. hi + lo carries e to 2^-16 relative, far inside it."""
-    img, words, cap, _ = _inputs(3, 5, 32, 12, 11, t, seed=7)
-    got = _staged_similarity(img, words, cap, TEMPS)
-    want = ga.gloria_similarity_reference(*_torch(img, words, cap), *TEMPS)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
-                               atol=1e-5)
+@functools.lru_cache(maxsize=None)
+def _staged_case(t):
+    """Inputs of the staged test at captions of ``t`` words (M = 132,
+    D = 288: two M tiles and a ragged last D tile at either width), and
+    the JAX kernel's similarity in interpret mode."""
+    img, words, cap, _ = _inputs(3, 5, 288, 12, 11, t, seed=7)
     with pltpu.force_tpu_interpret_mode():
         jax_sim = _sim_forward(jnp.asarray(img), jnp.asarray(words),
                                jnp.asarray(cap), *TEMPS)
-    np.testing.assert_allclose(got.numpy(), np.asarray(jax_sim), rtol=1e-4,
+    return img, words, cap, np.asarray(jax_sim)
+
+
+@pytest.mark.parametrize("d_tile", [128, 256])
+@pytest.mark.parametrize("t", [9, 32, 40, 128])
+def test_staged_form_matches_reference_and_jax(t, d_tile):
+    """The kernels' decomposition (bf16 hi + lo of e in E's [M, B_txt·TPAD]
+    rows, Σ_m e over 128-row tiles, the partial sums over D tiles of the
+    mma.sync design's 128 and the wgmma design's 256) against the plain
+    version and the JAX kernel in interpret mode, at M = 132 (two M
+    tiles), D = 288 and B_txt = 5: rtol 1e-4, as TestAgainstJax's forward.
+    hi + lo carries e to 2^-16 relative, far inside it."""
+    img, words, cap, jax_sim = _staged_case(t)
+    got = _staged_similarity(img, words, cap, TEMPS, d_tile)
+    want = ga.gloria_similarity_reference(*_torch(img, words, cap), *TEMPS)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), jax_sim, rtol=1e-4, atol=1e-5)
 
 
 def _staged_dwords(img, words, cap, g, temps, chunk):

@@ -23,17 +23,18 @@ softmax over regions offset by max(temp1, 0) instead of its maximum); K4a
 and K4b every element within 1e-2·max|ref| and at most 1% of the elements
 beyond 2e-3·max|ref| — bf16(a2), bf16(d_wei) and bf16(d_scores) feed the
 cotangent products, and a value that lands on the other side of a bf16
-rounding boundary moves its term by one bf16 step. Worst measured on the
-H100 at B=256 flagship and on the odd shapes, with K4a on the wgmma core as
-before it:
+rounding boundary moves its term by one bf16 step. The prologue's own
+outputs (bf16(d_wei) and the per-word vectors) take K4a's tolerance. Worst
+measured on the H100 at B=256 flagship and on the odd shapes, with K3, the
+prologue and K4a on the wgmma core as before them:
 K3 2.4e-7·max|ref|; d_img 3.2e-3·max|ref| and d_words 3.6e-3·max|ref|,
 with at most 4.6e-4 of the elements beyond 2e-3·max|ref|. Expert-branch
 widths the kernels do not take (``check_kernel_limits``: E % 32, H % 8,
 H <= 2048) raise before K1 launches.
 
-The kernels sum without atomics, so two calls agree bit for bit; K1, K2
-and K4a run over chunks of images agree bit for bit with one chunk (a
-sample's outputs are its own). K4b sums over images chunk by chunk, so its
+The kernels sum without atomics, so two calls agree bit for bit; K1, K2,
+K3, the prologue and K4a run over chunks of images agree bit for bit with
+one chunk (a sample's outputs are its own). K4b sums over images chunk by chunk, so its
 chunks reorder that sum: d_words over other chunk sizes agrees within the
 tolerance above, not bit for bit.
 """
@@ -55,11 +56,11 @@ DIGESTS_RECORDED_WITH = ("12.9", "NVIDIA H100 80GB HBM3")
 # sha256 of K3's and the prologue's bits on the digest tests' two shapes
 # (test_gemm_core_a_layout_leaves_gloria_bits), and of K4a's (test_k4a_bits)
 K3_PROLOGUE_DIGESTS = (
-    "e46e86a57fd3564edb653aa0af74889c4eec5b45e99bf5fb33f4f04b594b4f82",
-    "74f5788dc649ecdaa5b48b2aa810ca2303f671c9c9d1f463bbb7ccb6524a361e")
+    "c61a3c00a8e730f4197ad3947f65693808f6fe197f2815c3c7a7725bb4f8191f",
+    "d85e86c60398927332cf0a4ed3c82faa87055bd3b6b3e98329e8006df432349a")
 K4A_DIGESTS = (
-    "f44a7dfc2a097c0abac0ea941e517a8d6ba3e3084d5d83887dbbb3a6c460517d",
-    "d148c4cc7f5b45819483005ce70f91b77c60ecc9c306df93597f537a7a1c7e0d")
+    "42c829d27bda04a63466b13a82cd807e337bbdb0f63483f606c0145447aa9dd5",
+    "cfbf8ea0cf26fd0e0ff8f816a37d276b9d81f8c2a217b9ff7bd4df5dbd3ff1ce")
 
 
 def _nvcc_release() -> str:
@@ -401,12 +402,66 @@ def _gloria_inputs(dev, b_img, b_txt, d, h, w, t, seed=0):
     return img.to(torch.bfloat16), words.to(torch.bfloat16), cap, cot
 
 
-def _gloria_close(got, want):
+def _gloria_close(got, want, scale=None):
     got, want = got.float(), want.float()
-    scale = want.abs().max().item()
+    if scale is None:
+        scale = want.abs().max().item()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-2 * scale)
     share = ((got - want).abs() > 2e-3 * scale).float().mean().item()
     assert share <= 0.01, f"{share:.2%} beyond 2e-3*max|ref|"
+
+
+def _plain_prologue(img, words, cap, cot, temps):
+    """The prologue's outputs in plain PyTorch, step for step
+    ``gloria_similarity_bwd_reference`` down to d_wei: (bf16(d_wei)
+    [B_img·B_txt, D, TPAD], per-word vectors [B_img·B_txt, 4, TPAD] f32:
+    Σ_m e with e = exp(temp1·a1 - max(temp1, 0)), Σ_d bf16(d_wei)·wei, dnum
+    and c2), zero past T, pairs image-major as the kernels lay them out."""
+    temp1, temp2, temp3 = temps
+    ctx, w = ga._plain_inputs(img, words)
+    cell = ga._plain_chain(ctx, w, cap.long(), temp1, temp2)   # [B_txt, B_img]
+    dcos = cot.float().T[..., None] * (temp2 * temp3) * cell["row"] \
+        / cell["rowsum"]
+    den = cell["den"]
+    dnum = dcos / den
+    dden = -dcos * cell["num"] / (den * den) \
+        * (cell["den_raw"] > 1e-8).float()
+    d_wei = dnum[:, :, None] * cell["w32"] + (
+        dden * cell["nw"] / torch.clamp(cell["nwei"], min=1e-20)
+    )[:, :, None] * cell["wei"]
+    dw_bf = d_wei.to(torch.bfloat16)
+    terms = dw_bf.float() * cell["wei"]
+    vecs = torch.stack([
+        torch.exp(temp1 * cell["a1"] - max(temp1, 0.0)).sum(2),
+        terms.sum(2),
+        dnum,
+        dden * cell["nwei"] / torch.clamp(cell["nw"], min=1e-20)], dim=2)
+    b_txt, b_img, d, t = d_wei.shape
+    tp = ga._tpad(t)
+    dwei = torch.zeros((b_img, b_txt, d, tp), dtype=torch.bfloat16,
+                       device=img.device)
+    dwei[..., :t] = dw_bf.transpose(0, 1)
+    vec = torch.zeros((b_img, b_txt, 4, tp), device=img.device)
+    vec[..., :t] = vecs.transpose(0, 1)
+    return (dwei.reshape(-1, d, tp), vec.reshape(-1, 4, tp),
+            terms.abs().max().item())
+
+
+def _prologue_close(pairs, plain):
+    """The prologue's bf16(d_wei) and its four per-word vectors against the
+    plain version, with the backward's tolerance. s = Σ_d bf16(d_wei)·wei
+    is a sum that cancels: the cosine does not change with the scale of
+    wei, so Σ_d ∂cos/∂wei_d·wei_d = 0, and what is left of s is the bf16
+    rounding of d_wei: a value of d_wei on the other side of a rounding
+    boundary moves s by 2^-8 of its term. Its tolerance is taken against
+    the largest term, max |bf16(d_wei)·wei|, rather than against max|s|."""
+    dwei, vecs, s_terms = plain
+    _gloria_close(pairs.dwei, dwei)
+    for k in range(vecs.shape[1]):
+        if k == 1:      # csrc/gloria_common.cuh V_S
+            _gloria_close(pairs.vecs[:, k], vecs[:, k], scale=s_terms)
+        else:
+            _gloria_close(pairs.vecs[:, k], vecs[:, k])
 
 
 GLORIA_SHAPES = [
@@ -419,6 +474,19 @@ GLORIA_SHAPES = [
                                 # B_txt·TPAD = 160: a ragged word tile
     (2, 6, 768, 56, 56, 25),    # flagship widths, B_txt = 6: K4a's pass 1
                                 # takes 4 captions a tile, the last tile 2
+]
+
+
+# K3 and the prologue where F1's and F2's tiles end: M = 49 (a 7 × 7 map,
+# zero_shot_dense's), D = 48 and 80 (not whole 64-deep slices of F1, nor a
+# whole 256-wide D tile of F2), T = 96 (F1's 192-wide tile of two
+# captions), T = 128 (two captions of 128 a tile)
+K3_PROLOGUE_SHAPES = [
+    (2, 3, 768, 7, 7, 25),
+    (3, 5, 48, 7, 7, 96),
+    (3, 4, 80, 7, 7, 96),
+    (2, 3, 80, 12, 11, 128),
+    (3, 5, 48, 12, 11, 9),
 ]
 
 
@@ -546,6 +614,49 @@ class TestGloriaKernels:
         torch.cuda.synchronize()
         assert torch.equal(runs[0], runs[1])
 
+    @pytest.mark.parametrize("shape", K3_PROLOGUE_SHAPES)
+    def test_k3_and_prologue_match_plain_versions(self, dev, shape):
+        # sim, and the prologue's bf16(d_wei) and per-word vectors, on the
+        # shapes that F1's and F2's tiles meet at their edges
+        img, words, cap, cot = _gloria_inputs(dev, *shape, seed=10)
+        temps = (4.0, 5.0, 10.0)
+        before = (ga.LAUNCHES, ga.PROLOGUE_LAUNCHES)
+        sim = ga.gloria_similarity_forward(img, words, cap, *temps)
+        pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
+        torch.cuda.synchronize()
+        assert (ga.LAUNCHES, ga.PROLOGUE_LAUNCHES) == (before[0] + 1,
+                                                       before[1] + 1)
+        ref = ga.gloria_similarity_reference(img, words, cap, *temps)
+        assert torch.isfinite(sim).all()
+        torch.testing.assert_close(sim, ref, rtol=0,
+                                   atol=1e-3 * ref.abs().max().item())
+        _prologue_close(pairs, _plain_prologue(img, words, cap, cot, temps))
+
+    @pytest.mark.parametrize("images", [1, 2])
+    def test_k3_and_prologue_over_chunks_of_images(self, dev, monkeypatch,
+                                                   images):
+        # five images over chunks of 1 or 2: an image's sim, d_wei and
+        # per-word vectors come from its own E and its own tiles, so the
+        # same bits as the whole-batch run
+        img, words, cap, cot = _gloria_inputs(dev, 5, 3, 48, 12, 11, 40,
+                                              seed=11)
+        temps = (4.0, 5.0, 10.0)
+        sim = ga.gloria_similarity_forward(img, words, cap, *temps)
+        pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
+        per_image = ga.image_chunk(5, 3, 132, 40)[1] // 5
+        monkeypatch.setattr(_scratch, "CHUNK_BYTES", images * per_image + 1)
+        assert ga.image_chunk(5, 3, 132, 40)[0] == images
+        sim_c = ga.gloria_similarity_forward(img, words, cap, *temps)
+        pairs_c = ga.pair_cotangents(img, words, cap, cot, *temps)
+        torch.cuda.synchronize()
+        assert torch.equal(sim_c, sim)
+        assert torch.equal(pairs_c.dwei, pairs.dwei)
+        assert torch.equal(pairs_c.vecs, pairs.vecs)
+        ref = ga.gloria_similarity_reference(img, words, cap, *temps)
+        torch.testing.assert_close(sim_c, ref, rtol=0,
+                                   atol=1e-3 * ref.abs().max().item())
+        _prologue_close(pairs_c, _plain_prologue(img, words, cap, cot, temps))
+
     def test_prologue_is_the_same_on_every_run(self, dev):
         # the prologue's bf16(d_wei) and per-word vectors, bit for bit
         img, words, cap, cot = _gloria_inputs(dev, 3, 5, 48, 12, 11, 40, seed=5)
@@ -582,13 +693,15 @@ class TestGloriaKernels:
     ])
     def test_gemm_core_a_layout_leaves_gloria_bits(self, dev, shape, digest):
         """The bits of K3 and the prologue (sim, bf16(d_wei), the per-word
-        vectors) on numpy inputs, as the kernels gave them before the GEMM
-        core took an M-contiguous A and before K4a moved to the wgmma core
-        (scripts/ab_torch_gloria.py prints the same digest for two trees on
-        one card). Bits depend on the compiler and the card, so the digests
-        hold only for the toolkit and card they were recorded with
-        (``DIGESTS_RECORDED_WITH``) and the test skips on any other; record
-        them anew whenever K3 or the prologue change on purpose."""
+        vectors) on numpy inputs, as the kernels give them with F1 and F2
+        on the wgmma core of csrc/wgmma_core.cuh (scripts/ab_torch_gloria.py
+        prints the digest as "ab digest K3 + prologue"); a change to the
+        mma.sync core of csrc/gemm_core.cuh, which K3 and the prologue no
+        longer use, leaves them alone. Bits depend on the compiler and the
+        card, so the digests hold only for the toolkit and card they were
+        recorded with (``DIGESTS_RECORDED_WITH``) and the test skips on any
+        other; record them anew whenever K3 or the prologue change on
+        purpose."""
         sim, pairs, _ = self._digest_run(dev, shape)
         got = hashlib.sha256()
         for out in (sim, pairs.dwei, pairs.vecs):
@@ -601,9 +714,10 @@ class TestGloriaKernels:
     ])
     def test_k4a_bits(self, dev, shape, digest):
         """The bits of K4a's d_ctx on the same inputs, as the wgmma K4a
-        gives them (scripts/ab_torch_gloria.py prints them as "ab K4a
-        bits"); recorded with ``DIGESTS_RECORDED_WITH``, and anew whenever
-        K4a changes on purpose."""
+        gives them from the prologue's bf16(d_wei) and per-word vectors
+        (scripts/ab_torch_gloria.py prints them as "ab K4a bits");
+        recorded with ``DIGESTS_RECORDED_WITH``, and anew whenever K4a or
+        the prologue change on purpose."""
         _, _, dctx = self._digest_run(dev, shape)
         got = hashlib.sha256(dctx.float().cpu().numpy().tobytes())
         assert got.hexdigest() == digest
