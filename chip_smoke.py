@@ -7,15 +7,18 @@
      PyYAML and PIL are installed (this script needs neither);
   2. builds every CUDA kernel from medmoe_torch/csrc, one nvcc each, all
      started together, and prints the build time and each kernel's ptxas
-     registers and spills; checks in cuobjdump's SASS that K4a's two
-     passes run wgmma (HGMMA) fed by TMA (UTMALDG) and no mma.sync (HMMA);
+     registers and spills; checks in cuobjdump's SASS that the kernels on
+     the wgmma core (K3's and the prologue's F1/F2, K4a's two passes, K1's
+     logit product and K2's five products) run wgmma (HGMMA) fed by TMA
+     (UTMALDG) and no mma.sync (HMMA);
   3. K1, the fused expert branch: holds the kernel against its plain
      PyTorch version on the card at B=32 flagship shapes (bf16, every
      expert used) and on small odd shapes, times both with CUDA events,
-     prints each of its passes' device time at B=32 from one
-     torch.profiler call, and times it at B=256 flagship (the gloria256
-     step's shape), held against its plain version on two slices of 32
-     samples, one across a chunk boundary;
+     prints each of its passes' device time (and the product passes'
+     TFLOP/s) at B=32 and B=256 from one torch.profiler call each, and
+     times it at B=256 flagship (the gloria256 step's shape), held against
+     its plain version on two slices of 32 samples, one across a chunk
+     boundary;
   4. serving: the full-width MedMoE (Swin-T + 6-expert gather MoE +
      BERT-base, bf16, seeded random weights) encodes the CheXpert class
      prompts and serves waves of 32 synthetic uint8 images through the
@@ -23,10 +26,11 @@
      per wave, and that the embeddings match the plain expert path;
   5. K2, the fused expert branch's backward: holds the kernel against its
      plain version at B=32 flagship shapes and on small odd shapes, times
-     both, prints each of its passes' device time at B=32 from one
-     torch.profiler call, times it at B=256 flagship (the gloria256 step's
-     shape), and holds FusedExpertGather's gradients against autograd
-     through the plain forward;
+     both, prints each of its passes' device time (and the product passes'
+     TFLOP/s) at B=32 and B=256 from one torch.profiler call each, times
+     it at B=256 flagship (the gloria256 step's shape), and holds
+     FusedExpertGather's gradients against autograd through the plain
+     forward;
   6. training: the train CLI's ``train`` on experiment=pretraining_medmoe_ddp
      with synthetic data at full width, 8 micro-batches of 32 in 2
      optimizer steps (accumulation cut from 80 to 4 to fit the run's time);
@@ -302,7 +306,7 @@ def phase_k1(torch, ef):
                   f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)",
                   flush=True)
             profile_passes(torch, lambda: ef.expert_fusion_gather(*args),
-                           f"K1 {name}", K1_KERNELS)
+                           f"K1 {name}", K1_KERNELS, pass_flops(args, K1_KERNELS))
         del args, out, ref
         torch.cuda.empty_cache()
     result.update(time_k1(torch, ef, GLORIA_BATCH))
@@ -324,6 +328,9 @@ def time_k1(torch, ef, b: int):
     print(f"K1 flagship B={b}: kernel_ms {ms:.4f} bound_ms {bound:.4f} "
           f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); image chunk "
           f"{nc}", flush=True)
+    profile_passes(torch, lambda: ef.expert_fusion_gather(*args),
+                   f"K1 flagship B={b}", K1_KERNELS,
+                   pass_flops(args, K1_KERNELS))
     out = ef.expert_fusion_gather(*args)
     xs, wp, bp, w1, b1, w2, b2, idx = args
     for i in sorted({max(0, min(nc, b) - 6), max(0, b - 32)}):
@@ -465,6 +472,25 @@ def profile_wave(torch, embed, images, wave_ms: float):
 
 K1_KERNELS = ("proj_kernel", "fwd_u_kernel", "fwd_logit_kernel",
               "fwd_combine_kernel")
+
+
+def pass_flops(args, kernels) -> dict:
+    """Operations of one call's product passes among ``kernels``: the
+    projection (K1's, which K2 reruns), the logit product u·W1 (K1's and
+    K2's), K2's d_u product, its d_x product and its weight gradients (dW1
+    and every dWp)."""
+    xs, wp, bp, w1, b1, w2, b2, idx = args
+    b = idx.shape[0]
+    _, e, h = w1.shape
+    p = max(x.shape[1] for x in xs)
+    mlp = len(xs) * 2 * b * p * e * h
+    proj = sum(2 * b * x.shape[1] * x.shape[2] * e for x in xs)
+    ops = {"proj_kernel": proj, "fwd_logit_kernel": mlp,
+           "bwd_act_kernel": mlp, "bwd_du_kernel": mlp,
+           "bwd_dx_kernel": proj, "bwd_wgrad_kernel": mlp + proj}
+    return {k: v for k, v in ops.items() if k in kernels}
+
+
 K2_KERNELS = ("bwd_u_kernel", "bwd_act_kernel", "bwd_row_kernel",
               "bwd_du_kernel", "bwd_tlerp_kernel", "bwd_dx_kernel",
               "bwd_wgrad_kernel", "bwd_reduce_kernel")
@@ -677,7 +703,8 @@ def phase_k2(torch, ef):
                   f"time includes K1's projection recompute)", flush=True)
             profile_passes(torch, lambda: ef.expert_fusion_gather_bwd(
                 xs, wp, bp, w1, b1, w2, idx, d_out), f"K2 {name}",
-                ("proj_kernel",) + K2_KERNELS)
+                ("proj_kernel",) + K2_KERNELS,
+                pass_flops(args, ("proj_kernel",) + K2_KERNELS))
         del args, out, ref
         torch.cuda.empty_cache()
     result.update(time_k2(torch, ef, GLORIA_BATCH))
@@ -771,6 +798,10 @@ def time_k2(torch, ef, b: int):
     print(f"K2 flagship B={b}: kernel_ms {ms:.4f} bound_ms {bound:.4f} "
           f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); image chunk "
           f"{nc}", flush=True)
+    kernels = ("proj_kernel",) + K2_KERNELS
+    profile_passes(torch, lambda: ef.expert_fusion_gather_bwd(
+        xs, wp, bp, w1, b1, w2, idx, d_out), f"K2 flagship B={b}", kernels,
+        pass_flops(args, kernels))
     # the run over chunks of images against the plain version: each
     # sample's outputs depend on that sample alone, so the plain version
     # on a slice of the batch is enough; the slices straddle the first
@@ -3822,13 +3853,18 @@ WGMMA_KERNELS = {
     "gloria_attention_bwd": {"dctx_z_kernel<1>", "dctx_z_kernel<2>",
                              "dctx_z_kernel<3>", "dctx_z_kernel<4>",
                              "dctx_gemm_kernel"},
+    "expert_fusion": {"fwd_logit_kernel"},
+    "expert_fusion_bwd": {"bwd_act_kernel", "bwd_du_kernel", "bwd_dx_kernel",
+                          "bwd_wgrad_kernel"},
 }
 
 
 def check_wgmma_sass(_build) -> None:
     """The wgmma-core kernels in the built libraries' SASS (cuobjdump): K3's
     and the prologue's F1 and F2 (``sim_e_kernel<1..4>``,
-    ``sim_wei_kernel<0,1>``) and K4a's two passes; each must hold wgmma
+    ``sim_wei_kernel<0,1>``), K4a's two passes, K1's logit product and
+    K2's five products (its logit product, d_u, d_x and the weight
+    gradients); each must hold wgmma
     (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA). Prints each
     one's counts with its local-memory stores and loads (STL/LDL)."""
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")

@@ -18,7 +18,8 @@
 //   1. proj_kernel (WMMA tiles): h_s for every scale to a bf16 scratch;
 //   2. fwd_u_kernel: u_s = bf16(lerp(h_s)) to a bf16 scratch for each scale
 //      with P_s < P;
-//   3. fwd_logit_kernel (GEMM core, M = P, N = H, K = E): each 128-wide N
+//   3. fwd_logit_kernel (wgmma core, wgmma_core.cuh: TMA-fed, warp-
+//      specialised, persistent; M = P, N = H, K = E): each 192-wide N
 //      tile's partial logits, a_s never stored;
 //   4. fwd_combine_kernel (streaming, a warp a row of P): the partial
 //      logits in tile order, the softmax over scales, out = Σ_s att_s·u_s.
@@ -71,9 +72,9 @@ struct FwdArgs {
   const float* b1;             // [K, H], rounded through bf16
   const float* w2;             // [K, H], rounded through bf16
   const int* idx;              // [B]
-  float* lpart;                // [B, S, ⌈H/128⌉, P] scratch: partial logits
+  float* lpart;                // [B, S, ⌈H/kActBN⌉, P] scratch: partial logits
   float* out;                  // [B, P, E]
-  int P_out, K, E, H;
+  int P_out, B, K, E, H;
 };
 
 // ---------------------------------------------------------------------------
@@ -171,9 +172,10 @@ proj_kernel(ProjArgs a, const int* __restrict__ idx, int K, int E) {
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS) fwd_u_kernel(FwdArgs a) { u_rows<false>(a); }
 
-__global__ void __launch_bounds__(gemm::kThreads, ActTile::MIN_BLOCKS) fwd_logit_kernel(FwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  act_tile<false>(a, smem);
+__global__ void __launch_bounds__(wg::kThreads, 1)
+fwd_logit_kernel(const __grid_constant__ ActMaps maps, FwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  act_tiles<false>(maps, a, smem_raw);
 }
 
 // ---------------------------------------------------------------------------
@@ -192,7 +194,7 @@ __global__ void __launch_bounds__(THREADS) fwd_combine_kernel(FwdArgs a) {
       *reinterpret_cast<float4*>(out + c) = make_float4(nan_f(), nan_f(), nan_f(), nan_f());
     return;
   }
-  const int tiles_n = cdiv(a.H, ActTile::BN);
+  const int tiles_n = cdiv(a.H, kActBN);
   float l[MAX_SCALES], att[MAX_SCALES];
   float mx = -INFINITY;
 #pragma unroll
@@ -271,15 +273,15 @@ int medmoe_expert_fusion_proj(int n_scales, const void* const* xs, const void* c
 
 // K1 for a chunk of B images: the four passes, through the scratch hs
 // [B, P_s, E] and us [B, P, E] bf16 (us[s] unused at P_s = P) and lpart
-// [B, S, lpart_tiles, P] f32; fewer partial-logit tiles than ⌈H/128⌉ is
-// rejected. Returns a cudaError_t: 0 when every launch was accepted.
+// [B, S, lpart_tiles, P] f32; fewer partial-logit tiles than ⌈H/kActBN⌉
+// is rejected. Returns a cudaError_t: 0 when every launch was accepted.
 int medmoe_expert_fusion_fwd(int n_scales, const void* const* xs, const void* const* wps,
                              const void* const* bps, void* const* hs, void* const* us,
                              const int* Ps, const int* Ds, const void* w1, const void* b1,
                              const void* w2, const void* idx, void* lpart, int lpart_tiles,
                              void* out, int B, int K, int E, int H, int P, void* stream) {
   if (n_scales < 1 || n_scales > MAX_SCALES || E % 32 || H < 8 || H % 8 || B < 1 ||
-      B > 65535 || lpart_tiles < cdiv(H, ActTile::BN))
+      B > 65535 || lpart_tiles < cdiv(H, kActBN))
     return (int)cudaErrorInvalidValue;
   FwdArgs a;
   for (int s = 0; s < n_scales; ++s) {
@@ -296,6 +298,7 @@ int medmoe_expert_fusion_fwd(int n_scales, const void* const* xs, const void* co
   a.lpart = static_cast<float*>(lpart);
   a.out = static_cast<float*>(out);
   a.P_out = P;
+  a.B = B;
   a.K = K;
   a.E = E;
   a.H = H;
@@ -305,9 +308,11 @@ int medmoe_expert_fusion_fwd(int n_scales, const void* const* xs, const void* co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if ((err = launch(fwd_u_kernel, dim3(cdiv(P, 8), B), 0, st, a)) != cudaSuccess) return (int)err;
-  if ((err = launch(fwd_logit_kernel, dim3(cdiv(P, ActTile::BM) * cdiv(H, ActTile::BN),
-                                           n_scales, B),
-                    ActTile::SMEM, st, a)) != cudaSuccess)
+  ActMaps maps;
+  if (!act_maps(&maps, a.u, nullptr, n_scales, a.w1, B, K, E, H, P)) return (int)cudaErrorInvalidValue;
+  if ((err = launch_persistent(fwd_logit_kernel,
+                               B * n_scales * cdiv(P, wg::kBM) * cdiv(H, kActBN),
+                               wg::kSmemBytes, st, maps, a)) != cudaSuccess)
     return (int)err;
   return (int)launch(fwd_combine_kernel, dim3(cdiv(P, 8), B), 0, st, a);
 }

@@ -28,25 +28,32 @@
 // O(P·E) bf16 bytes a sample and scale.
 //
 // The TPU kernel keeps a whole sample's maps (≈36 MB) in VMEM, one grid step
-// per sample. Here every product is a dense tile product on the shared GEMM
-// core (csrc/gemm_core.cuh: mma.sync, ldmatrix, a cp.async ring), its
-// operands read with 16-byte copies from bf16 scratch, and every sum over P
-// or over tiles runs in a fixed order without atomics. Per chunk of images
-// (the wrapper sizes the chunk and runs K1's projection launch first):
+// per sample. Here every product runs on the wgmma core (csrc/wgmma_core.cuh:
+// a TMA ring of 64-deep stages, one producer warp, two consumer warpgroups
+// of m64n192k16 wgmma, one persistent block an SM), its operands read by TMA
+// from bf16 scratch and the bank as stored (zeros past every edge), and
+// every sum over P or over tiles runs in a fixed order without atomics. Per
+// chunk of images (the wrapper sizes the chunk and runs K1's projection
+// launch first):
 //   1. bwd_u_kernel (streaming, a warp a row of P): u_s = bf16(lerp(h_s))
 //      to a scratch for each non-identity scale (the identity scale's u is
 //      h_0, read in place), and d_att_s, d_out read once for all scales;
-//   2. bwd_act_kernel (core, M = P, N = H, K = E): a_s = bf16(relu(u_s·W1
-//      + b1)) to a scratch, and each 128-wide N tile's partial logits;
+//   2. bwd_act_kernel (wgmma, M = P, N = H, K = E): a_s = bf16(relu(u_s·W1
+//      + b1)) to a scratch (stored by TMA from a ring stage), and each
+//      192-wide N tile's partial logits;
 //   (passes 1 and 2 are K1's u and logit passes, expert_fusion_passes.cuh,
 //   with d_att and a_s kept: K2's logits are K1's, bit for bit)
 //   3. bwd_row_kernel (streaming, 64 rows a block): the logits summed in
 //      tile order, the softmax over scales and its backward, bf16(att32)
 //      for pass 4, bf16(dz_a) over a_s in place, the tile's dw2/db1 sums;
-//   4. bwd_du_kernel (core, M = P, N = E, K = H, W1 as stored):
-//      att·d_out + bf16(dz_a)·W1ᵀ; at the identity scale the epilogue
-//      masks by h_0 > 0, writes bf16(dz_h_0) and the tile's dbp column
-//      sums, at the others it writes bf16(d_u) (what Gᵀ reads);
+//   4. bwd_du_kernel (wgmma, M = P, N = E, K = H, W1 as stored, K-major):
+//      att·d_out + bf16(dz_a)·W1ᵀ; the producer also loads the epilogue's
+//      d_out tile (f32) and, at the identity scale, h_0's into the ring,
+//      as stages of their own after the products', so that they arrive
+//      while the products run; at the identity scale the epilogue masks by
+//      h_0 > 0, writes bf16(dz_h_0) and the tile's dbp column sums, at the
+//      others it writes bf16(d_u) (what Gᵀ reads), TMA storing the tile
+//      from a stage;
 //   5. bwd_tlerp_kernel (streaming, banded): d_h_s = Gᵀ·bf16(d_u) over the
 //      ≤ 2r + 1 destination rows that read each source row, from a table
 //      built in Python (ops/expert_fusion.py, transposed_lerp_plan): 8
@@ -55,10 +62,12 @@
 //      windows of 128 so that each is read about once, p summed in
 //      increasing order; then the mask h_s > 0, bf16(dz_h_s) and the
 //      block's dbp sums;
-//   6. bwd_dx_kernel (core, M = P_s, N = D_s, K = E): bf16(dz_h)·Wpᵀ;
-//   7. bwd_wgrad_kernel (core, A M-contiguous): dW1 = Σ_s u_sᵀ·bf16(dz_a)
-//      (K = S·P, one accumulation over all scales) and dWp_s =
-//      x_sᵀ·bf16(dz_h_s) (K = P_s);
+//   6. bwd_dx_kernel (wgmma, M = P_s, N = D_s, K = E, Wp as stored,
+//      K-major): bf16(dz_h)·Wpᵀ, TMA storing the tile from a stage;
+//   7. bwd_wgrad_kernel (wgmma, A and B MN-major): dW1 = Σ_s u_sᵀ·bf16(dz_a)
+//      (K = S·P, one accumulation over all scales, each scale's rows past P
+//      read as zeros) and dWp_s = x_sᵀ·bf16(dz_h_s) (K = P_s), the dW1
+//      tiles (196 stages a flagship tile) first;
 //   8. bwd_reduce_kernel: the partial sums of db1, dw2 and dbp in tile
 //      order.
 // Scratch a flagship image: h 6.4 MB, u and bf16(d_u) 14.5 MB each, a/dz_a
@@ -71,16 +80,20 @@
 //        -Xcompiler -fPIC (medmoe_torch/ops/_build.py).
 
 #include "expert_fusion_passes.cuh"
+#include "gemm_core.cuh"  // cp.async, for the transposed upsample's windows
 
 #define ROW_TM 64     // rows of P a block of the row step
 #define T_ROWS 8      // source rows a block of the transposed upsample, one a warp
 #define T_COLS 256    // columns a block of the transposed upsample, 8 a lane
 #define T_WIN 128     // destination rows the transposed upsample stages at once
 
-// the products' tiles: 128 × 128, 8 warps of 64 × 32, a 4-slice ring
-// (ActTile, u · W1: expert_fusion_passes.cuh)
-using NkTile = gemm::Tile<128, 128, 64, 32, 4, gemm::kNK>;              // · W1ᵀ, · Wpᵀ
-using WgTile = gemm::Tile<128, 128, 64, 32, 4, gemm::kKN, gemm::kKM>;   // xᵀ · dz
+// the products' tiles: wg::kBM = 128 rows by kBN columns (the logit
+// product's width, kActBN: expert_fusion_passes.cuh)
+constexpr int kBN = kActBN;
+constexpr int kBoxK = kBN * wg::kBK * 2;  // a K-major [192 rows][64 k] box of B, 24 KB
+// the d_u product's shared memory: the core's and [2][8 warps][kBN] f32 of
+// dbp column sums
+constexpr int kDuSmem = wg::kSmemBytes + 2 * 8 * kBN * 4;
 
 struct BwdArgs {
   const bf16* x[MAX_SCALES];      // [B, P_s, D_s] pyramid
@@ -101,8 +114,8 @@ struct BwdArgs {
   int D[MAX_SCALES];
   int n_part[MAX_SCALES];         // ⌈P/128⌉ at P_s = P (pass 4), else ⌈P_s/8⌉ (pass 5)
   int t_blk[MAX_SCALES + 1];      // pass 5 blocks, scale by scale
-  int dx_start[MAX_SCALES + 1];   // pass 6 tiles, scale by scale
-  int wg_start[MAX_SCALES + 2];   // pass 7 tiles: dW1, then dWp scale by scale
+  int dx_start[MAX_SCALES + 1];   // pass 6 tiles of an image, scale by scale
+  int wg_start[MAX_SCALES + 2];   // pass 7 tiles of an image: dW1, then dWp scale by scale
   int n_scales;
   const bf16* w1;                 // [K, E, H]
   const float* b1;                // [K, H], rounded through bf16
@@ -113,10 +126,32 @@ struct BwdArgs {
   float* db1;                     // [B, H] out
   float* dw2;                     // [B, H] out
   float* datt;                    // [B, S, P] scratch: d_att
-  float* lpart;                   // [B, S, ⌈H/128⌉, P] scratch: partial logits
+  float* lpart;                   // [B, S, ⌈H/kActBN⌉, P] scratch: partial logits
   float* att;                     // [B, S, P] scratch: bf16(att32)
   float* row_part;                // [B, ⌈P/64⌉, 2, H] scratch: partial dw2, db1
-  int P_out, K, E, H;
+  int P_out, B, K, E, H;
+};
+
+// the tensor maps of passes 4, 6 and 7 (pass 2's: ActMaps), each 128-byte
+// swizzled, zeros past every edge: K-major operands in [rows][64 k] boxes
+// (128 rows of A, kBN rows of B), MN-major ones in [64 k][64 m or n] boxes
+struct DuMaps {
+  CUtensorMap dz[MAX_SCALES];  // bf16(dz_a_s) [B][P][H], A
+  CUtensorMap w1;              // the bank W1 [K][E][H], B
+  CUtensorMap dout;            // d_out [B][P][E] f32, [128 p][32 e] boxes: the epilogue's
+  CUtensorMap h[MAX_SCALES];   // h_s [B][P][E] at P_s = P, [128 p][64 e] boxes: its mask
+  CUtensorMap out[MAX_SCALES]; // bf16(d_u_s), or bf16(dz_h_s) at P_s = P, [B][P][E], stored
+};
+struct DxMaps {
+  CUtensorMap dz[MAX_SCALES];  // bf16(dz_h_s) [B][P_s][E], A
+  CUtensorMap wp[MAX_SCALES];  // the banks Wp_s [K][D_s][E], B
+  CUtensorMap dx[MAX_SCALES];  // d_x_s [B][P_s][D_s], stored
+};
+struct WgMaps {
+  CUtensorMap u[MAX_SCALES];    // u_s [B][P][E] (h_0 at the identity scale), dW1's A
+  CUtensorMap act[MAX_SCALES];  // bf16(dz_a_s) [B][P][H], dW1's B
+  CUtensorMap x[MAX_SCALES];    // x_s [B][P_s][D_s], dWp's A
+  CUtensorMap dz[MAX_SCALES];   // bf16(dz_h_s) [B][P_s][E], dWp's B
 };
 
 __device__ __forceinline__ void store4_bf16(bf16* dst, float4 v) {
@@ -131,12 +166,12 @@ __device__ __forceinline__ void store4_bf16(bf16* dst, float4 v) {
 __global__ void __launch_bounds__(THREADS) bwd_u_kernel(BwdArgs a) { u_rows<true>(a); }
 
 // ---------------------------------------------------------------------------
-// pass 2: a_s = bf16(relu(u_s·W1 + b1)) and partial logits; grid (M tiles ×
-// N tiles, S, B)
+// pass 2: a_s = bf16(relu(u_s·W1 + b1)) and partial logits; persistent
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(gemm::kThreads, ActTile::MIN_BLOCKS) bwd_act_kernel(BwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  act_tile<true>(a, smem);
+__global__ void __launch_bounds__(wg::kThreads, 1)
+bwd_act_kernel(const __grid_constant__ ActMaps maps, BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  act_tiles<true>(maps, a, smem_raw);
 }
 
 // ---------------------------------------------------------------------------
@@ -151,7 +186,7 @@ __global__ void __launch_bounds__(THREADS) bwd_row_kernel(BwdArgs a) {
   const int rows = P - m0 < ROW_TM ? P - m0 : ROW_TM;
   const int e = a.idx[b];
   if (bad_expert(a, e)) return;
-  const int tiles_n = cdiv(H, ActTile::BN);
+  const int tiles_n = cdiv(H, kActBN);
 
   if (tid < ROW_TM) {
     const int m = m0 + tid;
@@ -236,72 +271,165 @@ __global__ void __launch_bounds__(THREADS) bwd_row_kernel(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// pass 4: d_u = att·d_out + bf16(dz_a)·W1ᵀ; grid (M tiles × N tiles, S, B)
+// pass 4: d_u = att·d_out + bf16(dz_a)·W1ᵀ; persistent over the tiles
+// (image, scale, 128-row tile of P, kBN-wide tile of E), the tiles of E
+// fastest: a block's share of the walk mixes the scales (a walk with the
+// scale fastest gave each block one scale, 132 being a multiple of 4, and
+// left the blocks with the identity scale's heavier epilogue the last)
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(gemm::kThreads, NkTile::MIN_BLOCKS) bwd_du_kernel(BwdArgs a) {
-  using Cfg = NkTile;
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(wg::kThreads, 1)
+bwd_du_kernel(const __grid_constant__ DuMaps maps, BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const wg::Smem s = wg::carve(smem_raw);
   const int E = a.E, H = a.H, P = a.P_out, S = a.n_scales;
-  const int tiles_n = cdiv(E, Cfg::BN);
-  const int mt = blockIdx.x / tiles_n, m0 = mt * Cfg::BM, n0 = (blockIdx.x % tiles_n) * Cfg::BN;
-  const int s = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int e = a.idx[b];
-  if (bad_expert(a, e)) return;
-  const bf16* dz = a.act[s] + (size_t)b * P * H;
-  const bf16* w1 = a.w1 + (size_t)e * E * H;
+  const int n_nt = cdiv(E, kBN), n_mt = cdiv(P, wg::kBM);
+  const int tiles = a.B * n_mt * n_nt * S, nk = cdiv(H, wg::kBK);
+  wg::init_barriers(s);
 
-  auto load_a = [&](bf16* as, int k0) {  // bf16(dz_a) rows m0.., H contiguous
-    for (int v = tid; v < Cfg::BM * (gemm::BK / 8); v += gemm::kThreads) {
-      const int r = v >> 2, c = (v & 3) * 8, m = m0 + r, k = k0 + c;
-      const bool ok = m < P && k < H;
-      gemm::cp16(as + r * gemm::LDK + c, ok ? dz + (size_t)m * H + k : dz, ok);
+  if (threadIdx.x < 128) {
+    // producer: A = bf16(dz_a_s) rows m0.., B = W1[e] rows n0.. as stored
+    // (H contiguous), one [192 e][64 h] box
+    wg::reg_dealloc<wg::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      for (int sc = 0; sc < S; ++sc) {
+        wg::prefetch_map(&maps.dz[sc]);
+        if (a.P[sc] == P) wg::prefetch_map(&maps.h[sc]);
+      }
+      wg::prefetch_map(&maps.w1);
+      wg::prefetch_map(&maps.dout);
+      wg::Ring ring;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int nt = tile % n_nt, mt = (tile / n_nt) % n_mt, sc = (tile / (n_nt * n_mt)) % S;
+        const int b = tile / (n_nt * n_mt * S), e = a.idx[b];
+        if (bad_expert(a, e)) continue;
+        for (int kb = 0; kb < nk; ++kb) {
+          uint64_t* full = &s.full[ring.stage];
+          wg::mbar_wait(&s.empty[ring.stage], ring.phase ^ 1u);
+          wg::mbar_expect_tx(full, wg::kABytes + kBoxK);
+          wg::tma_load(wg::stage_a(s, ring.stage), &maps.dz[sc], full, kb * wg::kBK,
+                       mt * wg::kBM, b);
+          wg::tma_load(wg::stage_b(s, ring.stage), &maps.w1, full, kb * wg::kBK, nt * kBN, e);
+          ring.advance();
+        }
+        // the epilogue's operands, each a stage of its own: d_out's two
+        // [128 p][96 e] f32 halves, three [128][32] boxes each, then h_0
+        // [128 p][192 e] bf16 at the identity scale, three [128][64] boxes
+        const bool ident = a.P[sc] == P;
+        for (int part = 0; part < (ident ? 3 : 2); ++part) {
+          uint64_t* full = &s.full[ring.stage];
+          wg::mbar_wait(&s.empty[ring.stage], ring.phase ^ 1u);
+          wg::mbar_expect_tx(full, 3 * kRowBox);
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const uint32_t dst = wg::stage_a(s, ring.stage) + c * kRowBox;
+            if (part < 2)
+              wg::tma_load(dst, &maps.dout, full, nt * kBN + part * (kBN / 2) + c * 32,
+                           mt * wg::kBM, b);
+            else
+              wg::tma_load(dst, &maps.h[sc], full, nt * kBN + c * 64, mt * wg::kBM, b);
+          }
+          ring.advance();
+        }
+        wg::reserve(s, ring);  // the output tile's stage
+      }
     }
-  };
-  auto load_b = [&](bf16* bs, int k0) {  // W1 rows n0.. as stored: K-contiguous
-    for (int v = tid; v < Cfg::BN * (gemm::BK / 8); v += gemm::kThreads) {
-      const int n = v >> 2, c = (v & 3) * 8, k = k0 + c;
-      const bool ok = n0 + n < E && k < H;
-      gemm::cp16(bs + n * gemm::LDK + c, ok ? w1 + (size_t)(n0 + n) * H + k : w1, ok);
-    }
-  };
-  float acc[Cfg::MI][Cfg::NI][4];
-  gemm::mainloop<Cfg>(smem, H, load_a, load_b, acc);
-  float* cs = reinterpret_cast<float*>(smem);
-  gemm::store_tile<Cfg>(cs, acc);
+  } else {
+    wg::reg_alloc<wg::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1, ci = threadIdx.x - 128;
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31, q = lane & 3;
+    float* red = s.vecs + 2 * wg::kVecFloats;  // [2][8 warps][kBN]
+    wg::Ring ring;
+    float acc[kBN / 2];
+    int parity = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int nt = tile % n_nt, mt = (tile / n_nt) % n_mt, sc = (tile / (n_nt * n_mt)) % S;
+      const int b = tile / (n_nt * n_mt * S);
+      if (bad_expert(a, a.idx[b])) continue;
+      const bool ident = a.P[sc] == P;
+      const int n0 = nt * kBN;
+      wg::consume<kBN, 0, 0>(
+          acc, s, ring, nk,
+          [&](int st, int ks) { return wg::desc_k128(wg::stage_a(s, st) + cw * 8192, ks); },
+          [&](int st, int ks) { return wg::desc_k128(wg::stage_b(s, st), ks); });
 
-  const bool ident = a.P[s] == P;
-  const float* att = a.att + ((size_t)b * S + s) * P;
-  const float* dout = a.dout + (size_t)b * P * E;
-  const bf16* hs = a.h[s] + (size_t)b * P * E;
-  bf16* dst = (ident ? a.dzh[s] : a.du[s]) + (size_t)b * P * E;
-  for (int v = tid; v < Cfg::BM * (Cfg::BN / 4); v += gemm::kThreads) {
-    const int r = v / (Cfg::BN / 4), c = (v % (Cfg::BN / 4)) * 4, m = m0 + r, n = n0 + c;
-    float* cv = cs + r * Cfg::LDC + c;
-    if (m >= P || n >= E) {
-      *reinterpret_cast<float4*>(cv) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      continue;
+      // this thread's rows r (h = 0, 1) of the tile and columns n0 + 8j +
+      // 2q + (0, 1): o = att·d_out + acc, from the d_out stages (zeros past
+      // P and E, where acc is zero too), then at the identity scale masked
+      // by h_0 > 0 from its stage and kept in f32 for the dbp sums
+      const float* att = a.att + ((size_t)b * S + sc) * P;
+      const int r0 = cw * 64 + warp * 16 + (lane >> 2);
+      float at[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = mt * wg::kBM + r0 + 8 * h;
+        at[h] = m < P ? att[m] : 0.0f;
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const unsigned char* g = wg::acquire(s, ring);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int jj = 0; jj < kBN / 16; ++jj) {
+            const int j = half * (kBN / 16) + jj;
+            const float2 v = *reinterpret_cast<const float2*>(
+                g + (jj / 4) * kRowBox + wg::sw128(r0 + 8 * h, 2 * (jj % 4) + (q >> 1)) +
+                8 * (q & 1));
+            float& o0 = acc[4 * j + 2 * h];
+            float& o1 = acc[4 * j + 2 * h + 1];
+            o0 = __fadd_rn(__fmul_rn(at[h], v.x), o0);
+            o1 = __fadd_rn(__fmul_rn(at[h], v.y), o1);
+          }
+        wg::release(s, ring);
+      }
+      if (ident) {  // dz_h_0 = [h_0 > 0]·d_u
+        const unsigned char* hb = wg::acquire(s, ring);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j) {
+            const float2 hf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                hb + (j / 8) * kRowBox + wg::sw128(r0 + 8 * h, j % 8) + 4 * q));
+            float& o0 = acc[4 * j + 2 * h];
+            float& o1 = acc[4 * j + 2 * h + 1];
+            o0 = hf.x > 0.0f ? o0 : 0.0f;
+            o1 = hf.y > 0.0f ? o1 : 0.0f;
+          }
+        wg::release(s, ring);
+      }
+      store_tile_bf16(s, ring, acc, &maps.out[sc], n0, E, mt * wg::kBM, b);
+      if (!ident) continue;
+      // the tile's dbp column sums: each thread its two rows, then a
+      // butterfly over the warp's eight row-lanes (lane bits 4, 3, 2), which
+      // leaves lane a V/8 of the columns (v = V/2·b4 + V/4·b3 + V/8·b2 + i,
+      // column 4v' + 2q + e for v = v' + e, v' even), then the eight warps
+      // in order
+      constexpr int V = kBN / 4;
+      float v[V];
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        v[2 * j] = acc[4 * j] + acc[4 * j + 2];
+        v[2 * j + 1] = acc[4 * j + 1] + acc[4 * j + 3];
+      }
+      wg::fold<V / 2>(v, lane, 16);
+      wg::fold<V / 4>(v, lane, 8);
+      wg::fold<V / 8>(v, lane, 4);
+      const int base = (lane & 16 ? V / 2 : 0) + (lane & 8 ? V / 4 : 0) + (lane & 4 ? V / 8 : 0);
+      float* rw = red + (parity * 8 + cw * 4 + warp) * kBN;
+#pragma unroll
+      for (int k = 0; k < V / 8; k += 2)
+        *reinterpret_cast<float2*>(rw + 4 * (base + k) + 2 * q) = make_float2(v[k], v[k + 1]);
+      wg::consumer_sync();
+      if (ci < kBN && n0 + ci < E) {
+        const float* rc = red + parity * 8 * kBN + ci;
+        float sum = 0.0f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) sum += rc[w * kBN];
+        a.dbp_part[sc][((size_t)b * a.n_part[sc] + mt) * E + n0 + ci] = sum;
+      }
+      parity ^= 1;
     }
-    const float at = att[m];
-    const float4 g = *reinterpret_cast<const float4*>(dout + (size_t)m * E + n);
-    float4 o = make_float4(__fadd_rn(__fmul_rn(at, g.x), cv[0]), __fadd_rn(__fmul_rn(at, g.y), cv[1]),
-                           __fadd_rn(__fmul_rn(at, g.z), cv[2]), __fadd_rn(__fmul_rn(at, g.w), cv[3]));
-    if (ident) {  // dz_h_0 = [h_0 > 0]·d_u, kept in f32 for the dbp sums
-      const uint2 hv = *reinterpret_cast<const uint2*>(hs + (size_t)m * E + n);
-      const bf16* hb = reinterpret_cast<const bf16*>(&hv);
-      o.x = __bfloat162float(hb[0]) > 0.0f ? o.x : 0.0f;
-      o.y = __bfloat162float(hb[1]) > 0.0f ? o.y : 0.0f;
-      o.z = __bfloat162float(hb[2]) > 0.0f ? o.z : 0.0f;
-      o.w = __bfloat162float(hb[3]) > 0.0f ? o.w : 0.0f;
-      *reinterpret_cast<float4*>(cv) = o;
-    }
-    store4_bf16(dst + (size_t)m * E + n, o);
-  }
-  if (!ident) return;
-  __syncthreads();
-  if (tid < Cfg::BN && n0 + tid < E) {  // the tile's column sums, rows in order
-    float sum = 0.0f;
-    for (int r = 0; r < Cfg::BM; ++r) sum += cs[r * Cfg::LDC + tid];
-    a.dbp_part[s][((size_t)b * a.n_part[s] + mt) * E + n0 + tid] = sum;
+    if (ci == 0) wg::tma_store_wait<0, false>();  // store_tile_bf16's
   }
 }
 
@@ -382,132 +510,202 @@ __global__ void __launch_bounds__(THREADS) bwd_tlerp_kernel(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// pass 6: d_x_s = bf16(dz_h_s)·Wp[e]ᵀ; grid (Σ_s tiles, B)
+// pass 6: d_x_s = bf16(dz_h_s)·Wp[e]ᵀ; persistent over the tiles (image,
+// then each scale's 128-row tiles of P_s by kBN-wide tiles of D_s)
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(gemm::kThreads, NkTile::MIN_BLOCKS) bwd_dx_kernel(BwdArgs a) {
-  using Cfg = NkTile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.y, tid = threadIdx.x;
-  int t = blockIdx.x, s = 0;
-  while (s + 1 < a.n_scales && t >= a.dx_start[s + 1]) ++s;
-  t -= a.dx_start[s];
-  const int E = a.E, Ps = a.P[s], D = a.D[s];
-  const int tiles_n = cdiv(D, Cfg::BN);
-  const int m0 = (t / tiles_n) * Cfg::BM, n0 = (t % tiles_n) * Cfg::BN;
-  const int e = a.idx[b];
-  bf16* dx = a.dx[s] + (size_t)b * Ps * D;
-  if (bad_expert(a, e)) {  // out-of-range expert id: poison this tile of d_x
-    for (int v = tid; v < Cfg::BM * Cfg::BN; v += gemm::kThreads) {
-      const int m = m0 + v / Cfg::BN, n = n0 + v % Cfg::BN;
-      if (m < Ps && n < D) dx[(size_t)m * D + n] = __float2bfloat16_rn(nan_f());
-    }
-    return;
-  }
-  const bf16* dz = a.dzh[s] + (size_t)b * Ps * E;
-  const bf16* w = a.wp[s] + (size_t)e * D * E;
-  auto load_a = [&](bf16* as, int k0) {  // bf16(dz_h) rows m0.., E contiguous
-    for (int v = tid; v < Cfg::BM * (gemm::BK / 8); v += gemm::kThreads) {
-      const int r = v >> 2, c = (v & 3) * 8, m = m0 + r, k = k0 + c;
-      const bool ok = m < Ps && k < E;
-      gemm::cp16(as + r * gemm::LDK + c, ok ? dz + (size_t)m * E + k : dz, ok);
-    }
+__global__ void __launch_bounds__(wg::kThreads, 1)
+bwd_dx_kernel(const __grid_constant__ DxMaps maps, BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const wg::Smem s = wg::carve(smem_raw);
+  const int E = a.E, S = a.n_scales, per = a.dx_start[S];
+  const int tiles = a.B * per, nk = cdiv(E, wg::kBK);
+  // tile → image b, scale sc, its row and column tiles mt, nt
+  auto decode = [&](int tile, int& b, int& sc, int& mt, int& nt) {
+    b = tile / per;
+    int t = tile - b * per;
+    sc = 0;
+    while (sc + 1 < S && t >= a.dx_start[sc + 1]) ++sc;
+    t -= a.dx_start[sc];
+    const int n_nt = cdiv(a.D[sc], kBN);
+    mt = t / n_nt;
+    nt = t % n_nt;
   };
-  auto load_b = [&](bf16* bs, int k0) {  // Wp rows n0.. as stored: K-contiguous
-    for (int v = tid; v < Cfg::BN * (gemm::BK / 8); v += gemm::kThreads) {
-      const int n = v >> 2, c = (v & 3) * 8, k = k0 + c;
-      const bool ok = n0 + n < D && k < E;
-      gemm::cp16(bs + n * gemm::LDK + c, ok ? w + (size_t)(n0 + n) * E + k : w, ok);
+  wg::init_barriers(s);
+
+  if (threadIdx.x < 128) {
+    // producer: A = bf16(dz_h_s) rows m0.., B = Wp_s[e] rows n0.. as stored
+    // (E contiguous), one [192 d][64 e] box
+    wg::reg_dealloc<wg::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      for (int sc = 0; sc < S; ++sc) {
+        wg::prefetch_map(&maps.dz[sc]);
+        wg::prefetch_map(&maps.wp[sc]);
+      }
+      wg::Ring ring;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int b, sc, mt, nt;
+        decode(tile, b, sc, mt, nt);
+        const int e = a.idx[b];
+        if (bad_expert(a, e)) continue;
+        for (int kb = 0; kb < nk; ++kb) {
+          uint64_t* full = &s.full[ring.stage];
+          wg::mbar_wait(&s.empty[ring.stage], ring.phase ^ 1u);
+          wg::mbar_expect_tx(full, wg::kABytes + kBoxK);
+          wg::tma_load(wg::stage_a(s, ring.stage), &maps.dz[sc], full, kb * wg::kBK,
+                       mt * wg::kBM, b);
+          wg::tma_load(wg::stage_b(s, ring.stage), &maps.wp[sc], full, kb * wg::kBK, nt * kBN,
+                       e);
+          ring.advance();
+        }
+        wg::reserve(s, ring);  // the output tile's stage
+      }
     }
-  };
-  float acc[Cfg::MI][Cfg::NI][4];
-  gemm::mainloop<Cfg>(smem, E, load_a, load_b, acc);
-  float* cs = reinterpret_cast<float*>(smem);
-  gemm::store_tile<Cfg>(cs, acc);
-  for (int v = tid; v < Cfg::BM * (Cfg::BN / 8); v += gemm::kThreads) {
-    const int r = v / (Cfg::BN / 8), c = (v % (Cfg::BN / 8)) * 8, m = m0 + r, n = n0 + c;
-    if (m < Ps && n < D) store8_bf16(dx + (size_t)m * D + n, cs + r * Cfg::LDC + c);
+  } else {
+    wg::reg_alloc<wg::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1, ci = threadIdx.x - 128;
+    wg::Ring ring;
+    float acc[kBN / 2];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int b, sc, mt, nt;
+      decode(tile, b, sc, mt, nt);
+      const int Ps = a.P[sc], D = a.D[sc], n0 = nt * kBN;
+      bf16* dx = a.dx[sc] + (size_t)b * Ps * D;
+      if (bad_expert(a, a.idx[b])) {  // out-of-range expert id: poison this tile of d_x
+        for (int v = ci; v < wg::kBM * kBN / 2; v += wg::kConsumers) {
+          const int m = mt * wg::kBM + v / (kBN / 2), n = n0 + (v % (kBN / 2)) * 2;
+          if (m < Ps && n < D)
+            *reinterpret_cast<__nv_bfloat162*>(dx + (size_t)m * D + n) =
+                __floats2bfloat162_rn(nan_f(), nan_f());
+        }
+        continue;
+      }
+      wg::consume<kBN, 0, 0>(
+          acc, s, ring, nk,
+          [&](int st, int ks) { return wg::desc_k128(wg::stage_a(s, st) + cw * 8192, ks); },
+          [&](int st, int ks) { return wg::desc_k128(wg::stage_b(s, st), ks); });
+      store_tile_bf16(s, ring, acc, &maps.dx[sc], n0, D, mt * wg::kBM, b);
+    }
+    if (ci == 0) wg::tma_store_wait<0, false>();  // store_tile_bf16's
   }
 }
 
 // ---------------------------------------------------------------------------
-// pass 7: C = Aᵀ·B with A and B row-major over K; grid (Σ jobs' tiles, B)
-//   dW1   = Σ_s u_sᵀ·bf16(dz_a_s)   (M = E, N = H, K = S·P, each scale's
-//                                    K padded to a whole slice)
+// pass 7: C = Aᵀ·B with A and B MN-major (rows over K); persistent over the
+// tiles, every image's dW1 tiles first, then every image's dWp tiles
+//   dW1   = Σ_s u_sᵀ·bf16(dz_a_s)   (M = E, N = H, K = S·P: ⌈P/64⌉
+//                                    stages a scale, zeros past P)
 //   dWp_s = x_sᵀ·bf16(dz_h_s)      (M = D_s, N = E, K = P_s)
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(gemm::kThreads, WgTile::MIN_BLOCKS) bwd_wgrad_kernel(BwdArgs a) {
-  using Cfg = WgTile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int E = a.E, H = a.H, P = a.P_out, S = a.n_scales;
-  const int b = blockIdx.y, tid = threadIdx.x;
-  int t = blockIdx.x, job = 0;  // 0: dW1; 1 + s: dWp of scale s
-  while (job + 1 <= S && t >= a.wg_start[job + 1]) ++job;
-  t -= a.wg_start[job];
-  const int M = job == 0 ? E : a.D[job - 1];
-  const int N = job == 0 ? H : E;
-  float* out = job == 0 ? a.dw1 + (size_t)b * E * H : a.dwp[job - 1] + (size_t)b * M * E;
-  const int tiles_n = cdiv(N, Cfg::BN);
-  const int m0 = (t / tiles_n) * Cfg::BM, n0 = (t % tiles_n) * Cfg::BN;
-  const int e = a.idx[b];
-  if (bad_expert(a, e)) {
-    for (int v = tid; v < Cfg::BM * (Cfg::BN / 4); v += gemm::kThreads) {
-      const int m = m0 + v / (Cfg::BN / 4), n = n0 + (v % (Cfg::BN / 4)) * 4;
-      if (m < M && n < N)
-        *reinterpret_cast<float4*>(out + (size_t)m * N + n) = make_float4(nan_f(), nan_f(), nan_f(), nan_f());
-    }
-    return;
-  }
-  const int kpad = (P + gemm::BK - 1) / gemm::BK * gemm::BK;  // dW1: K of a scale
-  const int Kd = job == 0 ? S * kpad : a.P[job - 1];
+struct WgTile {
+  int b, job, mt, nt;  // job 0: dW1; 1 + s: dWp of scale s
+};
 
-  // A [k][m] and B [k][n], both read along their rows: the source rows of
-  // slice k0 (one scale's, for dW1) and how many of them there are
-  auto rows_of = [&](int k0, const bf16*& asrc, const bf16*& bsrc, int& p0, int& np) {
-    if (job == 0) {
-      const int s = k0 / kpad;
-      p0 = k0 - s * kpad;
-      np = P;
-      asrc = a.u[s] + (size_t)b * P * E;
-      bsrc = a.act[s] + (size_t)b * P * H;
+__global__ void __launch_bounds__(wg::kThreads, 1)
+bwd_wgrad_kernel(const __grid_constant__ WgMaps maps, BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const wg::Smem s = wg::carve(smem_raw);
+  const int E = a.E, H = a.H, P = a.P_out, S = a.n_scales;
+  const int n_w1 = a.wg_start[1], n_wp = a.wg_start[S + 1] - n_w1;
+  const int tiles = a.B * (n_w1 + n_wp), kps = cdiv(P, wg::kBK);  // dW1's stages a scale
+  auto decode = [&](int tile) {
+    WgTile w;
+    int t;
+    if (tile < a.B * n_w1) {
+      w.b = tile / n_w1;
+      t = tile - w.b * n_w1;
+      w.job = 0;
     } else {
-      const int s = job - 1;
-      p0 = k0;
-      np = a.P[s];
-      asrc = a.x[s] + (size_t)b * np * M;
-      bsrc = a.dzh[s] + (size_t)b * np * E;
+      tile -= a.B * n_w1;
+      w.b = tile / n_wp;
+      t = tile - w.b * n_wp + n_w1;
+      w.job = 1;
+      while (w.job < S && t >= a.wg_start[w.job + 1]) ++w.job;
+      t -= a.wg_start[w.job];
     }
+    const int n_nt = cdiv(w.job == 0 ? H : E, kBN);
+    w.mt = t / n_nt;
+    w.nt = t % n_nt;
+    return w;
   };
-  auto load_a = [&](bf16* as, int k0) {
-    const bf16* src;
-    const bf16* unused;
-    int p0, np;
-    rows_of(k0, src, unused, p0, np);
-    for (int v = tid; v < gemm::BK * (Cfg::BM / 8); v += gemm::kThreads) {
-      const int kr = v / (Cfg::BM / 8), c = (v % (Cfg::BM / 8)) * 8, p = p0 + kr;
-      const bool ok = p < np && m0 + c < M;
-      gemm::cp16(as + kr * Cfg::LDM + c, ok ? src + (size_t)p * M + m0 + c : src, ok);
+  wg::init_barriers(s);
+
+  if (threadIdx.x < 128) {
+    // producer: A's 64-deep slice as two [64 k][64 m] boxes, B's as three
+    // [64 k][64 n] boxes, side by side along M and N
+    wg::reg_dealloc<wg::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      for (int sc = 0; sc < S; ++sc) {
+        wg::prefetch_map(&maps.u[sc]);
+        wg::prefetch_map(&maps.act[sc]);
+        wg::prefetch_map(&maps.x[sc]);
+        wg::prefetch_map(&maps.dz[sc]);
+      }
+      wg::Ring ring;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const WgTile w = decode(tile);
+        if (bad_expert(a, a.idx[w.b])) continue;
+        const int nk = w.job == 0 ? S * kps : cdiv(a.P[w.job - 1], wg::kBK);
+        for (int kb = 0; kb < nk; ++kb) {
+          const int sc = w.job == 0 ? kb / kps : w.job - 1;
+          const int p0 = (w.job == 0 ? kb - sc * kps : kb) * wg::kBK;
+          const CUtensorMap* am = w.job == 0 ? &maps.u[sc] : &maps.x[sc];
+          const CUtensorMap* bm = w.job == 0 ? &maps.act[sc] : &maps.dz[sc];
+          uint64_t* full = &s.full[ring.stage];
+          wg::mbar_wait(&s.empty[ring.stage], ring.phase ^ 1u);
+          wg::mbar_expect_tx(full, wg::kABytes + kBN * wg::kBK * 2);
+#pragma unroll
+          for (int c = 0; c < wg::kBM / wg::kBox128; ++c)
+            wg::tma_load(wg::stage_a(s, ring.stage) + c * kBox128Bytes, am, full,
+                         w.mt * wg::kBM + c * wg::kBox128, p0, w.b);
+#pragma unroll
+          for (int c = 0; c < kBN / wg::kBox128; ++c)
+            wg::tma_load(wg::stage_b(s, ring.stage) + c * kBox128Bytes, bm, full,
+                         w.nt * kBN + c * wg::kBox128, p0, w.b);
+          ring.advance();
+        }
+      }
     }
-  };
-  auto load_b = [&](bf16* bs, int k0) {
-    const bf16* unused;
-    const bf16* src;
-    int p0, np;
-    rows_of(k0, unused, src, p0, np);
-    for (int v = tid; v < gemm::BK * (Cfg::BN / 8); v += gemm::kThreads) {
-      const int kr = v / (Cfg::BN / 8), c = (v % (Cfg::BN / 8)) * 8, p = p0 + kr;
-      const bool ok = p < np && n0 + c < N;
-      gemm::cp16(bs + kr * Cfg::LDN + c, ok ? src + (size_t)p * N + n0 + c : src, ok);
+  } else {
+    wg::reg_alloc<wg::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1, ci = threadIdx.x - 128, q = threadIdx.x & 3;
+    const int r0 = cw * 64 + ((threadIdx.x / 32) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+    wg::Ring ring;
+    float acc[kBN / 2];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const WgTile w = decode(tile);
+      const int M = w.job == 0 ? E : a.D[w.job - 1], N = w.job == 0 ? H : E;
+      float* out = w.job == 0 ? a.dw1 + (size_t)w.b * E * H
+                              : a.dwp[w.job - 1] + (size_t)w.b * M * E;
+      const int n0 = w.nt * kBN;
+      if (bad_expert(a, a.idx[w.b])) {  // poison this tile
+        for (int v = ci; v < wg::kBM * kBN / 2; v += wg::kConsumers) {
+          const int m = w.mt * wg::kBM + v / (kBN / 2), n = n0 + (v % (kBN / 2)) * 2;
+          if (m < M && n < N)
+            *reinterpret_cast<float2*>(out + (size_t)m * N + n) = make_float2(nan_f(), nan_f());
+        }
+        continue;
+      }
+      const int nk = w.job == 0 ? S * kps : cdiv(a.P[w.job - 1], wg::kBK);
+      wg::consume<kBN, 1, 1>(
+          acc, s, ring, nk,
+          [&](int st, int ks) {
+            return wg::desc_mn128(wg::stage_a(s, st) + cw * kBox128Bytes, ks);
+          },
+          [&](int st, int ks) { return wg::desc_mn128(wg::stage_b(s, st), ks); });
+      // f32 straight from the registers: a quad writes 32 bytes of a row
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = w.mt * wg::kBM + r0 + 8 * h;
+        if (m >= M) continue;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          const int n = n0 + 8 * j + 2 * q;
+          if (n < N)  // N % 8 == 0: both columns or neither
+            *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
     }
-  };
-  float acc[Cfg::MI][Cfg::NI][4];
-  gemm::mainloop<Cfg>(smem, Kd, load_a, load_b, acc);
-  float* cs = reinterpret_cast<float*>(smem);
-  gemm::store_tile<Cfg>(cs, acc);
-  for (int v = tid; v < Cfg::BM * (Cfg::BN / 4); v += gemm::kThreads) {
-    const int r = v / (Cfg::BN / 4), c = (v % (Cfg::BN / 4)) * 4, m = m0 + r, n = n0 + c;
-    if (m < M && n < N)
-      *reinterpret_cast<float4*>(out + (size_t)m * N + n) =
-          *reinterpret_cast<const float4*>(cs + r * Cfg::LDC + c);
   }
 }
 
@@ -568,13 +766,13 @@ int medmoe_expert_fusion_bwd(int n_scales, const void* const* xs, const void* co
                              void* datt, void* lpart, void* att, void* row_part, int B, int K,
                              int E, int H, int P, void* stream) {
   if (n_scales < 1 || n_scales > MAX_SCALES || E % 8 || H % 8 || H / 8 > THREADS || B < 1 ||
-      B > 65535 || parts[MAX_SCALES] < cdiv(H, ActTile::BN) ||
+      B > 65535 || parts[MAX_SCALES] < cdiv(H, kActBN) ||
       parts[MAX_SCALES + 1] < cdiv(P, ROW_TM))
     return (int)cudaErrorInvalidValue;
   BwdArgs a;
   int t_blk = 0, dx_tiles = 0;
   a.wg_start[0] = 0;
-  a.wg_start[1] = cdiv(E, WgTile::BM) * cdiv(H, WgTile::BN);
+  a.wg_start[1] = cdiv(E, wg::kBM) * cdiv(H, kBN);
   for (int s = 0; s < n_scales; ++s) {
     if (Ds[s] % 8 || Ps[s] < 1 || P % Ps[s]) return (int)cudaErrorInvalidValue;
     const bool ident = Ps[s] == P;
@@ -594,13 +792,13 @@ int medmoe_expert_fusion_bwd(int n_scales, const void* const* xs, const void* co
     a.t_w[s] = static_cast<const float*>(t_ws[s]);
     a.P[s] = Ps[s];
     a.D[s] = Ds[s];
-    a.n_part[s] = ident ? cdiv(P, NkTile::BM) : cdiv(Ps[s], T_ROWS);
+    a.n_part[s] = ident ? cdiv(P, wg::kBM) : cdiv(Ps[s], T_ROWS);
     if (parts[s] < a.n_part[s]) return (int)cudaErrorInvalidValue;
     a.t_blk[s] = t_blk;
     if (!ident) t_blk += cdiv(Ps[s], T_ROWS) * cdiv(E, T_COLS);
     a.dx_start[s] = dx_tiles;
-    dx_tiles += cdiv(Ps[s], NkTile::BM) * cdiv(Ds[s], NkTile::BN);
-    a.wg_start[s + 2] = a.wg_start[s + 1] + cdiv(Ds[s], WgTile::BM) * cdiv(E, WgTile::BN);
+    dx_tiles += cdiv(Ps[s], wg::kBM) * cdiv(Ds[s], kBN);
+    a.wg_start[s + 2] = a.wg_start[s + 1] + cdiv(Ds[s], wg::kBM) * cdiv(E, kBN);
   }
   a.t_blk[n_scales] = t_blk;
   a.dx_start[n_scales] = dx_tiles;
@@ -618,28 +816,60 @@ int medmoe_expert_fusion_bwd(int n_scales, const void* const* xs, const void* co
   a.att = static_cast<float*>(att);
   a.row_part = static_cast<float*>(row_part);
   a.P_out = P;
+  a.B = B;
   a.K = K;
   a.E = E;
   a.H = H;
 
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the products' tensor maps (they hold the chunk's pointers, so they are
+  // built per call)
   const int S = n_scales;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const uint64_t e2 = (uint64_t)E * 2, h2 = (uint64_t)H * 2;
+  ActMaps act_m;
+  DuMaps du_m;
+  DxMaps dx_m;
+  WgMaps wg_m;
+  bool ok = act_maps(&act_m, a.u, a.act, S, a.w1, B, K, E, H, P) &&
+            tensor_map(&du_m.w1, a.w1, H, E, K, h2, E * h2, wg::kBK, kBN, sw) &&
+            tensor_map(&du_m.dout, a.dout, E, P, B, e2 * 2, P * e2 * 2, 32, wg::kBM, sw,
+                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  for (int s = 0; s < S && ok; ++s) {
+    const uint64_t Pq = Ps[s], D = Ds[s];
+    ok = tensor_map(&du_m.dz[s], a.act[s], H, P, B, h2, P * h2, wg::kBK, wg::kBM, sw) &&
+         (Ps[s] != P ||
+          tensor_map(&du_m.h[s], a.h[s], E, P, B, e2, P * e2, wg::kBox128, wg::kBM, sw)) &&
+         tensor_map(&du_m.out[s], Ps[s] == P ? a.dzh[s] : a.du[s], E, P, B, e2, P * e2,
+                    wg::kBox128, wg::kBM, sw) &&
+         tensor_map(&dx_m.dz[s], a.dzh[s], E, Pq, B, e2, Pq * e2, wg::kBK, wg::kBM, sw) &&
+         tensor_map(&dx_m.wp[s], a.wp[s], E, D, K, e2, D * e2, wg::kBK, kBN, sw) &&
+         tensor_map(&dx_m.dx[s], a.dx[s], D, Pq, B, D * 2, Pq * D * 2, wg::kBox128, wg::kBM,
+                    sw) &&
+         tensor_map(&wg_m.u[s], a.u[s], E, P, B, e2, P * e2, wg::kBox128, wg::kBK, sw) &&
+         tensor_map(&wg_m.act[s], a.act[s], H, P, B, h2, P * h2, wg::kBox128, wg::kBK, sw) &&
+         tensor_map(&wg_m.x[s], a.x[s], D, Pq, B, D * 2, Pq * D * 2, wg::kBox128, wg::kBK, sw) &&
+         tensor_map(&wg_m.dz[s], a.dzh[s], E, Pq, B, e2, Pq * e2, wg::kBox128, wg::kBK, sw);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if ((err = launch(bwd_u_kernel, dim3(cdiv(P, 8), B), 0, st, a)) != cudaSuccess) return (int)err;
-  if ((err = launch(bwd_act_kernel, dim3(cdiv(P, ActTile::BM) * cdiv(H, ActTile::BN), S, B),
-                    ActTile::SMEM, st, a)) != cudaSuccess)
+  if ((err = launch_persistent(bwd_act_kernel, B * S * cdiv(P, wg::kBM) * cdiv(H, kActBN),
+                               wg::kSmemBytes, st, act_m, a)) != cudaSuccess)
     return (int)err;
   if ((err = launch(bwd_row_kernel, dim3(cdiv(P, ROW_TM), B), 0, st, a)) != cudaSuccess)
     return (int)err;
-  if ((err = launch(bwd_du_kernel, dim3(cdiv(P, NkTile::BM) * cdiv(E, NkTile::BN), S, B),
-                    NkTile::SMEM, st, a)) != cudaSuccess)
+  if ((err = launch_persistent(bwd_du_kernel, B * cdiv(P, wg::kBM) * cdiv(E, kBN) * S, kDuSmem,
+                               st, du_m, a)) != cudaSuccess)
     return (int)err;
   if ((err = launch(bwd_tlerp_kernel, dim3(t_blk, B), T_WIN * T_COLS * 2, st, a)) != cudaSuccess)
     return (int)err;
-  if ((err = launch(bwd_dx_kernel, dim3(dx_tiles, B), NkTile::SMEM, st, a)) != cudaSuccess)
-    return (int)err;
-  if ((err = launch(bwd_wgrad_kernel, dim3(a.wg_start[n_scales + 1], B), WgTile::SMEM, st, a)) !=
+  if ((err = launch_persistent(bwd_dx_kernel, B * dx_tiles, wg::kSmemBytes, st, dx_m, a)) !=
       cudaSuccess)
+    return (int)err;
+  if ((err = launch_persistent(bwd_wgrad_kernel, B * a.wg_start[S + 1], wg::kSmemBytes, st, wg_m,
+                               a)) != cudaSuccess)
     return (int)err;
   return (int)launch(bwd_reduce_kernel, dim3(B), 0, st, a);
 }

@@ -1,9 +1,10 @@
 // A tiled bf16 × bf16 → f32 matrix product for one block of 256 threads,
 // for sm_90a: the core of the d_words product of K4b
-// (gloria_attention_bwd.cu), of K1's logit product (expert_fusion.cu) and
-// of the expert branch's backward K2 (expert_fusion_bwd.cu: five
-// products). K3, the backward's prologue and K4a run on the wgmma core of
-// wgmma_core.cuh instead; these kernels are to follow them, one a change.
+// (gloria_attention_bwd.cu); its cp.async helpers also fill K2's
+// transposed-upsample windows (expert_fusion_bwd.cu). K3, the backward's
+// prologue, K4a and the expert branch's products (K1's logit product, K2's
+// five) run on the wgmma core of wgmma_core.cuh instead; K4b is to follow
+// them.
 //
 //   C[BM, BN] = A[BM, K] · B[K, BN], K in slices of BK = 32
 //

@@ -107,20 +107,6 @@ struct PassArgs {
   int N, n_mt, n_dt;
 };
 
-// One step of a butterfly sum over lanes `mask` apart: lanes whose `mask`
-// bit is set keep (and add their partner's) v[H..2H), the others v[0..H);
-// the kept sums move to v[0..H)
-template <int H, int V>
-__device__ __forceinline__ void fold(float (&v)[V], int lane, int mask) {
-  const bool upper = lane & mask;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float send = upper ? v[i] : v[i + H];
-    const float kept = upper ? v[i + H] : v[i];
-    v[i] = kept + __shfl_xor_sync(0xffffffffu, send, mask);
-  }
-}
-
 // A 4 × 4 transpose over the lanes of a quad (q = lane % 4): lane q's r_j
 // becomes lane j's r_q, in two exchanges (lanes 1 apart, then 2 apart)
 __device__ __forceinline__ void quad_transpose(uint32_t& r0, uint32_t& r1, uint32_t& r2,
@@ -328,9 +314,9 @@ sim_e_kernel(const __grid_constant__ CUtensorMap ctx_map,
         v[2 * j] = acc[4 * j] + acc[4 * j + 2];
         v[2 * j + 1] = acc[4 * j + 1] + acc[4 * j + 3];
       }
-      fold<V / 2>(v, lane, 16);
-      fold<V / 4>(v, lane, 8);
-      fold<V / 8>(v, lane, 4);
+      wg::fold<V / 2>(v, lane, 16);
+      wg::fold<V / 4>(v, lane, 8);
+      wg::fold<V / 8>(v, lane, 4);
       const int base = (lane & 16 ? V / 2 : 0) + (lane & 8 ? V / 4 : 0) + (lane & 4 ? V / 8 : 0);
       float* rw = red + (parity * 8 + cw * 4 + warp) * BN;
 #pragma unroll

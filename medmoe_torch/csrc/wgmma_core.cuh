@@ -3,8 +3,10 @@
 // wgmma with their accumulators in registers. The GLoRIA kernels K3 and
 // the backward's prologue (gloria_attention.cu: sim_e_kernel,
 // sim_wei_kernel) and K4a (gloria_attention_bwd.cu: dctx_z_kernel,
-// dctx_gemm_kernel) run on it; K4b, K1 and K2 still run on the mma.sync
-// core of gemm_core.cuh.
+// dctx_gemm_kernel) run on it, and so do the expert branch's products:
+// K1's logit product and K2's (expert_fusion_passes.cuh: fwd_logit_kernel,
+// bwd_act_kernel; expert_fusion_bwd.cu: bwd_du_kernel, bwd_dx_kernel,
+// bwd_wgrad_kernel). K4b still runs on the mma.sync core of gemm_core.cuh.
 //
 // A block is 384 threads: warpgroup 0 is the producer, warpgroups 1 and 2
 // the consumers. A block tile is kBM = 128 rows (64 a consumer warpgroup,
@@ -63,6 +65,7 @@ enum Swizzle : uint64_t { kSw128 = 1, kSw64 = 2 };
 
 struct Smem {
   uint32_t ring;        // shared address of stage 0, 1 KB aligned
+  unsigned char* base;  // the same, as a pointer
   uint64_t* full;
   uint64_t* empty;
   float* vecs;          // [2][kVecFloats]
@@ -77,6 +80,7 @@ __device__ __forceinline__ Smem carve(unsigned char* raw) {
   const uint32_t base = smem_u32(raw);
   unsigned char* ring = raw + (((base + 1023u) & ~1023u) - base);
   s.ring = smem_u32(ring);
+  s.base = ring;
   s.full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
   s.empty = s.full + kStages;
   s.vecs = reinterpret_cast<float*>(s.empty + kStages);
@@ -118,6 +122,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
@@ -137,6 +145,34 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// one box from shared address src to a rank-3 map at (c0, c1, c2); the
+// parts outside the map's dims are not written. In the bulk group of the
+// issuing thread: commit, then wait until the box has been read
+// (tma_store_wait<N, true>) before the stage is reused, or until it is
+// written (tma_store_wait<0, false>) before the thread exits.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N, bool kRead>
+__device__ __forceinline__ void tma_store_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// shared-memory writes of this thread made visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // --- the ring's position ----------------------------------------------------
@@ -318,6 +354,49 @@ __device__ __forceinline__ void consume(float (&acc)[N / 2], const Smem& s, Ring
   if (prev >= 0 && signal) mbar_arrive(&s.empty[prev]);
 }
 
+// One step of a butterfly sum over lanes `mask` apart: lanes whose `mask`
+// bit is set keep (and add their partner's) v[H..2H), the others v[0..H);
+// the kept sums move to v[0..H). Three steps (masks 16, 8, 4) sum a
+// column over a warp's eight row-lanes of the accumulators.
+template <int H, int V>
+__device__ __forceinline__ void fold(float (&v)[V], int lane, int mask) {
+  const bool upper = lane & mask;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float kept = upper ? v[i + H] : v[i];
+    v[i] = kept + __shfl_xor_sync(0xffffffffu, send, mask);
+  }
+}
+
+// An epilogue operand the producer loaded into the ring as a stage of its
+// own: wait for it (acquire) and, once the warp has read it, hand the
+// stage back (release: one arrival a warp, as consume's)
+__device__ __forceinline__ const unsigned char* acquire(const Smem& s, const Ring& ring) {
+  mbar_wait(&s.full[ring.stage], ring.phase);
+  return s.base + ring.stage * kStageBytes;
+}
+__device__ __forceinline__ void release(const Smem& s, Ring& ring) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&s.empty[ring.stage]);
+  ring.advance();
+}
+
+// A stage that the consumers fill and TMA stores (an output stage): the
+// producer reserves it with a plain arrival on its full barrier (no bytes),
+// so that acquire sees it free
+__device__ __forceinline__ void reserve(const Smem& s, Ring& ring) {
+  mbar_wait(&s.empty[ring.stage], ring.phase ^ 1u);
+  mbar_arrive(&s.full[ring.stage]);
+  ring.advance();
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a 128-byte-swizzled
+// box of 128-byte rows (TMA's SWIZZLE_128B, the box 1 KB aligned)
+__device__ __forceinline__ uint32_t sw128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
 // Barrier set-up by thread 0, before the roles split: a full barrier takes
 // the producer's one arrival and the stage's bytes, an empty one an arrival
 // from each of the eight consumer warps.
@@ -358,20 +437,21 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A rank-3 bf16 tensor map: dims d0 (contiguous), d1, d2; byte strides s1,
-// s2 of dims 1 and 2; boxes of [b1][b0] (one along dim 2) with the given
-// swizzle; what lies outside the dims is read as zeros. False when the
-// encoder refuses it.
+// A rank-3 tensor map, bf16 unless `type` says otherwise: dims d0
+// (contiguous), d1, d2; byte strides s1, s2 of dims 1 and 2; boxes of
+// [b1][b0] (one along dim 2) with the given swizzle; what lies outside the
+// dims is read as zeros. False when the encoder refuses it.
 static bool tensor_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
                        uint64_t s1, uint64_t s2, uint32_t b0, uint32_t b1,
-                       CUtensorMapSwizzle swizzle) {
+                       CUtensorMapSwizzle swizzle,
+                       CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {s1, s2};
   const cuuint32_t box[3] = {b0, b1, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box,
             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

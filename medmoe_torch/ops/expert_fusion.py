@@ -19,16 +19,17 @@ operations: at B=32 and flagship shapes it does ≈265 GFLOP (≈0.87 GFLOP
 of projections and ≈7.4 GFLOP of attention MLP per sample) against ≈344
 MB of traffic, ≈0.27 ms of bf16 tensor-core time against ≈0.10 ms of
 memory time. It runs four passes over chunks of images
-(``fwd_image_chunk``: as many as fit in the scratch budget, 80 flagship
-images), the attention MLP — 90% of the operations — on the GEMM core of
-``csrc/gemm_core.cuh``:
+(``fwd_image_chunk``: as many as fit in the scratch budget, 81 flagship
+images), the attention MLP — 90% of the operations — on the wgmma core of
+``csrc/wgmma_core.cuh`` (TMA loads, one producer warp, two consumer
+warpgroups, one persistent block an SM):
 
   1. a projection pass writes h_s for every scale to a bf16 scratch;
   2. a streaming pass writes u_s = bf16(lerp(h_s)) for each scale with
      P_s < P (the TPU kernel's dense interpolation matrix existed only
      because Mosaic cannot gather);
   3. a product u_s·W1 per scale whose epilogue folds bf16(relu(·+b1))·w2
-     into each 128-wide tile's partial logits, never storing a_s;
+     into each 192-wide tile's partial logits, never storing a_s;
   4. a streaming pass sums the partial logits in tile order, takes the
      softmax over scales and writes ``out`` = Σ_s att_s·u_s once.
 
@@ -50,9 +51,10 @@ gradients; ``FusedExpertGather`` scatters those into the expert bank with
 
 K2 is bound by operations: five products of ≈7.4 GFLOP a flagship sample
 for the a recompute, d_u and dW1, ≈0.87 for d_x and dWp. It runs them as
-dense tile products on the shared GEMM core (``csrc/gemm_core.cuh``),
-every operand a bf16 scratch read with 16-byte copies, between streaming
-passes that are bound by bytes (O(P·E) bf16 a sample and scale):
+dense tile products on the wgmma core (``csrc/wgmma_core.cuh``), every
+operand a bf16 scratch or the bank as stored, read by TMA, between
+streaming passes that are bound by bytes (O(P·E) bf16 a sample and
+scale):
 
   1. u_s = bf16(lerp(h_s)) and d_att_s = Σ_E d_out·u_s, d_out read once;
   2. a_s = bf16(relu(u_s·W1 + b1)) with each N tile's partial logits;
@@ -92,10 +94,11 @@ BWD_LAUNCHES = 0
 MAX_SCALES = 4          # csrc/expert_fusion_passes.cuh MAX_SCALES
 MAX_HIDDEN = 2048       # K2's row step: a thread for each 8 columns of H
 # the tiles that size the kernels' partial sums (their C entries reject
-# scratch that holds fewer): the products' 128-wide tiles (K1's and K2's
-# partial logits), K2's row step's ROW_TM rows of P and its transposed
-# upsample's T_ROWS source rows
-_TM, _BWD_ROW_TM, _BWD_T_ROWS = 128, 64, 8
+# scratch that holds fewer): the logit product's 192-wide tiles of H (K1's
+# and K2's partial logits, kActBN), the d_u product's 128-row tiles of P
+# (dbp at the identity scale), K2's row step's ROW_TM rows of P and its
+# transposed upsample's T_ROWS source rows
+_LOGIT_TILE, _TM, _BWD_ROW_TM, _BWD_T_ROWS = 192, 128, 64, 8
 
 
 def expert_fusion_supported(p_list: Sequence[int], p_max: int) -> bool:
@@ -224,7 +227,7 @@ def expert_fusion_gather(xs: Sequence[torch.Tensor],
     # scratch for one chunk of images (fwd_scratch_bytes; ≈21 MB a flagship
     # image): h_s, u_s (P_s < P only) and the partial logits
     nc, _ = fwd_image_chunk(b, p_s, e, h)
-    tiles = -(-h // _TM)
+    tiles = -(-h // _LOGIT_TILE)
     hs = [torch.empty((nc, q, e), dtype=torch.bfloat16, device=dev)
           for q in p_s]
     us = [torch.empty((nc, p, e), dtype=torch.bfloat16, device=dev)
@@ -440,13 +443,13 @@ def _bwd_parts(p_list: Sequence[int], h: int) -> list:
     (MAX_SCALES + 2 counts): dbp's of each scale (one per 128-row tile of
     the d_u product at the identity scale, else one per 8 source rows of
     the transposed upsample; 0 past the last scale), then the a product's
-    128-wide tiles of H (partial logits), then the row step's 64-row tiles
+    192-wide tiles of H (partial logits), then the row step's 64-row tiles
     of P (partial dw2 and db1)."""
     p = max(p_list)
     dbp = [-(-p // _TM) if q == p else -(-q // _BWD_T_ROWS)
            for q in p_list]
     return (dbp + [0] * (MAX_SCALES - len(dbp))
-            + [-(-h // _TM), -(-p // _BWD_ROW_TM)])
+            + [-(-h // _LOGIT_TILE), -(-p // _BWD_ROW_TM)])
 
 
 def bwd_scratch_bytes(p_list: Sequence[int], e: int, h: int) -> int:
@@ -467,11 +470,11 @@ def bwd_scratch_bytes(p_list: Sequence[int], e: int, h: int) -> int:
 def fwd_scratch_bytes(p_list: Sequence[int], e: int, h: int) -> int:
     """Device scratch of K1 for one image (``expert_fusion_gather``): bf16
     h_s of every scale, bf16 u_s of every scale with P_s < P and the f32
-    partial logits of each scale's 128-wide tiles of H."""
+    partial logits of each scale's 192-wide tiles of H."""
     p, s = max(p_list), len(p_list)
     lerped = sum(q != p for q in p_list)
     return (sum(p_list) * e * 2 + lerped * p * e * 2
-            + s * -(-h // _TM) * p * 4)
+            + s * -(-h // _LOGIT_TILE) * p * 4)
 
 
 def fwd_image_chunk(b: int, p_list: Sequence[int], e: int,

@@ -27,13 +27,16 @@ kernels:
   K3 and the prologue alone (a change to K4a or to a core they do not use)
   and need not when it changes them;
 - with ``--k1``, the expert-branch forward leg: ``chip_smoke.phase_k1``
-  (K1 against its plain version at B=32 flagship and on odd shapes), then
-  K1 timed at B=32 and B=256 flagship with the peak device memory of each
-  call;
+  (K1 against its plain version at B=32 flagship and on odd shapes, its
+  passes' device times at B=32 and B=256), then K1 timed at B=32 and B=256
+  flagship with the peak device memory of each call, then the bits of K1
+  on the card tests' digest inputs ("ab K1 bits", where the checkout's
+  tests define them);
 - with ``--k2``, the expert-branch backward leg: ``chip_smoke.phase_k2``
-  (K2 against its plain version at B=32 flagship and on odd shapes, and
-  the times of both), then K2 timed at B=256 flagship (a gloria256 step's
-  shape) with the peak device memory of that call;
+  (K2 against its plain version at B=32 flagship and on odd shapes, the
+  times of both, its passes' device times at B=32 and B=256), then K2
+  timed at B=256 flagship (a gloria256 step's shape) with the peak device
+  memory of that call, then the bits of K2 ("ab K2 bits", as for K1);
 - with ``--step``, the end-to-end leg: ``chip_smoke.phase_gloria_train``,
   two gloria256 optimizer steps of 256 pairs at full width through the
   train CLI, then one warm step timed, with the peak device memory; then
@@ -172,7 +175,24 @@ for shape in ((3, 5, 48, 12, 11, 40), (2, 3, 768, 56, 56, 25)):
     c.gloria_err(torch, d_img, ref, f"ab K4a {shape} d_img", "bwd")
 '''
 
-K2 = PRELUDE + r'''
+# the card tests' digest inputs, where this checkout's tests define them
+EXPERT_BITS = r'''
+sys.path.insert(0, "tests")
+import hashlib
+import test_torch_kernels_cuda as kt
+
+
+def expert_bits(label, outputs):
+    if not hasattr(kt, "DIGEST_SHAPES"):
+        return
+    for case in range(len(kt.DIGEST_SHAPES)):
+        digest = hashlib.sha256()
+        for t in outputs(case):
+            digest.update(t.float().cpu().numpy().tobytes())
+        print(f"ab {label} bits {case}: {digest.hexdigest()}", flush=True)
+'''
+
+K2 = PRELUDE + EXPERT_BITS + r'''
 from medmoe_torch.ops import expert_fusion as ef
 
 c.phase_k2(torch, ef)
@@ -191,10 +211,22 @@ flops, nbytes = c.k2_work(args, d_out)
 bound = max(flops / c.PEAK_BF16_FLOPS, nbytes / c.PEAK_BYTES) * 1e3
 print(f"ab B=256: K2 {ms:.4f} ms (bound {bound:.4f} ms), peak memory of "
       f"the call {peak:.2f} GB on {card}", flush=True)
+del args, xs, wp, bp, w1, b1, w2, b2, idx, d_out
+torch.cuda.empty_cache()
+
+
+def k2_outputs(case):
+    xs, wp, bp, w1, b1, w2, _, idx = kt._digest_inputs("cuda", case)
+    d_out = kt._digest_cotangent("cuda", case, xs, w1)
+    return kt._bwd_outs(ef.expert_fusion_gather_bwd(xs, wp, bp, w1, b1, w2,
+                                                    idx, d_out))
+
+
+expert_bits("K2", k2_outputs)
 '''
 
 
-K1 = PRELUDE + r'''
+K1 = PRELUDE + EXPERT_BITS + r'''
 from medmoe_torch.ops import expert_fusion as ef
 
 c.phase_k1(torch, ef)
@@ -213,6 +245,8 @@ for b in (32, 256):
           f"the call {peak:.2f} GB on {card}", flush=True)
     del args
     torch.cuda.empty_cache()
+expert_bits("K1", lambda case: [ef.expert_fusion_gather(
+    *kt._digest_inputs("cuda", case))])
 '''
 
 STEP = PRELUDE + r'''
@@ -250,7 +284,8 @@ def main() -> int:
                   flush=True)
             return proc.returncode
         for line in proc.stdout.splitlines():
-            if line.startswith(("ab digest", "ab K4a bits")):
+            if line.startswith(("ab digest", "ab K4a bits", "ab K1 bits",
+                                "ab K2 bits")):
                 digests.setdefault(tree, set()).add(line)
     kinds = sorted({line.split(":")[0] for v in digests.values() for line in v})
     for kind in kinds:

@@ -252,22 +252,25 @@ class TestWrapperContract:
             ef.expert_fusion_gather(*a)
 
     def test_forward_scratch_fits_flagship(self):
-        # h_s, u_s of the three lerped scales and 4 × 3 partial-logit tiles
+        # h_s, u_s of the three lerped scales and 4 × 2 partial-logit tiles
         # an image; a serving wave of 32 is one chunk, B=256 four
         assert ef.fwd_scratch_bytes((3136, 784, 196, 49), 768, 384) == \
-            4165 * 768 * 2 + 3 * 3136 * 768 * 2 + 4 * 3 * 3136 * 4
+            4165 * 768 * 2 + 3 * 3136 * 768 * 2 + 4 * 2 * 3136 * 4
         assert ef.fwd_image_chunk(32, (3136, 784, 196, 49), 768, 384)[0] == 32
-        assert ef.fwd_image_chunk(256, (3136, 784, 196, 49), 768, 384)[0] == 80
+        assert ef.fwd_image_chunk(256, (3136, 784, 196, 49), 768, 384)[0] == 81
 
 
-def _staged_forward(xs, wp, bp, w1, b1, w2, idx, tile=128):
+def _staged_forward(xs, wp, bp, w1, b1, w2, idx, tile=192):
     """The staging of csrc/expert_fusion.cu's passes in torch ops, f32 sums
     of bf16 values: h_s and u_s as the plain version rounds them; per scale
-    the attention MLP's 128-wide tiles of H, each tile's partial logit the
-    sum of its two 64-column halves (two threads a row), the tiles summed
-    in order; att = bf16(softmax over scales); out = Σ_s att_s·u_s in scale
-    order. attn_b2 cancels in the softmax and is left out, as the kernel
-    leaves it out."""
+    the attention MLP's 192-wide tiles of H, each tile's partial logit of a
+    row summed as the wgmma epilogue sums it: lane q of the row's quad
+    holds columns 8j + 2q + e of the tile and adds bf16(relu(·))·w2 over
+    them in order (j, then e), one fused multiply-add each (an f64 product
+    and sum rounded to f32), then the quad's four lanes in order; the tiles
+    summed in order; att = bf16(softmax over scales); out = Σ_s att_s·u_s
+    in scale order. attn_b2 cancels in the softmax and is left out, as the
+    kernel leaves it out."""
     bf = torch.bfloat16
     ix = idx.long()
     p_max = max(x.shape[1] for x in xs)
@@ -284,12 +287,24 @@ def _staged_forward(xs, wp, bp, w1, b1, w2, idx, tile=128):
         u = tmoe.interp_patches(h, p_max, dim=1).float()
         logit = torch.zeros(u.shape[:2])
         for n0 in range(0, h_dim, tile):
-            part = torch.zeros(u.shape[:2])
-            for c0 in range(n0, min(n0 + tile, h_dim), tile // 2):
-                c1 = min(c0 + tile // 2, h_dim)
-                a = torch.relu(torch.bmm(u, w1s[:, :, c0:c1])
-                               + b1s[:, None, c0:c1]).to(bf).float()
-                part = part + (a * w2s[:, None, c0:c1]).sum(-1)
+            n1 = min(n0 + tile, h_dim)
+            a = torch.relu(torch.bmm(u, w1s[:, :, n0:n1])
+                           + b1s[:, None, n0:n1]).to(bf).double()
+            terms = torch.zeros(u.shape[:2] + (tile,), dtype=torch.float64)
+            wts = torch.zeros(u.shape[:1] + (1, tile), dtype=torch.float64)
+            terms[..., :n1 - n0] = a
+            wts[..., :n1 - n0] = w2s[:, None, n0:n1].double()
+            # [.., j, q, e] → lane q's columns in order (j, e)
+            terms = terms.reshape(*terms.shape[:2], tile // 8, 4, 2) \
+                .permute(0, 1, 3, 2, 4).reshape(*terms.shape[:2], 4, -1)
+            wts = wts.reshape(wts.shape[0], 1, tile // 8, 4, 2) \
+                .permute(0, 1, 3, 2, 4).reshape(wts.shape[0], 1, 4, -1)
+            lanes = torch.zeros(u.shape[:2] + (4,), dtype=torch.float32)
+            for c in range(terms.shape[-1]):
+                lanes = (lanes.double() + terms[..., c] * wts[..., c]).float()
+            part = lanes[..., 0]
+            for q in range(1, 4):
+                part = part + lanes[..., q]
             logit = logit + part
         us.append(u)
         logits.append(logit)
@@ -300,13 +315,13 @@ def _staged_forward(xs, wp, bp, w1, b1, w2, idx, tile=128):
     return out
 
 
-@pytest.mark.parametrize("h", [16, 160, 384])
+@pytest.mark.parametrize("h", [16, 160, 384, 200])
 def test_staged_forward_matches_plain_version_and_jax(h):
     """The kernel's decomposition of the forward (partial logits over
-    128-wide tiles of H, summed in tile order, then the combine) against
+    192-wide tiles of H, summed in tile order, then the combine) against
     the plain version and the JAX ``_fwd_kernel`` in interpret mode, at H =
-    16 (one ragged tile), 160 (two, the second ragged) and 384 (three), in
-    bf16 at the JAX package's fused-vs-XLA tolerance (LOOSE)."""
+    16 and 160 (one ragged tile), 384 (two) and 200 (two, the second
+    ragged), in bf16 at the JAX package's fused-vs-XLA tolerance (LOOSE)."""
     rng = np.random.RandomState(h)
     e = 64
     pyramid = [rng.randn(B, p, d).astype(np.float32)

@@ -95,17 +95,19 @@ def test_images_in_budget(b, per_image, want):
 
 def test_bwd_parts_flagship():
     # dbp: 25 tiles of 128 rows at the identity scale, 98/25/7 blocks of 8
-    # source rows; 3 tiles of H = 384; 49 row-step tiles of 64 rows
-    assert ef._bwd_parts(FLAGSHIP_P, 384) == [25, 98, 25, 7, 3, 49]
+    # source rows; 2 logit tiles of 192 columns of H = 384; 49 row-step
+    # tiles of 64 rows
+    assert ef._bwd_parts(FLAGSHIP_P, 384) == [25, 98, 25, 7, 2, 49]
     assert ef._bwd_parts((100, 25), 48) == [1, 4, 0, 0, 1, 2]
+    assert ef._bwd_parts((100, 25), 200)[ef.MAX_SCALES] == 2
 
 
 def test_scratch_bytes_flagship_by_hand():
     # h and bf16(dz_h): 4165 rows; u and bf16(d_u): 3 scales of 3136 rows;
-    # a: 4 scales of [3136, 384]; d_att, bf16(att32), 3 logit tiles; 49
+    # a: 4 scales of [3136, 384]; d_att, bf16(att32), 2 logit tiles; 49
     # row-step tiles of dw2/db1; dbp tiles 25 (identity) + 98 + 25 + 7
     p, e, h = 3136, 768, 384
-    want = (4165 * e * 4 + 3 * p * e * 4 + 4 * p * h * 2 + 4 * p * 5 * 4
+    want = (4165 * e * 4 + 3 * p * e * 4 + 4 * p * h * 2 + 4 * p * 4 * 4
             + 49 * 2 * h * 4 + (25 + 98 + 25 + 7) * e * 4)
     assert ef.bwd_scratch_bytes(FLAGSHIP_P, e, h) == want
     # the f32 d_u the single-pass design held, for comparison
@@ -127,9 +129,9 @@ def test_scratch_of_a_lerped_scale():
                          + 2 * 64 * 4)
 
 
-@pytest.mark.parametrize("b,want", [(32, 32), (256, 80), (81, 80), (1, 1)])
+@pytest.mark.parametrize("b,want", [(32, 32), (256, 81), (82, 81), (1, 1)])
 def test_forward_image_chunk_flagship(b, want):
-    # K1's chunk: ≈21 MB an image, 80 flagship images in 1.7 GB
+    # K1's chunk: ≈21 MB an image, 81 flagship images in 1.7 GB
     images, nbytes = ef.fwd_image_chunk(b, FLAGSHIP_P, 768, 384)
     assert images == want
     assert nbytes == images * ef.fwd_scratch_bytes(FLAGSHIP_P, 768, 384)
@@ -138,10 +140,11 @@ def test_forward_image_chunk_flagship(b, want):
 
 def test_forward_scratch_by_hand():
     # h of every scale (4165 rows), u of the three lerped scales, the
-    # partial logits of 3 tiles of H = 384 for 4 scales; one scale of P
-    # rows needs no u, and H = 160 two tiles
+    # partial logits of 2 tiles of H = 384 for 4 scales; one scale of P
+    # rows needs no u; H = 160 is one tile, 200 two
     p, e, h = 3136, 768, 384
     assert ef.fwd_scratch_bytes(FLAGSHIP_P, e, h) == \
-        4165 * e * 2 + 3 * p * e * 2 + 4 * 3 * p * 4 == 20_998_656
-    assert ef.fwd_scratch_bytes((64,), 64, 160) == 64 * 64 * 2 + 2 * 64 * 4
+        4165 * e * 2 + 3 * p * e * 2 + 4 * 2 * p * 4 == 20_948_480
+    assert ef.fwd_scratch_bytes((64,), 64, 160) == 64 * 64 * 2 + 1 * 64 * 4
+    assert ef.fwd_scratch_bytes((64,), 64, 200) == 64 * 64 * 2 + 2 * 64 * 4
     assert ef.fwd_image_chunk(4, (400_000, 200_000), 768, 384)[0] == 1

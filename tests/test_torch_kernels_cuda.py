@@ -34,7 +34,10 @@ H <= 2048) raise before K1 launches.
 
 The kernels sum without atomics, so two calls agree bit for bit; K1, K2,
 K3, the prologue and K4a run over chunks of images agree bit for bit with
-one chunk (a sample's outputs are its own). K4b sums over images chunk by chunk, so its
+one chunk (a sample's outputs are its own). K1's and K2's products run on
+the wgmma core as persistent walks over (image, scale, tile): an
+out-of-range expert id in the middle of the walk poisons its own sample
+and the call returns. K4b sums over images chunk by chunk, so its
 chunks reorder that sum: d_words over other chunk sizes agrees within the
 tolerance above, not bit for bit.
 """
@@ -51,7 +54,7 @@ from medmoe_torch.ops import gloria_attention as ga
 from medmoe_torch.ops import _scratch
 
 LOOSE = dict(rtol=2e-2, atol=2e-3)
-# (nvcc release, card) that the GLoRIA digests were recorded with
+# (nvcc release, card) that the digests were recorded with
 DIGESTS_RECORDED_WITH = ("12.9", "NVIDIA H100 80GB HBM3")
 # sha256 of K3's and the prologue's bits on the digest tests' two shapes
 # (test_gemm_core_a_layout_leaves_gloria_bits), and of K4a's (test_k4a_bits)
@@ -61,6 +64,57 @@ K3_PROLOGUE_DIGESTS = (
 K4A_DIGESTS = (
     "42c829d27bda04a63466b13a82cd807e337bbdb0f63483f606c0145447aa9dd5",
     "cfbf8ea0cf26fd0e0ff8f816a37d276b9d81f8c2a217b9ff7bd4df5dbd3ff1ce")
+# sha256 of K1's output and of K2's outputs on the two DIGEST_SHAPES
+# (test_k1_bits, test_k2_bits)
+K1_DIGESTS = (
+    "41fd54eccfa75ae4d8b98bf590a600d370801b58fd0601bf4bf32b9375645c1d",
+    "aa0179c417dcedb8987fa1d7700e93e84869b7b9d8aa33e9c23964017e26e390")
+K2_DIGESTS = (
+    "3a71a88661887424be6554a086b9e1a99a0daea5478ee0237cc5861d21a371de",
+    "70e3018a750ed9e256a4af863e853c8a4d78d922e582fb978df3e33ae3709940")
+
+
+# the digest tests' expert-branch shapes: a small odd one (ragged tiles)
+# and a flagship image pair
+DIGEST_SHAPES = (
+    dict(b=3, p_list=(100, 50, 25), d_list=(24, 136, 16), e=96, h=200, k=2,
+         idx=[1, 0, 1]),
+    dict(b=2, p_list=(3136, 784, 196, 49), d_list=(96, 192, 384, 768), e=768,
+         h=384, k=6, idx=[5, 2]),
+)
+
+
+def _skip_unless_digest_toolchain():
+    """Bits depend on the compiler and the card: skip unless they are those
+    the digests were recorded with."""
+    found = (_nvcc_release(), torch.cuda.get_device_name(0))
+    if found != DIGESTS_RECORDED_WITH:
+        pytest.skip(f"digests recorded with nvcc and card "
+                    f"{DIGESTS_RECORDED_WITH}, found {found}")
+
+
+def _digest_inputs(dev, case):
+    """K1's arguments for digest case ``case``, made with numpy (seed 0) so
+    that they are the same on every card and torch build."""
+    c = DIGEST_SHAPES[case]
+    rng = np.random.RandomState(0)
+    e, h, k = c["e"], c["h"], c["k"]
+
+    def t(shape, std=1.0):
+        return torch.from_numpy((rng.randn(*shape) * std).astype(np.float32)).to(dev)
+
+    xs = tuple(t((c["b"], p, d)).to(torch.bfloat16)
+               for p, d in zip(c["p_list"], c["d_list"]))
+    return (xs, tuple(t((k, d, e), d ** -0.5) for d in c["d_list"]),
+            tuple(t((k, e), 0.1) for _ in c["d_list"]),
+            t((k, e, h), e ** -0.5), t((k, h), 0.1), t((k, h, 1), h ** -0.5),
+            t((k, 1), 0.1), torch.tensor(c["idx"], dtype=torch.int32, device=dev))
+
+
+def _digest_cotangent(dev, case, xs, w1):
+    rng = np.random.RandomState(1)
+    shape = (xs[0].shape[0], max(x.shape[1] for x in xs), w1.shape[1])
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
 
 
 def _nvcc_release() -> str:
@@ -175,7 +229,8 @@ class TestExpertFusionKernel:
 
     @pytest.mark.parametrize("h", [8, 160, 392])
     def test_matches_plain_version_odd_hidden(self, dev, h):
-        # one, two (the second ragged) and four 128-wide tiles of H
+        # one ragged 192-wide tile of H (8, 160), three (392: the third
+        # ragged)
         args = _inputs(dev, 3, (100, 25), (32, 24), 64, 2, [1, 0, 1], seed=6,
                        h=h)
         out = ef.expert_fusion_gather(*args)
@@ -211,14 +266,58 @@ class TestExpertFusionKernel:
 
     def test_undersized_logit_scratch_is_rejected(self, dev, monkeypatch):
         # the C entry holds the partial-logit scratch against its own
-        # 128-wide tiles of H: sized for 256-wide tiles (one tile at H =
-        # 160, two needed), it raises before any pass runs
-        args = _inputs(dev, 2, (64, 16), (8, 16), 64, 3, [1, 0], h=160)
-        monkeypatch.setattr(ef, "_TM", 256)
+        # 192-wide tiles of H: sized for 256-wide tiles (one tile at H =
+        # 200, two needed), it raises before any pass runs
+        args = _inputs(dev, 2, (64, 16), (8, 16), 64, 3, [1, 0], h=200)
+        monkeypatch.setattr(ef, "_LOGIT_TILE", 256)
         before = ef.LAUNCHES
         with pytest.raises(RuntimeError, match="launch failed"):
             ef.expert_fusion_gather(*args)
         assert ef.LAUNCHES == before
+
+    def test_matches_plain_version_partial_wgmma_tiles(self, dev):
+        # H = 200 (a 192-wide tile and a ragged one), E = 96 (one and a half
+        # 64-deep stages of K), P = 100 with P_s 50/25 (one ragged 128-row
+        # tile)
+        args = _inputs(dev, 3, (100, 50, 25), (32, 24, 16), 96, 2, [1, 0, 1],
+                       seed=9, h=200)
+        out = ef.expert_fusion_gather(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ef.expert_fusion_gather_reference(*args),
+                                   **LOOSE)
+
+    def test_out_of_range_expert_mid_walk(self, dev):
+        # B = 9 at flagship widths: the bad id (sample 4) sits in the middle
+        # of every block's share of the persistent walk; the producer and
+        # the consumers skip the same tiles, so the call returns, sample 4
+        # is NaN and the others match the plain version
+        ids = [5, 0, 3, 1, 6, 2, 4, 0, 5]
+        args = list(_inputs(dev, 9, (3136, 784, 196, 49), (96, 192, 384, 768),
+                            768, 6, ids, seed=10, h=384))
+        out = ef.expert_fusion_gather(*args)
+        torch.cuda.synchronize()
+        assert torch.isnan(out[4]).all()
+        keep = [i for i in range(9) if i != 4]
+        assert torch.isfinite(out[keep]).all()
+        args[0] = tuple(x[keep] for x in args[0])
+        args[7] = args[7][keep]
+        torch.testing.assert_close(out[keep],
+                                   ef.expert_fusion_gather_reference(*args),
+                                   **LOOSE)
+
+    @pytest.mark.parametrize("case", [0, 1])
+    def test_k1_bits(self, dev, case):
+        """The bits of K1's output on numpy inputs (``_digest_inputs``), as
+        the kernel gives them with its logit product on the wgmma core
+        (scripts/ab_torch_gloria.py --k1 prints them as "ab K1 bits");
+        recorded with ``DIGESTS_RECORDED_WITH``, and anew whenever K1
+        changes on purpose."""
+        _skip_unless_digest_toolchain()
+        args = _digest_inputs(dev, case)
+        got = hashlib.sha256(ef.expert_fusion_gather(*args).cpu().numpy()
+                             .tobytes())
+        assert got.hexdigest() == K1_DIGESTS[case]
 
 
 def _bwd_close(got, want):
@@ -391,6 +490,61 @@ class TestExpertFusionBackwardKernel:
                 continue
             err = (a.float() - w.float()).abs().max() / w.abs().max().clamp(min=1e-6)
             assert err < 5e-2, f"input {i}: rel err {err}"
+
+    def test_matches_plain_version_partial_wgmma_tiles(self, dev):
+        # H = 200, E = 96, P = 100 with P_s 50/25: ragged tiles of every
+        # product (the logit and d_u products' 192-wide N tiles and 128-row
+        # M tiles, dW1's K past P, dWp's and d_x's D_s = 24/136)
+        xs, wp, bp, w1, b1, w2, _, ids = _inputs(dev, 3, (100, 50, 25),
+                                                 (24, 136, 16), 96, 2,
+                                                 [1, 0, 1], seed=9, h=200)
+        g = torch.Generator(device=dev).manual_seed(19)
+        d_out = torch.randn((3, 100, 96), generator=g, device=dev)
+        out = ef.expert_fusion_gather_bwd(xs, wp, bp, w1, b1, w2, ids, d_out)
+        torch.cuda.synchronize()
+        ref = ef.expert_fusion_gather_bwd_reference(xs, wp, bp, w1, b1, w2,
+                                                    ids, d_out)
+        got = _bwd_outs(out)
+        assert all(torch.isfinite(t).all() for t in got)
+        _bwd_close(got, _bwd_outs(ref))
+
+    def test_out_of_range_expert_mid_walk(self, dev):
+        # B = 9 at flagship widths, sample 4's id out of range: every
+        # persistent pass skips its tiles on both sides and returns; its
+        # outputs are NaN, the others' match the plain version
+        ids = [5, 0, 3, 1, 6, 2, 4, 0, 5]
+        xs, wp, bp, w1, b1, w2, _, idx = _inputs(
+            dev, 9, (3136, 784, 196, 49), (96, 192, 384, 768), 768, 6, ids,
+            seed=10, h=384)
+        g = torch.Generator(device=dev).manual_seed(20)
+        d_out = torch.randn((9, 3136, 768), generator=g, device=dev)
+        got = _bwd_outs(ef.expert_fusion_gather_bwd(xs, wp, bp, w1, b1, w2,
+                                                    idx, d_out))
+        torch.cuda.synchronize()
+        keep = [i for i in range(9) if i != 4]
+        assert all(torch.isnan(t[4]).all() and torch.isfinite(t[keep]).all()
+                   for t in got)
+        ref = _bwd_outs(ef.expert_fusion_gather_bwd_reference(
+            tuple(x[keep] for x in xs), wp, bp, w1, b1, w2, idx[keep],
+            d_out[keep].contiguous()))
+        _bwd_close([t[keep] for t in got], ref)
+
+    @pytest.mark.parametrize("case", [0, 1])
+    def test_k2_bits(self, dev, case):
+        """The bits of K2's outputs on numpy inputs (``_digest_inputs`` and
+        a cotangent from the same seed), as the kernel gives them with its
+        five products on the wgmma core (scripts/ab_torch_gloria.py --k2
+        prints them as "ab K2 bits"); recorded with
+        ``DIGESTS_RECORDED_WITH``, and anew whenever K2 changes on
+        purpose."""
+        _skip_unless_digest_toolchain()
+        xs, wp, bp, w1, b1, w2, _, idx = _digest_inputs(dev, case)
+        d_out = _digest_cotangent(dev, case, xs, w1)
+        got = hashlib.sha256()
+        for t in _bwd_outs(ef.expert_fusion_gather_bwd(xs, wp, bp, w1, b1, w2,
+                                                       idx, d_out)):
+            got.update(t.float().cpu().numpy().tobytes())
+        assert got.hexdigest() == K2_DIGESTS[case]
 
 
 def _gloria_inputs(dev, b_img, b_txt, d, h, w, t, seed=0):
@@ -669,10 +823,7 @@ class TestGloriaKernels:
     @staticmethod
     def _digest_run(dev, shape):
         """K3, the prologue and K4a on numpy inputs: (sim, pairs, d_ctx)."""
-        found = (_nvcc_release(), torch.cuda.get_device_name(0))
-        if found != DIGESTS_RECORDED_WITH:
-            pytest.skip(f"digests recorded with nvcc and card "
-                        f"{DIGESTS_RECORDED_WITH}, found {found}")
+        _skip_unless_digest_toolchain()
         b_img, b_txt, d, h, w, t = shape
         rng = np.random.RandomState(0)
         img = torch.from_numpy(rng.randn(b_img, d, h, w).astype(np.float32))
