@@ -47,7 +47,9 @@
      backward's prologue alone, K4a alone with each of its two passes'
      device time and TFLOP/s on padded captions, the prologue + K4a, and the
      prologue + K4a + K4b, whose difference from the prologue + K4a is K4b
-     alone), print the bounds, the backward's scratch and the image chunk,
+     alone, with the device time of each K4b pass, its product's TFLOP/s
+     on padded captions and a torch.matmul of one chunk's product as a
+     yardstick), print the bounds, the backward's scratch and the image chunk,
      and time the fused local loss against the einsum path at B=32; then
      hold K3 against its plain version at B=256 flagship with captions of
      40 words and time K3, its plain version, the prologue and the
@@ -93,7 +95,7 @@
  12. K3, the prologue + K4a and both cotangents (K4b) at the rectangular
      shape each rank of a two-rank gloria256 launches, 128 images
      against 256 captions, held against their plain versions and timed
-     beside their bounds;
+     beside their bounds, K4b's passes and yardstick as in 7;
  13. the MoE modes: the expert branch at experiment=moe_single_modality's
      shape (4 experts, top-2, B=64, bf16, full width) in gather mode (K1
      twice a forward, K2 twice a backward) against topk (capacity factor
@@ -497,8 +499,8 @@ K2_KERNELS = ("bwd_u_kernel", "bwd_act_kernel", "bwd_row_kernel",
 K3_KERNELS = ("void sim_e_kernel", "void sim_wei_kernel",
               "void sim_finish_kernel")
 K4A_KERNELS = ("void dctx_z_kernel", "dctx_gemm_kernel")
-GLORIA_KERNELS = K3_KERNELS + K4A_KERNELS + ("dwords_gemm_kernel",
-                                             "dwords_wei_kernel")
+K4B_KERNELS = ("dwords_wei_kernel", "dwords_gemm_kernel", "dwords_sum_kernel")
+GLORIA_KERNELS = K3_KERNELS + K4A_KERNELS + K4B_KERNELS
 
 
 def dev_us(e) -> float:
@@ -1106,6 +1108,63 @@ def gloria_err(torch, got, want, name, gate):
     return err
 
 
+def k4b_passes(torch, ga, img, words, cap, cot, temps, name: str,
+               alone_ms: float, card: str) -> dict:
+    """K4b's passes over one backward of the words' cotangent alone
+    (torch.profiler): the prologue's f32 terms (``dwords_wei_kernel``), the
+    product (``dwords_gemm_kernel``, with its TFLOP/s on padded captions,
+    2·B_img·M·D·B_txt·TPAD) and the slices' sum (``dwords_sum_kernel``),
+    beside K4b alone timed as a difference (``alone_ms``); then the
+    product's yardstick: one torch.matmul (cuBLAS) of the last chunk's
+    product, ctx_chunkᵀ against a contiguous copy of that chunk's Zds,
+    which pass 1 writes through the C entry into a Z of this function's
+    own, times the chunks. Printed only: the port never calls it. Returns
+    {key: ms} for the kernels line."""
+    from medmoe_torch.ops import _build
+
+    b_img, d, h, w = img.shape
+    b_txt, t, m = words.shape[0], words.shape[2], h * w
+    tp = ga._tpad(t)
+    flops = 2 * b_img * m * d * b_txt * tp
+    passes = profile_passes(
+        torch, lambda: ga.gloria_similarity_backward(
+            img, words, cap, cot, *temps, need_img=False),
+        f"K4b {name}", K4B_KERNELS, flops={"dwords_gemm_kernel": flops})
+    print(f"K4b {name}: passes {sum(passes.values()):.3f} ms of device time "
+          f"against K4b alone {alone_ms:.4f} ms (the both-cotangent time less "
+          f"the prologue + K4a's) on {card}", flush=True)
+    pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
+    chunk, _ = ga.image_chunk(b_img, b_txt, m, t)
+    z = torch.empty((chunk, m, b_txt * 2 * tp), dtype=torch.bfloat16,
+                    device="cuda")
+    d_ctx = torch.empty((b_img, m, d), dtype=torch.float32, device="cuda")
+    lib = _build.load("gloria_attention_bwd")
+    rc = lib.medmoe_gloria_cotangents(
+        *pairs.args(), pairs.dwei.data_ptr(), pairs.vecs.data_ptr(),
+        z.data_ptr(), chunk, d_ctx.data_ptr(), None, 0, None, None, None,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(rc == 0, f"K4b yardstick: pass 1 returned {rc}")
+    b0 = (b_img - 1) // chunk * chunk
+    nb = b_img - b0
+    zds = z[:nb].reshape(nb * m, b_txt, 2, tp)[:, :, 1].reshape(
+        nb * m, b_txt * tp).contiguous()
+    a = pairs.ctx[b0:].reshape(nb * m, d)
+    del pairs, z, d_ctx
+    mm = cuda_ms(lambda: torch.matmul(a.T, zds), iters=3, warmup=1)
+    mm_flops = 2 * nb * m * d * b_txt * tp
+    chunks = -(-b_img // chunk)
+    print(f"K4b {name}: yardstick torch.matmul of one chunk's product "
+          f"[{d}, {nb * m}] x [{nb * m}, {b_txt * tp}] bf16 {mm:.3f} ms "
+          f"({mm_flops / max(mm, 1e-9) / 1e9:.1f} TFLOP/s), x {chunks} "
+          f"chunks {mm * chunks:.3f} ms, against dwords_gemm_kernel "
+          f"{passes['dwords_gemm_kernel']:.3f} ms on {card}", flush=True)
+    del a, zds
+    torch.cuda.empty_cache()
+    return dict(**{f"{k}_ms": v for k, v in passes.items()},
+                matmul_yardstick_ms=mm * chunks)
+
+
 def phase_gloria(torch, ga, card: str, words: int = 25):
     """K3, K4a and K4b against their plain versions at B=256 flagship
     shapes (captions of ``words`` words) and on small odd shapes; times of
@@ -1213,7 +1272,9 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
                                 for k, v in pro_passes.items()})
         results["K4a"].update(k4a_only_ms=ms_k4a, **{
             f"{k.split()[-1]}_ms": v for k, v in passes.items()})
-        results["K4b"].update(both_ms=ms_both)
+        results["K4b"].update(both_ms=ms_both, **k4b_passes(
+            torch, ga, img, words, cap, cot, temps, name, ms_both - ms4a,
+            card))
         for key in ("K4a", "K4b"):
             results[key].update(prologue_ms=ms_pro, prologue_bound_ms=pro_bound)
         print(f"K4a {name}: the backward's prologue alone {ms_pro:.4f} ms "
@@ -2112,6 +2173,9 @@ def phase_gloria_rect(torch, ga, card: str, words: int = 25):
     print(f"K4 {name}: the backward's prologue alone {ms_pro:.4f} ms (bound "
           f"{pro_bound:.4f} ms), prologue + K4a {ms4a:.4f} ms, prologue + "
           f"K4a + K4b {ms_both:.4f} ms on {card}", flush=True)
+    results["K4b"].update(**{f"rect_{k}": v for k, v in k4b_passes(
+        torch, ga, img, words_, cap, cot, temps, name, ms_both - ms4a,
+        card).items()})
     del img, words_, cap, cot
     torch.cuda.empty_cache()
     return results
@@ -3852,7 +3916,7 @@ WGMMA_KERNELS = {
                          "sim_wei_kernel<0>", "sim_wei_kernel<1>"},
     "gloria_attention_bwd": {"dctx_z_kernel<1>", "dctx_z_kernel<2>",
                              "dctx_z_kernel<3>", "dctx_z_kernel<4>",
-                             "dctx_gemm_kernel"},
+                             "dctx_gemm_kernel", "dwords_gemm_kernel"},
     "expert_fusion": {"fwd_logit_kernel"},
     "expert_fusion_bwd": {"bwd_act_kernel", "bwd_du_kernel", "bwd_dx_kernel",
                           "bwd_wgrad_kernel"},
@@ -3862,9 +3926,9 @@ WGMMA_KERNELS = {
 def check_wgmma_sass(_build) -> None:
     """The wgmma-core kernels in the built libraries' SASS (cuobjdump): K3's
     and the prologue's F1 and F2 (``sim_e_kernel<1..4>``,
-    ``sim_wei_kernel<0,1>``), K4a's two passes, K1's logit product and
-    K2's five products (its logit product, d_u, d_x and the weight
-    gradients); each must hold wgmma
+    ``sim_wei_kernel<0,1>``), K4a's two passes, K4b's product, K1's logit
+    product and K2's five products (its logit product, d_u, d_x and the
+    weight gradients); each must hold wgmma
     (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA). Prints each
     one's counts with its local-memory stores and loads (STL/LDL)."""
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -3993,6 +4057,8 @@ def main() -> int:
             "prologue_sim_e_kernel_ms", "prologue_sim_wei_kernel_ms",
             "prologue_sim_finish_kernel_ms", "k4a_only_ms",
             "dctx_z_kernel_ms", "dctx_gemm_kernel_ms", "both_ms",
+            "dwords_wei_kernel_ms", "dwords_gemm_kernel_ms",
+            "dwords_sum_kernel_ms", "matmul_yardstick_ms",
             "prologue_ms", "prologue_bound_ms", "ms_b256", "bound_ms_b256")
             if k in r})
         return {"name": name, "route": "cuda", "source": source,
@@ -4018,7 +4084,7 @@ def main() -> int:
             prologue_launches=gl_all["prologue"], **rect["K4a"]),
         row("gloria_similarity_backward d_words", f"{gsrc}_bwd.cu",
             f"{gtpu}:274", gl_all["K4b"], gl["K4b"],
-            functions=["dwords_gemm_kernel", "dwords_wei_kernel"],
+            functions=list(K4B_KERNELS),
             prologue_launches=text["prologue"] + soft["K4b"],
             **rect["K4b"])]}))
     print(json.dumps({"ok": True, "device": {

@@ -80,7 +80,18 @@
 //        -Xcompiler -fPIC (medmoe_torch/ops/_build.py).
 
 #include "expert_fusion_passes.cuh"
-#include "gemm_core.cuh"  // cp.async, for the transposed upsample's windows
+
+// cp.async, for the transposed upsample's windows: 16 bytes global → shared,
+// asynchronous; zeros (src not read) when !valid
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(wg::smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 #define ROW_TM 64     // rows of P a block of the row step
 #define T_ROWS 8      // source rows a block of the transposed upsample, one a warp
@@ -472,10 +483,10 @@ __global__ void __launch_bounds__(THREADS) bwd_tlerp_kernel(BwdArgs a) {
     for (int v = tid; v < nrow * (T_COLS / 8); v += THREADS) {
       const int r = v / (T_COLS / 8), cv = (v % (T_COLS / 8)) * 8;
       const bool ok = c0 + cv < E;
-      gemm::cp16(win + r * T_COLS + cv, ok ? du + (size_t)(w0 + r) * E + c0 + cv : du, ok);
+      cp16(win + r * T_COLS + cv, ok ? du + (size_t)(w0 + r) * E + c0 + cv : du, ok);
     }
-    gemm::commit();
-    gemm::wait<0>();
+    cp_commit();
+    cp_wait<0>();
     __syncthreads();
     for (; k < k_end && tr[k] < w0 + nrow; ++k) {
       float v[8];

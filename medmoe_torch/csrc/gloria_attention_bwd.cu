@@ -34,19 +34,31 @@
 //   pass 2, K4a (dctx_gemm_kernel): d_ctx[b] = Z_b [M, B_txt·2·TPAD] ·
 //     [bf16(d_wei)ᵀ ; wᵀ] [B_txt·2·TPAD, D], B read K-contiguous straight
 //     from the scratch, the K loop over the captions in order;
-//   K4b (dwords_gemm_kernel): d_words [D, B_txt·TPAD] += ctx_chunkᵀ ·
-//     Zds, A M-contiguous straight from ctx, B the d_scores half of Z's
-//     rows, K over the chunk's images and rows in order; the epilogue adds
-//     the tile into the f32 accumulator that the prologue started with
-//     Σ_b dnum·wei (f32 wei, as the TPU kernel), in chunk order, and the
-//     last chunk's adds (Σ_b c2)·w and writes d_words [B_txt, D, T].
-// K4a's two passes run on the wgmma core of csrc/wgmma_core.cuh: TMA loads
-// through tensor maps built per call, a ring of 64-deep stages, one
+//   K4b (dwords_gemm_kernel, then dwords_sum_kernel): d_words [D,
+//     B_txt·TPAD] += ctx_chunkᵀ · Zds. K is the chunk's rows (image, m) in
+//     order, cut into `slices` slices of whole 64-deep steps (2 from the
+//     wrapper); the product writes each slice's f32 partial [B_txt, D,
+//     TPAD] to a scratch, and the sum pass adds the slices in order to the
+//     f32 accumulator that the prologue started with Σ_b dnum·wei (f32
+//     wei, as the TPU kernel), chunk after chunk; on the last chunk it adds
+//     (Σ_b c2)·w and writes d_words [B_txt, D, T].
+// All three products run on the wgmma core of csrc/wgmma_core.cuh: TMA
+// loads through tensor maps built per call, a ring of 64-deep stages, one
 // producer warp and two consumer warpgroups on 128 × N tiles (N = 256, or
-// 192 at TPAD 96), one persistent block an SM. Pass 1's row step reads the
-// accumulators where wgmma left them: a row's columns lie in the four
-// threads of a quad, so a caption's softmax is two quad shuffles. K4b stays
-// on the mma.sync core of csrc/gemm_core.cuh.
+// 192 at TPAD 96 in pass 1), one persistent block an SM. Pass 1's row step
+// reads the accumulators where wgmma left them: a row's columns lie in the
+// four threads of a quad, so a caption's softmax is two quad shuffles.
+// K4b's tiles are 128 d × 256 words; A is ctx (d contiguous: wgmma's
+// transposed A, [64 rows][64 d] boxes at 128-byte swizzle) and B Z's
+// d_scores halves (words contiguous: [64 rows][32 words] boxes at 64-byte
+// swizzle), both through maps over the chunk's rows, which read zeros past
+// the last row and past the last caption, so neither M nor B_txt·TPAD
+// needs whole tiles. A chunk has 6 × 32 tiles at flagship (256 captions of
+// 32 padded words, D = 768); on 132 SMs whole tiles would take two rounds
+// for 1.45 rounds of work, and two slices take three rounds of half
+// tiles. The walk puts a word tile's D tiles next to each other (they
+// read the same B) and the first slice's tiles first (blocks that run
+// together read the same rows of A).
 // No atomics: every sum runs in a fixed order, the same on every run. Pass
 // 1 runs once a chunk for both cotangents; K4a or K4b is skipped when its
 // cotangent is not asked for. Every T <= 128 takes one pass of K4b: a word
@@ -54,12 +66,12 @@
 //
 // The per-pair scratch is B_img·B_txt·D·TPAD bf16 (3.2 GB at B=256, D=768,
 // TPAD=32) plus B_img·B_txt·4·TPAD f32, allocated by the wrapper, and, for
-// d_words, the accumulator B_txt·D·TPAD f32 (25 MB at flagship).
+// d_words, the accumulator B_txt·D·TPAD f32 (25 MB at flagship) and the
+// slices' partials, slices·B_txt·D·TPAD f32 (50 MB).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (medmoe_torch/ops/_build.py).
 
-#include "gemm_core.cuh"
 #include "gloria_common.cuh"
 #include "wgmma_core.cuh"
 
@@ -326,79 +338,134 @@ dctx_gemm_kernel(const __grid_constant__ CUtensorMap z_map,
 }
 
 // ---------------------------------------------------------------------------
-// K4b: d_words += ctx_chunkᵀ · Zds; grid (D tiles, word tiles); the last
-// chunk also adds (Σ c2)·w and writes d_words [B_txt, D, T]
+// K4b's product: slice sl of the chunk's K, part[sl] = ctx_chunkᵀ · Zds over
+// the slice's 64-deep steps; persistent over the tiles (slices, 256-word
+// tiles, 128-wide D tiles)
 // ---------------------------------------------------------------------------
-using WTile = gemm::Tile<128, 128, 64, 32, 4, gemm::kKN, gemm::kKM>;
+constexpr int W_BN = 256;                          // words of a tile
+constexpr int W_ABOX = wg::kBK * wg::kBox128 * 2;  // a [64 rows][64 d] box of ctx, 8 KB
+constexpr int W_BBOX = wg::kBK * wg::kBox * 2;     // a [64 rows][32 words] box of Zds, 4 KB
+constexpr int W_TX = wg::kABytes + W_BN * wg::kBK * 2;
 
-__global__ void __launch_bounds__(gemm::kThreads, WTile::MIN_BLOCKS)
-dwords_gemm_kernel(GloriaArgs a, const bf16* __restrict__ z, int b0, int nb,
-                   float* __restrict__ wsum, const float* __restrict__ c2sum,
-                   float* __restrict__ dw) {
-  using Cfg = WTile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int D = a.D, M = a.M, Bt = a.Bt, T = a.T, tpad = a.TPAD, cw = 2 * a.TPAD;
-  const int m0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * Cfg::BN;  // d, word column
-  const int N = Bt * tpad, K = nb * M;
-  const size_t zld = (size_t)Bt * cw;
-  const int tid = threadIdx.x;
-  const bf16* ctx = a.ctx + (size_t)b0 * M * D;
+// the 64-deep steps [k0, k1) of slice sl of nk steps
+__device__ __forceinline__ void slice_steps(int sl, int slices, int nk, int& k0, int& k1) {
+  k0 = (int)((long long)sl * nk / slices);
+  k1 = (int)((long long)(sl + 1) * nk / slices);
+}
 
-  // A = ctxᵀ: slice rows k (the chunk's rows, image by image), columns d
-  // contiguous
-  auto load_a = [&](bf16* as, int k0) {
-    for (int v = tid; v < gemm::BK * (Cfg::BM / 8); v += gemm::kThreads) {
-      const int kr = v / (Cfg::BM / 8), c = (v % (Cfg::BM / 8)) * 8, k = k0 + kr, d = m0 + c;
-      const bool ok = k < K && d < D;
-      gemm::cp16(as + kr * Cfg::LDM + c, ok ? ctx + (size_t)k * D + d : ctx, ok);
-    }
-  };
-  // B = bf16(d_scores): row k of Z, word column n = i·TPAD + t at i·2·TPAD +
-  // TPAD + t, N contiguous
-  auto load_b = [&](bf16* bs, int k0) {
-    for (int v = tid; v < gemm::BK * (Cfg::BN / 8); v += gemm::kThreads) {
-      const int kr = v / (Cfg::BN / 8), c = (v % (Cfg::BN / 8)) * 8, k = k0 + kr, n = n0 + c;
-      const bool ok = k < K && n < N;
-      gemm::cp16(bs + kr * Cfg::LDN + c,
-                 ok ? z + (size_t)k * zld + (size_t)(n / tpad) * cw + tpad + n % tpad : z, ok);
-    }
-  };
+__global__ void __launch_bounds__(wg::kThreads, 1)
+dwords_gemm_kernel(const __grid_constant__ CUtensorMap ctx_map,
+                   const __grid_constant__ CUtensorMap zds_map, GloriaArgs a, int rows,
+                   int slices, float* __restrict__ part) {
+  extern __shared__ unsigned char smem_raw[];
+  const wg::Smem s = wg::carve(smem_raw);
+  const int D = a.D, Bt = a.Bt, tpad = a.TPAD;
+  const int n_dt = (D + wg::kBM - 1) / wg::kBM, n_nt = (Bt * tpad + W_BN - 1) / W_BN;
+  const int tiles = slices * n_nt * n_dt, nk = (rows + wg::kBK - 1) / wg::kBK;
+  wg::init_barriers(s);
 
-  float acc[Cfg::MI][Cfg::NI][4];
-  gemm::mainloop<Cfg>(smem, K, load_a, load_b, acc);
-  float* cs = reinterpret_cast<float*>(smem);
-  gemm::store_tile<Cfg>(cs, acc);
-
-  // four words of one caption a thread: the accumulator [B_txt, D, TPAD]
-  // plus this chunk's tile, stored back, or (last chunk) plus (Σ c2)·w to
-  // d_words
-  const bool last = b0 + nb == a.Bi;
-  for (int v = tid; v < Cfg::BM * (Cfg::BN / 4); v += gemm::kThreads) {
-    const int r = v / (Cfg::BN / 4), c = (v % (Cfg::BN / 4)) * 4, d = m0 + r, n = n0 + c;
-    if (d >= D || n >= N) continue;
-    const int i = n / tpad, t = n % tpad;
-    const size_t at = ((size_t)i * D + d) * tpad + t;
-    const float4 w4 = *reinterpret_cast<const float4*>(wsum + at);
-    const float* cv = cs + r * Cfg::LDC + c;
-    const float x[4] = {w4.x + cv[0], w4.y + cv[1], w4.z + cv[2], w4.w + cv[3]};
-    if (!last) {
-      *reinterpret_cast<float4*>(wsum + at) = make_float4(x[0], x[1], x[2], x[3]);
-      continue;
-    }
-    float* out = dw + ((size_t)i * D + d) * T;
+  if (threadIdx.x < 128) {
+    // producer: A = the chunk's ctx rows r0.. (images in order, zeros past
+    // the chunk), columns d0.. in two [64 rows][64 d] boxes; B = the same
+    // rows of Zds, the tile's words in eight [64 rows][32 words] boxes side
+    // by side (zeros past the last caption)
+    wg::reg_dealloc<wg::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      wg::prefetch_map(&ctx_map);
+      wg::prefetch_map(&zds_map);
+      wg::Ring ring;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int dt = tile % n_dt, nt = (tile / n_dt) % n_nt, sl = tile / (n_dt * n_nt);
+        int k0, k1;
+        slice_steps(sl, slices, nk, k0, k1);
+        for (int kb = k0; kb < k1; ++kb) {
+          uint64_t* full = &s.full[ring.stage];
+          wg::mbar_wait(&s.empty[ring.stage], ring.phase ^ 1u);
+          wg::mbar_expect_tx(full, W_TX);
+          const int r0 = kb * wg::kBK;
+          const uint32_t as = wg::stage_a(s, ring.stage), bs = wg::stage_b(s, ring.stage);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (t + j < T)
-        out[t + j] = x[j] + c2sum[(size_t)i * tpad + t + j] * __bfloat162float(a.words[at + j]);
+          for (int c = 0; c < wg::kBM / wg::kBox128; ++c)
+            wg::tma_load(as + c * W_ABOX, &ctx_map, full, dt * wg::kBM + c * wg::kBox128, r0, 0);
+#pragma unroll
+          for (int j = 0; j < W_BN / wg::kBox; ++j) {
+            const int n = nt * W_BN + j * wg::kBox;
+            wg::tma_load(bs + j * W_BBOX, &zds_map, full, n % tpad, n / tpad, r0);
+          }
+          ring.advance();
+        }
+      }
+    }
+  } else {
+    wg::reg_alloc<wg::kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31, q = lane & 3;
+    wg::Ring ring;
+    float acc[W_BN / 2];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int dt = tile % n_dt, nt = (tile / n_dt) % n_nt, sl = tile / (n_dt * n_nt);
+      int k0, k1;
+      slice_steps(sl, slices, nk, k0, k1);
+      wg::consume<W_BN, 1, 1>(
+          acc, s, ring, k1 - k0,
+          [&](int st, int ks) { return wg::desc_mn128(wg::stage_a(s, st) + cw * W_ABOX, ks); },
+          [&](int st, int ks) { return wg::desc_mn64(wg::stage_b(s, st), ks); });
+      // the f32 partial tile straight from the registers into part[sl]
+      // [B_txt, D, TPAD]: a quad writes 32 bytes of one caption's row d
+      float* out = part + (size_t)sl * Bt * D * tpad;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = dt * wg::kBM + cw * 64 + warp * 16 + (lane >> 2) + 8 * h;
+        if (d >= D) continue;
+#pragma unroll
+        for (int j = 0; j < W_BN / 8; ++j) {
+          const int n = nt * W_BN + 8 * j + 2 * q, i = n / tpad;
+          if (i < Bt)
+            *reinterpret_cast<float2*>(out + ((size_t)i * D + d) * tpad + n % tpad) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4b's sum: wsum [B_txt, D, TPAD] plus the chunk's slices in order, stored
+// back, or (last chunk) plus (Σ c2)·w to d_words [B_txt, D, T]; grid (D·TPAD
+// / 4 / THREADS, B_txt), four words of caption blockIdx.y a thread
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS)
+dwords_sum_kernel(GloriaArgs a, const float* __restrict__ part, int slices,
+                  float* __restrict__ wsum, const float* __restrict__ c2sum,
+                  float* __restrict__ dw, int last) {
+  const int D = a.D, T = a.T, tpad = a.TPAD, i = blockIdx.y, per = D * tpad / 4;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= per) return;
+  const size_t n4 = (size_t)a.Bt * per, v = (size_t)i * per + e;
+  float4 x = reinterpret_cast<const float4*>(wsum)[v];
+  for (int sl = 0; sl < slices; ++sl) {
+    const float4 p = reinterpret_cast<const float4*>(part)[sl * n4 + v];
+    x = make_float4(x.x + p.x, x.y + p.y, x.z + p.z, x.w + p.w);
+  }
+  if (!last) {
+    reinterpret_cast<float4*>(wsum)[v] = x;
+    return;
+  }
+  const int d = 4 * e / tpad, t = 4 * e % tpad;
+  const float xs[4] = {x.x, x.y, x.z, x.w};
+  const bf16* w = a.words + 4 * v;
+  float* out = dw + ((size_t)i * D + d) * T + t;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (t + j < T) out[j] = xs[j] + c2sum[(size_t)i * tpad + t + j] * __bfloat162float(w[j]);
+}
+
 // pass 1 over the chunks of images in order, then K4a's pass 2 (dctx) and
-// K4b (dw) for the chunk, each when asked for
+// K4b's product and sum (dw) for the chunk, each when asked for
 template <int NT>
 static int launch_cotangents(const GloriaArgs& a, const bf16* dwei, const float* vecs, bf16* z,
-                             int chunk, float* dctx, float* wsum, const float* c2sum, float* dw,
-                             cudaStream_t st) {
+                             int chunk, float* dctx, float* part, int slices, float* wsum,
+                             const float* c2sum, float* dw, cudaStream_t st) {
   using Z = ZTile<NT>;
   // tensor maps (they hold the pointers, so they are built per call):
   // ctx [B_img][M][D]; words [B_txt][D][TPAD] and bf16(d_wei) [pairs][D][TPAD]
@@ -424,11 +491,14 @@ static int launch_cotangents(const GloriaArgs& a, const bf16* dwei, const float*
                              wg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(dwords_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             WTile::SMEM);
+                             wg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const int sms = sm_count();
   const int z_tiles = (a.M + wg::kBM - 1) / wg::kBM * ((a.Bt + Z::CPT - 1) / Z::CPT);
   const int g_tiles = (a.M + wg::kBM - 1) / wg::kBM * ((a.D + G_BN - 1) / G_BN);
+  const int w_tiles = slices * ((a.D + wg::kBM - 1) / wg::kBM) *
+                      ((a.Bt * a.TPAD + W_BN - 1) / W_BN);
+  const dim3 sum_grid((a.D * a.TPAD / 4 + THREADS - 1) / THREADS, a.Bt);
   for (int b0 = 0; b0 < a.Bi; b0 += chunk) {
     const int nb = a.Bi - b0 < chunk ? a.Bi - b0 : chunk;
     const int zg = z_tiles * nb < sms ? z_tiles * nb : sms;
@@ -444,9 +514,23 @@ static int launch_cotangents(const GloriaArgs& a, const bf16* dwei, const float*
       if (err != cudaSuccess) return (int)err;
     }
     if (dw != nullptr) {
-      dwords_gemm_kernel<<<dim3((a.D + WTile::BM - 1) / WTile::BM,
-                                (a.Bt * a.TPAD + WTile::BN - 1) / WTile::BN),
-                           gemm::kThreads, WTile::SMEM, st>>>(a, z, b0, nb, wsum, c2sum, dw);
+      // the chunk's rows (image, m) as one K: ctx [rows][D] as [64 rows][64
+      // d] boxes, and Zds, Z's d_scores halves from z + TPAD, [rows][B_txt]
+      // [TPAD] as [64 rows][1][32 words] boxes; both read zeros past the
+      // chunk's rows, so M needs no whole 64-row steps
+      const uint64_t rows = (uint64_t)nb * M;
+      CUtensorMap wctx_map, zds_map;
+      if (!tensor_map(&wctx_map, a.ctx + (size_t)b0 * M * D, D, rows, 1, D * 2, rows * D * 2,
+                      wg::kBox128, wg::kBK, sw128) ||
+          !tensor_map(&zds_map, z + tp, tp, a.Bt, rows, 2 * tp * 2, K * 2, wg::kBox, 1, sw64,
+                      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wg::kBK))
+        return (int)cudaErrorInvalidValue;
+      dwords_gemm_kernel<<<w_tiles < sms ? w_tiles : sms, wg::kThreads, wg::kSmemBytes, st>>>(
+          wctx_map, zds_map, a, (int)rows, slices, part);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      dwords_sum_kernel<<<sum_grid, THREADS, 0, st>>>(a, part, slices, wsum, c2sum, dw,
+                                                      b0 + nb == a.Bi);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
@@ -458,31 +542,35 @@ extern "C" {
 
 // K4a and K4b from the prologue's scratch, through z [chunk, M, Bt·2·TPAD]
 // bf16 (scratch), chunk images at a time: d_ctx [Bi, M, D] f32 when dctx
-// is given; d_words [Bt, D, T] f32 when dw is given, with wsum [Bt, D,
-// TPAD] and c2sum [Bt, TPAD] as the prologue left them (wsum is summed
-// into). Returns a cudaError_t: 0 when the launches were accepted.
+// is given; d_words [Bt, D, T] f32 when dw is given, through part
+// [slices, Bt, D, TPAD] f32 (scratch: the product's partial sums, each
+// chunk's K cut into `slices` slices), with wsum [Bt, D, TPAD] and c2sum
+// [Bt, TPAD] as the prologue left them (wsum is summed into). Returns a
+// cudaError_t: 0 when the launches were accepted.
 int medmoe_gloria_cotangents(const void* ctx, const void* words, const void* cap, int Bi, int Bt,
                              int M, int D, int T, float temp1, const void* dwei, const void* vecs,
-                             void* z, int chunk, void* dctx, void* wsum, const void* c2sum,
-                             void* dw, void* stream) {
+                             void* z, int chunk, void* dctx, void* part, int slices, void* wsum,
+                             const void* c2sum, void* dw, void* stream) {
   if (!shapes_ok(Bi, Bt, M, D, T) || chunk < 1 || chunk > 65535 ||
       (dctx == nullptr && dw == nullptr) ||
-      (dw != nullptr && (wsum == nullptr || c2sum == nullptr)))
+      (dw != nullptr && (part == nullptr || slices < 1 || slices > 64 || wsum == nullptr ||
+                         c2sum == nullptr)))
     return (int)cudaErrorInvalidValue;
   const GloriaArgs a = make_args(ctx, words, cap, Bi, Bt, M, D, T, temp1, 0.0f, 0.0f);
   const bf16* dq = static_cast<const bf16*>(dwei);
   const float* vv = static_cast<const float*>(vecs);
   bf16* zz = static_cast<bf16*>(z);
   float* dc = static_cast<float*>(dctx);
+  float* pp = static_cast<float*>(part);
   float* ws = static_cast<float*>(wsum);
   const float* c2 = static_cast<const float*>(c2sum);
   float* out = static_cast<float*>(dw);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (a.NT) {
-    case 1: return launch_cotangents<1>(a, dq, vv, zz, chunk, dc, ws, c2, out, st);
-    case 2: return launch_cotangents<2>(a, dq, vv, zz, chunk, dc, ws, c2, out, st);
-    case 3: return launch_cotangents<3>(a, dq, vv, zz, chunk, dc, ws, c2, out, st);
-    default: return launch_cotangents<4>(a, dq, vv, zz, chunk, dc, ws, c2, out, st);
+    case 1: return launch_cotangents<1>(a, dq, vv, zz, chunk, dc, pp, slices, ws, c2, out, st);
+    case 2: return launch_cotangents<2>(a, dq, vv, zz, chunk, dc, pp, slices, ws, c2, out, st);
+    case 3: return launch_cotangents<3>(a, dq, vv, zz, chunk, dc, pp, slices, ws, c2, out, st);
+    default: return launch_cotangents<4>(a, dq, vv, zz, chunk, dc, pp, slices, ws, c2, out, st);
   }
 }
 

@@ -1,8 +1,7 @@
 // Shared pieces of the GLoRIA similarity kernels (gloria_attention.cu, K3
 // and the backward's per-pair prologue; gloria_attention_bwd.cu, K4a and
-// K4b), whose products run on the wgmma core of wgmma_core.cuh (K4b's on
-// the GEMM core of gemm_core.cuh). See medmoe_torch/ops/gloria_attention.py
-// for what they compute.
+// K4b), whose products run on the wgmma core of wgmma_core.cuh. See
+// medmoe_torch/ops/gloria_attention.py for what they compute.
 //
 // Layouts the kernels take (the wrapper makes them), with the words of a
 // caption padded to TPAD = 32·NT, NT = ⌈T/32⌉ word tiles of TP = 32:

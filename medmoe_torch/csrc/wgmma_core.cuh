@@ -6,7 +6,8 @@
 // dctx_gemm_kernel) run on it, and so do the expert branch's products:
 // K1's logit product and K2's (expert_fusion_passes.cuh: fwd_logit_kernel,
 // bwd_act_kernel; expert_fusion_bwd.cu: bwd_du_kernel, bwd_dx_kernel,
-// bwd_wgrad_kernel). K4b still runs on the mma.sync core of gemm_core.cuh.
+// bwd_wgrad_kernel), and K4b's product (gloria_attention_bwd.cu:
+// dwords_gemm_kernel).
 //
 // A block is 384 threads: warpgroup 0 is the producer, warpgroups 1 and 2
 // the consumers. A block tile is kBM = 128 rows (64 a consumer warpgroup,
@@ -31,8 +32,8 @@
 //   registers    setmaxnreg moves registers from the producer (40 a
 //                thread) to the consumers (232 a thread).
 //
-// The K loop runs in order, with no split and no atomics: a tile's sums are
-// the same on every run. The tensor maps are built per call on the host
+// A tile's K loop runs in order, with no atomics: its sums are the same on
+// every run. The tensor maps are built per call on the host
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the library
 // needs no -lcuda) and passed as __grid_constant__ kernel parameters.
 #pragma once
@@ -439,17 +440,18 @@ static EncodeTiledFn encode_tiled() {
 
 // A rank-3 tensor map, bf16 unless `type` says otherwise: dims d0
 // (contiguous), d1, d2; byte strides s1, s2 of dims 1 and 2; boxes of
-// [b1][b0] (one along dim 2) with the given swizzle; what lies outside the
-// dims is read as zeros. False when the encoder refuses it.
+// [b2][b1][b0] (b2 = 1 unless given) with the given swizzle; what lies
+// outside the dims is read as zeros. False when the encoder refuses it.
 static bool tensor_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
                        uint64_t s1, uint64_t s2, uint32_t b0, uint32_t b1,
                        CUtensorMapSwizzle swizzle,
-                       CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                       CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       uint32_t b2 = 1) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {s1, s2};
-  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t box[3] = {b0, b1, b2};
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, type, 3, const_cast<void*>(base), dims, strides, box,
             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

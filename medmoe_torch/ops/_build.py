@@ -117,8 +117,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.medmoe_gloria_pair_cotangents.restype = i
     elif name == "gloria_attention_bwd":
         shape = [vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp, vp]
-        lib.medmoe_gloria_cotangents.argtypes = shape + [vp, i, vp, vp, vp,
-                                                         vp, vp]
+        lib.medmoe_gloria_cotangents.argtypes = shape + [vp, i, vp, vp, i, vp,
+                                                         vp, vp, vp]
         lib.medmoe_gloria_cotangents.restype = i
     lib.medmoe_cuda_error_string.argtypes = [i]
     lib.medmoe_cuda_error_string.restype = ctypes.c_char_p

@@ -31,13 +31,13 @@ kernel (F3); for d_words the prologue also sums K4b's f32 terms Σ_b
 dnum·wei and Σ_b c2 from F2's wei. ``csrc/gloria_attention_bwd.cu``
 replaces ``_dctx_kernel`` (K4a) and ``_dwords_kernel`` (K4b): one C entry
 runs, per chunk of images, the pass that writes Z = [bf16(a2) |
-bf16(d_scores)] once, then K4a's product over Z, both on the wgmma core,
-and K4b's product ctxᵀ·Zds on the GEMM core of ``csrc/gemm_core.cuh``.
-Their design notes are in the sources. F1/F2's
+bf16(d_scores)] once, then K4a's product over Z and K4b's product ctxᵀ·Zds
+(its K cut into ``K4B_SLICES`` slices, summed in order by a streaming
+pass), all on the wgmma core. Their design notes are in the sources. F1/F2's
 bf16 hi and lo of e and Z live in chunks of images (``image_chunk``: 16
 images, 1.6 GB at flagship); between the prologue and K4a/K4b the
 per-pair cotangents live in device memory (``backward_scratch_bytes``:
-5.3 GB at B=256, D=768, T <= 32, the prologue's chunk included). Not
+5.4 GB at B=256, D=768, T <= 32, the prologue's chunk included). Not
 ported: the TPU kernel's lane packing, ``_segment_max``, the indicator
 matmuls and the ``shard_map`` wrapper (Mosaic and SPMD devices), and its
 environment switches.
@@ -81,6 +81,7 @@ MAX_DIM = 768       # csrc/gloria_common.cuh MAX_D
 MAX_TEMP1 = 80.0    # exp(temp1·a1 - max(temp1, 0)) stays a normal f32
 M_TILE = 128        # csrc/gloria_attention.cu MTILE: F1's rows of a tile
 D_TILE = 256        # csrc/gloria_attention.cu DTILE: F2's columns of a tile
+K4B_SLICES = 2      # K4b's slices of a chunk's K (csrc/gloria_attention_bwd.cu)
 _PLAIN_BYTES = 512 << 20   # one [c, B_img, M, T] f32 block of the plain versions
 
 
@@ -188,14 +189,16 @@ def backward_scratch_bytes(b_img: int, b_txt: int, m: int, d: int,
                            t: int = WORD_TILE) -> int:
     """Device scratch of one kernel backward: bf16(d_wei) and the per-word
     vectors per pair, K4b's f32 accumulators (Σ dnum·wei [B_txt, D, TPAD]
-    and Σ c2 [B_txt, TPAD], when d_words is asked for), and the prologue's
-    passes over one chunk of images (E, partial sums, wei;
+    and Σ c2 [B_txt, TPAD]) and its slices' partial products
+    (``K4B_SLICES`` × [B_txt, D, TPAD]), when d_words is asked for, and the
+    prologue's passes over one chunk of images (E, partial sums, wei;
     ``_pass_scratch``). Z: ``image_chunk``."""
     pairs, tp = b_img * b_txt, _tpad(t)
     _, shapes = _pass_scratch(b_img, b_txt, m, d, t, wei=True)
     passes = sum(math.prod(s) * dt.itemsize for s, dt in shapes)
     return (pairs * d * tp * 2 + pairs * 4 * tp * 4
-            + b_txt * (d + 1) * tp * 4 + passes)
+            + b_txt * (d + 1) * tp * 4 + K4B_SLICES * b_txt * d * tp * 4
+            + passes)
 
 
 def _stream():
@@ -415,15 +418,19 @@ def cotangents_of(p: PairScratch, need_img: bool = True,
     dev = p.ctx.device
     d_ctx = torch.empty((bi, m, d), dtype=torch.float32, device=dev) \
         if need_img else None
-    d_w = torch.empty((bt, d, t), dtype=torch.float32, device=dev) \
-        if need_words else None
+    tp = p.words.shape[2]
+    d_w = part = None
+    if need_words:
+        d_w = torch.empty((bt, d, t), dtype=torch.float32, device=dev)
+        part = torch.empty((K4B_SLICES, bt, d, tp), dtype=torch.float32,
+                           device=dev)
     chunk, _ = image_chunk(bi, bt, m, t)
-    z = torch.empty((chunk, m, bt * 2 * p.words.shape[2]), dtype=torch.bfloat16,
-                    device=dev)
+    z = torch.empty((chunk, m, bt * 2 * tp), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         rc = lib.medmoe_gloria_cotangents(
             *p.args(), p.dwei.data_ptr(), p.vecs.data_ptr(), z.data_ptr(),
-            chunk, _ptr(d_ctx), _ptr(p.wsum if need_words else None),
+            chunk, _ptr(d_ctx), _ptr(part), K4B_SLICES,
+            _ptr(p.wsum if need_words else None),
             _ptr(p.c2sum if need_words else None), _ptr(d_w), _stream())
     _raise(lib, rc, "gloria_attention_bwd (K4a/K4b)")
     return d_ctx, d_w

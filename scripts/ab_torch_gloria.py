@@ -16,10 +16,13 @@ kernels:
   timed at captions of 25 and 40 words, then K3, the prologue alone and
   K4a alone (both passes from one prologue's scratch) at 256² and at
   128 × 256 with captions of 25 and 40 words, with each K4a pass's device
-  time and TFLOP/s on padded captions,
+  time and TFLOP/s on padded captions, and K4b alone there (the backward
+  of both cotangents less that of the image's) with each K4b pass's
+  device time,
   then, on fixed inputs (made with numpy), a digest of the bits of K3 and
-  the prologue and one of K4a's bits, with K4a held against its plain
-  version there. ``phase_gloria`` holds each checkout's K3 and prologue
+  the prologue and ones of K4a's and K4b's bits ("ab K4a bits", "ab K4b
+  bits"), with K4a held against its plain version there.
+  ``phase_gloria`` holds each checkout's K3 and prologue
   (through K4a and K4b) against the plain versions, so the digests are a
   record, not the check of correctness: each checkout's runs must give the
   same digest (two runs of one tree, the same bits), and the script says
@@ -102,8 +105,14 @@ for t in (25, 40):
 k4a = getattr(ga, "cotangents_of", None) or (lambda p: (ga.dctx_of(p),))
 
 
-def pass_ms(fn):
-    """Device ms of each of K4a's passes over one call (torch.profiler);
+K4A_PASSES = ("dctx_z_kernel", "dctx_gemm_kernel")
+# K4b's passes: the prologue's f32 terms, the product, and (since K4b's
+# product moved to the wgmma core) the slices' sum
+K4B_PASSES = ("dwords_wei_kernel", "dwords_gemm_kernel", "dwords_sum_kernel")
+
+
+def pass_ms(fn, kernels=K4A_PASSES):
+    """Device ms of each of ``kernels`` over one call (torch.profiler);
     its own, since a parent's chip_smoke.profile_passes may return
     nothing."""
     from torch.autograd import DeviceType
@@ -114,7 +123,7 @@ def pass_ms(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ms = dict.fromkeys(("dctx_z_kernel", "dctx_gemm_kernel"), 0.0)
+    ms = dict.fromkeys(kernels, 0.0)
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             for k in ms:
@@ -144,7 +153,23 @@ for b_img, t in ((256, 25), (256, 40), (128, 25), (128, 40)):
     print(f"ab {b_img}x256 T={t}: K4a alone {ms:.4f} ms; " + ", ".join(
         f"{k} {v:.3f} ms ({padded / max(v, 1e-9) / 1e9:.1f} TFLOP/s)"
         for k, v in passes.items()) + f" on {card}", flush=True)
-    del img, words, cap, cot, pairs
+    del pairs
+    # K4b alone: the backward of both cotangents less that of the image's
+    # (K4b sums into its prologue's accumulator, so each d_words needs a
+    # prologue of its own); its passes over a backward of the words'
+    # cotangent alone, the product's TFLOP/s on padded captions
+    # (2·B_img·M·D·B_txt·TPAD)
+    both = [c.cuda_ms(lambda: ga.gloria_similarity_backward(
+                img, words, cap, cot, *temps, need_words=need_words),
+                iters=2, warmup=1)
+            for need_words in (False, True)]
+    passes = pass_ms(lambda: ga.gloria_similarity_backward(
+        img, words, cap, cot, *temps, need_img=False), K4B_PASSES)
+    rate = padded / 2 / max(passes["dwords_gemm_kernel"], 1e-9) / 1e9
+    print(f"ab {b_img}x256 T={t}: K4b alone {both[1] - both[0]:.4f} ms; "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in passes.items())
+          + f" (dwords_gemm_kernel {rate:.1f} TFLOP/s) on {card}", flush=True)
+    del img, words, cap, cot
     torch.cuda.empty_cache()
 # the bits of K3 and the prologue on numpy inputs (must agree across the
 # checkouts), and of K4a (printed: a change to K4a changes them on purpose),
@@ -167,6 +192,11 @@ for shape in ((3, 5, 48, 12, 11, 40), (2, 3, 768, 56, 56, 25)):
     print(f"ab digest K3 + prologue {shape}: {digest.hexdigest()}", flush=True)
     print(f"ab K4a bits {shape}: "
           f"{hashlib.sha256(dctx.float().cpu().numpy().tobytes()).hexdigest()}",
+          flush=True)
+    dwords = ga.cotangents_of(ga.pair_cotangents(img, words, cap, cot, *temps,
+                                                 True), True, True)[1]
+    print(f"ab K4b bits {shape}: "
+          f"{hashlib.sha256(dwords.float().cpu().numpy().tobytes()).hexdigest()}",
           flush=True)
     d_img = ga.gloria_similarity_backward(img, words, cap, cot, *temps,
                                           need_words=False)[0]
@@ -284,8 +314,8 @@ def main() -> int:
                   flush=True)
             return proc.returncode
         for line in proc.stdout.splitlines():
-            if line.startswith(("ab digest", "ab K4a bits", "ab K1 bits",
-                                "ab K2 bits")):
+            if line.startswith(("ab digest", "ab K4a bits", "ab K4b bits",
+                                "ab K1 bits", "ab K2 bits")):
                 digests.setdefault(tree, set()).add(line)
     kinds = sorted({line.split(":")[0] for v in digests.values() for line in v})
     for kind in kinds:

@@ -228,17 +228,21 @@ class TestFunction:
     def test_scratch_bytes_at_b256(self):
         # captions of 40 words pad to two tiles of 32: bf16(d_wei) and 4
         # per-word vectors per pair, K4b's f32 accumulators (Σ dnum·wei and
-        # Σ c2 per caption), and the prologue's passes over 8 images: E
+        # Σ c2 per caption) and the partial products of its two slices of
+        # a chunk's K, and the prologue's passes over 8 images: E
         # [2, M, B_txt·TPAD], Σ_m e of 25 M tiles, 3 sums of 3 D tiles of
         # 256, and wei
+        assert ga.K4B_SLICES == 2
         n = 256 * 64
         assert ga.backward_scratch_bytes(256, 256, 3136, 768, 40) == \
             256 * 256 * (768 * 64 * 2 + 4 * 64 * 4) + 256 * 769 * 64 * 4 \
+            + 2 * 256 * 768 * 64 * 4 \
             + 8 * (2 * n * 3136 * 2 + 25 * n * 4 + 3 * 3 * n * 4
                    + 256 * 768 * 64 * 4)
         # E takes M rows as they are; M tiles round up to 128, D tiles to 256
         assert ga.backward_scratch_bytes(3, 5, 35, 48, 9) == \
             15 * (48 * 32 * 2 + 4 * 32 * 4) + 5 * 49 * 32 * 4 \
+            + 2 * 5 * 48 * 32 * 4 \
             + 3 * (2 * 160 * 35 * 2 + 160 * 4 + 3 * 160 * 4
                    + 5 * 48 * 32 * 4)
 
@@ -258,6 +262,7 @@ class TestFunction:
         n = 256 * tp
         assert ga.backward_scratch_bytes(256, 256, 3136, 768, t) == \
             256 * 256 * (768 * tp * 2 + 4 * tp * 4) + 256 * 769 * tp * 4 \
+            + 2 * 256 * 768 * tp * 4 \
             + images * (per_image + 25 * n * 4 + 3 * 3 * n * 4
                         + 256 * 768 * tp * 4)
 
@@ -367,13 +372,16 @@ def test_staged_form_matches_reference_and_jax(t, d_tile):
     np.testing.assert_allclose(got.numpy(), jax_sim, rtol=1e-4, atol=1e-5)
 
 
-def _staged_dwords(img, words, cap, g, temps, chunk):
+def _staged_dwords(img, words, cap, g, temps, chunk, slices=1):
     """The staging of K4b in torch ops, f32 sums of bf16 values: per pair
     the prologue's dnum, c2 and f32 wei and pass 1's bf16(d_scores) (Z's
     second half), as the plain version forms them; then d_words = Σ_b
-    dnum·wei (f32 wei, images in order) + Σ over chunks of images of one
-    product ctx_chunkᵀ·bf16(d_scores) [D, B_txt·T] (K = the chunk's images'
-    rows), added in chunk order, + (Σ_b c2)·w."""
+    dnum·wei (f32 wei, images in order) + Σ over chunks of images, and
+    within a chunk over ``slices`` slices of its K, of one product
+    ctx_sliceᵀ·bf16(d_scores) [D, B_txt·T], added in order. K is the
+    chunk's rows (image, m) in order, in steps of 64 rows; slice s takes
+    steps [s·nk/slices, (s+1)·nk/slices) of the chunk's nk, as
+    csrc/gloria_attention_bwd.cu cuts it; + (Σ_b c2)·w."""
     temp1, temp2, temp3 = temps
     bf = torch.bfloat16
     b_img, d, h, w = img.shape
@@ -400,28 +408,23 @@ def _staged_dwords(img, words, cap, g, temps, chunk):
     for b in range(b_img):                 # the prologue's f32 terms
         acc = acc + dnum[:, b, None, :] * cell["wei"][:, b]
         c2sum = c2sum + c2[:, b]
-    for b0 in range(0, b_img, chunk):      # one product a chunk of images
+    for b0 in range(0, b_img, chunk):      # one product a slice of a chunk
         b1 = min(b_img, b0 + chunk)
         a = ctx[b0:b1].permute(1, 0, 2).reshape(d, -1)        # [D, K]
         z = ds[:, b0:b1].permute(1, 2, 0, 3).reshape(a.shape[1], -1)
-        acc = acc + (a @ z).reshape(d, b_txt, t).permute(1, 0, 2)
+        nk = -(-a.shape[1] // 64)
+        for s in range(slices):
+            rows = slice(64 * (s * nk // slices), 64 * ((s + 1) * nk // slices))
+            acc = acc + (a[:, rows] @ z[rows]).reshape(d, b_txt, t) \
+                .permute(1, 0, 2)
     return acc + c2sum[:, None, :] * wt
 
 
-@pytest.mark.parametrize("shape,chunks", [
-    ((3, 5, 32, 12, 11, 9), (1, 2, 3)),      # M = 132, B_img != B_txt
-    ((4, 4, 64, 6, 6, 40), (1, 3)),          # captions of 40 words
-])
-def test_staged_dwords_matches_reference_and_jax(shape, chunks):
-    """K4b's decomposition (the f32 Σ dnum·wei and (Σ c2)·w terms apart
-    from one product over Z's bf16(d_scores) a chunk of images) against the
-    plain version, for every chunk size: within 1e-5·max|ref| (only the f32
-    order of the sums over images differs); and against the JAX kernel's
-    d_words in interpret mode within 2e-3·max|ref| (TestAgainstJax's
-    backward tolerance)."""
+@functools.lru_cache(maxsize=None)
+def _jax_dwords(shape):
+    """The staged d_words test's inputs at ``shape`` and the JAX kernel's
+    d_words in interpret mode."""
     img, words, cap, wgt = _inputs(*shape, seed=9)
-    _, want = ga.gloria_similarity_bwd_reference(*_torch(img, words, cap, wgt),
-                                                 *TEMPS)
 
     def loss(w_):
         return jnp.sum(jnp.asarray(wgt) * gloria_similarity_pallas(
@@ -429,7 +432,29 @@ def test_staged_dwords_matches_reference_and_jax(shape, chunks):
 
     with pltpu.force_tpu_interpret_mode():
         jax_words = np.asarray(jax.grad(loss)(jnp.asarray(words)))
+    return img, words, cap, wgt, jax_words
+
+
+@pytest.mark.parametrize("shape,chunks,slices", [
+    ((3, 5, 32, 12, 11, 9), (1, 2, 3), 1),   # M = 132, B_img != B_txt
+    ((4, 4, 64, 6, 6, 40), (1, 3), 1),       # captions of 40 words
+    # K4b's slices of a chunk's K: 3 to 7 steps of 64 rows a chunk at M =
+    # 132, so slice boundaries fall inside images and inside chunks
+    ((3, 5, 32, 12, 11, 9), (1, 2, 3), 2),
+    ((4, 4, 64, 6, 6, 40), (1, 3), 3),
+], ids=["shape0-chunks0", "shape1-chunks1", "M132-slices2",
+        "T40-slices3"])
+def test_staged_dwords_matches_reference_and_jax(shape, chunks, slices):
+    """K4b's decomposition (the f32 Σ dnum·wei and (Σ c2)·w terms apart
+    from one product over Z's bf16(d_scores) a slice of a chunk of images)
+    against the plain version, for every chunk size: within 1e-5·max|ref|
+    (only the f32 order of the sums over images differs); and against the
+    JAX kernel's d_words in interpret mode within 2e-3·max|ref|
+    (TestAgainstJax's backward tolerance)."""
+    img, words, cap, wgt, jax_words = _jax_dwords(shape)
+    _, want = ga.gloria_similarity_bwd_reference(*_torch(img, words, cap, wgt),
+                                                 *TEMPS)
     for chunk in chunks:
-        got = _staged_dwords(img, words, cap, wgt, TEMPS, chunk)
+        got = _staged_dwords(img, words, cap, wgt, TEMPS, chunk, slices)
         _close(got, want, 1e-5)
         _close(got, jax_words, 2e-3)

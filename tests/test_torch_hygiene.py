@@ -232,3 +232,23 @@ class TestKernelBuild:
     def test_every_kernel_source_exists(self):
         for name in _build.KERNELS:
             assert os.path.isfile(os.path.join(_build.CSRC, f"{name}.cu"))
+
+    @pytest.mark.parametrize("name", _build.KERNELS)
+    def test_c_entries_declare_every_parameter(self, name):
+        """Each C entry of csrc/<name>.cu gets one ctypes argtype a
+        parameter: ctypes passes an argument past the declared ones as a
+        C int, so an undeclared trailing pointer (the stream) would reach
+        the entry with its upper half undefined."""
+        import re
+        import types
+
+        with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
+            entries = dict(re.findall(
+                r"^(?:int|const char\*) (medmoe_\w+)\(([^)]*)\)",
+                f.read().split('extern "C" {')[-1], re.M))
+        assert entries
+        lib = types.SimpleNamespace(**{fn: types.SimpleNamespace()
+                                       for fn in entries})
+        _build._declare(name, lib)
+        for fn, params in entries.items():
+            assert len(getattr(lib, fn).argtypes) == len(params.split(",")), fn

@@ -25,10 +25,12 @@ beyond 2e-3·max|ref| — bf16(a2), bf16(d_wei) and bf16(d_scores) feed the
 cotangent products, and a value that lands on the other side of a bf16
 rounding boundary moves its term by one bf16 step. The prologue's own
 outputs (bf16(d_wei) and the per-word vectors) take K4a's tolerance. Worst
-measured on the H100 at B=256 flagship and on the odd shapes, with K3, the
-prologue and K4a on the wgmma core as before them:
-K3 2.4e-7·max|ref|; d_img 3.2e-3·max|ref| and d_words 3.6e-3·max|ref|,
-with at most 4.6e-4 of the elements beyond 2e-3·max|ref|. Expert-branch
+measured on the H100 at B=256 flagship and on the odd shapes, with every
+product on the wgmma core (K4b's over two slices of a chunk's K) as with
+K4b's on mma.sync before it:
+K3 2.4e-7·max|ref|; d_img 3.2e-3·max|ref| and d_words 3.6e-3·max|ref|
+(its bf16 rounding: 7.8e-3 at max|ref| 2.17), with at most 4.6e-4 of the
+elements beyond 2e-3·max|ref|. Expert-branch
 widths the kernels do not take (``check_kernel_limits``: E % 32, H % 8,
 H <= 2048) raise before K1 launches.
 
@@ -37,9 +39,11 @@ K3, the prologue and K4a run over chunks of images agree bit for bit with
 one chunk (a sample's outputs are its own). K1's and K2's products run on
 the wgmma core as persistent walks over (image, scale, tile): an
 out-of-range expert id in the middle of the walk poisons its own sample
-and the call returns. K4b sums over images chunk by chunk, so its
-chunks reorder that sum: d_words over other chunk sizes agrees within the
-tolerance above, not bit for bit.
+and the call returns. K4b sums over images chunk by chunk, and within a
+chunk over ``K4B_SLICES`` slices of its rows (image, m) in whole steps of
+64 rows, each slice's product a partial added in slice order: chunks and
+slices reorder that sum, so d_words over other chunk sizes or slice
+counts agrees within the tolerance above, not bit for bit.
 """
 
 import hashlib
@@ -64,6 +68,10 @@ K3_PROLOGUE_DIGESTS = (
 K4A_DIGESTS = (
     "42c829d27bda04a63466b13a82cd807e337bbdb0f63483f606c0145447aa9dd5",
     "cfbf8ea0cf26fd0e0ff8f816a37d276b9d81f8c2a217b9ff7bd4df5dbd3ff1ce")
+# sha256 of K4b's f32 d_words on the same two shapes (test_k4b_bits)
+K4B_DIGESTS = (
+    "ec8a7e52d4f01ab02e91885dd0d36b2889eaae67505f653044eb0bd2db05ba87",
+    "de3e351c8c52ace1128c764a7d70834be719771ab007a59be51ba26f76cfa2a9")
 # sha256 of K1's output and of K2's outputs on the two DIGEST_SHAPES
 # (test_k1_bits, test_k2_bits)
 K1_DIGESTS = (
@@ -731,6 +739,32 @@ class TestGloriaKernels:
             _gloria_close(a, w)
             _gloria_close(a, r)
 
+    @pytest.mark.parametrize("shape,slices", [
+        ((3, 5, 48, 12, 11, 9), 2),     # M = 132: 7 steps of 64 rows, the
+                                        # slice boundary inside an image;
+                                        # B_txt = 5: a ragged word tile
+        ((3, 5, 48, 12, 11, 9), 8),     # more slices than steps: one empty
+        ((2, 3, 64, 9, 9, 40), 3),      # TPAD 64
+        ((3, 3, 80, 7, 7, 96), 2),      # TPAD 96: tiles across captions;
+                                        # D = 80: a ragged D tile
+        ((2, 3, 64, 9, 9, 128), 2),     # TPAD 128
+        ((2, 6, 768, 56, 56, 25), 3),   # flagship widths, B_txt = 6
+    ])
+    def test_dwords_k_slices_match_plain_version(self, dev, monkeypatch,
+                                                 shape, slices):
+        # K4b's product over slices of a chunk's K, summed in order
+        img, words, cap, cot = _gloria_inputs(dev, *shape, seed=12)
+        monkeypatch.setattr(ga, "K4B_SLICES", slices)
+        before = ga.DWORDS_LAUNCHES
+        _, d_words = ga.gloria_similarity_backward(img, words, cap, cot,
+                                                   need_img=False)
+        torch.cuda.synchronize()
+        assert ga.DWORDS_LAUNCHES == before + 1
+        _, ref = ga.gloria_similarity_bwd_reference(img, words, cap, cot,
+                                                    need_img=False)
+        assert torch.isfinite(d_words).all()
+        _gloria_close(d_words, ref)
+
     @pytest.mark.parametrize("images", [1, 2])
     def test_dctx_over_chunks_of_images(self, dev, monkeypatch, images):
         # five images over chunks of 1 or 2: an image's d_ctx comes from its
@@ -821,8 +855,9 @@ class TestGloriaKernels:
         assert torch.equal(runs[0].vecs, runs[1].vecs)
 
     @staticmethod
-    def _digest_run(dev, shape):
-        """K3, the prologue and K4a on numpy inputs: (sim, pairs, d_ctx)."""
+    def _digest_run(dev, shape, need_words=False):
+        """K3, the prologue and K4a (and K4b with ``need_words``) on numpy
+        inputs: (sim, pairs, d_ctx, d_words or None)."""
         _skip_unless_digest_toolchain()
         b_img, b_txt, d, h, w, t = shape
         rng = np.random.RandomState(0)
@@ -834,9 +869,9 @@ class TestGloriaKernels:
         cap, cot = cap.to(dev), cot.to(dev)
         temps = (4.0, 5.0, 10.0)
         sim = ga.gloria_similarity_forward(img, words, cap, *temps)
-        pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
-        dctx, _ = ga.cotangents_of(pairs)
-        return sim, pairs, dctx
+        pairs = ga.pair_cotangents(img, words, cap, cot, *temps, need_words)
+        dctx, dwords = ga.cotangents_of(pairs, True, need_words)
+        return sim, pairs, dctx, dwords
 
     @pytest.mark.parametrize("shape,digest", [
         ((3, 5, 48, 12, 11, 40), K3_PROLOGUE_DIGESTS[0]),
@@ -846,14 +881,13 @@ class TestGloriaKernels:
         """The bits of K3 and the prologue (sim, bf16(d_wei), the per-word
         vectors) on numpy inputs, as the kernels give them with F1 and F2
         on the wgmma core of csrc/wgmma_core.cuh (scripts/ab_torch_gloria.py
-        prints the digest as "ab digest K3 + prologue"); a change to the
-        mma.sync core of csrc/gemm_core.cuh, which K3 and the prologue no
-        longer use, leaves them alone. Bits depend on the compiler and the
-        card, so the digests hold only for the toolkit and card they were
-        recorded with (``DIGESTS_RECORDED_WITH``) and the test skips on any
-        other; record them anew whenever K3 or the prologue change on
-        purpose."""
-        sim, pairs, _ = self._digest_run(dev, shape)
+        prints the digest as "ab digest K3 + prologue"); a change to another
+        kernel (K4a, K4b, the expert branch) leaves them alone. Bits depend
+        on the compiler and the card, so the digests hold only for the
+        toolkit and card they were recorded with (``DIGESTS_RECORDED_WITH``)
+        and the test skips on any other; record them anew whenever K3 or
+        the prologue change on purpose."""
+        sim, pairs, _, _ = self._digest_run(dev, shape)
         got = hashlib.sha256()
         for out in (sim, pairs.dwei, pairs.vecs):
             got.update(out.float().cpu().numpy().tobytes())
@@ -869,8 +903,24 @@ class TestGloriaKernels:
         (scripts/ab_torch_gloria.py prints them as "ab K4a bits");
         recorded with ``DIGESTS_RECORDED_WITH``, and anew whenever K4a or
         the prologue change on purpose."""
-        _, _, dctx = self._digest_run(dev, shape)
+        _, _, dctx, _ = self._digest_run(dev, shape)
         got = hashlib.sha256(dctx.float().cpu().numpy().tobytes())
+        assert got.hexdigest() == digest
+
+    @pytest.mark.parametrize("shape,digest", [
+        ((3, 5, 48, 12, 11, 40), K4B_DIGESTS[0]),
+        ((2, 3, 768, 56, 56, 25), K4B_DIGESTS[1]),
+    ])
+    def test_k4b_bits(self, dev, shape, digest):
+        """The bits of K4b's f32 d_words on the same inputs, as the wgmma
+        K4b gives them (its product over ``K4B_SLICES`` slices of a chunk's
+        K, summed in order, with the prologue's f32 terms); the second
+        shape's chunk has 98 steps of 64 rows, cut at step 49
+        (scripts/ab_torch_gloria.py prints them as "ab K4b bits");
+        recorded with ``DIGESTS_RECORDED_WITH``, and anew whenever K4b or
+        the prologue change on purpose."""
+        _, _, _, dwords = self._digest_run(dev, shape, need_words=True)
+        got = hashlib.sha256(dwords.float().cpu().numpy().tobytes())
         assert got.hexdigest() == digest
 
     def test_wrapper_raises_on_mixed_devices_and_dtypes(self, dev):
