@@ -9,16 +9,17 @@
      started together, and prints the build time and each kernel's ptxas
      registers and spills; checks in cuobjdump's SASS that the kernels on
      the wgmma core (K3's and the prologue's F1/F2, K4a's two passes, K1's
-     logit product and K2's five products) run wgmma (HGMMA) fed by TMA
-     (UTMALDG) and no mma.sync (HMMA);
+     projection and logit product, K2's projection and five products) run
+     wgmma (HGMMA) fed by TMA (UTMALDG) and no mma.sync (HMMA);
   3. K1, the fused expert branch: holds the kernel against its plain
      PyTorch version on the card at B=32 flagship shapes (bf16, every
      expert used) and on small odd shapes, times both with CUDA events,
      prints each of its passes' device time (and the product passes'
-     TFLOP/s) at B=32 and B=256 from one torch.profiler call each, and
-     times it at B=256 flagship (the gloria256 step's shape), held against
-     its plain version on two slices of 32 samples, one across a chunk
-     boundary;
+     TFLOP/s) at B=32 and B=256 from one torch.profiler call each, beside
+     a cuBLAS yardstick of one chunk's projection (torch.baddbmm over the
+     gathered Wp with bias and ReLU, timed only), and times it at B=256
+     flagship (the gloria256 step's shape), held against its plain version
+     on two slices of 32 samples, one across a chunk boundary;
   4. serving: the full-width MedMoE (Swin-T + 6-expert gather MoE +
      BERT-base, bf16, seeded random weights) encodes the CheXpert class
      prompts and serves waves of 32 synthetic uint8 images through the
@@ -27,10 +28,11 @@
   5. K2, the fused expert branch's backward: holds the kernel against its
      plain version at B=32 flagship shapes and on small odd shapes, times
      both, prints each of its passes' device time (and the product passes'
-     TFLOP/s) at B=32 and B=256 from one torch.profiler call each, times
-     it at B=256 flagship (the gloria256 step's shape), and holds
-     FusedExpertGather's gradients against autograd through the plain
-     forward;
+     TFLOP/s) at B=32 and B=256 from one torch.profiler call each, with
+     the projection's yardstick, times it at B=256 flagship (the gloria256
+     step's shape), holds the u that K1's projection writes bit for bit
+     against the u K2's u pass writes, and holds FusedExpertGather's
+     gradients against autograd through the plain forward;
   6. training: the train CLI's ``train`` on experiment=pretraining_medmoe_ddp
      with synthetic data at full width, 8 micro-batches of 32 in 2
      optimizer steps (accumulation cut from 80 to 4 to fit the run's time);
@@ -307,12 +309,71 @@ def phase_k1(torch, ef):
                   f"bound_ms {result['bound_ms']:.4f} ({result['bound_by']}: "
                   f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)",
                   flush=True)
-            profile_passes(torch, lambda: ef.expert_fusion_gather(*args),
-                           f"K1 {name}", K1_KERNELS, pass_flops(args, K1_KERNELS))
+            passes = profile_passes(
+                torch, lambda: ef.expert_fusion_gather(*args), f"K1 {name}",
+                K1_KERNELS, pass_flops(args, K1_KERNELS))
+            result.update(
+                fwd_proj_kernel_ms=passes["fwd_proj_kernel"],
+                proj_yardstick_ms=proj_yardstick(
+                    torch, args, f"K1 {name}", "fwd_proj_kernel",
+                    passes["fwd_proj_kernel"]))
         del args, out, ref
         torch.cuda.empty_cache()
     result.update(time_k1(torch, ef, GLORIA_BATCH))
     return result
+
+
+def proj_yardstick(torch, args, label: str, name: str,
+                   pass_ms: float) -> float:
+    """The projection's yardstick: one torch.baddbmm (cuBLAS) a scale over
+    the batch of ``args`` (one chunk), bias + x_s·Wp[idx] in bf16 then
+    ReLU, on Wp and bp gathered per sample beforehand, timed with CUDA
+    events beside the kernel pass ``name`` (``pass_ms`` device ms). Printed
+    only: the port never calls it. Returns its ms."""
+    xs, wp, bp, w1, b1, w2, b2, idx = args
+    ix = idx.long()
+    ws = [w[ix].to(torch.bfloat16) for w in wp]
+    bs = [v[ix].to(torch.bfloat16)[:, None, :] for v in bp]
+
+    def run():
+        for x, w, v in zip(xs, ws, bs):
+            torch.relu_(torch.baddbmm(v, x, w))
+
+    ms = cuda_ms(run, iters=10)
+    flops = sum(2 * x.shape[0] * x.shape[1] * x.shape[2] * w.shape[2]
+                for x, w in zip(xs, ws))
+    print(f"{label}: yardstick torch.baddbmm + relu of the projection "
+          f"({len(xs)} scales, {idx.shape[0]} images, Wp gathered) "
+          f"{ms:.3f} ms ({flops / max(ms, 1e-9) / 1e9:.1f} TFLOP/s), against "
+          f"{name} {pass_ms:.3f} ms", flush=True)
+    del ws, bs
+    return ms
+
+
+def k1_u_is_k2_u(torch, ef, args, d_out) -> None:
+    """The u that K1's projection writes (h_0 at the identity scale)
+    against the u that K2's u pass writes from its own projection's h (h_0
+    at the identity scale), bit for bit: the scratch both wrappers
+    allocate for one chunk, kept. Fails the run on a difference."""
+    xs, wp, bp, w1, b1, w2, b2, idx = args
+    kept = {}
+    fwd, bwd = ef._fwd_buffers, ef._bwd_buffers
+    ef._fwd_buffers = lambda *a: kept.setdefault("fwd", fwd(*a))
+    ef._bwd_buffers = lambda *a: kept.setdefault("bwd", bwd(*a))
+    try:
+        ef.expert_fusion_gather(*args)
+        ef.expert_fusion_gather_bwd(xs, wp, bp, w1, b1, w2, idx, d_out)
+        torch.cuda.synchronize()
+    finally:
+        ef._fwd_buffers, ef._bwd_buffers = fwd, bwd
+    p, b = max(x.shape[1] for x in xs), idx.shape[0]
+    k2 = [h if x.shape[1] == p else u for x, h, u in
+          zip(xs, kept["bwd"]["h"], kept["bwd"]["u"])]
+    same = [torch.equal(u1[:b], u2[:b]) for u1, u2 in zip(kept["fwd"][0], k2)]
+    print(f"K1 u (its projection's epilogue) vs K2 u (its u pass), B={b} "
+          f"flagship, per scale: {['equal' if x else 'DIFFER' for x in same]}",
+          flush=True)
+    check(all(same), "K1's u is not K2's u bit for bit")
 
 
 def time_k1(torch, ef, b: int):
@@ -472,28 +533,29 @@ def profile_wave(torch, embed, images, wave_ms: float):
     profile_device(torch, lambda: embed(images).cpu(), wave_ms, "one wave")
 
 
-K1_KERNELS = ("proj_kernel", "fwd_u_kernel", "fwd_logit_kernel",
-              "fwd_combine_kernel")
+K1_KERNELS = ("fwd_proj_kernel", "fwd_logit_kernel", "fwd_combine_kernel")
 
 
 def pass_flops(args, kernels) -> dict:
     """Operations of one call's product passes among ``kernels``: the
-    projection (K1's, which K2 reruns), the logit product u·W1 (K1's and
-    K2's), K2's d_u product, its d_x product and its weight gradients (dW1
-    and every dWp)."""
+    projection (K1's, and K2's recompute of it), the logit product u·W1
+    (K1's and K2's), K2's d_u product, its d_x product and its weight
+    gradients (dW1 and every dWp)."""
     xs, wp, bp, w1, b1, w2, b2, idx = args
     b = idx.shape[0]
     _, e, h = w1.shape
     p = max(x.shape[1] for x in xs)
     mlp = len(xs) * 2 * b * p * e * h
     proj = sum(2 * b * x.shape[1] * x.shape[2] * e for x in xs)
-    ops = {"proj_kernel": proj, "fwd_logit_kernel": mlp,
+    ops = {"fwd_proj_kernel": proj, "bwd_proj_kernel": proj,
+           "fwd_logit_kernel": mlp,
            "bwd_act_kernel": mlp, "bwd_du_kernel": mlp,
            "bwd_dx_kernel": proj, "bwd_wgrad_kernel": mlp + proj}
     return {k: v for k, v in ops.items() if k in kernels}
 
 
-K2_KERNELS = ("bwd_u_kernel", "bwd_act_kernel", "bwd_row_kernel",
+K2_KERNELS = ("bwd_proj_kernel", "bwd_u_kernel", "bwd_act_kernel",
+              "bwd_row_kernel",
               "bwd_du_kernel", "bwd_tlerp_kernel", "bwd_dx_kernel",
               "bwd_wgrad_kernel", "bwd_reduce_kernel")
 K3_KERNELS = ("void sim_e_kernel", "void sim_wei_kernel",
@@ -511,9 +573,9 @@ def dev_us(e) -> float:
 
 def profile_device(torch, fn, wall_ms: float, label: str):
     """torch.profiler over one call of ``fn``: device time by kernel, the
-    expert-fusion kernels' share of it (K1: the forward's four passes; K2:
-    the backward's eight, beside the projection recompute it runs through
-    K1's proj_kernel), and the device's idle share of an unprofiled call's
+    expert-fusion kernels' share of it (K1: the forward's three passes; K2:
+    the backward's nine, its projection recompute the first), and the
+    device's idle share of an unprofiled call's
     wall time (``wall_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -702,14 +764,25 @@ def phase_k2(torch, ef):
             print(f"K2 {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
                   f"bound_ms {result['bound_ms']:.4f} ({result['bound_by']}: "
                   f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; the kernel "
-                  f"time includes K1's projection recompute)", flush=True)
-            profile_passes(torch, lambda: ef.expert_fusion_gather_bwd(
-                xs, wp, bp, w1, b1, w2, idx, d_out), f"K2 {name}",
-                ("proj_kernel",) + K2_KERNELS,
-                pass_flops(args, ("proj_kernel",) + K2_KERNELS))
+                  f"time includes its projection recompute)", flush=True)
+            passes = profile_passes(
+                torch, lambda: ef.expert_fusion_gather_bwd(
+                    xs, wp, bp, w1, b1, w2, idx, d_out), f"K2 {name}",
+                K2_KERNELS, pass_flops(args, K2_KERNELS))
+            result.update(
+                bwd_proj_kernel_ms=passes["bwd_proj_kernel"],
+                proj_yardstick_ms=proj_yardstick(
+                    torch, args, f"K2 {name}", "bwd_proj_kernel",
+                    passes["bwd_proj_kernel"]))
         del args, out, ref
         torch.cuda.empty_cache()
     result.update(time_k2(torch, ef, GLORIA_BATCH))
+    args = k1_inputs(torch, b=3, p_list=(3136, 784, 196, 49),
+                     d_list=(96, 192, 384, 768), e=768, h=384, k=6, seed=18)
+    k1_u_is_k2_u(torch, ef, args, torch.randn(
+        (3, 3136, 768), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(19)))
+    del args
 
     # the autograd Function: bank and pyramid gradients against autograd
     # through the plain forward, at the JAX package's fused-vs-XLA bound
@@ -755,8 +828,8 @@ def phase_k2(torch, ef):
 
 def profile_passes(torch, fn, label: str, kernels, flops=None) -> dict:
     """Device time of each of ``kernels`` (name prefixes) over one call of
-    ``fn`` (torch.profiler): K1's passes, K2's and K1's projection pass
-    that K2 reruns, K3's or the prologue's three, or K4a's two; with
+    ``fn`` (torch.profiler): K1's passes, K2's, K3's or the prologue's
+    three, or K4a's two; with
     ``flops`` ({prefix: operations of one call}) each pass's TFLOP/s too.
     Returns {prefix: ms}."""
     from torch.autograd import DeviceType
@@ -784,7 +857,7 @@ def profile_passes(torch, fn, label: str, kernels, flops=None) -> dict:
 
 
 def time_k2(torch, ef, b: int):
-    """K2 (with K1's projection recompute) at flagship shapes and batch
+    """K2 (with its projection recompute) at flagship shapes and batch
     ``b``, timed with CUDA events, beside its bound; the shape of a
     gloria256 step's expert-branch backward."""
     args = k1_inputs(torch, b=b, p_list=(3136, 784, 196, 49),
@@ -800,10 +873,9 @@ def time_k2(torch, ef, b: int):
     print(f"K2 flagship B={b}: kernel_ms {ms:.4f} bound_ms {bound:.4f} "
           f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); image chunk "
           f"{nc}", flush=True)
-    kernels = ("proj_kernel",) + K2_KERNELS
     profile_passes(torch, lambda: ef.expert_fusion_gather_bwd(
-        xs, wp, bp, w1, b1, w2, idx, d_out), f"K2 flagship B={b}", kernels,
-        pass_flops(args, kernels))
+        xs, wp, bp, w1, b1, w2, idx, d_out), f"K2 flagship B={b}", K2_KERNELS,
+        pass_flops(args, K2_KERNELS))
     # the run over chunks of images against the plain version: each
     # sample's outputs depend on that sample alone, so the plain version
     # on a slice of the batch is enough; the slices straddle the first
@@ -3917,20 +3989,20 @@ WGMMA_KERNELS = {
     "gloria_attention_bwd": {"dctx_z_kernel<1>", "dctx_z_kernel<2>",
                              "dctx_z_kernel<3>", "dctx_z_kernel<4>",
                              "dctx_gemm_kernel", "dwords_gemm_kernel"},
-    "expert_fusion": {"fwd_logit_kernel"},
-    "expert_fusion_bwd": {"bwd_act_kernel", "bwd_du_kernel", "bwd_dx_kernel",
-                          "bwd_wgrad_kernel"},
+    "expert_fusion": {"fwd_proj_kernel", "fwd_logit_kernel"},
+    "expert_fusion_bwd": {"bwd_proj_kernel", "bwd_act_kernel", "bwd_du_kernel",
+                          "bwd_dx_kernel", "bwd_wgrad_kernel"},
 }
 
 
 def check_wgmma_sass(_build) -> None:
     """The wgmma-core kernels in the built libraries' SASS (cuobjdump): K3's
     and the prologue's F1 and F2 (``sim_e_kernel<1..4>``,
-    ``sim_wei_kernel<0,1>``), K4a's two passes, K4b's product, K1's logit
-    product and K2's five products (its logit product, d_u, d_x and the
-    weight gradients); each must hold wgmma
-    (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA). Prints each
-    one's counts with its local-memory stores and loads (STL/LDL)."""
+    ``sim_wei_kernel<0,1>``), K4a's two passes, K4b's product, K1's
+    projection and logit product, and K2's projection and five products
+    (its logit product, d_u, d_x and the weight gradients); each must hold
+    wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA). Prints
+    each one's counts with its local-memory stores and loads (STL/LDL)."""
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
         print(f"sass: {tool} not found: the wgmma kernels' instructions not "
@@ -4059,6 +4131,7 @@ def main() -> int:
             "dctx_z_kernel_ms", "dctx_gemm_kernel_ms", "both_ms",
             "dwords_wei_kernel_ms", "dwords_gemm_kernel_ms",
             "dwords_sum_kernel_ms", "matmul_yardstick_ms",
+            "fwd_proj_kernel_ms", "bwd_proj_kernel_ms", "proj_yardstick_ms",
             "prologue_ms", "prologue_bound_ms", "ms_b256", "bound_ms_b256")
             if k in r})
         return {"name": name, "route": "cuda", "source": source,

@@ -2,9 +2,9 @@
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` (driven by `_bwd_pallas`) in
 // medmoe_tpu/ops/pallas/expert_fusion.py. Per sample b with e = idx[b], from
-// the recomputed projections h_s (K1's projection launch, run by the wrapper
-// into a scratch buffer, as the TPU kernel recomputes its forward chain) and
-// the cotangent d_out [P, E] f32:
+// the inputs and the cotangent d_out [P, E] f32, the forward chain
+// recomputed first (h_s by K1's projection template, as the TPU kernel
+// recomputes its forward chain):
 //
 //   u_s   = bf16(lerp of h_s)                      as in the forward
 //   a_s   = bf16(relu(u_s·W1 + b1)),  logit_s = Σ a_s·w2
@@ -33,16 +33,20 @@
 // of m64n192k16 wgmma, one persistent block an SM), its operands read by TMA
 // from bf16 scratch and the bank as stored (zeros past every edge), and
 // every sum over P or over tiles runs in a fixed order without atomics. Per
-// chunk of images (the wrapper sizes the chunk and runs K1's projection
-// launch first):
+// chunk of images (the wrapper sizes the chunk):
+//   0. bwd_proj_kernel (wgmma, M = P_s, N = E, K = D_s): h_s of every
+//      scale, stored by TMA (K1's projection, expert_fusion_passes.cuh);
 //   1. bwd_u_kernel (streaming, a warp a row of P): u_s = bf16(lerp(h_s))
 //      to a scratch for each non-identity scale (the identity scale's u is
-//      h_0, read in place), and d_att_s, d_out read once for all scales;
+//      h_0, read in place), and d_att_s, d_out read once for all scales; a
+//      row's loads for up to 768 columns are all in flight before the first
+//      is used;
 //   2. bwd_act_kernel (wgmma, M = P, N = H, K = E): a_s = bf16(relu(u_s·W1
 //      + b1)) to a scratch (stored by TMA from a ring stage), and each
 //      192-wide N tile's partial logits;
-//   (passes 1 and 2 are K1's u and logit passes, expert_fusion_passes.cuh,
-//   with d_att and a_s kept: K2's logits are K1's, bit for bit)
+//   (passes 0 and 2 are K1's projection and logit templates,
+//   expert_fusion_passes.cuh, storing h_s and keeping a_s; pass 1 computes
+//   the u K1's projection writes: K2's u and logits are K1's, bit for bit)
 //   3. bwd_row_kernel (streaming, 64 rows a block): the logits summed in
 //      tile order, the softmax over scales and its backward, bf16(att32)
 //      for pass 4, bf16(dz_a) over a_s in place, the tile's dw2/db1 sums;
@@ -58,18 +62,19 @@
 //      ≤ 2r + 1 destination rows that read each source row, from a table
 //      built in Python (ops/expert_fusion.py, transposed_lerp_plan): 8
 //      source rows a block (one a warp), 256 columns a block (8 a lane, in
-//      16-byte vectors), the destination rows staged in shared memory in
-//      windows of 128 so that each is read about once, p summed in
-//      increasing order; then the mask h_s > 0, bf16(dz_h_s) and the
-//      block's dbp sums;
+//      16-byte vectors); each warp walks its band in increasing p, in
+//      windows of T_WIN rows read into registers, the next window's loads
+//      in flight while this one is summed; then the mask h_s > 0,
+//      bf16(dz_h_s) and the block's dbp sums;
 //   6. bwd_dx_kernel (wgmma, M = P_s, N = D_s, K = E, Wp as stored,
 //      K-major): bf16(dz_h)·Wpᵀ, TMA storing the tile from a stage;
 //   7. bwd_wgrad_kernel (wgmma, A and B MN-major): dW1 = Σ_s u_sᵀ·bf16(dz_a)
 //      (K = S·P, one accumulation over all scales, each scale's rows past P
 //      read as zeros) and dWp_s = x_sᵀ·bf16(dz_h_s) (K = P_s), the dW1
 //      tiles (196 stages a flagship tile) first;
-//   8. bwd_reduce_kernel: the partial sums of db1, dw2 and dbp in tile
-//      order.
+//   8. bwd_reduce_kernel (a thread a column, over images and over the
+//      columns of H and of every scale's E): the partial sums of db1, dw2
+//      and dbp in tile order.
 // Scratch a flagship image: h 6.4 MB, u and bf16(d_u) 14.5 MB each, a/dz_a
 // 9.6 MB, bf16(dz_h) 6.4 MB, the per-tile sums 0.9 MB (≈52 MB; the
 // f32 d_u the single-pass design kept was 38.5 MB an image).
@@ -81,22 +86,11 @@
 
 #include "expert_fusion_passes.cuh"
 
-// cp.async, for the transposed upsample's windows: 16 bytes global → shared,
-// asynchronous; zeros (src not read) when !valid
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(wg::smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
+#define U_WARPS 4     // rows of P a block of the u pass, one a warp
 #define ROW_TM 64     // rows of P a block of the row step
 #define T_ROWS 8      // source rows a block of the transposed upsample, one a warp
 #define T_COLS 256    // columns a block of the transposed upsample, 8 a lane
-#define T_WIN 128     // destination rows the transposed upsample stages at once
+#define T_WIN 4       // destination rows of a window of the transposed upsample
 
 // the products' tiles: wg::kBM = 128 rows by kBN columns (the logit
 // product's width, kActBN: expert_fusion_passes.cuh)
@@ -172,9 +166,81 @@ __device__ __forceinline__ void store4_bf16(bf16* dst, float4 v) {
 }
 
 // ---------------------------------------------------------------------------
-// pass 1: u_s to scratch (P_s < P) and d_att_s; a warp a row, grid (⌈P/8⌉, B)
+// pass 0: h_s of every scale; persistent (expert_fusion_passes.cuh)
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS) bwd_u_kernel(BwdArgs a) { u_rows<true>(a); }
+__global__ void __launch_bounds__(wg::kThreads, 1)
+bwd_proj_kernel(const __grid_constant__ ProjMaps maps, const ProjArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  proj_tiles<false>(maps, a, smem_raw);
+}
+
+// 16 bytes through the read-only path
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// ---------------------------------------------------------------------------
+// pass 1: u_s to scratch (P_s < P) and d_att_s = Σ_E d_out·u_s; a warp a row
+// p of P, 8 columns a lane, grid (⌈P/U_WARPS⌉, B). A column step's loads
+// (d_out once for all scales, the one or two h rows of every scale) are
+// all issued before the first is used; d_out, read once, and u, written
+// once, stream past L2 (evict-first), which keeps the h rows that
+// neighbouring rows share. d_att sums each step's 8 products, then the
+// steps in order, then the warp's lanes.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(U_WARPS * 32) bwd_u_kernel(BwdArgs a) {
+  const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int P = a.P_out, E = a.E, S = a.n_scales;
+  const int p = blockIdx.x * U_WARPS + warp;
+  if (p >= P || bad_expert(a, a.idx[b])) return;
+  const bf16* hs[MAX_SCALES];
+  int i0[MAX_SCALES], i1[MAX_SCALES];
+  float w[MAX_SCALES], acc[MAX_SCALES];
+#pragma unroll
+  for (int s = 0; s < MAX_SCALES; ++s) {
+    i0[s] = i1[s] = p;
+    w[s] = acc[s] = 0.0f;
+    hs[s] = s < S ? a.h[s] + (size_t)b * a.P[s] * E : nullptr;
+    if (s < S && a.P[s] != P) lerp_rows(p, a.P[s], P, i0[s], i1[s], w[s]);
+  }
+  const float* d = a.dout + ((size_t)b * P + p) * E;
+  for (int c = lane * 8; c < E; c += 256) {
+    const float4 g0 = __ldcs(reinterpret_cast<const float4*>(d + c));
+    const float4 g1 = __ldcs(reinterpret_cast<const float4*>(d + c + 4));
+    uint4 x0[MAX_SCALES], x1[MAX_SCALES];
+#pragma unroll
+    for (int s = 0; s < MAX_SCALES; ++s) {
+      if (s >= S) continue;
+      x0[s] = ldg16(hs[s] + (size_t)i0[s] * E + c);
+      x1[s] = a.P[s] != P ? ldg16(hs[s] + (size_t)i1[s] * E + c) : x0[s];
+    }
+    const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+    for (int s = 0; s < MAX_SCALES; ++s) {
+      if (s >= S) continue;
+      const bf16* v0 = reinterpret_cast<const bf16*>(&x0[s]);
+      const bf16* v1 = reinterpret_cast<const bf16*>(&x1[s]);
+      float u[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) u[q] = __bfloat162float(v0[q]);
+      if (a.P[s] != P) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) u[q] = round_bf16(lerp(u[q], __bfloat162float(v1[q]), w[s]));
+        store8_bf16_cs(a.u[s] + ((size_t)b * P + p) * E + c, u);
+      }
+      float part = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) part += g[q] * u[q];
+      acc[s] += part;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < MAX_SCALES; ++s) {
+    if (s >= S) break;
+    const float v = warp_sum(acc[s]);
+    if (lane == 0) a.datt[((size_t)b * S + s) * P + p] = v;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // pass 2: a_s = bf16(relu(u_s·W1 + b1)) and partial logits; persistent
@@ -445,12 +511,17 @@ bwd_du_kernel(const __grid_constant__ DuMaps maps, BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// pass 5: dz_h_s = [h_s > 0]·Gᵀ·bf16(d_u_s), banded; grid (Σ_s blocks, B)
+// pass 5: dz_h_s = [h_s > 0]·Gᵀ·bf16(d_u_s), banded; grid (Σ_s blocks, B).
+// Warp w of a block sums source row i's band, its destination rows in
+// increasing p, in windows of T_WIN rows read straight into registers: the
+// next window's loads are in flight while this one is summed (a two-stage
+// ring in registers). No window is shared or staged, so no warp waits for
+// another's rows, and the r = 64 scale's long bands (≈2r rows) keep their
+// loads in flight; the ≤ r rows two neighbouring source rows share come
+// from L2 the second time.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS) bwd_tlerp_kernel(BwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* win = reinterpret_cast<bf16*>(smem);     // [T_WIN][T_COLS]
-  float* red = reinterpret_cast<float*>(smem);   // [T_ROWS][T_COLS], after the last window
+  __shared__ float red[T_ROWS][T_COLS];
   const int b = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   int t = blockIdx.x, s = 0;
   while (s + 1 < a.n_scales && t >= a.t_blk[s + 1]) ++s;
@@ -458,48 +529,47 @@ __global__ void __launch_bounds__(THREADS) bwd_tlerp_kernel(BwdArgs a) {
   const int E = a.E, P = a.P_out, Ps = a.P[s];
   const int n_cc = cdiv(E, T_COLS), cc = t % n_cc, rb = t / n_cc, c0 = cc * T_COLS;
   if (bad_expert(a, a.idx[b])) return;
-  const int i_lo = rb * T_ROWS, i_hi = i_lo + T_ROWS < Ps ? i_lo + T_ROWS : Ps;
-  const int* st = a.t_start[s];
-  const int* tr = a.t_row[s];
-  const float* tw = a.t_w[s];
-  // the union of the block's bands (each source row's entries increase in p)
-  int p_lo = P, p_hi = 0;
-  for (int i = i_lo; i < i_hi; ++i)
-    if (st[i + 1] > st[i]) {
-      p_lo = min(p_lo, tr[st[i]]);
-      p_hi = max(p_hi, tr[st[i + 1] - 1] + 1);
-    }
-  const int i = i_lo + warp;
-  const bool live = i < i_hi;
-  int k = live ? st[i] : 0;
-  const int k_end = live ? st[i + 1] : 0;
-  const bf16* du = a.du[s] + (size_t)b * P * E;
+  const int i = rb * T_ROWS + warp, c = c0 + lane * 8;
+  const bool live = i < Ps, col = c < E;
+  const int k_beg = live ? a.t_start[s][i] : 0, k_end = live ? a.t_start[s][i + 1] : 0;
+  const int* __restrict__ tr = a.t_row[s];
+  const float* __restrict__ tw = a.t_w[s];
+  const bf16* du = a.du[s] + (size_t)b * P * E + c;
   float acc[8];
 #pragma unroll
   for (int q = 0; q < 8; ++q) acc[q] = 0.0f;
 
-  for (int w0 = p_lo; w0 < p_hi; w0 += T_WIN) {
-    const int nrow = p_hi - w0 < T_WIN ? p_hi - w0 : T_WIN;
-    for (int v = tid; v < nrow * (T_COLS / 8); v += THREADS) {
-      const int r = v / (T_COLS / 8), cv = (v % (T_COLS / 8)) * 8;
-      const bool ok = c0 + cv < E;
-      cp16(win + r * T_COLS + cv, ok ? du + (size_t)(w0 + r) * E + c0 + cv : du, ok);
-    }
-    cp_commit();
-    cp_wait<0>();
-    __syncthreads();
-    for (; k < k_end && tr[k] < w0 + nrow; ++k) {
-      float v[8];
-      load8_bf16(win + (tr[k] - w0) * T_COLS + lane * 8, v);
-      const float wt = tw[k];
+  uint4 v0[T_WIN], v1[T_WIN];
+  float w0[T_WIN], w1[T_WIN];
+  // window k0..k0 + T_WIN of the band into (v, wt); entries past its end
+  // are not read
+  auto fetch = [&](uint4 (&v)[T_WIN], float (&wt)[T_WIN], int k0) {
 #pragma unroll
-      for (int q = 0; q < 8; ++q) acc[q] += wt * v[q];
+    for (int j = 0; j < T_WIN; ++j) {
+      const int k = k0 + j;
+      wt[j] = k < k_end ? tw[k] : 0.0f;
+      v[j] = k < k_end && col ? ldg16(du + (size_t)tr[k] * E) : make_uint4(0, 0, 0, 0);
     }
-    __syncthreads();
+  };
+  auto add = [&](const uint4 (&v)[T_WIN], const float (&wt)[T_WIN], int k0) {
+#pragma unroll
+    for (int j = 0; j < T_WIN; ++j) {
+      if (k0 + j >= k_end) break;
+      const bf16* x = reinterpret_cast<const bf16*>(&v[j]);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[q] += wt[j] * __bfloat162float(x[q]);
+    }
+  };
+  fetch(v0, w0, k_beg);
+  for (int k0 = k_beg; k0 < k_end; k0 += 2 * T_WIN) {
+    fetch(v1, w1, k0 + T_WIN);
+    add(v0, w0, k0);
+    if (k0 + T_WIN >= k_end) break;
+    fetch(v0, w0, k0 + 2 * T_WIN);
+    add(v1, w1, k0 + T_WIN);
   }
 
-  const int c = c0 + lane * 8;
-  if (live && c < E) {
+  if (live && col) {
     float hv[8];
     load8_bf16(a.h[s] + ((size_t)b * Ps + i) * E + c, hv);
 #pragma unroll
@@ -510,12 +580,12 @@ __global__ void __launch_bounds__(THREADS) bwd_tlerp_kernel(BwdArgs a) {
     for (int q = 0; q < 8; ++q) acc[q] = 0.0f;
   }
 #pragma unroll
-  for (int q = 0; q < 8; ++q) red[warp * T_COLS + lane * 8 + q] = acc[q];
+  for (int q = 0; q < 8; ++q) red[warp][lane * 8 + q] = acc[q];
   __syncthreads();
   if (c0 + tid < E) {  // the block's column sums, source rows in order
     float sum = 0.0f;
 #pragma unroll
-    for (int w = 0; w < T_ROWS; ++w) sum += red[w * T_COLS + tid];
+    for (int w = 0; w < T_ROWS; ++w) sum += red[w][tid];
     a.dbp_part[s][((size_t)b * a.n_part[s] + rb) * E + c0 + tid] = sum;
   }
 }
@@ -721,55 +791,61 @@ bwd_wgrad_kernel(const __grid_constant__ WgMaps maps, BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// pass 8: per sample, the per-tile partial sums in tile order
+// pass 8: the per-tile partial sums in tile order, a thread a column; grid
+// (⌈max(H, E)/THREADS⌉, B, 1 + S): z = 0 sums row_part into dw2 and db1
+// (columns of H), z = 1 + s dbp_part of scale s into dbp_s (columns of E)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS) bwd_reduce_kernel(BwdArgs a) {
-  const int b = blockIdx.x;
+  const int b = blockIdx.y, z = blockIdx.z, c = blockIdx.x * THREADS + threadIdx.x;
   const bool bad = bad_expert(a, a.idx[b]);
   const int E = a.E, H = a.H;
-  const int T = cdiv(a.P_out, ROW_TM);
-  for (int c = threadIdx.x; c < H; c += THREADS) {
+  if (z == 0) {
+    if (c >= H) return;
+    const int T = cdiv(a.P_out, ROW_TM);
+    const float* part = a.row_part + (size_t)b * T * 2 * H + c;
     float s2 = 0.0f, s1 = 0.0f;
-    for (int t = 0; t < T && !bad; ++t) {
-      const float* part = a.row_part + ((size_t)b * T + t) * 2 * H;
-      s2 += part[c];
-      s1 += part[H + c];
+    if (!bad) {
+#pragma unroll 8
+      for (int t = 0; t < T; ++t) {
+        s2 += part[(size_t)t * 2 * H];
+        s1 += part[(size_t)t * 2 * H + H];
+      }
     }
     a.dw2[(size_t)b * H + c] = bad ? nan_f() : s2;
     a.db1[(size_t)b * H + c] = bad ? nan_f() : s1;
+    return;
   }
-  for (int s = 0; s < a.n_scales; ++s) {
-    const int Ts = a.n_part[s];
-    for (int c = threadIdx.x; c < E; c += THREADS) {
-      float sum = 0.0f;
-      for (int t = 0; t < Ts && !bad; ++t) sum += a.dbp_part[s][((size_t)b * Ts + t) * E + c];
-      a.dbp[s][(size_t)b * E + c] = bad ? nan_f() : sum;
-    }
+  const int s = z - 1, T = a.n_part[s];
+  if (c >= E) return;
+  const float* part = a.dbp_part[s] + (size_t)b * T * E + c;
+  float sum = 0.0f;
+  if (!bad) {
+#pragma unroll 8
+    for (int t = 0; t < T; ++t) sum += part[(size_t)t * E];
   }
+  a.dbp[s][(size_t)b * E + c] = bad ? nan_f() : sum;
 }
 
 template <class Kernel>
-static cudaError_t launch(Kernel k, dim3 grid, int smem, cudaStream_t st, const BwdArgs& a) {
+static cudaError_t launch(Kernel k, dim3 grid, int threads, cudaStream_t st, const BwdArgs& a) {
   if (grid.x == 0) return cudaSuccess;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  k<<<grid, THREADS, smem, st>>>(a);
+  k<<<grid, threads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
 extern "C" {
 
-// K2 for a chunk of B images, after K1's projection launch has written hs.
-// parts[0..MAX_SCALES+1]: the partial-sum rows an image the caller's scratch
-// holds, dbp_parts' of each scale, then lpart's logit tiles, then row_part's
-// row-step tiles; fewer than these tiles write is rejected.
+// K2 for a chunk of B images, its projection first (h_s of every scale into
+// the scratch hs). parts[0..MAX_SCALES+1]: the partial-sum rows an image
+// the caller's scratch holds, dbp_parts' of each scale, then lpart's logit
+// tiles, then row_part's row-step tiles; fewer than these tiles write is
+// rejected.
 // Returns a cudaError_t: 0 when every launch was accepted.
 int medmoe_expert_fusion_bwd(int n_scales, const void* const* xs, const void* const* wps,
-                             const void* const* hs, void* const* us, void* const* dus,
-                             void* const* acts, void* const* dzhs, void* const* dxs,
-                             void* const* dwps, void* const* dbps, void* const* dbp_parts,
+                             const void* const* bps, void* const* hs, void* const* us,
+                             void* const* dus, void* const* acts, void* const* dzhs,
+                             void* const* dxs, void* const* dwps, void* const* dbps,
+                             void* const* dbp_parts,
                              const void* const* t_starts, const void* const* t_rows,
                              const void* const* t_ws, const int* Ps, const int* Ds,
                              const int* parts, const void* w1, const void* b1, const void* w2,
@@ -861,20 +937,27 @@ int medmoe_expert_fusion_bwd(int n_scales, const void* const* xs, const void* co
          tensor_map(&wg_m.x[s], a.x[s], D, Pq, B, D * 2, Pq * D * 2, wg::kBox128, wg::kBK, sw) &&
          tensor_map(&wg_m.dz[s], a.dzh[s], E, Pq, B, e2, Pq * e2, wg::kBox128, wg::kBK, sw);
   }
-  if (!ok) return (int)cudaErrorInvalidValue;
+  ProjMaps proj_m;
+  ProjArgs proj_a;
+  if (!ok || !proj_setup(&proj_m, &proj_a, false, S, xs, wps, bps, hs, Ps, Ds, idx, B, K, E, P))
+    return (int)cudaErrorInvalidValue;
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if ((err = launch(bwd_u_kernel, dim3(cdiv(P, 8), B), 0, st, a)) != cudaSuccess) return (int)err;
+  if ((err = launch_persistent(bwd_proj_kernel, proj_a.tile_start[S], wg::kSmemBytes, st, proj_m,
+                               proj_a)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch(bwd_u_kernel, dim3(cdiv(P, U_WARPS), B), U_WARPS * 32, st, a)) != cudaSuccess)
+    return (int)err;
   if ((err = launch_persistent(bwd_act_kernel, B * S * cdiv(P, wg::kBM) * cdiv(H, kActBN),
                                wg::kSmemBytes, st, act_m, a)) != cudaSuccess)
     return (int)err;
-  if ((err = launch(bwd_row_kernel, dim3(cdiv(P, ROW_TM), B), 0, st, a)) != cudaSuccess)
+  if ((err = launch(bwd_row_kernel, dim3(cdiv(P, ROW_TM), B), THREADS, st, a)) != cudaSuccess)
     return (int)err;
   if ((err = launch_persistent(bwd_du_kernel, B * cdiv(P, wg::kBM) * cdiv(E, kBN) * S, kDuSmem,
                                st, du_m, a)) != cudaSuccess)
     return (int)err;
-  if ((err = launch(bwd_tlerp_kernel, dim3(t_blk, B), T_WIN * T_COLS * 2, st, a)) != cudaSuccess)
+  if ((err = launch(bwd_tlerp_kernel, dim3(t_blk, B), THREADS, st, a)) != cudaSuccess)
     return (int)err;
   if ((err = launch_persistent(bwd_dx_kernel, B * dx_tiles, wg::kSmemBytes, st, dx_m, a)) !=
       cudaSuccess)
@@ -882,7 +965,8 @@ int medmoe_expert_fusion_bwd(int n_scales, const void* const* xs, const void* co
   if ((err = launch_persistent(bwd_wgrad_kernel, B * a.wg_start[S + 1], wg::kSmemBytes, st, wg_m,
                                a)) != cudaSuccess)
     return (int)err;
-  return (int)launch(bwd_reduce_kernel, dim3(B), 0, st, a);
+  return (int)launch(bwd_reduce_kernel, dim3(cdiv(H > E ? H : E, THREADS), B, 1 + S), THREADS, st,
+                     a);
 }
 
 const char* medmoe_cuda_error_string(int code) {

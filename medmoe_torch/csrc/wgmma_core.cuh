@@ -4,10 +4,10 @@
 // the backward's prologue (gloria_attention.cu: sim_e_kernel,
 // sim_wei_kernel) and K4a (gloria_attention_bwd.cu: dctx_z_kernel,
 // dctx_gemm_kernel) run on it, and so do the expert branch's products:
-// K1's logit product and K2's (expert_fusion_passes.cuh: fwd_logit_kernel,
-// bwd_act_kernel; expert_fusion_bwd.cu: bwd_du_kernel, bwd_dx_kernel,
-// bwd_wgrad_kernel), and K4b's product (gloria_attention_bwd.cu:
-// dwords_gemm_kernel).
+// K1's and K2's projection and logit product (expert_fusion_passes.cuh:
+// fwd_proj_kernel, bwd_proj_kernel, fwd_logit_kernel, bwd_act_kernel;
+// expert_fusion_bwd.cu: bwd_du_kernel, bwd_dx_kernel, bwd_wgrad_kernel),
+// and K4b's product (gloria_attention_bwd.cu: dwords_gemm_kernel).
 //
 // A block is 384 threads: warpgroup 0 is the producer, warpgroups 1 and 2
 // the consumers. A block tile is kBM = 128 rows (64 a consumer warpgroup,

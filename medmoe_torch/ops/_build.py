@@ -95,16 +95,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "expert_fusion":
         arr_p, arr_i = ctypes.POINTER(vp), ctypes.POINTER(i)
         lib.medmoe_expert_fusion_fwd.argtypes = [
-            i, arr_p, arr_p, arr_p, arr_p, arr_p, arr_i, arr_i,
+            i, arr_p, arr_p, arr_p, arr_p, arr_i, arr_i,
             vp, vp, vp, vp, vp, i, vp, i, i, i, i, i, vp]
         lib.medmoe_expert_fusion_fwd.restype = i
-        lib.medmoe_expert_fusion_proj.argtypes = [
-            i, arr_p, arr_p, arr_p, arr_p, arr_i, arr_i, vp, i, i, i, vp]
-        lib.medmoe_expert_fusion_proj.restype = i
     elif name == "expert_fusion_bwd":
         arr_p, arr_i = ctypes.POINTER(vp), ctypes.POINTER(i)
         lib.medmoe_expert_fusion_bwd.argtypes = (
-            [i] + [arr_p] * 14 + [arr_i] * 3 + [vp] * 12
+            [i] + [arr_p] * 15 + [arr_i] * 3 + [vp] * 12
             + [i, i, i, i, i, vp])
         lib.medmoe_expert_fusion_bwd.restype = i
     elif name == "gloria_attention":

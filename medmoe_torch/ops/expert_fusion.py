@@ -18,44 +18,48 @@ medmoe_tpu/ops/pallas/expert_fusion.py. On the H100 it is bound by
 operations: at B=32 and flagship shapes it does ≈265 GFLOP (≈0.87 GFLOP
 of projections and ≈7.4 GFLOP of attention MLP per sample) against ≈344
 MB of traffic, ≈0.27 ms of bf16 tensor-core time against ≈0.10 ms of
-memory time. It runs four passes over chunks of images
-(``fwd_image_chunk``: as many as fit in the scratch budget, 81 flagship
-images), the attention MLP — 90% of the operations — on the wgmma core of
-``csrc/wgmma_core.cuh`` (TMA loads, one producer warp, two consumer
-warpgroups, one persistent block an SM):
+memory time. It runs three passes over chunks of images
+(``fwd_image_chunk``: as many as fit in the scratch budget, 87 flagship
+images), both products on the wgmma core of ``csrc/wgmma_core.cuh`` (TMA
+loads, one producer warp, two consumer warpgroups, one persistent block an
+SM):
 
-  1. a projection pass writes h_s for every scale to a bf16 scratch;
-  2. a streaming pass writes u_s = bf16(lerp(h_s)) for each scale with
-     P_s < P (the TPU kernel's dense interpolation matrix existed only
-     because Mosaic cannot gather);
-  3. a product u_s·W1 per scale whose epilogue folds bf16(relu(·+b1))·w2
+  1. the projection x_s·Wp + bp, whose epilogue rounds bf16(relu(·)) in
+     registers and stages the tile: the identity scale's h_0 (its u) is
+     stored; at each scale with P_s < P it writes u_s = bf16(lerp(h_s))
+     from the staged tile and never stores h_s (``proj_row_tiles``: tiles
+     of 128 rows stepping 126, each owning the u rows of its middle h rows;
+     the TPU kernel's dense interpolation matrix existed only because
+     Mosaic cannot gather);
+  2. a product u_s·W1 per scale whose epilogue folds bf16(relu(·+b1))·w2
      into each 192-wide tile's partial logits, never storing a_s;
-  4. a streaming pass sums the partial logits in tile order, takes the
+  3. a streaming pass sums the partial logits in tile order, takes the
      softmax over scales and writes ``out`` = Σ_s att_s·u_s once.
 
-Passes 2 and 3 are the backward's first two passes without d_att and a_s
-(``csrc/expert_fusion_passes.cuh``), so K2 differentiates the forward K1
-took. Each block reads expert_idx[b] itself and offsets its weight
-pointers, in place of the TPU kernel's scalar-prefetch index maps; no
-block holds a whole [P, E] map (the TPU kernel kept every map of a sample
-in 100 MiB of VMEM).
+Passes 1 and 2 are the backward's projection and logit product
+(``csrc/expert_fusion_passes.cuh``), and its u pass computes the u pass 1
+writes, so K2 differentiates the forward K1 took. Each block reads
+expert_idx[b] itself and offsets its weight pointers, in place of the TPU
+kernel's scalar-prefetch index maps; no block holds a whole [P, E] map (the
+TPU kernel kept every map of a sample in 100 MiB of VMEM).
 
 The backward (K2, ``csrc/expert_fusion_bwd.cu``) replaces the Pallas
 ``_bwd_kernel`` driven by ``_bwd_pallas``. ``expert_fusion_gather_bwd``
-recomputes h_s with K1's projection launch (the TPU kernel recomputes its
-forward chain too, so nothing but the inputs is kept between forward and
-backward), runs K2, and returns d_x_s and the per-sample parameter
-gradients; ``FusedExpertGather`` scatters those into the expert bank with
-``index_add_``, as the JAX package's one-hot einsum does (``_fe_bwd``).
-``attn_b2`` gets an exact zero gradient.
+runs K2, which recomputes h_s with K1's projection (the TPU kernel
+recomputes its forward chain too, so nothing but the inputs is kept
+between forward and backward), and returns d_x_s and the per-sample
+parameter gradients; ``FusedExpertGather`` scatters those into the expert
+bank with ``index_add_``, as the JAX package's one-hot einsum does
+(``_fe_bwd``). ``attn_b2`` gets an exact zero gradient.
 
-K2 is bound by operations: five products of ≈7.4 GFLOP a flagship sample
-for the a recompute, d_u and dW1, ≈0.87 for d_x and dWp. It runs them as
-dense tile products on the wgmma core (``csrc/wgmma_core.cuh``), every
+K2 is bound by operations: six products, ≈7.4 GFLOP a flagship sample
+each for the a recompute, d_u and dW1, ≈0.87 for h_s, d_x and dWp. It runs
+them as dense tile products on the wgmma core (``csrc/wgmma_core.cuh``), every
 operand a bf16 scratch or the bank as stored, read by TMA, between
 streaming passes that are bound by bytes (O(P·E) bf16 a sample and
 scale):
 
+  0. h_s of every scale (K1's projection, storing h_s);
   1. u_s = bf16(lerp(h_s)) and d_att_s = Σ_E d_out·u_s, d_out read once;
   2. a_s = bf16(relu(u_s·W1 + b1)) with each N tile's partial logits;
   3. the row step: softmax over scales and its backward, bf16(dz_a);
@@ -99,6 +103,9 @@ MAX_HIDDEN = 2048       # K2's row step: a thread for each 8 columns of H
 # (dbp at the identity scale), K2's row step's ROW_TM rows of P and its
 # transposed upsample's T_ROWS source rows
 _LOGIT_TILE, _TM, _BWD_ROW_TM, _BWD_T_ROWS = 192, 128, 64, 8
+# K1's projection tiles at a lerped scale step this many h rows
+# (kUStride): 128-row tiles with one halo row each side
+_U_STRIDE = _TM - 2
 
 
 def expert_fusion_supported(p_list: Sequence[int], p_max: int) -> bool:
@@ -119,11 +126,12 @@ def check_kernel_limits(e: int, h: int, d_list: Sequence[int]) -> None:
     """Raise ValueError unless the expert-branch kernels K1 (forward) and
     K2 (backward) both take expert width E, attention hidden width H and
     pyramid widths D_s: 1..4 scales, D_s % 8 == 0 (16-byte rows of x),
-    E % 32 == 0 (K1's projection pass; K2 takes E % 8), H % 8 == 0 (16-byte
-    rows of a_s and W1) and 8 <= H <= 2048 (K2's row step takes a thread for
-    each 8 columns of H). Shapes only, so a trainer calls it before the
-    first step and K1's wrapper before its launch: a forward that K2 cannot
-    differentiate never starts."""
+    E % 32 == 0 (K1's limit, kept from its WMMA projection: the kernels
+    need E % 8, 16-byte rows, and no card test runs a width between),
+    H % 8 == 0 (16-byte rows of a_s and W1) and 8 <= H <= 2048 (K2's row
+    step takes a thread for each 8 columns of H). Shapes only, so a trainer
+    calls it before the first step and K1's wrapper before its launch: a
+    forward that K2 cannot differentiate never starts."""
     d_list = list(d_list)
     if not 1 <= len(d_list) <= MAX_SCALES or any(d % 8 for d in d_list):
         raise ValueError(f"the expert-branch kernels take 1..{MAX_SCALES} "
@@ -224,26 +232,23 @@ def expert_fusion_gather(xs: Sequence[torch.Tensor],
         wp, bp, w1, b1, w2, k, h, expert_idx)
     n = len(xs)
     p_s = [x.shape[1] for x in xs]
-    # scratch for one chunk of images (fwd_scratch_bytes; ≈21 MB a flagship
-    # image): h_s, u_s (P_s < P only) and the partial logits
+    # scratch for one chunk of images (fwd_scratch_bytes; ≈19 MB a flagship
+    # image): u_s of every scale (h_0 at the identity scale) and the
+    # partial logits
     nc, _ = fwd_image_chunk(b, p_s, e, h)
     tiles = -(-h // _LOGIT_TILE)
-    hs = [torch.empty((nc, q, e), dtype=torch.bfloat16, device=dev)
-          for q in p_s]
-    us = [torch.empty((nc, p, e), dtype=torch.bfloat16, device=dev)
-          if q != p else None for q in p_s]
-    lpart = torch.empty((nc, n, tiles, p), dtype=torch.float32, device=dev)
+    us, lpart = _fwd_buffers(nc, n, p, e, tiles, dev)
     ptrs = ctypes.c_void_p * MAX_SCALES
     ints = ctypes.c_int * MAX_SCALES
 
     def arr(ts, c0=0):            # pointers to image c0 of each tensor
-        return ptrs(*[None if t is None else t[c0:].data_ptr() for t in ts])
+        return ptrs(*[t[c0:].data_ptr() for t in ts])
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         for c0 in range(0, b, nc):
             rc = lib.medmoe_expert_fusion_fwd(
-                n, arr(xs, c0), arr(wp_k), arr(bp_k), arr(hs), arr(us),
+                n, arr(xs, c0), arr(wp_k), arr(bp_k), arr(us),
                 ints(*p_s), ints(*[x.shape[2] for x in xs]),
                 w1_k.data_ptr(), b1_k.data_ptr(), w2_k.data_ptr(),
                 idx_k[c0:].data_ptr(), lpart.data_ptr(), tiles,
@@ -255,6 +260,16 @@ def expert_fusion_gather(xs: Sequence[torch.Tensor],
                            + lib.medmoe_cuda_error_string(rc).decode())
     LAUNCHES += 1
     return out
+
+
+def _fwd_buffers(nc: int, n: int, p: int, e: int, tiles: int,
+                 dev: torch.device):
+    """K1's scratch for a chunk of ``nc`` images: u_s [nc, P, E] bf16 of
+    each of the ``n`` scales and the partial logits [nc, n, tiles, P]
+    f32."""
+    return ([torch.empty((nc, p, e), dtype=torch.bfloat16, device=dev)
+             for _ in range(n)],
+            torch.empty((nc, n, tiles, p), dtype=torch.float32, device=dev))
 
 
 @torch.library.custom_op("medmoe::expert_fusion_gather", mutates_args=())
@@ -343,9 +358,9 @@ def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
     d_wp[s] [B, D_s, E], d_bp[s] [B, E], d_w1 [B, E, H], d_b1 [B, H],
     d_w2 [B, H] (attn_b2's gradient is exactly zero).
 
-    CUDA tensors run K1's projection pass and K2 (or raise); CPU tensors
-    run the plain version. A CUDA sample whose expert id is out of range
-    gets NaN in all of its outputs."""
+    CUDA tensors run K2 (or raise), whose first pass recomputes h_s with
+    K1's projection; CPU tensors run the plain version. A CUDA sample whose
+    expert id is out of range gets NaN in all of its outputs."""
     global BWD_LAUNCHES
     b, k, e, h, p = _check(xs, wp, bp, w1, b1, w2, None, expert_idx)
     if not isinstance(d_out, torch.Tensor) or d_out.dtype != torch.float32 \
@@ -369,9 +384,6 @@ def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    def bf16(*shape):
-        return torch.empty(shape, dtype=torch.bfloat16, device=dev)
-
     d_xs = [torch.empty_like(x) for x in xs]
     d_wp = [f32(b, d, e) for d in d_s]
     d_bp = [f32(b, e) for _ in xs]
@@ -380,29 +392,16 @@ def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
         return tuple(d_xs), tuple(d_wp), tuple(d_bp), d_w1, d_b1, d_w2
     from medmoe_torch.ops import _build
 
-    lib_fwd = _build.load("expert_fusion")
     lib = _build.load("expert_fusion_bwd")
     wp_k, bp_k, w1_k, b1_k, w2_k, idx_k = _kernel_params(
         wp, bp, w1, b1, w2, k, h, expert_idx)
     # scratch for one chunk of images (bwd_scratch_bytes; ≈52 MB a flagship
     # image, chunks of at most 1.7 GB, against the 9.87 GB of f32 d_u alone
-    # that the single-pass design held at B=256): recomputed h_s, u_s and
-    # bf16(d_u_s) (P_s < P only), a_s then bf16(dz_a_s), bf16(dz_h_s),
-    # d_att, bf16(att32) and the per-tile partial sums
+    # that the single-pass design held at B=256)
     nc, _ = bwd_image_chunk(b, p_s, e, h)
-    lerped = [q != p for q in p_s]
     parts = _bwd_parts(p_s, h)
-    hs = [bf16(nc, q, e) for q in p_s]
-    us = [bf16(nc, p, e) if up else None for up in lerped]
-    dus = [bf16(nc, p, e) if up else None for up in lerped]
-    act = [bf16(nc, p, h) for _ in xs]
-    dzh = [bf16(nc, q, e) for q in p_s]
-    dbp_part = [f32(nc, parts[s], e) for s in range(n)]
-    datt, att = f32(nc, n, p), f32(nc, n, p)
-    lpart = f32(nc, n, parts[MAX_SCALES], p)
-    row_part = f32(nc, parts[MAX_SCALES + 1], 2, h)
-    plans = [_plan_on(q, p, dev) if up else (None,) * 3
-             for q, up in zip(p_s, lerped)]
+    buf = _bwd_buffers(nc, p_s, e, h, parts, dev)
+    plans = [_plan_on(q, p, dev) if q != p else (None,) * 3 for q in p_s]
     ptrs = ctypes.c_void_p * MAX_SCALES
     ints = ctypes.c_int * MAX_SCALES
 
@@ -413,22 +412,20 @@ def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
         stream = torch.cuda.current_stream().cuda_stream
         for c0 in range(0, b, nc):
             c1 = min(b, c0 + nc)
-            rc = lib_fwd.medmoe_expert_fusion_proj(
-                n, arr(xs, c0), arr(wp_k), arr(bp_k), arr(hs), ints(*p_s),
-                ints(*d_s), idx_k[c0:].data_ptr(), c1 - c0, k, e, stream)
-            if rc:
-                break
             rc = lib.medmoe_expert_fusion_bwd(
-                n, arr(xs, c0), arr(wp_k), arr(hs), arr(us), arr(dus),
-                arr(act), arr(dzh), arr(d_xs, c0), arr(d_wp, c0),
-                arr(d_bp, c0), arr(dbp_part), arr([t[0] for t in plans]),
+                n, arr(xs, c0), arr(wp_k), arr(bp_k), arr(buf["h"]),
+                arr(buf["u"]), arr(buf["du"]), arr(buf["act"]),
+                arr(buf["dzh"]),
+                arr(d_xs, c0), arr(d_wp, c0), arr(d_bp, c0),
+                arr(buf["dbp_part"]), arr([t[0] for t in plans]),
                 arr([t[1] for t in plans]), arr([t[2] for t in plans]),
                 ints(*p_s), ints(*d_s), (ctypes.c_int * len(parts))(*parts),
                 w1_k.data_ptr(), b1_k.data_ptr(), w2_k.data_ptr(),
                 idx_k[c0:].data_ptr(), d_out[c0:].data_ptr(),
                 d_w1[c0:].data_ptr(), d_b1[c0:].data_ptr(), d_w2[c0:].data_ptr(),
-                datt.data_ptr(), lpart.data_ptr(), att.data_ptr(),
-                row_part.data_ptr(), c1 - c0, k, e, h, p, stream)
+                buf["datt"].data_ptr(), buf["lpart"].data_ptr(),
+                buf["att"].data_ptr(), buf["row_part"].data_ptr(),
+                c1 - c0, k, e, h, p, stream)
             if rc:
                 break
     if rc != 0:
@@ -436,6 +433,32 @@ def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
                            + lib.medmoe_cuda_error_string(rc).decode())
     BWD_LAUNCHES += 1
     return tuple(d_xs), tuple(d_wp), tuple(d_bp), d_w1, d_b1, d_w2
+
+
+def _bwd_buffers(nc: int, p_s: Sequence[int], e: int, h: int,
+                 parts: Sequence[int], dev: torch.device) -> dict:
+    """K2's scratch for a chunk of ``nc`` images (``bwd_scratch_bytes``):
+    recomputed h_s, u_s and bf16(d_u_s) (P_s < P only), a_s then
+    bf16(dz_a_s), bf16(dz_h_s), d_att, bf16(att32), the partial logits and
+    the per-tile partial sums."""
+    p, n = max(p_s), len(p_s)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def bf16(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev)
+
+    return dict(
+        h=[bf16(nc, q, e) for q in p_s],
+        u=[bf16(nc, p, e) if q != p else None for q in p_s],
+        du=[bf16(nc, p, e) if q != p else None for q in p_s],
+        act=[bf16(nc, p, h) for _ in p_s],
+        dzh=[bf16(nc, q, e) for q in p_s],
+        dbp_part=[f32(nc, parts[s], e) for s in range(n)],
+        datt=f32(nc, n, p), att=f32(nc, n, p),
+        lpart=f32(nc, n, parts[MAX_SCALES], p),
+        row_part=f32(nc, parts[MAX_SCALES + 1], 2, h))
 
 
 def _bwd_parts(p_list: Sequence[int], h: int) -> list:
@@ -469,12 +492,28 @@ def bwd_scratch_bytes(p_list: Sequence[int], e: int, h: int) -> int:
 
 def fwd_scratch_bytes(p_list: Sequence[int], e: int, h: int) -> int:
     """Device scratch of K1 for one image (``expert_fusion_gather``): bf16
-    h_s of every scale, bf16 u_s of every scale with P_s < P and the f32
-    partial logits of each scale's 192-wide tiles of H."""
+    u_s [P, E] of every scale (h_0 at the identity scale; no h_s of a
+    lerped scale is stored) and the f32 partial logits of each scale's
+    192-wide tiles of H."""
     p, s = max(p_list), len(p_list)
-    lerped = sum(q != p for q in p_list)
-    return (sum(p_list) * e * 2 + lerped * p * e * 2
-            + s * -(-h // _LOGIT_TILE) * p * 4)
+    return s * p * e * 2 + s * -(-h // _LOGIT_TILE) * p * 4
+
+
+def proj_row_tiles(p_s: int, halo: bool) -> List[Tuple[int, int, int]]:
+    """The projection's row tiles over the P_s rows of one scale, as
+    ``csrc/expert_fusion_passes.cuh`` walks them: ``(m0, lo, hi)`` per
+    tile, the tile's 128 h rows starting at row m0 and the rows [lo, hi)
+    it owns. Without a halo (K2; K1's identity scale) the tiles step 128
+    rows and own them all. With one (K1 at a scale with P_s < P) they step
+    126 rows and own their middle rows, [m0 + 1, m0 + 127) (from row 0 in
+    the first tile, to P_s in the last): a tile writes the u rows
+    [lo·r, hi·r) of its own rows, each of which reads h rows q − 1..q + 1
+    of its q = p // r, all in the tile."""
+    if not halo:
+        return [(m0, m0, min(m0 + _TM, p_s)) for m0 in range(0, p_s, _TM)]
+    n = -(-(p_s - 1) // _U_STRIDE) if p_s > 1 else 1
+    return [(t * _U_STRIDE, 0 if t == 0 else t * _U_STRIDE + 1,
+             min(t * _U_STRIDE + _U_STRIDE + 1, p_s)) for t in range(n)]
 
 
 def fwd_image_chunk(b: int, p_list: Sequence[int], e: int,

@@ -31,7 +31,9 @@ kernels:
   and need not when it changes them;
 - with ``--k1``, the expert-branch forward leg: ``chip_smoke.phase_k1``
   (K1 against its plain version at B=32 flagship and on odd shapes, its
-  passes' device times at B=32 and B=256), then K1 timed at B=32 and B=256
+  passes' device times at B=32 and B=256, each checkout's own passes by
+  their names in its ``chip_smoke.K1_KERNELS``, and, where the checkout
+  has it, the projection's cuBLAS yardstick), then K1 timed at B=32 and B=256
   flagship with the peak device memory of each call, then the bits of K1
   on the card tests' digest inputs ("ab K1 bits", where the checkout's
   tests define them);
@@ -44,7 +46,10 @@ kernels:
   two gloria256 optimizer steps of 256 pairs at full width through the
   train CLI, then one warm step timed, with the peak device memory; then
   ``chip_smoke.phase_text_train``, the same with BERT training (the path
-  that runs K4b), one step and one warm step timed;
+  that runs K4b), one step and one warm step timed; then the device time
+  of each of K1's and K2's passes at the step's B=256 flagship shape (the
+  checkout's own ``K1_KERNELS`` and ``K2_KERNELS``, one profiled call
+  each);
 - with ``--serve``, the small-batch leg, where the host's dispatch sets
   the rate: ``chip_smoke.phase_serve`` (8 full-width serving waves of 32,
   img/s) and ``chip_smoke.phase_train`` (two pretraining_medmoe_ddp
@@ -280,8 +285,24 @@ expert_bits("K1", lambda case: [ef.expert_fusion_gather(
 '''
 
 STEP = PRELUDE + r'''
+from medmoe_torch.ops import expert_fusion as ef
+
 c.phase_gloria_train(torch, card)
 c.phase_text_train(torch, card)
+args = c.k1_inputs(torch, b=256, p_list=(3136, 784, 196, 49),
+                   d_list=(96, 192, 384, 768), e=768, h=384, k=6, seed=17)
+xs, wp, bp, w1, b1, w2, b2, idx = args
+d_out = torch.randn((256, 3136, 768), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(16))
+c.profile_passes(torch, lambda: ef.expert_fusion_gather(*args),
+                 f"ab step shape K1 B=256 on {card}", c.K1_KERNELS)
+# the parent's list leaves out its projection recompute, which ran K1's
+# proj_kernel
+k2 = tuple(c.K2_KERNELS) + (() if "bwd_proj_kernel" in c.K2_KERNELS
+                            else ("proj_kernel",))
+c.profile_passes(torch, lambda: ef.expert_fusion_gather_bwd(
+    xs, wp, bp, w1, b1, w2, idx, d_out), f"ab step shape K2 B=256 on {card}",
+    k2)
 '''
 
 SERVE = PRELUDE + r'''

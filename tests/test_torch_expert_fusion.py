@@ -252,25 +252,68 @@ class TestWrapperContract:
             ef.expert_fusion_gather(*a)
 
     def test_forward_scratch_fits_flagship(self):
-        # h_s, u_s of the three lerped scales and 4 × 2 partial-logit tiles
-        # an image; a serving wave of 32 is one chunk, B=256 four
+        # u_s of every scale (h_0 at the identity scale) and 4 × 2
+        # partial-logit tiles an image; a serving wave of 32 is one chunk,
+        # B=256 three
         assert ef.fwd_scratch_bytes((3136, 784, 196, 49), 768, 384) == \
-            4165 * 768 * 2 + 3 * 3136 * 768 * 2 + 4 * 2 * 3136 * 4
+            4 * 3136 * 768 * 2 + 4 * 2 * 3136 * 4
         assert ef.fwd_image_chunk(32, (3136, 784, 196, 49), 768, 384)[0] == 32
-        assert ef.fwd_image_chunk(256, (3136, 784, 196, 49), 768, 384)[0] == 81
+        assert ef.fwd_image_chunk(256, (3136, 784, 196, 49), 768, 384)[0] == 87
+
+
+def _lerp_rows(p, p_s, p_max):
+    """Source rows and weight of u row p, as ``lerp_rows`` in
+    csrc/expert_fusion_passes.cuh computes them (the phase form; offsets in
+    double, the weight in f32)."""
+    r = p_max // p_s
+    q, ph = divmod(p, r)
+    off = (ph + 0.5) / r - 0.5
+    c = np.floor(off)
+    w = np.float32(off - c)
+    if c < 0:
+        return max(q - 1, 0), q, w
+    return q, min(q + 1, p_s - 1), w
+
+
+def _tiled_u(h, p_max):
+    """u_s = bf16(lerp(h_s)) as K1's projection writes it from its staged
+    tiles (``ef.proj_row_tiles`` with the halo): each tile holds its 128 h
+    rows — rows past P_s are NaN here, so a u row that read one would show
+    it — and writes the u rows of the h rows it owns from its own rows,
+    x0·(1 − w) + x1·w in f32 with a rounding after each operation. Each u
+    row must be written exactly once."""
+    bf = torch.bfloat16
+    b, p_s, e = h.shape
+    r = p_max // p_s
+    u = torch.full((b, p_max, e), float("nan"))
+    written = np.zeros(p_max, np.int64)
+    for m0, lo, hi in ef.proj_row_tiles(p_s, True):
+        tile = torch.full((b, 128, e), float("nan"))
+        n = min(128, p_s - m0)
+        tile[:, :n] = h[:, m0:m0 + n].float()
+        for p in range(lo * r, hi * r):
+            i0, i1, w = _lerp_rows(p, p_s, p_max)
+            assert 0 <= i0 - m0 < 128 and 0 <= i1 - m0 < 128
+            wt = torch.tensor(w)
+            x0, x1 = tile[:, i0 - m0], tile[:, i1 - m0]
+            u[:, p] = (x0 * (1 - wt) + x1 * wt).to(bf)
+            written[p] += 1
+    assert (written == 1).all()
+    return u
 
 
 def _staged_forward(xs, wp, bp, w1, b1, w2, idx, tile=192):
     """The staging of csrc/expert_fusion.cu's passes in torch ops, f32 sums
-    of bf16 values: h_s and u_s as the plain version rounds them; per scale
-    the attention MLP's 192-wide tiles of H, each tile's partial logit of a
-    row summed as the wgmma epilogue sums it: lane q of the row's quad
-    holds columns 8j + 2q + e of the tile and adds bf16(relu(·))·w2 over
-    them in order (j, then e), one fused multiply-add each (an f64 product
-    and sum rounded to f32), then the quad's four lanes in order; the tiles
-    summed in order; att = bf16(softmax over scales); out = Σ_s att_s·u_s
-    in scale order. attn_b2 cancels in the softmax and is left out, as the
-    kernel leaves it out."""
+    of bf16 values: h_s as the plain version rounds it; u_s from h_s in
+    the projection's row tiles (``_tiled_u``; the identity scale's u is
+    h_0); per scale the attention MLP's 192-wide tiles of H, each tile's
+    partial logit of a row summed as the wgmma epilogue sums it: lane q of
+    the row's quad holds columns 8j + 2q + e of the tile and adds
+    bf16(relu(·))·w2 over them in order (j, then e), one fused multiply-add
+    each (an f64 product and sum rounded to f32), then the quad's four
+    lanes in order; the tiles summed in order; att = bf16(softmax over
+    scales); out = Σ_s att_s·u_s in scale order. attn_b2 cancels in the
+    softmax and is left out, as the kernel leaves it out."""
     bf = torch.bfloat16
     ix = idx.long()
     p_max = max(x.shape[1] for x in xs)
@@ -284,7 +327,7 @@ def _staged_forward(xs, wp, bp, w1, b1, w2, idx, tile=192):
     for s, x in enumerate(xs):
         h = torch.relu(torch.bmm(x.to(bf).float(), sel(wp[s]))
                        + sel(bp[s])[:, None, :]).to(bf)
-        u = tmoe.interp_patches(h, p_max, dim=1).float()
+        u = h.float() if x.shape[1] == p_max else _tiled_u(h, p_max)
         logit = torch.zeros(u.shape[:2])
         for n0 in range(0, h_dim, tile):
             n1 = min(n0 + tile, h_dim)
@@ -315,20 +358,15 @@ def _staged_forward(xs, wp, bp, w1, b1, w2, idx, tile=192):
     return out
 
 
-@pytest.mark.parametrize("h", [16, 160, 384, 200])
-def test_staged_forward_matches_plain_version_and_jax(h):
-    """The kernel's decomposition of the forward (partial logits over
-    192-wide tiles of H, summed in tile order, then the combine) against
-    the plain version and the JAX ``_fwd_kernel`` in interpret mode, at H =
-    16 and 160 (one ragged tile), 384 (two) and 200 (two, the second
-    ragged), in bf16 at the JAX package's fused-vs-XLA tolerance (LOOSE)."""
-    rng = np.random.RandomState(h)
-    e = 64
-    pyramid = [rng.randn(B, p, d).astype(np.float32)
-               for p, d in zip(P_LIST, D_LIST)]
-    idx = np.array([0, 1, 2, 2, 1, 0], np.int32)
+def _staged_case(p_list, d_list, e, h, idx, seed):
+    """The staged forward against the plain version and the JAX
+    ``_fwd_kernel`` in interpret mode on seeded inputs, at LOOSE."""
+    rng = np.random.RandomState(seed)
+    pyramid = [rng.randn(len(idx), p, d).astype(np.float32)
+               for p, d in zip(p_list, d_list)]
+    idx = np.array(idx, np.int32)
     params = {}
-    for s, d in enumerate(D_LIST):
+    for s, d in enumerate(d_list):
         params[f"proj_w{s}"] = (rng.randn(K, d, e) / np.sqrt(d)).astype(np.float32)
         params[f"proj_b{s}"] = (0.1 * rng.randn(K, e)).astype(np.float32)
     params.update(
@@ -339,15 +377,73 @@ def test_staged_forward_matches_plain_version_and_jax(h):
     xs, wp, bp, w1, b1, w2, b2, tidx = _torch_args(pyramid, idx, params,
                                                    torch.bfloat16)
     got = _staged_forward(xs, wp, bp, w1, b1, w2, tidx)
+    assert torch.isfinite(got).all()
     want = ef.expert_fusion_gather_reference(xs, wp, bp, w1, b1, w2, b2, tidx)
     torch.testing.assert_close(got, want, **LOOSE)
-    jxs = [jnp.asarray(x, jnp.bfloat16) for x in pyramid]
+    jxs, n = [jnp.asarray(x, jnp.bfloat16) for x in pyramid], len(p_list)
     with pltpu.force_tpu_interpret_mode():
         jout = jef._fwd_pallas(
-            jxs, [jnp.asarray(params[f"proj_w{s}"]) for s in range(len(P_LIST))],
-            [jnp.asarray(params[f"proj_b{s}"]) for s in range(len(P_LIST))],
+            jxs, [jnp.asarray(params[f"proj_w{s}"]) for s in range(n)],
+            [jnp.asarray(params[f"proj_b{s}"]) for s in range(n)],
             jnp.asarray(params["attn_w1"]), jnp.asarray(params["attn_b1"]),
             jnp.asarray(params["attn_w2"]), jnp.asarray(idx),
-            jef._interp_mats(list(P_LIST), P_LIST[0]))
+            jef._interp_mats(list(p_list), p_list[0]))
     np.testing.assert_allclose(got.numpy(), np.asarray(jout, np.float32),
                                **LOOSE)
+
+
+@pytest.mark.parametrize("h", [16, 160, 384, 200])
+def test_staged_forward_matches_plain_version_and_jax(h):
+    """The kernel's decomposition of the forward (u from the projection's
+    row tiles, partial logits over 192-wide tiles of H, summed in tile
+    order, then the combine) against the plain version and the JAX
+    ``_fwd_kernel`` in interpret mode, at H = 16 and 160 (one ragged tile),
+    384 (two) and 200 (two, the second ragged), in bf16 at the JAX
+    package's fused-vs-XLA tolerance (LOOSE)."""
+    _staged_case(P_LIST, D_LIST, 64, h, [0, 1, 2, 2, 1, 0], seed=h)
+
+
+@pytest.mark.parametrize("p_list,d_list", [
+    # r = 2, P_s = 128: 2 tiles, the second owns row 127 alone
+    ((256, 128), (96, 32)),
+    # r = 64, 2 tiles; D = 96 ends inside a 64-deep stage
+    ((8384, 131), (24, 96)),
+    # r = 2, 4, 50; P_s = 200: 2 tiles
+    ((400, 200, 100, 8), (96, 40, 24, 16)),
+])
+def test_staged_forward_tile_edges_match_plain_version_and_jax(p_list, d_list):
+    """The staged forward where the projection's row tiles end between h
+    rows (P_s not a multiple of the 126-row stride), at ratios 2 to 64,
+    against the plain version and the JAX kernel in interpret mode (LOOSE,
+    as above)."""
+    _staged_case(p_list, d_list, 32, 16, [2, 0], seed=sum(p_list))
+
+
+@pytest.mark.parametrize("p_s,p", [(1, 64), (2, 128), (49, 3136), (126, 252),
+                                   (127, 254), (128, 256), (131, 8384),
+                                   (196, 3136), (253, 506), (784, 3136),
+                                   (3136, 3136)])
+def test_owning_tiles_cover_every_u_row_once(p_s, p):
+    """K1's projection tiles (``proj_row_tiles``): with the halo (P_s < P)
+    each tile holds 128 h rows from m0, owns [lo, hi), and every h row is
+    owned once, so every u row p, written by the owner of p // r, is
+    written once; the two source rows of each such u row lie in the
+    owner's 128 rows. Without the halo the 128-row tiles own their rows,
+    each once."""
+    r = p // p_s
+    halo = p_s != p
+    tiles = ef.proj_row_tiles(p_s, halo)
+    owned = np.zeros(p_s, np.int64)
+    u_rows = np.zeros(p, np.int64)
+    for m0, lo, hi in tiles:
+        assert 0 <= m0 <= lo < hi <= min(m0 + 128, p_s)
+        owned[lo:hi] += 1
+        u_rows[lo * r:hi * r] += 1
+        if halo:
+            for q in (lo, hi - 1):
+                for u in range(q * r, q * r + r):
+                    i0, i1, _ = _lerp_rows(u, p_s, p)
+                    assert m0 <= i0 <= i1 < m0 + 128
+    assert (owned == 1).all() and (u_rows == 1).all()
+    if halo:
+        assert len(tiles) == max(1, -(-(p_s - 1) // 126))

@@ -129,9 +129,9 @@ def test_scratch_of_a_lerped_scale():
                          + 2 * 64 * 4)
 
 
-@pytest.mark.parametrize("b,want", [(32, 32), (256, 81), (82, 81), (1, 1)])
+@pytest.mark.parametrize("b,want", [(32, 32), (256, 87), (88, 87), (1, 1)])
 def test_forward_image_chunk_flagship(b, want):
-    # K1's chunk: ≈21 MB an image, 81 flagship images in 1.7 GB
+    # K1's chunk: ≈19 MB an image, 87 flagship images in 1.7 GB
     images, nbytes = ef.fwd_image_chunk(b, FLAGSHIP_P, 768, 384)
     assert images == want
     assert nbytes == images * ef.fwd_scratch_bytes(FLAGSHIP_P, 768, 384)
@@ -139,12 +139,13 @@ def test_forward_image_chunk_flagship(b, want):
 
 
 def test_forward_scratch_by_hand():
-    # h of every scale (4165 rows), u of the three lerped scales, the
-    # partial logits of 2 tiles of H = 384 for 4 scales; one scale of P
-    # rows needs no u; H = 160 is one tile, 200 two
+    # u of every scale, P rows each (h_0 at the identity scale; the lerped
+    # scales' h is never stored), the partial logits of 2 tiles of H = 384
+    # for 4 scales; one scale of P rows is its own u; H = 160 is one tile,
+    # 200 two
     p, e, h = 3136, 768, 384
     assert ef.fwd_scratch_bytes(FLAGSHIP_P, e, h) == \
-        4165 * e * 2 + 3 * p * e * 2 + 4 * 2 * p * 4 == 20_948_480
+        4 * p * e * 2 + 4 * 2 * p * 4 == 19_367_936
     assert ef.fwd_scratch_bytes((64,), 64, 160) == 64 * 64 * 2 + 1 * 64 * 4
     assert ef.fwd_scratch_bytes((64,), 64, 200) == 64 * 64 * 2 + 2 * 64 * 4
     assert ef.fwd_image_chunk(4, (400_000, 200_000), 768, 384)[0] == 1

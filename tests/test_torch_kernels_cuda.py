@@ -39,7 +39,10 @@ K3, the prologue and K4a run over chunks of images agree bit for bit with
 one chunk (a sample's outputs are its own). K1's and K2's products run on
 the wgmma core as persistent walks over (image, scale, tile): an
 out-of-range expert id in the middle of the walk poisons its own sample
-and the call returns. K4b sums over images chunk by chunk, and within a
+and the call returns. Their shared projection's h_s (K2's scratch) and the
+u_s K1's projection writes are held against the plain version's at K1's
+tolerance, and K1's u against K2's bit for bit (K2 differentiates the
+forward K1 took). K4b sums over images chunk by chunk, and within a
 chunk over ``K4B_SLICES`` slices of its rows (image, m) in whole steps of
 64 rows, each slice's product a partial added in slice order: chunks and
 slices reorder that sum, so d_words over other chunk sizes or slice
@@ -328,6 +331,106 @@ class TestExpertFusionKernel:
         assert got.hexdigest() == K1_DIGESTS[case]
 
 
+def _keep_scratch(monkeypatch):
+    """The scratch the K1 and K2 wrappers allocate, kept: {"fwd": (us,
+    lpart), "bwd": {name: tensors}} after a call of each."""
+    kept = {}
+    fwd, bwd = ef._fwd_buffers, ef._bwd_buffers
+    monkeypatch.setattr(ef, "_fwd_buffers",
+                        lambda *a: kept.setdefault("fwd", fwd(*a)))
+    monkeypatch.setattr(ef, "_bwd_buffers",
+                        lambda *a: kept.setdefault("bwd", bwd(*a)))
+    return kept
+
+
+def _plain_h_u(xs, wp, bp, idx):
+    """The plain version's h_s and u_s, bf16 values as f32."""
+    from medmoe_torch.models.moe import interp_patches
+
+    bf, ix = torch.bfloat16, idx.long()
+    p = max(x.shape[1] for x in xs)
+    hs = [torch.relu(torch.bmm(x.float(), w[ix].to(bf).float())
+                     + v[ix].to(bf).float()[:, None, :]).to(bf)
+          for x, w, v in zip(xs, wp, bp)]
+    return ([h.float() for h in hs],
+            [interp_patches(h, p, dim=1).float() for h in hs])
+
+
+@pytest.mark.cuda
+class TestExpertProjection:
+    """K1's and K2's shared projection on the wgmma core: K2's h_s of every
+    scale and K1's u_s (h_0 at the identity scale), from the scratch the
+    wrappers allocate, against the plain version's at K1's tolerance."""
+
+    @pytest.mark.parametrize("b,p_list,d_list,e,idx", [
+        # P = 100, P_s 50/25: one ragged row tile each; D 24/32/16 inside
+        # one 64-deep stage; E = 64: one ragged 192-wide column tile
+        (3, (100, 50, 25), (24, 32, 16), 64, [1, 0, 1]),
+        # E = 96; D = 96 ends inside a stage
+        (3, (100, 50, 25), (32, 24, 96), 96, [0, 1, 1]),
+        # r = 2 with P_s = 128: K1's second row tile owns row 127 alone
+        (2, (256, 128), (96, 40), 64, [1, 0]),
+        # flagship: D_0 = 96, and the r = 64 scale's one tile writes 3136 u
+        # rows a column tile
+        (2, (3136, 784, 196, 49), (96, 192, 384, 768), 768, [5, 2]),
+    ])
+    def test_matches_plain_version(self, dev, monkeypatch, b, p_list, d_list,
+                                   e, idx):
+        args = _inputs(dev, b, p_list, d_list, e, 2 if e < 768 else 6, idx,
+                       seed=21)
+        xs, wp, bp, w1, b1, w2, _, ids = args
+        kept = _keep_scratch(monkeypatch)
+        ef.expert_fusion_gather(*args)
+        ef.expert_fusion_gather_bwd(xs, wp, bp, w1, b1, w2, ids,
+                                    torch.randn((b, p_list[0], e), device=dev))
+        torch.cuda.synchronize()
+        plain_h, plain_u = _plain_h_u(xs, wp, bp, ids)
+        for s in range(len(xs)):
+            torch.testing.assert_close(kept["bwd"]["h"][s][:b].float(),
+                                       plain_h[s], **LOOSE)
+            torch.testing.assert_close(kept["fwd"][0][s][:b].float(),
+                                       plain_u[s], **LOOSE)
+
+    def test_out_of_range_expert_mid_walk(self, dev, monkeypatch):
+        # B = 9, sample 4's id out of range: both projections skip its
+        # tiles on the producer and the consumer side and return; the other
+        # samples' h and u match the plain version
+        ids = [1, 0, 1, 1, 2, 0, 1, 0, 1]
+        args = _inputs(dev, 9, (100, 50, 25), (32, 24, 96), 96, 2, ids,
+                       seed=22)
+        xs, wp, bp, w1, b1, w2, _, idx = args
+        kept = _keep_scratch(monkeypatch)
+        out = ef.expert_fusion_gather(*args)
+        ef.expert_fusion_gather_bwd(xs, wp, bp, w1, b1, w2, idx,
+                                    torch.randn((9, 100, 96), device=dev))
+        torch.cuda.synchronize()
+        assert torch.isnan(out[4]).all()
+        keep = [i for i in range(9) if i != 4]
+        plain_h, plain_u = _plain_h_u(tuple(x[keep] for x in xs), wp, bp,
+                                      idx[keep])
+        for s in range(3):
+            torch.testing.assert_close(kept["bwd"]["h"][s][keep].float(),
+                                       plain_h[s], **LOOSE)
+            torch.testing.assert_close(kept["fwd"][0][s][keep].float(),
+                                       plain_u[s], **LOOSE)
+
+    @pytest.mark.parametrize("case", [0, 1])
+    def test_k1_u_is_k2_u(self, dev, monkeypatch, case):
+        """On the digest inputs: the u that K1's projection writes from its
+        staged tiles (and h_0 at the identity scale) equals, bit for bit,
+        the u that K2's u pass writes from the h_s its projection stores."""
+        xs, wp, bp, w1, b1, w2, b2, idx = _digest_inputs(dev, case)
+        kept = _keep_scratch(monkeypatch)
+        ef.expert_fusion_gather(xs, wp, bp, w1, b1, w2, b2, idx)
+        ef.expert_fusion_gather_bwd(xs, wp, bp, w1, b1, w2, idx,
+                                    _digest_cotangent(dev, case, xs, w1))
+        torch.cuda.synchronize()
+        b, p = idx.shape[0], max(x.shape[1] for x in xs)
+        for s, x in enumerate(xs):
+            k2 = kept["bwd"]["h" if x.shape[1] == p else "u"][s]
+            assert torch.equal(kept["fwd"][0][s][:b], k2[:b]), f"scale {s}"
+
+
 def _bwd_close(got, want):
     for i, (g, w) in enumerate(zip(got, want)):
         g, w = g.float(), w.float()
@@ -402,6 +505,30 @@ class TestExpertFusionBackwardKernel:
                                                         w2, ids, d_out))
         torch.cuda.synchronize()
         assert ef.BWD_LAUNCHES == before + 1
+        for a, b in zip(chunked, whole):
+            assert torch.equal(a, b)
+        ref = ef.expert_fusion_gather_bwd_reference(xs, wp, bp, w1, b1, w2,
+                                                    ids, d_out)
+        _bwd_close(chunked, _bwd_outs(ref))
+
+    def test_tlerp_and_reduce_over_chunks_of_images(self, dev, monkeypatch):
+        # B = 5 over chunks of 2 images (2, 2, 1) at ratios 4, 64 and 512
+        # (bands of 8 to 1024 destination rows, several 8-row blocks of
+        # source rows at ratio 4): the transposed upsample and the reduce
+        # give one chunk's bits, and the plain version's values
+        args = _inputs(dev, 5, (512, 128, 8, 1), (24, 24, 24, 16), 64, 3,
+                       [2, 0, 1, 1, 0], seed=23, h=48)
+        xs, wp, bp, w1, b1, w2, _, ids = args
+        d_out = torch.randn((5, 512, 64), device=dev)
+        whole = _bwd_outs(ef.expert_fusion_gather_bwd(xs, wp, bp, w1, b1, w2,
+                                                      ids, d_out))
+        p_s = (512, 128, 8, 1)
+        per_image = ef.bwd_scratch_bytes(p_s, 64, 48)
+        monkeypatch.setattr(_scratch, "CHUNK_BYTES", 2 * per_image + 1)
+        assert ef.bwd_image_chunk(5, p_s, 64, 48)[0] == 2
+        chunked = _bwd_outs(ef.expert_fusion_gather_bwd(xs, wp, bp, w1, b1,
+                                                        w2, ids, d_out))
+        torch.cuda.synchronize()
         for a, b in zip(chunked, whole):
             assert torch.equal(a, b)
         ref = ef.expert_fusion_gather_bwd_reference(xs, wp, bp, w1, b1, w2,
