@@ -475,7 +475,7 @@ def phase_serve(torch, ef, card: str, vision, text, dev="cuda"):
     torch.cuda.reset_peak_memory_stats()
 
     buf = io.StringIO()
-    ef.LAUNCHES = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     n_ok, n_err = serve_waves(embed, waves, "classify", names, class_emb,
                               10.0, buf)
@@ -522,15 +522,14 @@ def phase_serve(torch, ef, card: str, vision, text, dev="cuda"):
     print(f"serve: plain expert path {plain_img_s:.1f} img/s on {card}",
           flush=True)
     if "--profile" in sys.argv:
-        profile_wave(torch, embed, images[:WAVE], seconds / N_WAVES * 1e3)
+        profile_wave(torch, embed, images[:WAVE])
     return launches, img_s
 
 
-def profile_wave(torch, embed, images, wave_ms: float):
-    """torch.profiler over one serving wave: device time by kernel, the
-    expert-fusion kernels' share of it, and the device's idle share of an
-    unprofiled wave's wall time (``wave_ms``)."""
-    profile_device(torch, lambda: embed(images).cpu(), wave_ms, "one wave")
+def profile_wave(torch, embed, images):
+    """torch.profiler over one serving wave: device time by kernel and
+    the expert-fusion kernels' share of it."""
+    profile_device(torch, lambda: embed(images).cpu(), "one wave")
 
 
 K1_KERNELS = ("fwd_proj_kernel", "fwd_logit_kernel", "fwd_combine_kernel")
@@ -571,12 +570,12 @@ def dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def profile_device(torch, fn, wall_ms: float, label: str):
-    """torch.profiler over one call of ``fn``: device time by kernel, the
-    expert-fusion kernels' share of it (K1: the forward's three passes; K2:
-    the backward's nine, its projection recompute the first), and the
-    device's idle share of an unprofiled call's
-    wall time (``wall_ms``)."""
+def profile_device(torch, fn, label: str):
+    """torch.profiler over one call of ``fn``: device time by kernel and
+    the expert-fusion kernels' share of it (K1: the forward's three passes;
+    K2: the backward's nine, its projection recompute the first). The
+    device's idle share is the benchmark's (``benchmark/trace.py``: the
+    union of device intervals over the traced window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -592,18 +591,16 @@ def profile_device(torch, fn, wall_ms: float, label: str):
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0
                    and "#" not in e.key),
                   key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    dev_ms = sum(dev_us(e) for e in rows) / 1e3
     k1_ms = sum(dev_us(e) for e in rows if e.key.startswith(K1_KERNELS)) / 1e3
     k2_ms = sum(dev_us(e) for e in rows if e.key.startswith(K2_KERNELS)) / 1e3
     gl_ms = sum(dev_us(e) for e in rows
                 if e.key.startswith(GLORIA_KERNELS)) / 1e3
-    print(f"profile: {label}: device busy {busy_ms:.3f} ms of a "
-          f"{wall_ms:.3f} ms unprofiled call (idle "
-          f"{max(0.0, 1 - busy_ms / wall_ms):.1%}); K1 kernels "
-          f"{k1_ms:.3f} ms ({k1_ms / max(busy_ms, 1e-9):.1%} of device "
-          f"time), K2 kernels {k2_ms:.3f} ms "
-          f"({k2_ms / max(busy_ms, 1e-9):.1%}), GLoRIA kernels {gl_ms:.3f} "
-          f"ms ({gl_ms / max(busy_ms, 1e-9):.1%})", flush=True)
+    share = max(dev_ms, 1e-9)
+    print(f"profile: {label}: device time {dev_ms:.3f} ms summed over "
+          f"kernels; K1 kernels {k1_ms:.3f} ms ({k1_ms / share:.1%} of "
+          f"device time), K2 kernels {k2_ms:.3f} ms ({k2_ms / share:.1%}), "
+          f"GLoRIA kernels {gl_ms:.3f} ms ({gl_ms / share:.1%})", flush=True)
     for e in rows[:25]:
         print(f"profile: {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x "
               f"{e.key[:100]}", flush=True)
@@ -914,11 +911,11 @@ def launch_counts():
 
 
 def reset_launch_counts():
-    from medmoe_torch.ops import expert_fusion as ef, gloria_attention as ga
+    """Every counter of the port's registry to 0, the launch counters
+    among them (``medmoe_torch/utils/trace.py``)."""
+    from medmoe_torch.utils import trace
 
-    ef.LAUNCHES = ef.BWD_LAUNCHES = 0
-    ga.LAUNCHES = ga.PROLOGUE_LAUNCHES = 0
-    ga.DCTX_LAUNCHES = ga.DWORDS_LAUNCHES = 0
+    trace.reset()
 
 
 def drive_train(torch, overrides, root=None):
@@ -1108,7 +1105,7 @@ def profile_train_step(torch, trainer, module, datamodule):
     wall_ms = (time.perf_counter() - t0) / 3 * 1e3
     print(f"profile: train step of 32 pairs, unprofiled {wall_ms:.3f} ms = "
           f"{32 / wall_ms * 1e3:.1f} pairs/s", flush=True)
-    profile_device(torch, lambda: step(trainer.state, [batch]), wall_ms,
+    profile_device(torch, lambda: step(trainer.state, [batch]),
                    "one train step (B=32)")
 
 GLORIA_BATCH = 256
@@ -1489,7 +1486,7 @@ def phase_gloria_train(torch, card: str):
           f"{max(peak_gb, peak_warm):.2f} GB on {card}", flush=True)
     if "--profile" in sys.argv:
         step = build_train_step(module, 1)
-        profile_device(torch, lambda: step(trainer.state, [batch]), step_ms,
+        profile_device(torch, lambda: step(trainer.state, [batch]),
                        f"one gloria256 step (B={GLORIA_BATCH})")
     del objs, trainer, module, batch
     torch.cuda.empty_cache()

@@ -89,6 +89,8 @@ def serve_waves(embed: Callable, waves: Iterable[Wave], mode: str,
     embeddings) and write one JSON line per image to ``out``. Classify
     mode scores against ``class_emb`` [C, D] with a softmax at the
     model's own similarity temperature ``temp3``. Returns (served, errors)."""
+    from medmoe_torch.utils.trace import span
+
     n_ok = n_err = 0
     for kept, images, errors in waves:
         for path, msg in errors:
@@ -96,25 +98,27 @@ def serve_waves(embed: Callable, waves: Iterable[Wave], mode: str,
             out.write(json.dumps({"path": path, "error": msg}) + "\n")
         if not kept:
             continue
-        emb = embed(images).cpu().numpy()                    # [n, D]
-        if mode == "embed":
-            for path, e in zip(kept, emb):
-                out.write(json.dumps({"path": path,
-                                      "embedding": e.tolist()}) + "\n")
-        else:
-            sims = emb @ class_emb.T                         # [n, C]
-            z = sims * temp3
-            ex = np.exp(z - z.max(axis=-1, keepdims=True))
-            probs = ex / ex.sum(axis=-1, keepdims=True)
-            for path, s, pr in zip(kept, sims, probs):
-                k = int(np.argmax(s))
-                out.write(json.dumps({
-                    "path": path, "label": class_names[k],
-                    "score": round(float(s[k]), 6),
-                    "probs": {c: round(float(p), 6)
-                              for c, p in zip(class_names, pr)}}) + "\n")
-        n_ok += len(kept)
-        out.flush()
+        emb = embed(images)
+        with span("medmoe#serve.scores"):
+            emb = emb.cpu().numpy()                          # [n, D]
+            if mode == "embed":
+                for path, e in zip(kept, emb):
+                    out.write(json.dumps({"path": path,
+                                          "embedding": e.tolist()}) + "\n")
+            else:
+                sims = emb @ class_emb.T                     # [n, C]
+                z = sims * temp3
+                ex = np.exp(z - z.max(axis=-1, keepdims=True))
+                probs = ex / ex.sum(axis=-1, keepdims=True)
+                for path, s, pr in zip(kept, sims, probs):
+                    k = int(np.argmax(s))
+                    out.write(json.dumps({
+                        "path": path, "label": class_names[k],
+                        "score": round(float(s[k]), 6),
+                        "probs": {c: round(float(p), 6)
+                                  for c, p in zip(class_names, pr)}}) + "\n")
+            n_ok += len(kept)
+            out.flush()
     return n_ok, n_err
 
 

@@ -23,6 +23,7 @@ from medmoe_torch.models.medmoe import check_tower_widths, init_weights
 from medmoe_torch.utils.checkpoint import (checkpoint_kind,
                                            load_model_weights)
 from medmoe_torch.utils.instantiate import instantiate
+from medmoe_torch.utils.trace import span
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -66,7 +67,8 @@ def make_image_embedder(model: nn.Module, normalize: bool = True
 
     @torch.inference_mode()
     def encode(images):
-        x = torch.as_tensor(images).to(device, non_blocking=True)
+        with span("medmoe#serve.h2d"):
+            x = torch.as_tensor(images).to(device, non_blocking=True)
         g, _, _ = model.encode_image(x)
         return _normalize(g) if normalize else g.float()
 

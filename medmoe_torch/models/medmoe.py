@@ -25,6 +25,7 @@ from medmoe_torch.models.resnet import BatchNorm
 from medmoe_torch.models.swin import WindowAttention
 from medmoe_torch.models.text_encoder import BertTextEncoder
 from medmoe_torch.models.vision_encoder import ImageEncoder
+from medmoe_torch.utils.trace import span
 
 # normalization stats mirrored from the host transforms
 # (medmoe_torch/data/transforms.py NORM_STATS)
@@ -58,15 +59,16 @@ class MedMoE(nn.Module):
 
     def encode_text(self, input_ids, attention_mask, token_type_ids,
                     segment_ids):
-        word, sent = self.text_encoder(input_ids, attention_mask,
-                                       token_type_ids, segment_ids)
-        if self.text.get("projection", False):
-            # reference med_moe.py:87-90 (marked "not tested" there)
+        with span("medmoe#bert"):
+            word, sent = self.text_encoder(input_ids, attention_mask,
+                                           token_type_ids, segment_ids)
+            if self.text.get("projection", False):
+                # reference med_moe.py:87-90 (marked "not tested" there)
+                return word, sent
+            if self.text.get("norm", False):
+                word = l2_normalize(word, dim=1)
+                sent = l2_normalize(sent, dim=1)
             return word, sent
-        if self.text.get("norm", False):
-            word = l2_normalize(word, dim=1)
-            sent = l2_normalize(sent, dim=1)
-        return word, sent
 
     def forward(self, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,

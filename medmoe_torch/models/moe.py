@@ -58,6 +58,7 @@ from medmoe_torch.models.layers import Dense
 from medmoe_torch.ops import expert_fusion
 from medmoe_torch.parallel import collectives as C
 from medmoe_torch.parallel.mesh import Grid, get_grid
+from medmoe_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -331,17 +332,24 @@ class ExpertBank(nn.Module):
                                     minlength=k)               # [K]
             counts = C.all_gather_stack(counts, grid.data_group)  # [d, K]
             offsets = counts[:grid.data_index].sum(dim=0)
-        dispatch, combine = make_dispatch_tensors(
-            expert_idx, self._enter(weights), k, capacity, offsets)
         local = self.local_experts
-        disp = dispatch[local].to(dt).float()
-        xs = [torch.einsum("kcb,bpd->kcpd", disp,
-                           self._enter(f).to(dt).float()).to(dt)
-              for f in pyramid]
-        fused = self._grouped(xs, "kcpd,kde->kcpe", "kcpe,keh->kcph",
-                              "kcph,kho->kcpo")              # [K, C, P, E]
-        return self._leave(torch.einsum("kcb,kcpe->bpe", combine[local],
-                                        fused))
+        with trace.span("medmoe#moe.dispatch"):
+            dispatch, combine = make_dispatch_tensors(
+                expert_idx, self._enter(weights), k, capacity, offsets)
+            if trace.enabled():
+                trace.count("moe.assignments", b * k_slots)
+                trace.count("moe.slots", k * capacity)
+                trace.count("moe.kept", dispatch.sum())
+            disp = dispatch[local].to(dt).float()
+            xs = [torch.einsum("kcb,bpd->kcpd", disp,
+                               self._enter(f).to(dt).float()).to(dt)
+                  for f in pyramid]
+        with trace.span("medmoe#moe.grouped"):
+            fused = self._grouped(xs, "kcpd,kde->kcpe", "kcpe,keh->kcph",
+                                  "kcph,kho->kcpo")          # [K, C, P, E]
+        with trace.span("medmoe#moe.combine"):
+            return self._leave(torch.einsum("kcb,kcpe->bpe", combine[local],
+                                            fused))
 
     def apply_dense(self, pyramid: Sequence[torch.Tensor],
                     combine: torch.Tensor) -> torch.Tensor:
@@ -439,19 +447,25 @@ class MoE(nn.Module):
     def forward(self, pyramid: Sequence[torch.Tensor],
                 router_feat: torch.Tensor):
         cfg = self.config
-        x = torch.relu(self.router_fc1(router_feat.float()))
-        router_probs = torch.softmax(self.router_fc2(x), dim=-1)   # [B, K]
-        top_idx, top_w = topk_routing(router_probs, int(cfg.top_k))
-        if cfg.mode == "gather":
-            fused = self.experts.apply_gathered(pyramid, top_idx, top_w)
-        elif cfg.mode == "dense":
-            onehot = (top_idx.long()[..., None] == torch.arange(
-                cfg.num_experts, device=top_idx.device)).float()
-            combine = torch.sum(onehot * top_w[..., None], dim=1)   # [B, K]
-            fused = self.experts.apply_dense(pyramid, combine)
-        else:
-            fused = self.experts.apply_dispatched(
-                pyramid, top_idx, cfg.capacity_factor, top_w)
+        with trace.span("medmoe#moe.router"):
+            x = torch.relu(self.router_fc1(router_feat.float()))
+            router_probs = torch.softmax(self.router_fc2(x), dim=-1)  # [B, K]
+            top_idx, top_w = topk_routing(router_probs, int(cfg.top_k))
+            if trace.enabled():      # a comparison: bincount syncs the host
+                trace.count("moe.images_per_expert", (
+                    top_idx[:, :1].long() == torch.arange(
+                        cfg.num_experts, device=top_idx.device)).sum(0))
+        with trace.span("medmoe#moe.experts"):
+            if cfg.mode == "gather":
+                fused = self.experts.apply_gathered(pyramid, top_idx, top_w)
+            elif cfg.mode == "dense":
+                onehot = (top_idx.long()[..., None] == torch.arange(
+                    cfg.num_experts, device=top_idx.device)).float()
+                combine = torch.sum(onehot * top_w[..., None], dim=1)  # [B, K]
+                fused = self.experts.apply_dense(pyramid, combine)
+            else:
+                fused = self.experts.apply_dispatched(
+                    pyramid, top_idx, cfg.capacity_factor, top_w)
         b, p, d = fused.shape
         hw = int(round(p ** 0.5))
         global_feat = fused.mean(dim=1)                             # [B, D]

@@ -15,6 +15,7 @@ from torch import nn
 from medmoe_torch.models.layers import resolve_dtype
 from medmoe_torch.models.moe import MoE, MoEConfig
 from medmoe_torch.models.swin import SwinBackbone, SwinConfig
+from medmoe_torch.utils.trace import span
 
 
 class SwinMoEVisionTower(nn.Module):
@@ -55,7 +56,8 @@ class SwinMoEVisionTower(nn.Module):
         self.feature_dims = (width, width)
 
     def forward(self, pixels: torch.Tensor):
-        pyramid, final = self.swin(pixels)
+        with span("medmoe#swin"):
+            pyramid, final = self.swin(pixels)
         router_feat = final.mean(dim=1)                      # [B, 768]
         if self.moe is not None:
             return self.moe(pyramid, router_feat)

@@ -88,12 +88,16 @@ import numpy as np
 import torch
 
 from medmoe_torch.ops._scratch import images_in_budget
+from medmoe_torch.utils import trace
 
-# kernel launches made by expert_fusion_gather (K1) and
-# expert_fusion_gather_bwd (K2): one per call on CUDA tensors; the plain
-# versions for CPU tensors do not count
-LAUNCHES = 0
-BWD_LAUNCHES = 0
+
+def __getattr__(name: str) -> int:
+    """``LAUNCHES`` and ``BWD_LAUNCHES``: the kernel launches made by
+    expert_fusion_gather (K1) and expert_fusion_gather_bwd (K2), one per
+    call on CUDA tensors (the plain versions for CPU tensors do not
+    count), read from the counter registry (``utils/trace.py``)."""
+    return trace.module_counter("expert_fusion", name)
+
 
 MAX_SCALES = 4          # csrc/expert_fusion_passes.cuh MAX_SCALES
 MAX_HIDDEN = 2048       # K2's row step: a thread for each 8 columns of H
@@ -211,7 +215,6 @@ def expert_fusion_gather(xs: Sequence[torch.Tensor],
     CUDA tensors launch the kernel over chunks of images (or raise); CPU
     tensors run the plain version. A CUDA sample whose expert id is out of
     range gets a NaN output instead of a host sync to check the ids."""
-    global LAUNCHES
     b, k, e, h, p = _check(xs, wp, bp, w1, b1, w2, b2, expert_idx)
     if expert_idx.device.type == "cpu":
         if b and (int(expert_idx.min()) < 0 or int(expert_idx.max()) >= k):
@@ -258,7 +261,7 @@ def expert_fusion_gather(xs: Sequence[torch.Tensor],
     if rc != 0:
         raise RuntimeError("expert_fusion kernel launch failed: "
                            + lib.medmoe_cuda_error_string(rc).decode())
-    LAUNCHES += 1
+    trace.count("launches.K1")
     return out
 
 
@@ -361,7 +364,6 @@ def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
     CUDA tensors run K2 (or raise), whose first pass recomputes h_s with
     K1's projection; CPU tensors run the plain version. A CUDA sample whose
     expert id is out of range gets NaN in all of its outputs."""
-    global BWD_LAUNCHES
     b, k, e, h, p = _check(xs, wp, bp, w1, b1, w2, None, expert_idx)
     if not isinstance(d_out, torch.Tensor) or d_out.dtype != torch.float32 \
             or tuple(d_out.shape) != (b, p, e) or not d_out.is_contiguous() \
@@ -431,7 +433,7 @@ def expert_fusion_gather_bwd(xs: Sequence[torch.Tensor],
     if rc != 0:
         raise RuntimeError("expert_fusion backward launch failed: "
                            + lib.medmoe_cuda_error_string(rc).decode())
-    BWD_LAUNCHES += 1
+    trace.count("launches.K2")
     return tuple(d_xs), tuple(d_wp), tuple(d_bp), d_w1, d_b1, d_w2
 
 

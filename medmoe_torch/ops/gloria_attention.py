@@ -66,13 +66,17 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from medmoe_torch.ops._scratch import images_in_budget
+from medmoe_torch.utils import trace
 
-# kernel launches on CUDA tensors: K3 (forward), the backward's prologue,
-# K4a (d_ctx) and K4b (d_words); the plain versions do not count
-LAUNCHES = 0
-PROLOGUE_LAUNCHES = 0
-DCTX_LAUNCHES = 0
-DWORDS_LAUNCHES = 0
+
+def __getattr__(name: str) -> int:
+    """``LAUNCHES``, ``PROLOGUE_LAUNCHES``, ``DCTX_LAUNCHES`` and
+    ``DWORDS_LAUNCHES``: the kernel launches on CUDA tensors of K3 (forward),
+    the backward's prologue, K4a (d_ctx) and K4b (d_words) (the plain
+    versions do not count), read from the counter registry
+    (``utils/trace.py``)."""
+    return trace.module_counter("gloria_attention", name)
+
 
 NEG_INF = -1e30
 WORD_TILE = 32      # csrc/gloria_common.cuh TP: captions pad to whole tiles
@@ -222,7 +226,6 @@ def gloria_similarity_forward(img: torch.Tensor, words: torch.Tensor,
     """[B_img, B_txt] float32 similarity matrix, without a gradient.
 
     CUDA tensors launch K3 (or raise); CPU tensors run the plain version."""
-    global LAUNCHES
     bi, bt, d, m, t = _check(img, words, cap_lens, temp1)
     if _device_kind(img) == "cpu":
         return gloria_similarity_reference(img, words, cap_lens, temp1, temp2,
@@ -243,7 +246,7 @@ def gloria_similarity_forward(img: torch.Tensor, words: torch.Tensor,
             *(s.data_ptr() for s in scratch), chunk, out.data_ptr(), _stream())
     del scratch
     _raise(lib, rc, "gloria_attention (K3)")
-    LAUNCHES += 1
+    trace.count("launches.K3")
     return out
 
 
@@ -317,7 +320,6 @@ def gloria_similarity_backward(img: torch.Tensor, words: torch.Tensor,
     CUDA tensors run the prologue, then K4a (d_img) and K4b (d_words) over
     one pass that writes Z per chunk of images, or raise; CPU tensors run
     the plain version."""
-    global DCTX_LAUNCHES, DWORDS_LAUNCHES
     bi, bt, d, m, t = _check(img, words, cap_lens, temp1)
     if not isinstance(g, torch.Tensor) or tuple(g.shape) != (bi, bt) \
             or g.device != img.device:
@@ -334,11 +336,11 @@ def gloria_similarity_backward(img: torch.Tensor, words: torch.Tensor,
         return d_img, d_words
     d_ctx, d_w = cotangents_of(pairs, need_img, need_words)
     if need_img:
-        DCTX_LAUNCHES += 1
+        trace.count("launches.K4a")
         h, w = img.shape[2:]
         d_img = d_ctx.to(img.dtype).reshape(bi, h, w, d).permute(0, 3, 1, 2)
     if need_words:
-        DWORDS_LAUNCHES += 1
+        trace.count("launches.K4b")
         d_words = d_w.to(words.dtype)
     return d_img, d_words
 
@@ -369,7 +371,6 @@ def pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3,
     f32 terms Σ_b dnum·wei and Σ_b c2. ``gloria_similarity_backward`` runs
     it and counts the launches of what follows; ``cotangents_of`` reads
     it."""
-    global PROLOGUE_LAUNCHES
     from medmoe_torch.ops import _build
 
     lib = _build.load("gloria_attention")
@@ -396,7 +397,7 @@ def pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3,
             p.vecs.data_ptr(), _ptr(p.wsum), _ptr(p.c2sum), _stream())
     del scratch
     _raise(lib, rc, "gloria_attention backward prologue")
-    PROLOGUE_LAUNCHES += 1
+    trace.count("launches.prologue")
     return p
 
 

@@ -69,6 +69,7 @@ from medmoe_torch.parallel import collectives as C
 from medmoe_torch.parallel.mesh import get_grid
 from medmoe_torch.train.optim import Adam, adam
 from medmoe_torch.utils.instantiate import instantiate
+from medmoe_torch.utils.trace import span
 
 _LOSS_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -251,13 +252,14 @@ class MedMoEPretrainingModule:
         words = gather(txt_l)
         caps = gather(cap_lens, C.BackpropType.NONE)
         if hasattr(self.local_loss, "similarities"):
-            rows = self.local_loss.similarities(
-                img_l, words, caps, temp1=self.temp1, temp2=self.temp2,
-                temp3=self.temp3, agg=self.agg, batch=words.shape[0])
-            sim = gather(rows)                               # [B, B]
-            loss0, loss1 = self.local_loss.pair_losses(sim, scores,
-                                                       thresholds)
-            l_loss = loss0 + loss1
+            with span("medmoe#loss.local"):
+                rows = self.local_loss.similarities(
+                    img_l, words, caps, temp1=self.temp1, temp2=self.temp2,
+                    temp3=self.temp3, agg=self.agg, batch=words.shape[0])
+                sim = gather(rows)                           # [B, B]
+                loss0, loss1 = self.local_loss.pair_losses(sim, scores,
+                                                           thresholds)
+                l_loss = loss0 + loss1
         else:
             l_loss = local_fn(gather(img_l), words, caps)
         g_loss = global_fn(gather(img_g), gather(txt_g))
@@ -292,15 +294,17 @@ class MedMoEPretrainingModule:
             scores, thresholds = self.soft_targets(batch)
 
         def local_fn(il, tl, cl):
-            out = self.local_loss(il, tl, cl, temp1=self.temp1,
-                                  temp2=self.temp2, temp3=self.temp3,
-                                  agg=self.agg, scores=scores,
-                                  thresholds=thresholds)
-            return out.loss0 + out.loss1
+            with span("medmoe#loss.local"):
+                out = self.local_loss(il, tl, cl, temp1=self.temp1,
+                                      temp2=self.temp2, temp3=self.temp3,
+                                      agg=self.agg, scores=scores,
+                                      thresholds=thresholds)
+                return out.loss0 + out.loss1
 
         def global_fn(ig, tg):
-            return self.global_loss(ig, tg, temp3=self.temp3, scores=scores,
-                                    thresholds=thresholds)
+            with span("medmoe#loss.global"):
+                return self.global_loss(ig, tg, temp3=self.temp3,
+                                        scores=scores, thresholds=thresholds)
 
         if self.loss_dtype is not None:
             img_l = img_l.to(self.loss_dtype)
@@ -315,9 +319,10 @@ class MedMoEPretrainingModule:
             g_loss = self._blocked(global_fn, img_g, txt_g)
 
         if router_probs is not None and "label" in batch:
-            c_loss = L.router_classification_loss(router_probs,
-                                                   batch["label"])
-            c_acc = L.router_accuracy(router_probs, batch["label"])
+            with span("medmoe#loss.router"):
+                c_loss = L.router_classification_loss(router_probs,
+                                                       batch["label"])
+                c_acc = L.router_accuracy(router_probs, batch["label"])
         else:
             c_loss = torch.zeros((), device=img_g.device)
             c_acc = torch.zeros((), device=img_g.device)

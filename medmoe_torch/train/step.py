@@ -32,6 +32,7 @@ import torch
 from medmoe_torch.parallel.sharding import bank_grid, expert_flags
 from medmoe_torch.train.optim import global_norm
 from medmoe_torch.train.state import TrainState
+from medmoe_torch.utils.trace import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -56,21 +57,25 @@ def build_train_step(module, accum_steps: int = 1) -> Callable:
             last = i == len(micro_batches) - 1
             with (ddp.no_sync() if ddp is not None and not last
                   else contextlib.nullcontext()):
-                loss, metrics = module.loss_fn(micro)
-                loss.backward()
+                with span("medmoe#step.forward"):
+                    loss, metrics = module.loss_fn(micro)
+                with span("medmoe#step.backward"):
+                    loss.backward()
             for k, v in metrics.items():
                 metrics_acc[k] = metrics_acc[k] + v if k in metrics_acc else v
-        acc = [p.grad if p.grad is not None
-               else torch.zeros_like(p, dtype=torch.float32) for p in params]
-        if accum_steps > 1:
-            inv = 1.0 / accum_steps
-            for a in acc:
-                a.mul_(inv)
-            metrics_acc = {k: v * inv for k, v in metrics_acc.items()}
-        grid = bank_grid(module.model)
-        norm = global_norm(acc, expert_flags(module.model, params),
-                           grid.expert_group if grid else None)
-        state.apply_gradients(acc, norm)
+        with span("medmoe#step.optimizer"):
+            acc = [p.grad if p.grad is not None
+                   else torch.zeros_like(p, dtype=torch.float32)
+                   for p in params]
+            if accum_steps > 1:
+                inv = 1.0 / accum_steps
+                for a in acc:
+                    a.mul_(inv)
+                metrics_acc = {k: v * inv for k, v in metrics_acc.items()}
+            grid = bank_grid(module.model)
+            norm = global_norm(acc, expert_flags(module.model, params),
+                               grid.expert_group if grid else None)
+            state.apply_gradients(acc, norm)
         metrics_acc["grad_norm"] = norm
         return state, metrics_acc
 
