@@ -40,12 +40,16 @@
      at least once per micro-batch, that the routed experts' rows and the
      Swin tower moved, and that the frozen BERT did not, and that the B=32
      losses took the einsum path (no GLoRIA kernel);
-  7. K3, K4a and K4b, the GLoRIA similarity and its backward: hold the
-     kernels against their plain versions at B=256 flagship shapes (bf16
+  7. K3, K4a and K4b, the GLoRIA similarity and its backward, as training
+     runs them (K3 keeping its f32 state, the prologue running F3 from
+     it): hold the kernels against their plain versions, K3's sim against
+     it without the store and the backward against the one that
+     recomputes F1 and F2 (bit for bit), at B=256 flagship shapes (bf16
      ctx in the local map's own layout, caption lengths from a seed in
      [3, 25], a seeded cotangent; both cotangents from one call, the text
      training's path) and on small odd shapes (captions of 40 words; M =
-     132 with 5 captions of 9 words, ragged tiles), time both (the
+     132 with 5 captions of 9 words, ragged tiles), time both ways (K3
+     with and without its store in alternating rounds, the
      backward's prologue alone, K4a alone with each of its two passes'
      device time and TFLOP/s on padded captions, the prologue + K4a, and the
      prologue + K4a + K4b, whose difference from the prologue + K4a is K4b
@@ -97,7 +101,8 @@
  12. K3, the prologue + K4a and both cotangents (K4b) at the rectangular
      shape each rank of a two-rank gloria256 launches, 128 images
      against 256 captions, held against their plain versions and timed
-     beside their bounds, K4b's passes and yardstick as in 7;
+     beside their bounds, from K3's kept state and recomputing, K4b's
+     passes and yardstick as in 7;
  13. the MoE modes: the expert branch at experiment=moe_single_modality's
      shape (4 experts, top-2, B=64, bf16, full width) in gather mode (K1
      twice a forward, K2 twice a backward) against topk (capacity factor
@@ -161,8 +166,8 @@
 Any failed check exits non-zero. Needs one CUDA card; fails without one.
 ``--profile`` adds torch.profiler breakdowns of one serving wave, one
 B=32 training step and one gloria256 step; ``--only
-gloria_rect,moe_modes,ddp,ep,soft,cnn,cli`` runs just those phases (no
-kernels line).
+gloria,gloria_wide,gloria_rect,moe_modes,ddp,ep,soft,cnn,cli`` runs just
+those phases (no kernels line).
 """
 
 from __future__ import annotations
@@ -823,20 +828,36 @@ def phase_k2(torch, ef):
     return result
 
 
-def profile_passes(torch, fn, label: str, kernels, flops=None) -> dict:
+def profile_passes(torch, fn, label: str, kernels, flops=None,
+                   prep=None) -> dict:
     """Device time of each of ``kernels`` (name prefixes) over one call of
     ``fn`` (torch.profiler): K1's passes, K2's, K3's or the prologue's
     three, or K4a's two; with
     ``flops`` ({prefix: operations of one call}) each pass's TFLOP/s too.
-    Returns {prefix: ms}."""
+    With ``prep``, each call is ``fn(prep())`` and ``prep`` runs outside
+    the profile. The profile opens with 20 ms or so of bf16 products that
+    no list names, waited for, before the call: without them the first
+    kernels of a short call were at times missing from a profile on the
+    H100 (a 5 ms prologue read 0 ms). Returns {prefix: ms}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    def args():
+        out = () if prep is None else (prep(),)
         torch.cuda.synchronize()
+        return out
+
+    fn(*args())
+    torch.cuda.synchronize()
+    a = args()
+    x = torch.ones((8192, 8192), dtype=torch.bfloat16, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(16):
+            torch.matmul(x, x)
+        torch.cuda.synchronize()
+        fn(*a)
+        torch.cuda.synchronize()
+    del a, x
     ms = dict.fromkeys(kernels, 0.0)
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
@@ -1177,10 +1198,112 @@ def gloria_err(torch, got, want, name, gate):
     return err
 
 
+def kept_state(ga, img, words, cap, temps):
+    """K3 keeping its state, as the training path runs it when a gradient
+    will be taken; returns the filled ``ga.KeptState``."""
+    state = ga.KeptState()
+    ga.gloria_similarity_forward(img, words, cap, *temps, kept=state)
+    return state
+
+
+def gloria_check(torch, ga, img, words, cap, cot, temps, name: str):
+    """The training path's K3 (keeping its state) and backward (from that
+    state) against the plain versions, with K3's sim equal to it without
+    the store and the backward equal to the one that recomputes F1 and
+    F2, bit for bit. Returns (K3, K4a, K4b) max abs errors."""
+    state = ga.KeptState()
+    out = ga.gloria_similarity_forward(img, words, cap, *temps, kept=state)
+    bare = ga.gloria_similarity_forward(img, words, cap, *temps)
+    torch.cuda.synchronize()
+    check(state.tensors is not None, f"K3 {name}: kept no state")
+    check(torch.equal(out, bare), f"K3 {name}: sim with the store differs "
+          "from sim without it")
+    ref = ga.gloria_similarity_reference(img, words, cap, *temps)
+    err3 = gloria_err(torch, out, ref, f"K3 {name}", "fwd")
+    del out, bare, ref
+    d_img, d_words = ga.gloria_similarity_backward(img, words, cap, cot,
+                                                   *temps, kept=state)
+    check(state.tensors is None, f"K4 {name}: the prologue kept the state")
+    again = ga.gloria_similarity_backward(img, words, cap, cot, *temps)
+    torch.cuda.synchronize()
+    same = torch.equal(d_img, again[0]) and torch.equal(d_words, again[1])
+    print(f"K4 {name}: the backward from K3's kept state against the one "
+          f"that recomputes: {'same bits' if same else 'DIFFERENT BITS'}",
+          flush=True)
+    check(same, f"K4 {name}: the kept and the recomputing backward differ")
+    del again
+    r_img, r_words = ga.gloria_similarity_bwd_reference(img, words, cap, cot,
+                                                        *temps)
+    err4a = gloria_err(torch, d_img, r_img, f"K4a {name} d_img", "bwd")
+    err4b = gloria_err(torch, d_words, r_words, f"K4b {name} d_words", "bwd")
+    del d_img, d_words, r_img, r_words
+    torch.cuda.empty_cache()
+    return err3, err4a, err4b
+
+
+NEEDS = ((False, False), (True, False), (True, True))
+
+
+def backward_ms(torch, ga, img, words, cap, cot, temps, iters: int = 3):
+    """The backward's prologue alone, the prologue + K4a and the backward
+    of both cotangents (need_img and need_words of each of ``NEEDS``),
+    from K3's kept state as training runs them and recomputing F1 and F2:
+    each call after a K3 of its own (with its store or without), timed
+    with CUDA events around the backward, the two ways alternating, over
+    ``iters`` calls after a warm one. Returns {"kept": [ms of the three],
+    "recomputed": [ms of the three]}."""
+    ms = {"kept": [0.0] * len(NEEDS), "recomputed": [0.0] * len(NEEDS)}
+    for k in range(iters + 1):
+        for i, (need_img, need_words) in enumerate(NEEDS):
+            for way, row in ms.items():
+                state = ga.KeptState() if way == "kept" else None
+                ga.gloria_similarity_forward(img, words, cap, *temps,
+                                             kept=state)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                ga.gloria_similarity_backward(
+                    img, words, cap, cot, *temps, need_img=need_img,
+                    need_words=need_words, kept=state)
+                ev[1].record()
+                torch.cuda.synchronize()
+                if k:
+                    row[i] += ev[0].elapsed_time(ev[1]) / iters
+    return ms
+
+
+def k3_store_ms(torch, ga, img, words, cap, temps, name: str, card: str,
+                rounds: int = 7, iters: int = 5) -> dict:
+    """K3 with its store and without, in ``rounds`` alternating rounds of
+    ``iters`` calls each, timed with CUDA events; prints the median and
+    the range of each and the store's cost (the difference of the
+    medians). Returns {"kept": median ms, "recomputed": median ms}."""
+    import statistics
+
+    calls = {"kept": lambda: ga.gloria_similarity_forward(
+                 img, words, cap, *temps, kept=ga.KeptState()),
+             "recomputed": lambda: ga.gloria_similarity_forward(
+                 img, words, cap, *temps)}
+    ms = {k: [] for k in calls}
+    for fn in calls.values():
+        fn()
+    for _ in range(rounds):
+        for k, fn in calls.items():
+            ms[k].append(cuda_ms(fn, iters=iters, warmup=0))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    print(f"K3 {name}: with its store {med['kept']:.4f} ms (range "
+          f"{min(ms['kept']):.4f}-{max(ms['kept']):.4f}), without "
+          f"{med['recomputed']:.4f} ms (range {min(ms['recomputed']):.4f}-"
+          f"{max(ms['recomputed']):.4f}), {rounds} alternating rounds of "
+          f"{iters} calls; the store {med['kept'] - med['recomputed']:.4f} ms "
+          f"on {card}", flush=True)
+    return med
+
+
 def k4b_passes(torch, ga, img, words, cap, cot, temps, name: str,
                alone_ms: float, card: str) -> dict:
-    """K4b's passes over one backward of the words' cotangent alone
-    (torch.profiler): the prologue's f32 terms (``dwords_wei_kernel``), the
+    """K4b's passes over one backward of the words' cotangent alone, from
+    K3's kept state as training runs it (torch.profiler): the prologue's
+    f32 terms (``dwords_wei_kernel``), the
     product (``dwords_gemm_kernel``, with its TFLOP/s on padded captions,
     2·B_img·M·D·B_txt·TPAD) and the slices' sum (``dwords_sum_kernel``),
     beside K4b alone timed as a difference (``alone_ms``); then the
@@ -1196,13 +1319,15 @@ def k4b_passes(torch, ga, img, words, cap, cot, temps, name: str,
     tp = ga._tpad(t)
     flops = 2 * b_img * m * d * b_txt * tp
     passes = profile_passes(
-        torch, lambda: ga.gloria_similarity_backward(
-            img, words, cap, cot, *temps, need_img=False),
-        f"K4b {name}", K4B_KERNELS, flops={"dwords_gemm_kernel": flops})
+        torch, lambda state: ga.gloria_similarity_backward(
+            img, words, cap, cot, *temps, need_img=False, kept=state),
+        f"K4b {name}", K4B_KERNELS, flops={"dwords_gemm_kernel": flops},
+        prep=lambda: kept_state(ga, img, words, cap, temps))
     print(f"K4b {name}: passes {sum(passes.values()):.3f} ms of device time "
           f"against K4b alone {alone_ms:.4f} ms (the both-cotangent time less "
           f"the prologue + K4a's) on {card}", flush=True)
-    pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
+    pairs = ga.pair_cotangents(img, words, cap, cot, *temps,
+                               kept=kept_state(ga, img, words, cap, temps))
     chunk, _ = ga.image_chunk(b_img, b_txt, m, t)
     z = torch.empty((chunk, m, b_txt * 2 * tp), dtype=torch.bfloat16,
                     device="cuda")
@@ -1235,11 +1360,13 @@ def k4b_passes(torch, ga, img, words, cap, cot, temps, name: str,
 
 
 def phase_gloria(torch, ga, card: str, words: int = 25):
-    """K3, K4a and K4b against their plain versions at B=256 flagship
-    shapes (captions of ``words`` words) and on small odd shapes; times of
-    each and of the plain versions, with the device time and TFLOP/s of
-    each pass of K3, the prologue and K4a; K3+K4a against the einsum path
-    at B=32."""
+    """K3, K4a and K4b as training runs them (K3 keeping its state, the
+    backward from it) against their plain versions, and against K3 without
+    its store and the backward that recomputes, at B=256 flagship shapes
+    (captions of ``words`` words) and on small odd shapes; times of each
+    both ways and of the plain versions, with the device time and TFLOP/s
+    of each pass of K3, the prologue and K4a; K3+K4a against the einsum
+    path at B=32."""
     temps = (4.0, 5.0, 10.0)
     results = {}
     cases = [
@@ -1254,31 +1381,22 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
     for name, shape in cases:
         img, words, cap, cot = gloria_inputs(torch, *shape, seed=21)
         b_img, b_txt, d = shape[0], shape[1], shape[2]
-        out = ga.gloria_similarity_forward(img, words, cap, *temps)
-        torch.cuda.synchronize()
-        ref = ga.gloria_similarity_reference(img, words, cap, *temps)
-        err3 = gloria_err(torch, out, ref, f"K3 {name}", "fwd")
-        del out, ref
-        d_img, d_words = ga.gloria_similarity_backward(img, words, cap, cot,
-                                                       *temps)
-        torch.cuda.synchronize()
-        r_img, r_words = ga.gloria_similarity_bwd_reference(img, words, cap,
-                                                            cot, *temps)
-        err4a = gloria_err(torch, d_img, r_img, f"K4a {name} d_img", "bwd")
-        err4b = gloria_err(torch, d_words, r_words, f"K4b {name} d_words",
-                           "bwd")
-        del d_img, d_words, r_img, r_words
-        torch.cuda.empty_cache()
+        err3, err4a, err4b = gloria_check(torch, ga, img, words, cap, cot,
+                                          temps, name)
         if results:
             continue
         h, w, t = shape[3:]
         scratch = ga.backward_scratch_bytes(b_img, b_txt, h * w, d, t)
         chunk, z_bytes = ga.image_chunk(b_img, b_txt, h * w, t)
+        kept = ga.kept_bytes(b_img, b_txt, h * w, d, t)
+        keeps = ga.keeps_state(b_img, b_txt, h * w, d, t, torch.cuda.
+                               get_device_properties(0).total_memory)
         print(f"K4 {name}: backward scratch {scratch / 1e9:.3f} GB (bf16 "
               f"d_wei and per-word vectors per pair, K4b's f32 accumulators, "
-              f"the prologue's passes over a chunk); E [hi | lo of e] and "
-              f"Z [a2 | d_scores] {z_bytes / 1e9:.3f} GB for a chunk of "
-              f"{chunk} images", flush=True)
+              f"the prologue's passes over a chunk when it recomputes); E "
+              f"[hi | lo of e] and Z [a2 | d_scores] {z_bytes / 1e9:.3f} GB "
+              f"for a chunk of {chunk} images; K3's kept state "
+              f"{kept / 1e9:.3f} GB, kept on this card: {keeps}", flush=True)
 
         def fwd():
             ga.gloria_similarity_forward(img, words, cap, *temps)
@@ -1289,26 +1407,41 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
             return lambda: fn(img, words, cap, cot, *temps,
                               need_img=need_img, need_words=need_words)
 
-        ms3 = cuda_ms(fwd, iters=3, warmup=1)
+        def prep():
+            return kept_state(ga, img, words, cap, temps)
+
+        # the training path: K3 keeping its state, the prologue (F3 alone)
+        # from it, then K4a and K4b; the recomputing path (K3 without its
+        # store, the prologue running F1 and F2 again) as a second line
+        store = k3_store_ms(torch, ga, img, words, cap, temps, name, card)
+        ms3, re3 = store["kept"], store["recomputed"]
+        times = backward_ms(torch, ga, img, words, cap, cot, temps)
+        ms_pro, ms4a, ms_both = times["kept"]
+        re_pro, re4a, re_both = times["recomputed"]
         plain3 = cuda_ms(lambda: ga.gloria_similarity_reference(
             img, words, cap, *temps), iters=1, warmup=0)
         # F1 is a product of 2·B_img·M·D·B_txt·TPAD operations on padded
-        # captions, F2 twice that (e's bf16 hi and lo); K3's passes, then
-        # the prologue's (which adds f32 wei and the d_wei loop of F3)
+        # captions, F2 twice that (e's bf16 hi and lo); K3's passes with
+        # its store and without, then the prologue's from the kept state
+        # (F3 alone) and recomputing (F1 and F2 again, f32 wei and the
+        # d_wei loop of F3)
         f1 = 2 * b_img * h * w * d * b_txt * ga._tpad(t)
         k3_flops = {K3_KERNELS[0]: f1, K3_KERNELS[1]: 2 * f1}
-        k3_passes = profile_passes(torch, fwd, f"K3 {name}", K3_KERNELS,
-                                   flops=k3_flops)
+        k3_passes = profile_passes(torch, lambda: prep(), f"K3 {name}",
+                                   K3_KERNELS, flops=k3_flops)
+        re_k3_passes = profile_passes(torch, fwd, f"K3 without its store "
+                                      f"{name}", K3_KERNELS, flops=k3_flops)
         pro_passes = profile_passes(
+            torch, lambda state: ga.pair_cotangents(img, words, cap, cot,
+                                                    *temps, kept=state),
+            f"prologue {name}", K3_KERNELS, prep=prep)
+        re_pro_passes = profile_passes(
             torch, lambda: ga.pair_cotangents(img, words, cap, cot, *temps),
-            f"prologue {name}", K3_KERNELS, flops=k3_flops)
-        # the prologue alone, K4a alone (both passes, from one prologue's
-        # scratch), the two together (K4a's kernel_ms, which has always
-        # included the prologue), and both cotangents (the prologue with
-        # K4b's f32 terms, pass 1, K4a's pass 2 and K4b a chunk): K4b alone
-        # is the last less the prologue + K4a
-        ms_pro = cuda_ms(bwd(False, False), iters=2, warmup=1)
-        pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
+            f"prologue recomputing {name}", K3_KERNELS, flops=k3_flops)
+        # K4a alone (both passes, from one prologue's scratch); K4b alone
+        # is the both-cotangent time less the prologue + K4a
+        pairs = ga.pair_cotangents(img, words, cap, cot, *temps,
+                                   kept=prep())
         ms_k4a = cuda_ms(lambda: ga.cotangents_of(pairs), iters=3, warmup=1)
         # each of K4a's passes is a product of 2·B_img·M·D·B_txt·2·TPAD
         # operations on padded captions
@@ -1317,45 +1450,52 @@ def phase_gloria(torch, ga, card: str, words: int = 25):
                                 f"K4a {name}", K4A_KERNELS,
                                 flops=dict.fromkeys(K4A_KERNELS, padded))
         del pairs
-        ms4a = cuda_ms(bwd(True, False), iters=2, warmup=1)
         plain4a = cuda_ms(bwd(True, False, True), iters=1, warmup=0)
-        ms_both = cuda_ms(bwd(True, True), iters=2, warmup=1)
         plain4b = cuda_ms(bwd(False, True, True), iters=1, warmup=0)
         out_img = img.numel() * img.element_size()
-        for key, ms, plain, err, products, out_bytes in (
-                ("K3", ms3, plain3, err3, 2, b_img * b_txt * 4),
-                ("K4a", ms4a, plain4a, err4a, 3, out_img + b_img * b_txt * 4),
-                ("K4b", ms_both - ms4a, plain4b, err4b, 1,
+        for key, ms, re, plain, err, products, out_bytes in (
+                ("K3", ms3, re3, plain3, err3, 2, b_img * b_txt * 4),
+                ("K4a", ms4a, re4a, plain4a, err4a, 3,
+                 out_img + b_img * b_txt * 4),
+                ("K4b", ms_both - ms4a, re_both - re4a, plain4b, err4b, 1,
                  words.numel() * 2 + b_img * b_txt * 4)):
             bound, by, gflop, mb = gloria_bound(img, words, out_bytes, products)
             results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                bound_ms=bound, bound_by=by)
+                                bound_ms=bound, bound_by=by,
+                                recompute_ms=re)
             print(f"{key} {name}: kernel_ms {ms:.4f} plain_ms {plain:.4f} "
                   f"bound_ms {bound:.4f} ({by}: {products} products, "
-                  f"{gflop:.1f} GFLOP, {mb:.1f} MB) on {card}", flush=True)
+                  f"{gflop:.1f} GFLOP, {mb:.1f} MB); recomputing "
+                  f"{re:.4f} ms on {card}", flush=True)
         pro_bound, _, _, _ = gloria_bound(img, words,
                                           prologue_out_bytes(ga, shape), 2)
-        results["K3"].update(**{f"{k.split()[-1]}_ms": v
-                                for k, v in k3_passes.items()})
-        results["K3"].update(**{f"prologue_{k.split()[-1]}_ms": v
-                                for k, v in pro_passes.items()})
+        for prefix, found in (("", k3_passes), ("prologue_", pro_passes),
+                              ("recompute_", re_k3_passes),
+                              ("recompute_prologue_", re_pro_passes)):
+            results["K3"].update(**{f"{prefix}{k.split()[-1]}_ms": v
+                                    for k, v in found.items()})
         results["K4a"].update(k4a_only_ms=ms_k4a, **{
             f"{k.split()[-1]}_ms": v for k, v in passes.items()})
-        results["K4b"].update(both_ms=ms_both, **k4b_passes(
-            torch, ga, img, words, cap, cot, temps, name, ms_both - ms4a,
-            card))
+        results["K4b"].update(both_ms=ms_both, recompute_both_ms=re_both,
+                              **k4b_passes(torch, ga, img, words, cap, cot,
+                                           temps, name, ms_both - ms4a, card))
         for key in ("K4a", "K4b"):
-            results[key].update(prologue_ms=ms_pro, prologue_bound_ms=pro_bound)
+            results[key].update(prologue_ms=ms_pro, prologue_bound_ms=pro_bound,
+                                recompute_prologue_ms=re_pro)
         print(f"K4a {name}: the backward's prologue alone {ms_pro:.4f} ms "
-              f"(bound {pro_bound:.4f} ms), K4a alone (both passes) "
-              f"{ms_k4a:.4f} ms, prologue + K4a {ms4a:.4f} ms; bound "
+              f"from K3's kept state, {re_pro:.4f} ms recomputing (bound "
+              f"{pro_bound:.4f} ms), K4a alone (both passes) {ms_k4a:.4f} ms, "
+              f"prologue + K4a {ms4a:.4f} ms ({re4a:.4f} recomputing); bound "
               f"{results['K4a']['bound_ms']:.4f} ms on {card}", flush=True)
         print(f"K4b {name}: prologue + K4a + K4b (both cotangents) "
-              f"{ms_both:.4f} ms, K4b alone {ms_both - ms4a:.4f} ms "
-              f"(bound {results['K4b']['bound_ms']:.4f} ms: its own product) "
-              f"on {card}", flush=True)
-        print("K4a's kernel_ms includes the backward's prologue; K4b's is the "
-              "both-cotangent time less the prologue + K4a", flush=True)
+              f"{ms_both:.4f} ms ({re_both:.4f} recomputing), K4b alone "
+              f"{ms_both - ms4a:.4f} ms (bound "
+              f"{results['K4b']['bound_ms']:.4f} ms: its own product) on "
+              f"{card}", flush=True)
+        print("K3's kernel_ms keeps its state and K4a's includes the "
+              "prologue from it, as training runs them; K4b's is the "
+              "both-cotangent time less the prologue + K4a; recompute_* "
+              "are the same without the kept state", flush=True)
         del img, words, cap, cot
         torch.cuda.empty_cache()
 
@@ -1393,47 +1533,34 @@ def prologue_out_bytes(ga, shape) -> int:
 
 
 def phase_gloria_wide(torch, ga, card: str, words: int = 40):
-    """K3, K4a and K4b against their plain versions at B=256 flagship
-    shapes with captions of ``words`` words, and the times of K3, its
-    plain version, the backward's prologue, the prologue + K4a and the
-    backward of both cotangents there."""
+    """K3, K4a and K4b as training runs them (``gloria_check``) against
+    their plain versions at B=256 flagship shapes with captions of
+    ``words`` words, and the times of K3, its plain version, the
+    backward's prologue, the prologue + K4a and the backward of both
+    cotangents there, from K3's kept state and recomputing."""
     temps = (4.0, 5.0, 10.0)
     shape = (GLORIA_BATCH, GLORIA_BATCH, 768, 56, 56, words)
     name = f"flagship B=256 T={words}"
     img, words_, cap, cot = gloria_inputs(torch, *shape, seed=23)
-    out = ga.gloria_similarity_forward(img, words_, cap, *temps)
-    torch.cuda.synchronize()
-    ref = ga.gloria_similarity_reference(img, words_, cap, *temps)
-    gloria_err(torch, out, ref, f"K3 {name}", "fwd")
-    del out, ref
-    got = ga.gloria_similarity_backward(img, words_, cap, cot, *temps)
-    torch.cuda.synchronize()
-    want = ga.gloria_similarity_bwd_reference(img, words_, cap, cot, *temps)
-    gloria_err(torch, got[0], want[0], f"K4a {name} d_img", "bwd")
-    gloria_err(torch, got[1], want[1], f"K4b {name} d_words", "bwd")
-    del got, want
-    torch.cuda.empty_cache()
-    ms3 = cuda_ms(lambda: ga.gloria_similarity_forward(img, words_, cap, *temps),
-                  iters=3, warmup=1)
+    gloria_check(torch, ga, img, words_, cap, cot, temps, name)
+
+    store = k3_store_ms(torch, ga, img, words_, cap, temps, name, card)
+    ms3, re3 = store["kept"], store["recomputed"]
+    times = backward_ms(torch, ga, img, words_, cap, cot, temps)
+    (ms_pro, ms4a, ms_both), (re_pro, re4a, re_both) = (times["kept"],
+                                                        times["recomputed"])
     plain3 = cuda_ms(lambda: ga.gloria_similarity_reference(
         img, words_, cap, *temps), iters=1, warmup=0)
-    ms_pro = cuda_ms(lambda: ga.pair_cotangents(img, words_, cap, cot, *temps),
-                     iters=2, warmup=1)
-
-    def bwd(need_words):
-        return lambda: ga.gloria_similarity_backward(
-            img, words_, cap, cot, *temps, need_words=need_words)
-
-    ms4a = cuda_ms(bwd(False), iters=2, warmup=1)
-    ms_both = cuda_ms(bwd(True), iters=2, warmup=1)
     bound3, by, gflop, _ = gloria_bound(img, words_, GLORIA_BATCH ** 2 * 4, 2)
     pro_bound, _, _, _ = gloria_bound(img, words_, prologue_out_bytes(ga, shape),
                                       2)
-    print(f"K3 {name}: kernel_ms {ms3:.4f} plain_ms {plain3:.4f} bound_ms "
-          f"{bound3:.4f} ({by}: 2 products, {gflop:.1f} GFLOP); the "
-          f"backward's prologue alone {ms_pro:.4f} ms (bound {pro_bound:.4f} "
-          f"ms), prologue + K4a {ms4a:.4f} ms, prologue + K4a + K4b "
-          f"{ms_both:.4f} ms (K4b alone {ms_both - ms4a:.4f} ms) on {card}",
+    print(f"K3 {name}: kernel_ms {ms3:.4f} keeping its state ({re3:.4f} "
+          f"without) plain_ms {plain3:.4f} bound_ms {bound3:.4f} ({by}: 2 "
+          f"products, {gflop:.1f} GFLOP); the backward's prologue alone "
+          f"{ms_pro:.4f} ms from the kept state ({re_pro:.4f} recomputing; "
+          f"bound {pro_bound:.4f} ms), prologue + K4a {ms4a:.4f} ms "
+          f"({re4a:.4f}), prologue + K4a + K4b {ms_both:.4f} ms "
+          f"({re_both:.4f}; K4b alone {ms_both - ms4a:.4f} ms) on {card}",
           flush=True)
     del img, words_, cap, cot
     torch.cuda.empty_cache()
@@ -2183,29 +2310,19 @@ RECT = (GLORIA_BATCH // 2, GLORIA_BATCH)    # one of two ranks' images x all cap
 
 
 def phase_gloria_rect(torch, ga, card: str, words: int = 25):
-    """K3, the prologue + K4a and both cotangents (K4b) against their plain
-    versions at the shape each rank of a two-rank gloria256 launches:
-    B_img = 128 images against B_txt = 256 captions at full width; their
-    times beside their bounds. Returns {kernel: rect_* fields}."""
+    """K3, the prologue + K4a and both cotangents (K4b) as training runs
+    them (``gloria_check``) against their plain versions at the shape each
+    rank of a two-rank gloria256 launches: B_img = 128 images against
+    B_txt = 256 captions at full width; their times beside their bounds,
+    from K3's kept state and recomputing. Returns {kernel: rect_*
+    fields}."""
     temps = (4.0, 5.0, 10.0)
     b_img, b_txt = RECT
     shape = (b_img, b_txt, 768, 56, 56, words)
     name = f"rectangular {b_img}x{b_txt} T={words}"
     img, words_, cap, cot = gloria_inputs(torch, *shape, seed=24)
-    out = ga.gloria_similarity_forward(img, words_, cap, *temps)
-    torch.cuda.synchronize()
-    ref = ga.gloria_similarity_reference(img, words_, cap, *temps)
-    err3 = gloria_err(torch, out, ref, f"K3 {name}", "fwd")
-    del out, ref
-    d_img, d_words = ga.gloria_similarity_backward(img, words_, cap, cot,
-                                                   *temps)
-    torch.cuda.synchronize()
-    r_img, r_words = ga.gloria_similarity_bwd_reference(img, words_, cap,
-                                                        cot, *temps)
-    err4a = gloria_err(torch, d_img, r_img, f"K4a {name} d_img", "bwd")
-    err4b = gloria_err(torch, d_words, r_words, f"K4b {name} d_words", "bwd")
-    del d_img, d_words, r_img, r_words
-    torch.cuda.empty_cache()
+    err3, err4a, err4b = gloria_check(torch, ga, img, words_, cap, cot, temps,
+                                      name)
 
     def bwd(need_img, need_words, plain=False):
         fn = ga.gloria_similarity_bwd_reference if plain \
@@ -2213,35 +2330,42 @@ def phase_gloria_rect(torch, ga, card: str, words: int = 25):
         return lambda: fn(img, words_, cap, cot, *temps, need_img=need_img,
                           need_words=need_words)
 
-    ms3 = cuda_ms(lambda: ga.gloria_similarity_forward(img, words_, cap,
-                                                       *temps),
-                  iters=3, warmup=1)
+    store = k3_store_ms(torch, ga, img, words_, cap, temps, name, card)
+    ms3, re3 = store["kept"], store["recomputed"]
+    times = backward_ms(torch, ga, img, words_, cap, cot, temps)
+    (ms_pro, ms4a, ms_both), (re_pro, re4a, re_both) = (times["kept"],
+                                                        times["recomputed"])
     plain3 = cuda_ms(lambda: ga.gloria_similarity_reference(
         img, words_, cap, *temps), iters=1, warmup=0)
-    ms_pro = cuda_ms(bwd(False, False), iters=2, warmup=1)
-    ms4a = cuda_ms(bwd(True, False), iters=2, warmup=1)
     plain4a = cuda_ms(bwd(True, False, True), iters=1, warmup=0)
-    ms_both = cuda_ms(bwd(True, True), iters=2, warmup=1)
     plain4b = cuda_ms(bwd(False, True, True), iters=1, warmup=0)
     out_img = img.numel() * img.element_size()
     results = {}
-    for key, ms, plain, err, products, out_bytes in (
-            ("K3", ms3, plain3, err3, 2, b_img * b_txt * 4),
-            ("K4a", ms4a, plain4a, err4a, 3, out_img + b_img * b_txt * 4),
-            ("K4b", ms_both - ms4a, plain4b, err4b, 1,
+    for key, ms, re, plain, err, products, out_bytes in (
+            ("K3", ms3, re3, plain3, err3, 2, b_img * b_txt * 4),
+            ("K4a", ms4a, re4a, plain4a, err4a, 3,
+             out_img + b_img * b_txt * 4),
+            ("K4b", ms_both - ms4a, re_both - re4a, plain4b, err4b, 1,
              words_.numel() * 2 + b_img * b_txt * 4)):
         bound, by, gflop, mb = gloria_bound(img, words_, out_bytes, products)
         results[key] = {"rect_shape": f"{b_img}x{b_txt}",
                         "rect_max_abs_err": err, "rect_ms": ms,
+                        "rect_recompute_ms": re,
                         "rect_plain_ms": plain, "rect_bound_ms": bound}
         print(f"{key} {name}: kernel_ms {ms:.4f} plain_ms {plain:.4f} "
               f"bound_ms {bound:.4f} ({by}: {products} products, "
-              f"{gflop:.1f} GFLOP, {mb:.1f} MB) on {card}", flush=True)
+              f"{gflop:.1f} GFLOP, {mb:.1f} MB); recomputing {re:.4f} ms "
+              f"on {card}", flush=True)
     pro_bound, _, _, _ = gloria_bound(img, words_,
                                       prologue_out_bytes(ga, shape), 2)
-    print(f"K4 {name}: the backward's prologue alone {ms_pro:.4f} ms (bound "
-          f"{pro_bound:.4f} ms), prologue + K4a {ms4a:.4f} ms, prologue + "
-          f"K4a + K4b {ms_both:.4f} ms on {card}", flush=True)
+    print(f"K4 {name}: the backward's prologue alone {ms_pro:.4f} ms from "
+          f"K3's kept state, {re_pro:.4f} ms recomputing (bound "
+          f"{pro_bound:.4f} ms), prologue + K4a {ms4a:.4f} ms ({re4a:.4f}), "
+          f"prologue + K4a + K4b {ms_both:.4f} ms ({re_both:.4f}) on {card}",
+          flush=True)
+    for key in ("K4a", "K4b"):
+        results[key].update(rect_prologue_ms=ms_pro,
+                            rect_recompute_prologue_ms=re_pro)
     results["K4b"].update(**{f"rect_{k}": v for k, v in k4b_passes(
         torch, ga, img, words_, cap, cot, temps, name, ms_both - ms4a,
         card).items()})
@@ -4065,7 +4189,9 @@ def main() -> int:
     if "--only" in sys.argv:         # a quick look at some of the phases
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
         for name in only:
-            {"gloria_rect": lambda: phase_gloria_rect(torch, ga, card),
+            {"gloria": lambda: phase_gloria(torch, ga, card),
+             "gloria_wide": lambda: phase_gloria_wide(torch, ga, card),
+             "gloria_rect": lambda: phase_gloria_rect(torch, ga, card),
              "moe_modes": lambda: phase_moe_modes(torch, ef, card),
              "ddp": lambda: phase_ddp(torch, card),
              "ep": lambda: phase_ep(torch, card),
@@ -4129,7 +4255,13 @@ def main() -> int:
             "dwords_wei_kernel_ms", "dwords_gemm_kernel_ms",
             "dwords_sum_kernel_ms", "matmul_yardstick_ms",
             "fwd_proj_kernel_ms", "bwd_proj_kernel_ms", "proj_yardstick_ms",
-            "prologue_ms", "prologue_bound_ms", "ms_b256", "bound_ms_b256")
+            "prologue_ms", "prologue_bound_ms", "ms_b256", "bound_ms_b256",
+            "recompute_ms", "recompute_prologue_ms", "recompute_both_ms",
+            "recompute_sim_e_kernel_ms", "recompute_sim_wei_kernel_ms",
+            "recompute_sim_finish_kernel_ms",
+            "recompute_prologue_sim_e_kernel_ms",
+            "recompute_prologue_sim_wei_kernel_ms",
+            "recompute_prologue_sim_finish_kernel_ms")
             if k in r})
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,

@@ -58,10 +58,10 @@
 //     the padded words t >= T), and writes per-(256-wide D tile, word)
 //     partial sums of w·wei, wei² and w² (a thread's 64 columns, then the
 //     quad; w read two columns a load from the words transposed, [B_txt,
-//     TPAD, D], which the wrapper makes), and in the prologue wei itself,
-//     f32. Words as the rows keep each word's Σ_m e and its partial sums in
-//     one thread's registers; the other orientation (ctxᵀ·E) would spread
-//     them over the columns.
+//     TPAD, D], which the wrapper makes), and in the prologue, or in K3
+//     when it keeps its state, wei itself, f32. Words as the rows keep
+//     each word's Σ_m e and its partial sums in one thread's registers;
+//     the other orientation (ctxᵀ·E) would spread them over the columns.
 //   F3 (sim_finish_kernel): a warp a pair. The D tiles' partials in order,
 //     cos, Σ_t row, then sim (K3), or the tail of `_cell_cotangents` (the
 //     prologue): dnum, c2, d_wei = bf16(dnum·w + dnwei/max(‖wei‖, 1e-20)·wei),
@@ -83,6 +83,22 @@
 // partial sums, and the prologue's wei [chunk, B_txt, D, TPAD] f32) for a
 // chunk of images and sizes the chunk.
 //
+// Kept state. When a gradient will be taken, K3 keeps what F3 reads for the
+// backward: F2's f32 wei [B_img, B_txt, D, TPAD], F1's Σ_m e [B_img,
+// ⌈M/128⌉, B_txt·TPAD] and F2's partial sums [B_img, ⌈D/256⌉, 3,
+// B_txt·TPAD], each written at the image's place in the whole batch (E stays
+// a chunk's scratch). F2 stores wei (kStoreWei) while F3 still finishes as
+// the forward, so sim is the same bits with the store on or off. The
+// prologue then runs F3 as the backward (kBwd) once over every pair, and
+// K4b's f32 terms, from that state: no F1, no F2, no E. The same kernels on
+// the same inputs wrote it, so d_wei and the per-word vectors are the bits
+// that recomputing gives. At 256², D = 768, M = 3136 and TPAD = 32 the
+// state is 6.73 GB (wei 6.44, Σ_m e 0.21, partials 0.08); a rank's
+// 128 × 256 block half that. The wrapper (ops/gloria_attention.py) keeps
+// it only when it takes at most a quarter of the card's memory, and
+// otherwise recomputes as before; it frees the state once the prologue's
+// launches are queued, before K4a allocates Z.
+//
 // Shapes the kernels take (the wrapper checks them): T <= 128, D % 16 == 0,
 // D <= 768, |temp1| <= 80.
 //
@@ -97,12 +113,14 @@ constexpr int DTILE = 256;  // F2's columns of a tile: the D tiles of the partia
 constexpr int BOX = wg::kBK * wg::kBox * 2;        // a [64][32] bf16 box, 4 KB
 constexpr int BOX128 = wg::kBK * wg::kBox128 * 2;  // a [64][64] bf16 box, 8 KB
 
-// The passes' scratch for one chunk of images (N = B_txt·TPAD words)
+// The passes' scratch for one chunk of images (N = B_txt·TPAD words); in
+// the kept state esum, part and wei start at the chunk's first image of
+// the whole batch's (at_image)
 struct PassArgs {
   bf16* e;       // [chunk, 2, M, N]: bf16 hi, then lo, of e
   float* esum;   // [chunk, n_mt, N]: Σ_m e over each 128-row M tile
   float* part;   // [chunk, n_dt, 3, N]: Σ_d w·wei, wei², w² over each D tile
-  float* wei;    // [chunk, B_txt, D, TPAD] f32 (the prologue only)
+  float* wei;    // [chunk, B_txt, D, TPAD] f32 (the prologue, or K3 keeping)
   const bf16* wt;  // the words transposed, [B_txt, TPAD, D]: F2's rows
   int N, n_mt, n_dt;
 };
@@ -341,7 +359,9 @@ sim_e_kernel(const __grid_constant__ CUtensorMap ctx_map,
 // ---------------------------------------------------------------------------
 constexpr int F2_TX = wg::kABytes + DTILE * wg::kBK * 2;  // 2 boxes of E, 4 of ctx
 
-template <bool kBwd>
+// kStoreWei: the epilogue also stores f32 wei (the prologue, or K3 keeping
+// its state)
+template <bool kStoreWei>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 sim_wei_kernel(const __grid_constant__ CUtensorMap e_map,
                const __grid_constant__ CUtensorMap ctx_map, GloriaArgs a, PassArgs p, int b0,
@@ -413,14 +433,14 @@ sim_wei_kernel(const __grid_constant__ CUtensorMap e_map,
           [&](int st, int ks) { return wg::desc_mn128(wg::stage_b(s, st), ks); });
 
       // per word: Σ_d w·wei, wei², w² over the tile's columns (this
-      // thread's 64 in order, then the quad), and f32 wei for the prologue;
+      // thread's 64 in order, then the quad), and f32 wei when it is kept;
       // the word's w from the transposed words, two columns a load
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const bool row = n[h] < N;
         const int i = n[h] / TPAD, t = n[h] % TPAD;
         const bf16* w = p.wt + (size_t)n[h] * D + dt * DTILE + 2 * q;
-        float* out = kBwd ? p.wei + ((size_t)bl * Bt + i) * D * TPAD + t : nullptr;
+        float* out = kStoreWei ? p.wei + ((size_t)bl * Bt + i) * D * TPAD + t : nullptr;
         float num = 0.0f, wei2 = 0.0f, w2 = 0.0f;
 #pragma unroll
         for (int j = 0; j < DTILE / 8; ++j) {
@@ -436,7 +456,7 @@ sim_wei_kernel(const __grid_constant__ CUtensorMap e_map,
           num += wv.y * x1;
           wei2 += x1 * x1;
           w2 += wv.y * wv.y;
-          if (kBwd && in) {
+          if (kStoreWei && in) {
             out[(size_t)d * TPAD] = x0;
             out[(size_t)(d + 1) * TPAD] = x1;
           }
@@ -598,12 +618,41 @@ static cudaError_t launch_e(const CUtensorMap& ctx_map, const CUtensorMap& words
   return cudaGetLastError();
 }
 
-// F1, F2 and F3 over the chunks of images in order (and K4b's f32 terms
-// when wsum is given)
+// The kept state seen from the chunk that starts at image b0: the whole
+// batch's esum, part and wei at that image's place
+static PassArgs at_image(const GloriaArgs& a, PassArgs p, int b0) {
+  p.esum += (size_t)b0 * p.n_mt * p.N;
+  p.part += (size_t)b0 * p.n_dt * 3 * p.N;
+  p.wei += (size_t)b0 * p.N * a.D;
+  return p;
+}
+
+// F3 over the pairs of images b0 .. b0 + nb - 1 (p: their scratch, image
+// b0 first), and K4b's f32 terms when wsum is given
 template <bool kBwd>
+static cudaError_t finish(const GloriaArgs& a, const PassArgs& p, int b0, int nb, float* sim,
+                          const float* g, bf16* dwei, float* vecs, float* wsum, float* c2sum,
+                          cudaStream_t st) {
+  const int pairs = nb * a.Bt;
+  sim_finish_kernel<kBwd><<<(pairs + NWARPS - 1) / NWARPS, THREADS, 0, st>>>(a, p, b0, nb, sim, g,
+                                                                           dwei, vecs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || wsum == nullptr) return err;
+  const long long n = (long long)a.Bt * a.D * a.TPAD;
+  dwords_wei_kernel<<<(int)((n + THREADS - 1) / THREADS), THREADS, 0, st>>>(a, p, b0, nb, vecs,
+                                                                           wsum, c2sum);
+  return cudaGetLastError();
+}
+
+// F1, F2 and F3 over the chunks of images in order (and K4b's f32 terms
+// when wsum is given). kStoreWei: F2 stores f32 wei; kBwd: F3 finishes as
+// the prologue. K3 storing wei keeps its state: esum, part and wei hold the
+// whole batch, E one chunk.
+template <bool kStoreWei, bool kBwd>
 static int run_passes(const GloriaArgs& a, const PassArgs& p, int chunk, float* sim,
                       const float* g, bf16* dwei, float* vecs, float* wsum, float* c2sum,
                       void* stream) {
+  constexpr bool kKept = kStoreWei && !kBwd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // tensor maps (they hold the pointers, so they are built per call): ctx
   // [B_img][M][D] as F1's A ([128 m][64 d], 128-byte swizzle) and as F2's B
@@ -620,7 +669,7 @@ static int run_passes(const GloriaArgs& a, const PassArgs& p, int chunk, float* 
                  wg::kBK, sw128) &&
       tensor_map(&ctx_b_map, a.ctx, D, M, a.Bi, D * 2, M * D * 2, wg::kBox128, wg::kBK, sw128);
   if (!ok) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(sim_wei_kernel<kBwd>,
+  cudaError_t err = cudaFuncSetAttribute(sim_wei_kernel<kStoreWei>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          wg::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
@@ -628,30 +677,21 @@ static int run_passes(const GloriaArgs& a, const PassArgs& p, int chunk, float* 
   const int w_tiles = (p.N + wg::kBM - 1) / wg::kBM * p.n_dt;
   for (int b0 = 0; b0 < a.Bi; b0 += chunk) {
     const int nb = a.Bi - b0 < chunk ? a.Bi - b0 : chunk;
+    const PassArgs pc = kKept ? at_image(a, p, b0) : p;
     switch (a.NT) {
-      case 1: err = launch_e<1>(ctx_map, words_map, a, p, b0, nb, sms, st); break;
-      case 2: err = launch_e<2>(ctx_map, words_map, a, p, b0, nb, sms, st); break;
-      case 3: err = launch_e<3>(ctx_map, words_map, a, p, b0, nb, sms, st); break;
-      default: err = launch_e<4>(ctx_map, words_map, a, p, b0, nb, sms, st); break;
+      case 1: err = launch_e<1>(ctx_map, words_map, a, pc, b0, nb, sms, st); break;
+      case 2: err = launch_e<2>(ctx_map, words_map, a, pc, b0, nb, sms, st); break;
+      case 3: err = launch_e<3>(ctx_map, words_map, a, pc, b0, nb, sms, st); break;
+      default: err = launch_e<4>(ctx_map, words_map, a, pc, b0, nb, sms, st); break;
     }
     if (err != cudaSuccess) return (int)err;
     const int wg_grid = w_tiles * nb < sms ? w_tiles * nb : sms;
-    sim_wei_kernel<kBwd><<<wg_grid, wg::kThreads, wg::kSmemBytes, st>>>(e_map, ctx_b_map, a, p,
-                                                                         b0, nb);
+    sim_wei_kernel<kStoreWei><<<wg_grid, wg::kThreads, wg::kSmemBytes, st>>>(e_map, ctx_b_map, a,
+                                                                              pc, b0, nb);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const int pairs = nb * a.Bt;
-    sim_finish_kernel<kBwd><<<(pairs + NWARPS - 1) / NWARPS, THREADS, 0, st>>>(a, p, b0, nb, sim,
-                                                                             g, dwei, vecs);
-    err = cudaGetLastError();
+    err = finish<kBwd>(a, pc, b0, nb, sim, g, dwei, vecs, wsum, c2sum, st);
     if (err != cudaSuccess) return (int)err;
-    if (wsum != nullptr) {
-      const long long n = (long long)a.Bt * a.D * a.TPAD;
-      dwords_wei_kernel<<<(int)((n + THREADS - 1) / THREADS), THREADS, 0, st>>>(a, p, b0, nb, vecs,
-                                                                               wsum, c2sum);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
   }
   return 0;
 }
@@ -661,38 +701,53 @@ extern "C" {
 // K3: out [Bi, Bt] f32, from the words and the words transposed (wt [Bt,
 // TPAD, D] bf16), through the scratch of one chunk of images: e [chunk, 2,
 // M, Bt·TPAD] bf16, esum [chunk, ⌈M/128⌉, Bt·TPAD] f32 and part [chunk,
-// ⌈D/256⌉, 3, Bt·TPAD] f32. Returns a cudaError_t: 0 when the launches
-// were accepted.
+// ⌈D/256⌉, 3, Bt·TPAD] f32. With wei [Bi, Bt, D, TPAD] f32 (not null), K3
+// keeps its state for the prologue: esum [Bi, ⌈M/128⌉, Bt·TPAD], part [Bi,
+// ⌈D/256⌉, 3, Bt·TPAD] and wei then hold the whole batch, e still one
+// chunk. Returns a cudaError_t: 0 when the launches were accepted.
 int medmoe_gloria_sim(const void* ctx, const void* words, const void* cap, int Bi, int Bt, int M,
                       int D, int T, float temp1, float temp2, float temp3, const void* wt,
-                      void* e, void* esum, void* part, int chunk, void* out, void* stream) {
+                      void* e, void* esum, void* part, void* wei, int chunk, void* out,
+                      void* stream) {
   if (!shapes_ok(Bi, Bt, M, D, T) || chunk < 1 || chunk > 65535)
     return (int)cudaErrorInvalidValue;
   const GloriaArgs a = make_args(ctx, words, cap, Bi, Bt, M, D, T, temp1, temp2, temp3);
-  return run_passes<false>(a, pass_args(a, wt, e, esum, part, nullptr), chunk,
-                           static_cast<float*>(out), nullptr, nullptr, nullptr, nullptr, nullptr,
-                           stream);
+  const PassArgs p = pass_args(a, wt, e, esum, part, wei);
+  float* sim = static_cast<float*>(out);
+  if (wei != nullptr)
+    return run_passes<true, false>(a, p, chunk, sim, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                   stream);
+  return run_passes<false, false>(a, p, chunk, sim, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                  stream);
 }
 
 // The backward's prologue: the forward chain again, then the cotangents
 // down to bf16(d_wei) [Bi·Bt, D, TPAD] and the per-word vectors
 // [Bi·Bt, 4, TPAD] for the upstream cotangent g [Bi, Bt] f32; the words
 // transposed and the scratch of K3, and wei [chunk, Bt, D, TPAD] f32. With
-// wsum [Bt, D, TPAD] and c2sum
-// [Bt, TPAD] (both or neither) also K4b's terms Σ_b dnum·wei and Σ_b c2.
+// e null, esum, part and wei are K3's kept state of the whole batch
+// (medmoe_gloria_sim) and only F3 runs, once over every pair; wt and chunk
+// are not read. With wsum [Bt, D, TPAD] and c2sum [Bt, TPAD] (both or
+// neither) also K4b's terms Σ_b dnum·wei and Σ_b c2.
 int medmoe_gloria_pair_cotangents(const void* ctx, const void* words, const void* cap, int Bi,
                                   int Bt, int M, int D, int T, float temp1, float temp2,
                                   float temp3, const void* g, const void* wt, void* e, void* esum,
                                   void* part, void* wei, int chunk, void* dwei, void* vecs,
                                   void* wsum, void* c2sum, void* stream) {
   if (!shapes_ok(Bi, Bt, M, D, T) || chunk < 1 || chunk > 65535 ||
-      (wsum == nullptr) != (c2sum == nullptr))
+      (wsum == nullptr) != (c2sum == nullptr) || esum == nullptr || part == nullptr ||
+      wei == nullptr)
     return (int)cudaErrorInvalidValue;
   const GloriaArgs a = make_args(ctx, words, cap, Bi, Bt, M, D, T, temp1, temp2, temp3);
-  return run_passes<true>(a, pass_args(a, wt, e, esum, part, wei), chunk, nullptr,
-                          static_cast<const float*>(g), static_cast<bf16*>(dwei),
-                          static_cast<float*>(vecs), static_cast<float*>(wsum),
-                          static_cast<float*>(c2sum), stream);
+  const PassArgs p = pass_args(a, wt, e, esum, part, wei);
+  const float* gp = static_cast<const float*>(g);
+  bf16* dw = static_cast<bf16*>(dwei);
+  float *v = static_cast<float*>(vecs), *ws = static_cast<float*>(wsum);
+  float* cs = static_cast<float*>(c2sum);
+  if (e == nullptr)
+    return (int)finish<true>(a, p, 0, Bi, nullptr, gp, dw, v, ws, cs,
+                             static_cast<cudaStream_t>(stream));
+  return run_passes<true, true>(a, p, chunk, nullptr, gp, dw, v, ws, cs, stream);
 }
 
 const char* medmoe_cuda_error_string(int code) {

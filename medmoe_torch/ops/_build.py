@@ -107,7 +107,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "gloria_attention":
         f = ctypes.c_float
         shape = [vp, vp, vp, i, i, i, i, i, f, f, f]
-        lib.medmoe_gloria_sim.argtypes = shape + [vp, vp, vp, vp, i, vp, vp]
+        lib.medmoe_gloria_sim.argtypes = shape + [vp, vp, vp, vp, vp, i, vp, vp]
         lib.medmoe_gloria_sim.restype = i
         lib.medmoe_gloria_pair_cotangents.argtypes = (
             shape + [vp, vp, vp, vp, vp, vp, i, vp, vp, vp, vp, vp])

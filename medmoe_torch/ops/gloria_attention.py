@@ -42,6 +42,21 @@ ported: the TPU kernel's lane packing, ``_segment_max``, the indicator
 matmuls and the ``shard_map`` wrapper (Mosaic and SPMD devices), and its
 environment switches.
 
+Kept state. JAX's ``_fwd`` saves only the inputs, and its backward runs the
+forward chain again: a trade made for TPU memory. Here, when a gradient
+will be taken, K3 keeps F2's f32 wei, F1's Σ_m e and F2's partial sums of
+the whole batch (``KeptState``, ``kept_bytes``: 6.73 GB at 256², D=768,
+T <= 32; half that for a rank's 128 × 256 block), and the prologue runs
+only F3 from them (at 256² and T=25 on an H100 80GB HBM3: 5.1 ms, against
+68.2 ms running F1 and F2 again; storing wei takes K3's F2 2.4 ms of
+device time, and K3 62.6 against 59.2 ms in medians of alternating
+rounds). The rule reads the shape and the card, with no switch
+(``keeps_state``): the state is kept when it takes at most a quarter of
+the card's memory, else the prologue recomputes (T = 128 at 256²: wei
+alone is 25.8 GB). Both ways give the same bits. The prologue frees the state once its launches are
+queued, before K4a allocates Z. Calls without a gradient
+(``torch.no_grad``, inputs that need none) keep nothing.
+
 Limits. The plain versions take any T, D and temp1, as the JAX functions
 do. The kernels take D % 16 == 0, D <= 768, T <= 128 (captions padded to
 32·⌈T/32⌉ words, whole captions in a 256-wide tile) and |temp1| <= 80
@@ -170,36 +185,67 @@ def image_chunk(b_img: int, b_txt: int, m: int, t: int) -> Tuple[int, int]:
     return images, images * per_image
 
 
-def _pass_scratch(b_img: int, b_txt: int, m: int, d: int, t: int,
-                  wei: bool) -> Tuple[int, list]:
-    """(images, [(shape, dtype)]) of the scratch of K3's and the prologue's
-    passes for one chunk of images (csrc/gloria_attention.cu): E [images,
-    2, M, B_txt·TPAD] bf16 (bf16 hi, then lo, of e), Σ_m e of each 128-row
-    M tile [images, ⌈M/128⌉, B_txt·TPAD] f32, Σ_d w·wei, wei², w² of each
-    256-wide D tile [images, ⌈D/256⌉, 3, B_txt·TPAD] f32 and, for the
-    prologue, wei [images, B_txt, D, TPAD] f32."""
-    images, _ = image_chunk(b_img, b_txt, m, t)
+def _state(images: int, b_txt: int, m: int, d: int, t: int,
+           wei: bool = True) -> list:
+    """[(shape, dtype)] of F1's and F2's f32 outputs for ``images`` images
+    (csrc/gloria_attention.cu), what F3 reads: Σ_m e of each 128-row M tile
+    [images, ⌈M/128⌉, B_txt·TPAD], Σ_d w·wei, wei², w² of each 256-wide D
+    tile [images, ⌈D/256⌉, 3, B_txt·TPAD] and, with ``wei``, wei [images,
+    B_txt, D, TPAD]."""
     tp = _tpad(t)
     n = b_txt * tp
-    shapes = [((images, 2, m, n), torch.bfloat16),
-              ((images, -(-m // M_TILE), n), torch.float32),
+    shapes = [((images, -(-m // M_TILE), n), torch.float32),
               ((images, -(-d // D_TILE), 3, n), torch.float32)]
     if wei:
         shapes.append(((images, b_txt, d, tp), torch.float32))
-    return images, shapes
+    return shapes
+
+
+def _pass_scratch(b_img: int, b_txt: int, m: int, d: int, t: int,
+                  wei: bool) -> Tuple[int, list]:
+    """(images, [(shape, dtype)]) of the scratch of K3's and the prologue's
+    passes for one chunk of images: E [images, 2, M, B_txt·TPAD] bf16 (bf16
+    hi, then lo, of e), then ``_state`` of the chunk (wei for the
+    prologue)."""
+    images, _ = image_chunk(b_img, b_txt, m, t)
+    e = ((images, 2, m, b_txt * _tpad(t)), torch.bfloat16)
+    return images, [e] + _state(images, b_txt, m, d, t, wei)
+
+
+def _bytes(shapes: list) -> int:
+    return sum(math.prod(s) * dt.itemsize for s, dt in shapes)
+
+
+def kept_bytes(b_img: int, b_txt: int, m: int, d: int,
+               t: int = WORD_TILE) -> int:
+    """Device memory of K3's kept state (``KeptState``): ``_state`` of the
+    whole batch, wei included. 6.73 GB at 256², D = 768, M = 3136, T <= 32;
+    a rank's 128 × 256 block half that."""
+    return _bytes(_state(b_img, b_txt, m, d, t))
+
+
+def keeps_state(b_img: int, b_txt: int, m: int, d: int, t: int,
+                total_memory: int) -> bool:
+    """The rule for keeping K3's state, read from the shape and the card:
+    its bytes are at most a quarter of the card's ``total_memory``. At 256²
+    and T <= 32 it keeps (6.73 GB of an 80 GB card); at T = 128 wei alone is
+    25.8 GB, and the backward recomputes F1 and F2. Either way the bits are
+    the same."""
+    return 4 * kept_bytes(b_img, b_txt, m, d, t) <= total_memory
 
 
 def backward_scratch_bytes(b_img: int, b_txt: int, m: int, d: int,
                            t: int = WORD_TILE) -> int:
-    """Device scratch of one kernel backward: bf16(d_wei) and the per-word
-    vectors per pair, K4b's f32 accumulators (Σ dnum·wei [B_txt, D, TPAD]
-    and Σ c2 [B_txt, TPAD]) and its slices' partial products
-    (``K4B_SLICES`` × [B_txt, D, TPAD]), when d_words is asked for, and the
-    prologue's passes over one chunk of images (E, partial sums, wei;
-    ``_pass_scratch``). Z: ``image_chunk``."""
+    """Device scratch of one kernel backward that recomputes: bf16(d_wei)
+    and the per-word vectors per pair, K4b's f32 accumulators (Σ dnum·wei
+    [B_txt, D, TPAD] and Σ c2 [B_txt, TPAD]) and its slices' partial
+    products (``K4B_SLICES`` × [B_txt, D, TPAD]), when d_words is asked
+    for, and the prologue's passes over one chunk of images (E, partial
+    sums, wei; ``_pass_scratch``). A backward from K3's kept state has no
+    passes' scratch, but holds ``kept_bytes`` until its prologue is
+    queued. Z: ``image_chunk``."""
     pairs, tp = b_img * b_txt, _tpad(t)
-    _, shapes = _pass_scratch(b_img, b_txt, m, d, t, wei=True)
-    passes = sum(math.prod(s) * dt.itemsize for s, dt in shapes)
+    passes = _bytes(_pass_scratch(b_img, b_txt, m, d, t, wei=True)[1])
     return (pairs * d * tp * 2 + pairs * 4 * tp * 4
             + b_txt * (d + 1) * tp * 4 + K4B_SLICES * b_txt * d * tp * 4
             + passes)
@@ -219,13 +265,31 @@ def _raise(lib, rc: int, what: str) -> None:
 # forward
 # --------------------------------------------------------------------------
 
+class KeptState:
+    """K3's f32 state of a whole batch, kept for the backward's prologue
+    (``kept_bytes``): ``tensors`` is [Σ_m e, partial sums, wei] as
+    ``_state`` lays them out, or None. ``gloria_similarity_forward`` fills
+    an empty one; ``pair_cotangents`` reads it and empties it as soon as its
+    launches are queued, so the memory goes back before K4a allocates
+    Z."""
+
+    __slots__ = ("tensors",)
+
+    def __init__(self):
+        self.tensors: Optional[list] = None
+
+
 def gloria_similarity_forward(img: torch.Tensor, words: torch.Tensor,
                               cap_lens: torch.Tensor, temp1: float = 4.0,
-                              temp2: float = 5.0, temp3: float = 10.0
+                              temp2: float = 5.0, temp3: float = 10.0,
+                              kept: Optional[KeptState] = None
                               ) -> torch.Tensor:
     """[B_img, B_txt] float32 similarity matrix, without a gradient.
 
-    CUDA tensors launch K3 (or raise); CPU tensors run the plain version."""
+    CUDA tensors launch K3 (or raise); with ``kept``, an empty
+    ``KeptState``, K3 also writes its state into it for the backward's
+    prologue (the same sim). CPU tensors run the plain version and keep
+    nothing."""
     bi, bt, d, m, t = _check(img, words, cap_lens, temp1)
     if _device_kind(img) == "cpu":
         return gloria_similarity_reference(img, words, cap_lens, temp1, temp2,
@@ -238,14 +302,20 @@ def gloria_similarity_forward(img: torch.Tensor, words: torch.Tensor,
     words_t = words_p.transpose(1, 2).contiguous()
     out = torch.empty((bi, bt), dtype=torch.float32, device=img.device)
     chunk, shapes = _pass_scratch(bi, bt, m, d, t, wei=False)
+    if kept is not None:      # E of a chunk, the state of the whole batch
+        shapes = shapes[:1] + _state(bi, bt, m, d, t)
     scratch = [torch.empty(s, dtype=dt, device=img.device) for s, dt in shapes]
+    if kept is None:
+        scratch.append(None)  # no wei: K3 keeps nothing
     with torch.cuda.device(img.device):
         rc = lib.medmoe_gloria_sim(
             ctx.data_ptr(), words_p.data_ptr(), caps.data_ptr(), bi, bt, m, d, t,
             float(temp1), float(temp2), float(temp3), words_t.data_ptr(),
-            *(s.data_ptr() for s in scratch), chunk, out.data_ptr(), _stream())
-    del scratch
+            *(_ptr(s) for s in scratch), chunk, out.data_ptr(), _stream())
     _raise(lib, rc, "gloria_attention (K3)")
+    if kept is not None:
+        kept.tensors = scratch[1:]
+    del scratch
     trace.count("launches.K3")
     return out
 
@@ -310,16 +380,18 @@ def gloria_similarity_backward(img: torch.Tensor, words: torch.Tensor,
                                cap_lens: torch.Tensor, g: torch.Tensor,
                                temp1: float = 4.0, temp2: float = 5.0,
                                temp3: float = 10.0, need_img: bool = True,
-                               need_words: bool = True
+                               need_words: bool = True,
+                               kept: Optional[KeptState] = None
                                ) -> Tuple[Optional[torch.Tensor],
                                           Optional[torch.Tensor]]:
     """Cotangents (d_img like img_features, d_words like words_emb) of the
     similarity matrix for its cotangent g [B_img, B_txt]; None for an input
     not asked for.
 
-    CUDA tensors run the prologue, then K4a (d_img) and K4b (d_words) over
-    one pass that writes Z per chunk of images, or raise; CPU tensors run
-    the plain version."""
+    CUDA tensors run the prologue (from K3's ``kept`` state when it holds
+    one, which it empties), then K4a (d_img) and K4b (d_words) over one
+    pass that writes Z per chunk of images, or raise; CPU tensors run the
+    plain version."""
     bi, bt, d, m, t = _check(img, words, cap_lens, temp1)
     if not isinstance(g, torch.Tensor) or tuple(g.shape) != (bi, bt) \
             or g.device != img.device:
@@ -330,7 +402,7 @@ def gloria_similarity_backward(img: torch.Tensor, words: torch.Tensor,
                                                need_words)
     check_kernel_limits(d, t, temp1)
     pairs = pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3,
-                            need_words)
+                            need_words, kept)
     d_img = d_words = None
     if not (need_img or need_words):
         return d_img, d_words
@@ -364,13 +436,17 @@ class PairScratch(NamedTuple):
 
 
 def pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3,
-                    need_words: bool = False) -> PairScratch:
+                    need_words: bool = False,
+                    kept: Optional[KeptState] = None) -> PairScratch:
     """The backward's prologue on CUDA tensors that passed ``_check`` and
-    ``check_kernel_limits``: the forward chain again, down to bf16(d_wei)
-    and the per-word vectors of every pair, and with ``need_words`` K4b's
-    f32 terms Σ_b dnum·wei and Σ_b c2. ``gloria_similarity_backward`` runs
-    it and counts the launches of what follows; ``cotangents_of`` reads
-    it."""
+    ``check_kernel_limits``: bf16(d_wei) and the per-word vectors of every
+    pair, and with ``need_words`` K4b's f32 terms Σ_b dnum·wei and Σ_b c2.
+    From K3's ``kept`` state of these inputs, when it holds one, only F3
+    runs (and K4b's terms), and the state is freed once they are queued;
+    otherwise F1 and F2 run again first. Either way the same bits, counted
+    as ``gloria.kept`` or ``gloria.recomputed``.
+    ``gloria_similarity_backward`` runs it and counts the launches of what
+    follows; ``cotangents_of`` reads it."""
     from medmoe_torch.ops import _build
 
     lib = _build.load("gloria_attention")
@@ -386,18 +462,33 @@ def pair_cotangents(img, words, cap_lens, g, temp1, temp2, temp3,
                     torch.empty((bi * bt, 4, tp), **f32),
                     torch.empty((bt, d, tp), **f32) if need_words else None,
                     torch.empty((bt, tp), **f32) if need_words else None)
-    words_t = words_p.transpose(1, 2).contiguous()
-    chunk, shapes = _pass_scratch(bi, bt, m, d, t, wei=True)
-    scratch = [torch.empty(s, dtype=dt, device=img.device) for s, dt in shapes]
+    state = kept.tensors if kept is not None else None
+    from_kept = state is not None
+    if from_kept:
+        want = [s for s, _ in _state(bi, bt, m, d, t)]
+        if [tuple(x.shape) for x in state] != want:
+            raise ValueError("pair_cotangents: the kept state is of another "
+                             f"shape, {[tuple(x.shape) for x in state]} "
+                             f"against {want}")
+        words_t, chunk, scratch = None, 1, [None] + state
+    else:
+        words_t = words_p.transpose(1, 2).contiguous()
+        chunk, shapes = _pass_scratch(bi, bt, m, d, t, wei=True)
+        scratch = [torch.empty(s, dtype=dt, device=img.device)
+                   for s, dt in shapes]
     with torch.cuda.device(img.device):
         rc = lib.medmoe_gloria_pair_cotangents(
             *p.args(), float(temp2), float(temp3), g.data_ptr(),
-            words_t.data_ptr(), *(s.data_ptr() for s in scratch), chunk,
+            _ptr(words_t), *(_ptr(s) for s in scratch), chunk,
             p.dwei.data_ptr(),
             p.vecs.data_ptr(), _ptr(p.wsum), _ptr(p.c2sum), _stream())
-    del scratch
+    # the stream orders the launches before any later use of this memory
+    del scratch, state
+    if kept is not None:
+        kept.tensors = None
     _raise(lib, rc, "gloria_attention backward prologue")
     trace.count("launches.prologue")
+    trace.count(trace.GLORIA_KEPT if from_kept else trace.GLORIA_RECOMPUTED)
     return p
 
 
@@ -502,29 +593,57 @@ def gloria_similarity_bwd_reference(img: torch.Tensor, words: torch.Tensor,
 
 class GloriaSimilarity(torch.autograd.Function):
     """``GloriaSimilarity.apply(img_features, words_emb, cap_lens, temp1,
-    temp2, temp3)`` → [B_img, B_txt] float32, with its gradient.
+    temp2, temp3, keep)`` → [B_img, B_txt] float32, with its gradient.
 
     CUDA: forward is K3; backward is the prologue and K4a, and K4b only
     when ``words_emb`` needs a gradient (with BERT frozen and no text
-    projection it feeds nothing). CPU:
-    the plain versions, which skip d_words under the same condition. Only
-    the inputs are saved: the backward recomputes the rest."""
+    projection it feeds nothing). CPU: the plain versions, which skip
+    d_words under the same condition. The inputs are saved, and with
+    ``keep`` (``gloria_similarity`` decides it) K3's f32 state on the
+    ``ctx`` too: the prologue then runs F3 alone and frees the state, where
+    without it, as JAX's ``_fwd``, it runs F1 and F2 again. A second
+    backward through a retained graph recomputes."""
 
     @staticmethod
-    def forward(ctx, img, words, cap_lens, temp1, temp2, temp3):
+    def forward(ctx, img, words, cap_lens, temp1, temp2, temp3, keep):
         ctx.save_for_backward(img, words, cap_lens)
         ctx.temps = (temp1, temp2, temp3)
+        ctx.kept = KeptState() if keep else None
         return gloria_similarity_forward(img, words, cap_lens, temp1, temp2,
-                                         temp3)
+                                         temp3, ctx.kept)
 
     @staticmethod
     def backward(ctx, g):
         img, words, cap_lens = ctx.saved_tensors
+        kept, ctx.kept = ctx.kept, None
         d_img, d_words = gloria_similarity_backward(
             img, words, cap_lens, g, *ctx.temps,
             need_img=ctx.needs_input_grad[0],
-            need_words=ctx.needs_input_grad[1])
-        return d_img, d_words, None, None, None, None
+            need_words=ctx.needs_input_grad[1], kept=kept)
+        return d_img, d_words, None, None, None, None, None
+
+
+def _card_memory(t: torch.Tensor) -> int:
+    """Total memory of the card that holds ``t``; 0 off a card."""
+    if not t.is_cuda:
+        return 0
+    return torch.cuda.get_device_properties(t.device).total_memory
+
+
+def _keeps(img_features: torch.Tensor, words_emb: torch.Tensor,
+           cap_lens: torch.Tensor) -> bool:
+    """Whether K3 keeps its state for the backward: a gradient will be
+    taken (grad mode on, and either input needs one) and ``keeps_state``
+    holds on the card. Decided before ``apply``: inside ``forward`` grad
+    mode is off, and ``ctx.needs_input_grad`` does not see ``no_grad``."""
+    if not (torch.is_grad_enabled()
+            and (img_features.requires_grad or words_emb.requires_grad)):
+        return False
+    total = _card_memory(img_features)
+    if not total:
+        return False
+    bi, bt, d, m, t = _check(img_features, words_emb, cap_lens, 0.0)
+    return keeps_state(bi, bt, m, d, t, total)
 
 
 def gloria_similarity(img_features: torch.Tensor, words_emb: torch.Tensor,
@@ -535,4 +654,5 @@ def gloria_similarity(img_features: torch.Tensor, words_emb: torch.Tensor,
     iff t < cap_lens[i]), differentiable in both; the JAX package's
     ``gloria_similarity_pallas``."""
     return GloriaSimilarity.apply(img_features, words_emb, cap_lens,
-                                  float(temp1), float(temp2), float(temp3))
+                                  float(temp1), float(temp2), float(temp3),
+                                  _keeps(img_features, words_emb, cap_lens))

@@ -15,7 +15,10 @@ backward is put down to the forward's span without a span of its own.
 Counters, one registry:
 
 - host integers (``count(name, n)``, ``n`` an int) always count: the
-  hand-written kernels' launches (``launches.<kernel>``);
+  hand-written kernels' launches (``launches.<kernel>``), and the GLoRIA
+  kernel backward's prologues by their source, ``gloria.kept`` (from K3's
+  kept state) or ``gloria.recomputed`` (F1 and F2 run again;
+  ``ops/gloria_attention.py`` ``pair_cotangents``);
 - device tensors (``count(name, t)``, ``t`` a tensor) are added to on the
   device only while the profiler records, with no host sync:
   ``moe.images_per_expert`` (top-1 ids, [K]) and ``moe.kept`` (top-k
@@ -54,6 +57,10 @@ LAUNCH_COUNTERS = {
                          "DCTX_LAUNCHES": "launches.K4a",
                          "DWORDS_LAUNCHES": "launches.K4b"},
 }
+
+#: the GLoRIA prologue's two sources (``ops/gloria_attention.py``)
+GLORIA_KEPT = "gloria.kept"
+GLORIA_RECOMPUTED = "gloria.recomputed"
 
 enabled = torch.autograd._profiler_enabled
 

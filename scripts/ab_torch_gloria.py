@@ -15,10 +15,12 @@ kernels:
   both cotangents (the prologue + K4a + K4b; the difference is K4b alone)
   timed at captions of 25 and 40 words, then K3, the prologue alone and
   K4a alone (both passes from one prologue's scratch) at 256² and at
-  128 × 256 with captions of 25 and 40 words, with each K4a pass's device
-  time and TFLOP/s on padded captions, and K4b alone there (the backward
-  of both cotangents less that of the image's) with each K4b pass's
-  device time,
+  128 × 256 with captions of 25 and 40 words, where the checkout keeps
+  K3's state also K3 keeping it and the prologue from it, the device time
+  of each F pass of K3 + the prologue (both ways), with each K4a pass's
+  device time and TFLOP/s on padded captions, and K4b alone there (the
+  backward of both cotangents less that of the image's) with each K4b
+  pass's device time,
   then, on fixed inputs (made with numpy), a digest of the bits of K3 and
   the prologue and ones of K4a's and K4b's bits ("ab K4a bits", "ab K4b
   bits"), with K4a held against its plain version there.
@@ -137,8 +139,41 @@ def pass_ms(fn, kernels=K4A_PASSES):
     return ms
 
 
+F_PASSES = ("sim_e_kernel", "sim_wei_kernel<false>", "sim_wei_kernel<true>",
+            "sim_finish_kernel<false>", "sim_finish_kernel<true>")
+
+
+def kept_ms(img, words, cap, cot, iters=3):
+    """K3 keeping its state and the prologue from that state, in checkouts
+    that keep it: each timed with CUDA events over ``iters`` pairs of calls
+    after a warm one (the prologue frees its state, so each takes a K3 of
+    its own)."""
+    k3 = pro = 0.0
+    for k in range(iters + 1):
+        state = ga.KeptState()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        ga.gloria_similarity_forward(img, words, cap, *temps, kept=state)
+        ev[1].record()
+        ga.pair_cotangents(img, words, cap, cot, *temps, kept=state)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if k:
+            k3 += ev[0].elapsed_time(ev[1])
+            pro += ev[1].elapsed_time(ev[2])
+    return k3 / iters, pro / iters
+
+
+def k3_and_prologue(img, words, cap, cot, kept):
+    state = {"kept": ga.KeptState()} if kept else {}
+    ga.gloria_similarity_forward(img, words, cap, *temps, **state)
+    ga.pair_cotangents(img, words, cap, cot, *temps, **state)
+
+
 # K3, the prologue alone and K4a alone (both passes, from one prologue's
 # scratch) at 256² and at a rank's 128 × 256, captions of 25 and 40 words;
+# where the checkout keeps K3's state, K3 keeping it and the prologue from
+# it, and the device time of each F pass of K3 + the prologue both ways;
 # each K4a pass's TFLOP/s on padded captions (2·B_img·M·D·B_txt·2·TPAD
 # operations a pass)
 for b_img, t in ((256, 25), (256, 40), (128, 25), (128, 40)):
@@ -151,6 +186,20 @@ for b_img, t in ((256, 25), (256, 40), (128, 25), (128, 40)):
                     iters=3, warmup=1)
     print(f"ab {b_img}x256 T={t}: K3 {k3:.4f} ms, the backward's prologue "
           f"alone {pro:.4f} ms on {card}", flush=True)
+    ways = (False, True) if hasattr(ga, "KeptState") else (False,)
+    if len(ways) == 2:
+        k3k, prok = kept_ms(img, words, cap, cot)
+        nbytes = ga.kept_bytes(b_img, 256, 3136, 768, t)
+        print(f"ab {b_img}x256 T={t}: K3 keeping its state {k3k:.4f} ms, "
+              f"the prologue from it {prok:.4f} ms, state "
+              f"{nbytes / 1e9:.3f} GB on {card}", flush=True)
+    for kept in ways:
+        passes = pass_ms(lambda: k3_and_prologue(img, words, cap, cot, kept),
+                         F_PASSES)
+        print(f"ab {b_img}x256 T={t}: K3 + prologue "
+              + ("kept" if kept else "recomputed") + ": "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in passes.items())
+              + f" on {card}", flush=True)
     pairs = ga.pair_cotangents(img, words, cap, cot, *temps)
     ms = c.cuda_ms(lambda: k4a(pairs), iters=3, warmup=1)
     padded = 2 * b_img * 3136 * 768 * 256 * 2 * (-(-t // 32) * 32)

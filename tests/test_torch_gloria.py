@@ -267,6 +267,105 @@ class TestFunction:
                         + 256 * 768 * tp * 4)
 
 
+CARD_80GB = 80 * 10 ** 9
+
+
+class TestKeptState:
+    """The rule by which K3 keeps its f32 state for the backward's prologue,
+    and the state's bytes; the kept path against the recompute path, bit
+    for bit, is a card test (tests/test_torch_kernels_cuda.py)."""
+
+    @pytest.mark.parametrize("b_img,t,tp", [(256, 25, 32), (128, 25, 32),
+                                             (256, 40, 64)])
+    def test_kept_bytes(self, b_img, t, tp):
+        # f32 wei [B_img, B_txt, D, TPAD], Σ_m e of 25 M tiles of 128 rows
+        # and 3 sums of 3 D tiles of 256, over B_txt·TPAD words an image
+        n = 256 * tp
+        assert ga.kept_bytes(b_img, 256, 3136, 768, t) == \
+            b_img * (256 * 768 * tp * 4 + 25 * n * 4 + 3 * 3 * n * 4)
+        # E takes M rows as they are; M tiles round up to 128, D tiles to 256
+        assert ga.kept_bytes(3, 5, 35, 48, 9) == \
+            3 * (5 * 48 * 32 * 4 + 160 * 4 + 3 * 160 * 4)
+
+    def test_kept_bytes_at_b256_flagship(self):
+        # 6.44 GB of wei, 0.21 GB of Σ_m e and 0.08 GB of partial sums
+        assert ga.kept_bytes(256, 256, 3136, 768, 25) == \
+            6_442_450_944 + 209_715_200 + 75_497_472
+        assert ga.kept_bytes(128, 256, 3136, 768, 25) * 2 == \
+            ga.kept_bytes(256, 256, 3136, 768, 25)
+
+    @pytest.mark.parametrize("b_img,t,keeps", [
+        (256, 25, True),      # 6.73 GB of an 80 GB card
+        (128, 25, True),      # a rank's block under global negatives
+        (256, 128, False),    # wei alone is 25.8 GB: over a quarter
+        (128, 128, True),     # 12.9 GB of wei
+    ])
+    def test_keep_rule_on_an_80gb_card(self, b_img, t, keeps):
+        assert ga.keeps_state(b_img, 256, 3136, 768, t, CARD_80GB) is keeps
+        assert (4 * ga.kept_bytes(b_img, 256, 3136, 768, t)
+                <= CARD_80GB) is keeps
+        assert ga.keeps_state(b_img, 256, 3136, 768, t, 0) is False
+
+    def test_the_chunk_scratch_is_the_state_of_a_chunk(self):
+        images, shapes = ga._pass_scratch(256, 256, 3136, 768, 25, wei=True)
+        assert shapes[1:] == ga._state(images, 256, 3136, 768, 25)
+        assert ga._bytes(shapes[1:]) * 256 == \
+            ga.kept_bytes(256, 256, 3136, 768, 25) * images
+
+    def test_kept_only_when_a_gradient_will_be_taken(self, monkeypatch):
+        img, words, cap, _ = _inputs(3, 3, 32, 4, 4, 9, seed=1)
+        cap = torch.from_numpy(cap)
+        # off a card nothing is kept
+        i = torch.from_numpy(img).requires_grad_()
+        assert not ga._keeps(i, torch.from_numpy(words), cap)
+        monkeypatch.setattr(ga, "_card_memory", lambda t: CARD_80GB)
+        for img_grad, words_grad in ((True, False), (False, True),
+                                     (True, True)):
+            i = torch.from_numpy(img).requires_grad_(img_grad)
+            w = torch.from_numpy(words).requires_grad_(words_grad)
+            assert ga._keeps(i, w, cap)
+            with torch.no_grad():
+                assert not ga._keeps(i, w, cap)
+        assert not ga._keeps(torch.from_numpy(img), torch.from_numpy(words),
+                             cap)
+
+    def test_function_with_keep_on_the_cpu_keeps_nothing(self, monkeypatch):
+        # the CPU path takes the keep decision and runs the plain versions:
+        # no state, and the gradient of the recompute path
+        img, words, cap, wgt = _inputs(3, 3, 32, 4, 4, 9, seed=1)
+        monkeypatch.setattr(ga, "_card_memory", lambda t: CARD_80GB)
+        seen = []
+        real = ga.gloria_similarity_backward
+
+        def backward(*args, kept=None, **kw):
+            seen.append(kept)
+            return real(*args, kept=kept, **kw)
+
+        monkeypatch.setattr(ga, "gloria_similarity_backward", backward)
+        i = torch.from_numpy(img).requires_grad_()
+        out = ga.gloria_similarity(i, torch.from_numpy(words),
+                                   torch.from_numpy(cap), *TEMPS)
+        (out * torch.from_numpy(wgt)).sum().backward()
+        assert len(seen) == 1 and seen[0].tensors is None
+        want, _ = ga.gloria_similarity_bwd_reference(
+            torch.from_numpy(img), torch.from_numpy(words),
+            torch.from_numpy(cap), torch.from_numpy(wgt), *TEMPS,
+            need_words=False)
+        torch.testing.assert_close(i.grad, want, rtol=0, atol=0)
+
+    def test_counter_names(self):
+        from medmoe_torch.utils import trace
+
+        assert (trace.GLORIA_KEPT, trace.GLORIA_RECOMPUTED) == \
+            ("gloria.kept", "gloria.recomputed")
+        before = trace.counters()
+        trace.count(trace.GLORIA_KEPT)
+        after = trace.counters()
+        assert after["gloria.kept"] == before.get("gloria.kept", 0) + 1
+        assert after.get("gloria.recomputed") == \
+            before.get("gloria.recomputed")
+
+
 class TestDispatch:
     def test_auto_takes_the_einsum_path_on_the_cpu(self):
         img, words, cap, _ = _inputs(4, 4, 16, 3, 3, 6, seed=4)

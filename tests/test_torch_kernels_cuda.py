@@ -36,7 +36,9 @@ H <= 2048) raise before K1 launches.
 
 The kernels sum without atomics, so two calls agree bit for bit; K1, K2,
 K3, the prologue and K4a run over chunks of images agree bit for bit with
-one chunk (a sample's outputs are its own). K1's and K2's products run on
+one chunk (a sample's outputs are its own). The prologue from K3's kept
+state agrees bit for bit with the prologue that runs F1 and F2 again, and
+the GLoRIA digests hold through the autograd Function's kept path. K1's and K2's products run on
 the wgmma core as persistent walks over (image, scale, tile): an
 out-of-range expert id in the middle of the walk poisons its own sample
 and the call returns. Their shared projection's h_s (K2's scratch) and the
@@ -59,6 +61,7 @@ import torch
 from medmoe_torch.ops import expert_fusion as ef
 from medmoe_torch.ops import gloria_attention as ga
 from medmoe_torch.ops import _scratch
+from medmoe_torch.utils import trace
 
 LOOSE = dict(rtol=2e-2, atol=2e-3)
 # (nvcc release, card) that the digests were recorded with
@@ -982,9 +985,8 @@ class TestGloriaKernels:
         assert torch.equal(runs[0].vecs, runs[1].vecs)
 
     @staticmethod
-    def _digest_run(dev, shape, need_words=False):
-        """K3, the prologue and K4a (and K4b with ``need_words``) on numpy
-        inputs: (sim, pairs, d_ctx, d_words or None)."""
+    def _digest_inputs(dev, shape):
+        """The digest tests' (img, words, cap, cot), made with numpy."""
         _skip_unless_digest_toolchain()
         b_img, b_txt, d, h, w, t = shape
         rng = np.random.RandomState(0)
@@ -993,12 +995,40 @@ class TestGloriaKernels:
         cap = torch.from_numpy(rng.randint(3, t + 1, b_txt).astype(np.int32))
         cot = torch.from_numpy(rng.randn(b_img, b_txt).astype(np.float32))
         img, words = (x.to(torch.bfloat16).to(dev) for x in (img, words))
-        cap, cot = cap.to(dev), cot.to(dev)
+        return img, words, cap.to(dev), cot.to(dev)
+
+    def _digest_run(self, dev, shape, need_words=False):
+        """K3, the prologue and K4a (and K4b with ``need_words``) on numpy
+        inputs: (sim, pairs, d_ctx, d_words or None)."""
+        img, words, cap, cot = self._digest_inputs(dev, shape)
         temps = (4.0, 5.0, 10.0)
         sim = ga.gloria_similarity_forward(img, words, cap, *temps)
         pairs = ga.pair_cotangents(img, words, cap, cot, *temps, need_words)
         dctx, dwords = ga.cotangents_of(pairs, True, need_words)
         return sim, pairs, dctx, dwords
+
+    def _function_digest_run(self, dev, monkeypatch, shape, need_words):
+        """The same through the autograd Function, whose K3 keeps its state
+        (the digest shapes' state is far under a quarter of the card): the
+        prologue's scratch and K4a's and K4b's f32 outputs as the backward
+        made them."""
+        img, words, cap, cot = self._digest_inputs(dev, shape)
+        seen = {}
+        for name, key in (("pair_cotangents", "pairs"),
+                          ("cotangents_of", "out")):
+            def record(*a, _fn=getattr(ga, name), _key=key, **k):
+                seen[_key] = _fn(*a, **k)
+                return seen[_key]
+
+            monkeypatch.setattr(ga, name, record)
+        kept = trace.counters().get(trace.GLORIA_KEPT, 0)
+        i = img.clone().requires_grad_()
+        w = words.clone().requires_grad_(need_words)
+        sim = ga.gloria_similarity(i, w, cap, 4.0, 5.0, 10.0)
+        (sim * cot).sum().backward()
+        torch.cuda.synchronize()
+        assert trace.counters()[trace.GLORIA_KEPT] == kept + 1
+        return (sim.detach(), seen["pairs"]) + tuple(seen["out"])
 
     @pytest.mark.parametrize("shape,digest", [
         ((3, 5, 48, 12, 11, 40), K3_PROLOGUE_DIGESTS[0]),
@@ -1049,6 +1079,148 @@ class TestGloriaKernels:
         _, _, _, dwords = self._digest_run(dev, shape, need_words=True)
         got = hashlib.sha256(dwords.float().cpu().numpy().tobytes())
         assert got.hexdigest() == digest
+
+    @pytest.mark.parametrize("case", [0, 1])
+    def test_kept_path_keeps_the_k3_prologue_and_k4a_digests(
+            self, dev, monkeypatch, case):
+        """The bits of K3, the prologue and K4a, reached through the
+        autograd Function with K3's state kept: the digests of the recompute
+        path (``test_gemm_core_a_layout_leaves_gloria_bits``,
+        ``test_k4a_bits``)."""
+        shape = ((3, 5, 48, 12, 11, 40), (2, 3, 768, 56, 56, 25))[case]
+        sim, pairs, dctx, _ = self._function_digest_run(dev, monkeypatch,
+                                                        shape, False)
+        got = hashlib.sha256()
+        for out in (sim, pairs.dwei, pairs.vecs):
+            got.update(out.float().cpu().numpy().tobytes())
+        assert got.hexdigest() == K3_PROLOGUE_DIGESTS[case]
+        got = hashlib.sha256(dctx.float().cpu().numpy().tobytes())
+        assert got.hexdigest() == K4A_DIGESTS[case]
+
+    @pytest.mark.parametrize("case", [0, 1])
+    def test_kept_path_keeps_the_k4b_digests(self, dev, monkeypatch, case):
+        """K4b's f32 d_words through the autograd Function with K3's state
+        kept (the prologue's f32 terms from the kept wei): the digests of
+        ``test_k4b_bits``."""
+        shape = ((3, 5, 48, 12, 11, 40), (2, 3, 768, 56, 56, 25))[case]
+        _, _, _, dwords = self._function_digest_run(dev, monkeypatch, shape,
+                                                    True)
+        got = hashlib.sha256(dwords.float().cpu().numpy().tobytes())
+        assert got.hexdigest() == K4B_DIGESTS[case]
+
+    @staticmethod
+    def _kept_and_recomputed(img, words, cap, cot, need_words):
+        """K3 with its state kept and the prologue from it, then K3 without
+        and the prologue recomputing, on the same inputs: (sim with the
+        store, sim without, kept pairs, recomputed pairs)."""
+        temps = (4.0, 5.0, 10.0)
+        counts = trace.counters()
+        state = ga.KeptState()
+        sim_kept = ga.gloria_similarity_forward(img, words, cap, *temps,
+                                                kept=state)
+        assert [x.shape for x in state.tensors] == [
+            s for s, _ in ga._state(img.shape[0], words.shape[0],
+                                    img.shape[2] * img.shape[3],
+                                    img.shape[1], words.shape[2])]
+        kept = ga.pair_cotangents(img, words, cap, cot, *temps, need_words,
+                                  kept=state)
+        assert state.tensors is None          # freed once queued
+        sim = ga.gloria_similarity_forward(img, words, cap, *temps)
+        recomputed = ga.pair_cotangents(img, words, cap, cot, *temps,
+                                        need_words)
+        torch.cuda.synchronize()
+        after = trace.counters()
+        for name in (trace.GLORIA_KEPT, trace.GLORIA_RECOMPUTED):
+            assert after[name] == counts.get(name, 0) + 1
+        return sim_kept, sim, kept, recomputed
+
+    @staticmethod
+    def _assert_same_pairs(a, b, need_words):
+        assert torch.equal(a.dwei, b.dwei)
+        assert torch.equal(a.vecs, b.vecs)
+        if need_words:
+            assert torch.equal(a.wsum, b.wsum)
+            assert torch.equal(a.c2sum, b.c2sum)
+
+    @pytest.mark.parametrize("need_words", [False, True])
+    @pytest.mark.parametrize("shape", K3_PROLOGUE_SHAPES)
+    def test_kept_state_gives_the_recomputed_bits(self, dev, shape,
+                                                  need_words):
+        # the prologue from K3's kept state against the prologue running
+        # F1 and F2 again: bf16(d_wei), the per-word vectors and K4b's f32
+        # terms bit for bit; K3's sim the same with wei stored or not
+        img, words, cap, cot = _gloria_inputs(dev, *shape, seed=13)
+        sim_kept, sim, kept, rec = self._kept_and_recomputed(
+            img, words, cap, cot, need_words)
+        assert torch.equal(sim_kept, sim)
+        self._assert_same_pairs(kept, rec, need_words)
+
+    @pytest.mark.parametrize("images", [1, 2])
+    def test_kept_state_over_chunks_of_images(self, dev, monkeypatch,
+                                              images):
+        # five images over chunks of 1 or 2: K3 writes each image's state
+        # at its place in the whole batch, and the prologue reads it in one
+        # pass; the bits of the recompute path, and of the whole-batch run
+        img, words, cap, cot = _gloria_inputs(dev, 5, 3, 48, 12, 11, 40,
+                                              seed=14)
+        _, whole_sim, _, whole = self._kept_and_recomputed(
+            img, words, cap, cot, True)
+        per_image = ga.image_chunk(5, 3, 132, 40)[1] // 5
+        monkeypatch.setattr(_scratch, "CHUNK_BYTES", images * per_image + 1)
+        assert ga.image_chunk(5, 3, 132, 40)[0] == images
+        sim_kept, sim, kept, rec = self._kept_and_recomputed(
+            img, words, cap, cot, True)
+        for s in (sim_kept, sim):
+            assert torch.equal(s, whole_sim)
+        self._assert_same_pairs(kept, rec, True)
+        self._assert_same_pairs(kept, whole, True)
+
+    @pytest.mark.parametrize("words_grad", [False, True])
+    def test_function_recomputes_over_the_rule_with_the_same_bits(
+            self, dev, monkeypatch, words_grad):
+        # a card too small for the state: the Function keeps nothing, its
+        # prologue runs F1 and F2 again, and the gradients are the bits of
+        # the kept path
+        img, words, cap, cot = _gloria_inputs(dev, 3, 5, 48, 12, 11, 40,
+                                              seed=15)
+        grads = {}
+        for total in (None, ga.kept_bytes(3, 5, 132, 48, 40) * 4 - 1):
+            if total is not None:
+                monkeypatch.setattr(ga, "_card_memory", lambda t: total)
+            counts = trace.counters()
+            i = img.clone().requires_grad_()
+            w = words.clone().requires_grad_(words_grad)
+            out = ga.gloria_similarity(i, w, cap)
+            (out * cot).sum().backward()
+            torch.cuda.synchronize()
+            name = trace.GLORIA_KEPT if total is None \
+                else trace.GLORIA_RECOMPUTED
+            assert trace.counters()[name] == counts.get(name, 0) + 1
+            grads[total is None] = (out.detach(), i.grad, w.grad)
+        assert (grads[True][2] is None) == (not words_grad)
+        for a, b in zip(grads[True], grads[False]):
+            if a is None:
+                assert b is None
+            else:
+                assert torch.equal(a, b)
+
+    def test_prologue_refuses_a_state_of_other_inputs(self, dev):
+        img, words, cap, cot = _gloria_inputs(dev, 3, 5, 48, 12, 11, 40,
+                                              seed=17)
+        state = ga.KeptState()
+        ga.gloria_similarity_forward(img[:2], words, cap, kept=state)
+        with pytest.raises(ValueError):
+            ga.pair_cotangents(img, words, cap, cot, 4.0, 5.0, 10.0,
+                               kept=state)
+
+    def test_no_state_without_a_gradient(self, dev):
+        img, words, cap, _ = _gloria_inputs(dev, 3, 5, 48, 12, 11, 40,
+                                            seed=16)
+        i = img.clone().requires_grad_()
+        assert ga._keeps(i, words, cap)
+        with torch.no_grad():
+            assert not ga._keeps(i, words, cap)
+        assert not ga._keeps(img, words, cap)
 
     def test_wrapper_raises_on_mixed_devices_and_dtypes(self, dev):
         img, words, cap, _ = _gloria_inputs(dev, 2, 2, 32, 4, 4, 9)
