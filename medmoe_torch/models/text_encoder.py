@@ -11,6 +11,10 @@ Semantics:
   * 'sum' or 'mean' aggregation over layers          (text_encoder.py:112-117)
   * optional global/local projection heads + L2 norm (text_encoder.py:128-142)
   * returns word_embeddings [B, D, T] (channel-first)
+
+The aggregation after BERT's layers runs in the span ``medmoe#bert.merge``
+(inside the caller's ``medmoe#bert``), so its device time and its
+backward's read apart from the layers'.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from torch import nn
 
 from medmoe_torch.models.bert import BertConfig, BertModel
 from medmoe_torch.models.layers import Dense, l2_normalize
+from medmoe_torch.utils.trace import span
 
 
 def merge_wordpieces(stacked: torch.Tensor,
@@ -58,23 +63,25 @@ class BertTextEncoder(nn.Module):
         agg_method = cfg.get("aggregate_method", "sum")
         _, _, hidden_states = self.bert(input_ids, attention_mask,
                                         token_type_ids)
-        if last_n > 1:
-            stacked = torch.stack(hidden_states[-last_n:], dim=1)  # [B,L,T,D]
-            if cfg.get("agg_tokens", True):
-                stacked = merge_wordpieces(stacked, segment_ids)
-            sent = stacked.mean(dim=2)                             # [B, L, D]
-            if agg_method == "sum":
-                word = stacked.sum(dim=1)                          # [B, T, D]
-                sent = sent.sum(dim=1)                             # [B, D]
-            elif agg_method == "mean":
-                word = stacked.mean(dim=1)
-                sent = sent.mean(dim=1)
+        with span("medmoe#bert.merge"):
+            if last_n > 1:
+                # [B, L, T, D]
+                stacked = torch.stack(hidden_states[-last_n:], dim=1)
+                if cfg.get("agg_tokens", True):
+                    stacked = merge_wordpieces(stacked, segment_ids)
+                sent = stacked.mean(dim=2)                     # [B, L, D]
+                if agg_method == "sum":
+                    word = stacked.sum(dim=1)                  # [B, T, D]
+                    sent = sent.sum(dim=1)                     # [B, D]
+                elif agg_method == "mean":
+                    word = stacked.mean(dim=1)
+                    sent = sent.mean(dim=1)
+                else:
+                    raise ValueError(
+                        f"aggregate_method {agg_method!r} not implemented")
             else:
-                raise ValueError(
-                    f"aggregate_method {agg_method!r} not implemented")
-        else:
-            word = hidden_states[-1]
-            sent = word.mean(dim=1)
+                word = hidden_states[-1]
+                sent = word.mean(dim=1)
 
         if cfg.get("projection", False):
             word = self.emb_local(word)

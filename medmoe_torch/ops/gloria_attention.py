@@ -391,11 +391,13 @@ def gloria_similarity_backward(img: torch.Tensor, words: torch.Tensor,
     CUDA tensors run the prologue (from K3's ``kept`` state when it holds
     one, which it empties), then K4a (d_img) and K4b (d_words) over one
     pass that writes Z per chunk of images, or raise; CPU tensors run the
-    plain version."""
+    plain version. With ``need_words`` either way counts ``gloria.words``."""
     bi, bt, d, m, t = _check(img, words, cap_lens, temp1)
     if not isinstance(g, torch.Tensor) or tuple(g.shape) != (bi, bt) \
             or g.device != img.device:
         raise ValueError(f"g must be a [{bi}, {bt}] tensor on {img.device}")
+    if need_words:
+        trace.count(trace.GLORIA_WORDS)
     if _device_kind(img) == "cpu":
         return gloria_similarity_bwd_reference(img, words, cap_lens, g, temp1,
                                                temp2, temp3, need_img,

@@ -18,7 +18,10 @@ Counters, one registry:
   hand-written kernels' launches (``launches.<kernel>``), and the GLoRIA
   kernel backward's prologues by their source, ``gloria.kept`` (from K3's
   kept state) or ``gloria.recomputed`` (F1 and F2 run again;
-  ``ops/gloria_attention.py`` ``pair_cotangents``);
+  ``ops/gloria_attention.py`` ``pair_cotangents``), and ``gloria.words``,
+  one a GLoRIA similarity backward that takes the words' gradient (on a
+  card its prologue sums K4b's terms and K4b runs; on the CPU the plain
+  version computes it);
 - device tensors (``count(name, t)``, ``t`` a tensor) are added to on the
   device only while the profiler records, with no host sync:
   ``moe.images_per_expert`` (top-1 ids, [K]) and ``moe.kept`` (top-k
@@ -40,7 +43,7 @@ import torch
 #: every span the port opens: its layer and part
 SPANS = frozenset({
     "medmoe#step.forward", "medmoe#step.backward", "medmoe#step.optimizer",
-    "medmoe#bert", "medmoe#swin",
+    "medmoe#bert", "medmoe#bert.merge", "medmoe#swin",
     "medmoe#moe.router", "medmoe#moe.experts", "medmoe#moe.dispatch",
     "medmoe#moe.grouped", "medmoe#moe.combine",
     "medmoe#loss.local", "medmoe#loss.global", "medmoe#loss.router",
@@ -61,6 +64,8 @@ LAUNCH_COUNTERS = {
 #: the GLoRIA prologue's two sources (``ops/gloria_attention.py``)
 GLORIA_KEPT = "gloria.kept"
 GLORIA_RECOMPUTED = "gloria.recomputed"
+#: GLoRIA similarity backwards that take the words' gradient (K4b's)
+GLORIA_WORDS = "gloria.words"
 
 enabled = torch.autograd._profiler_enabled
 

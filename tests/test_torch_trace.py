@@ -1,6 +1,7 @@
 """The port's spans and counters (``medmoe_torch/utils/trace.py``) on the
 CPU: the no-op with no profiler, the spans of one optimizer step of a tiny
-top-k configuration and of one served wave under a CPU ``torch.profiler``,
+top-k configuration (BERT frozen, and trained) and of one served wave under
+a CPU ``torch.profiler``,
 their nesting, the backward's ops put down to the forward's span through
 the sequence number, the routing counters against a count by hand, and the
 launch counters read through the ops modules' names."""
@@ -43,6 +44,7 @@ TRAIN_PARENTS = {
     "medmoe#step.forward": None, "medmoe#step.backward": None,
     "medmoe#step.optimizer": None,
     "medmoe#bert": "medmoe#step.forward",
+    "medmoe#bert.merge": "medmoe#bert",
     "medmoe#swin": "medmoe#step.forward",
     "medmoe#moe.router": "medmoe#step.forward",
     "medmoe#moe.experts": "medmoe#step.forward",
@@ -95,12 +97,12 @@ def _micro(rng):
     return {k: torch.as_tensor(v) for k, v in batch.items()}
 
 
-def _module():
+def _module(extra=()):
     from medmoe_torch.config import compose
     from medmoe_torch.models.medmoe import init_weights
     from medmoe_torch.utils.instantiate import instantiate
 
-    cfg = compose("train", TINY)
+    cfg = compose("train", TINY + list(extra))
     module = instantiate(cfg.model)
     init_weights(module.model, seed=3)
     return module
@@ -179,15 +181,14 @@ def _backward_owners(events):
     return mapped
 
 
-@pytest.fixture(scope="module")
-def step_trace():
+def _step_trace(extra=()):
     """One optimizer step (2 micro-batches) under a CPU profiler: its spans'
     nesting, the spans its backward maps to, and the registry's counters of
     that window."""
     from medmoe_torch.train.state import TrainState
     from medmoe_torch.train.step import build_train_step
 
-    module = _module()
+    module = _module(extra)
     state = TrainState.create(module.model, module.make_optimizer())
     step = build_train_step(module, 2)
     rng = np.random.RandomState(0)
@@ -206,6 +207,19 @@ def step_trace():
                      for p in module.model.text_encoder.parameters())
     return {"nesting": _nesting(events), "frozen_bert": frozen,
             "backward": _backward_owners(events), "counters": counters}
+
+
+@pytest.fixture(scope="module")
+def step_trace():
+    return _step_trace()
+
+
+@pytest.fixture(scope="module")
+def text_step_trace():
+    """The same step with BERT trained, the local loss on the fused
+    similarity's path (its plain version here)."""
+    return _step_trace(["model.model.text.freeze_bert=false",
+                        "model.loss.local_loss.impl=pallas"])
 
 
 def test_no_profiler_span_is_the_shared_noop():
@@ -265,6 +279,34 @@ def test_backward_maps_to_its_forward_span(step_trace, span):
 def test_a_frozen_bert_has_no_backward(step_trace):
     assert step_trace["frozen_bert"]
     assert "medmoe#bert" not in step_trace["backward"]
+    assert "medmoe#bert.merge" not in step_trace["backward"]
+
+
+@pytest.mark.parametrize("span", ["medmoe#bert", "medmoe#bert.merge",
+                                  "medmoe#loss.local"])
+def test_a_trained_bert_backward_maps_to_its_spans(text_step_trace, span):
+    """BERT's layers and the word-piece merge each take their backward's
+    work; the merge opens inside ``medmoe#bert`` there too."""
+    assert not text_step_trace["frozen_bert"]
+    assert span in text_step_trace["backward"]
+    assert "medmoe#step.backward" not in text_step_trace["backward"]
+    assert text_step_trace["nesting"]["medmoe#bert.merge"] == "medmoe#bert"
+
+
+@pytest.mark.parametrize("words_grad", [True, False],
+                         ids=["words-trained", "words-frozen"])
+def test_gloria_words_counts_a_backward_that_takes_the_words(words_grad):
+    """``gloria.words``: one a GLoRIA similarity backward that takes the
+    words' gradient, none where only the image side needs one (a step's
+    count: ``tests/test_torch_text_train.py``)."""
+    torch.manual_seed(0)
+    img = torch.randn(2, 8, 3, 3, requires_grad=True)
+    words = torch.randn(3, 8, 5, requires_grad=words_grad)
+    sim = ga.gloria_similarity(img, words, torch.tensor([2, 5, 3]))
+    assert trace.counters() == {}           # the forward counts nothing
+    sim.sum().backward()
+    assert trace.counters().get(trace.GLORIA_WORDS, 0) == int(words_grad)
+    assert (words.grad is not None) == words_grad
 
 
 def _hand_count(expert_idx, k, capacity):
